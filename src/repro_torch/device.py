@@ -1,0 +1,25 @@
+"""Device selection shared by the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another. With no ``device`` and no CUDA card this raises; it never
+    carries on quietly on the CPU.
+
+    On a CUDA device it also turns TF32 off for matrix products and cuDNN:
+    a float32 product then runs in full float32, as the reference computes
+    it, instead of keeping about three decimal digits."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device

@@ -1,0 +1,76 @@
+"""Build the port's CUDA kernels at first use and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+alone (no PyTorch headers, so a build takes seconds) into
+``build/repro_torch_kernels/<name>-<hash>.so`` at the root of the checkout.
+The hash covers the source and the flags, so an edited ``.cu`` rebuilds and
+an unchanged one is loaded as it is. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# name -> loaded library; filled by load()
+_LIBS: dict = {}
+# name -> nvcc's stderr (ptxas's register and shared-memory report), for
+# the libraries this process built
+BUILD_LOG: dict = {}
+
+
+def source_hash(name: str) -> str:
+    """Hash of a kernel's source and the flags it is built with."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{source_hash(name)}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    cand.append(shutil.which("nvcc") or "")
+    for path in cand:
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def build(name: str) -> None:
+    """Compile kernel ``name`` with ``nvcc`` unless its library exists."""
+    out = library_path(name)
+    if out.exists():
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a reader never sees a partial file
+    BUILD_LOG[name] = proc.stderr
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build(name)
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

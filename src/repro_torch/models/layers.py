@@ -1,0 +1,266 @@
+"""Model building blocks (port of ``repro/models/layers.py``, the dense
+llama path): RMSNorm, rotary embeddings, the KV cache and its int8 write,
+position-masked prefill attention, int8-KV decode attention through the
+CUDA kernel, the attention layer and the gated MLP.
+
+Caches come in two layouts, as in the reference:
+  * fp (bf16/f32): token-major (B, S, K, hd), read by ``chunked_attention``;
+  * int8-quantized: kv-head-major (B, K, S, hd) codes + per-(token, head)
+    f32 scales (B, K, S), the layout the decode kernel streams.
+
+Shapes: activations (B, S, D); q/k/v (B, S, H|K, hd). Weights keep the
+reference's ``x @ W`` layout, W (d_in, d_out).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# Norms and position encodings
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Computed in f32, multiplied by ``w``, cast back to ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w).to(dt)
+
+
+def rope_table(positions: torch.Tensor, dim: int, theta: float = 10000.0):
+    """positions (..., S) → (cos, sin) of shape (..., S, dim//2), f32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, hd); cos/sin (B, S, hd//2) or (S, hd//2). Rotates the
+    two halves of each head (not interleaved pairs), in f32."""
+    dt = x.dtype
+    x = x.float()
+    x1, x2 = x.chunk(2, dim=-1)
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVCache:
+    """One attention layer's cache. ``k``/``v`` are fp tensors in
+    token-major (B, S, K, hd) layout, or int8 codes in kv-head-major
+    (B, K, S, hd) layout with per-(token, head) scales (B, K, S). ``pos``
+    (B, S) int32 holds the absolute position stored in each slot, -1 for
+    an empty one."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor | None
+    v_scale: torch.Tensor | None
+    pos: torch.Tensor
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def init_cache(batch: int, size: int, kv_heads: int, head_dim: int,
+               dtype=torch.bfloat16, quantized: bool = False,
+               device=None) -> KVCache:
+    pos = torch.full((batch, size), -1, dtype=torch.int32, device=device)
+    if quantized:  # kv-head-major kernel layout
+        shape = (batch, kv_heads, size, head_dim)
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            pos=pos)
+    shape = (batch, size, kv_heads, head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), None, None,
+                   pos)
+
+
+def _quantize_kv(x: torch.Tensor):
+    """Symmetric int8 per (token, head) over the last axis. Divides by the
+    scale (not by multiplying with its reciprocal) and rounds half to even,
+    so the codes and scales are bit-identical to the reference's."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    codes = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos) -> KVCache:
+    """Write ``k_new``/``v_new`` (B, S_new, K, hd) at absolute positions
+    ``pos .. pos + S_new - 1`` (``pos`` an int or a 0-d int32 tensor on the
+    cache's device, so a decode loop never reads it back to the host).
+
+    Unlike the reference, which returns a new cache, this writes the
+    cache's tensors IN PLACE (``index_copy_``) and returns the same cache.
+    Quantized caches are written in the kernel's kv-head-major layout, the
+    slot axis being 2 instead of 1. Sliding-window ring caches are not
+    ported yet."""
+    s_new = k_new.shape[1]
+    idx = torch.arange(s_new, dtype=torch.int64, device=cache.pos.device) + pos
+    if cache.quantized:
+        kc, ks = _quantize_kv(k_new)  # (B, S_new, K, hd), (B, S_new, K, 1)
+        vc, vs = _quantize_kv(v_new)
+        cache.k.index_copy_(2, idx, kc.transpose(1, 2))
+        cache.v.index_copy_(2, idx, vc.transpose(1, 2))
+        cache.k_scale.index_copy_(2, idx, ks[..., 0].transpose(1, 2))
+        cache.v_scale.index_copy_(2, idx, vs[..., 0].transpose(1, 2))
+    else:
+        cache.k.index_copy_(1, idx, k_new.to(cache.k.dtype))
+        cache.v.index_copy_(1, idx, v_new.to(cache.v.dtype))
+    b = cache.pos.shape[0]
+    cache.pos.index_copy_(1, idx, idx.to(torch.int32).expand(b, s_new))
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill attention (plain PyTorch, online softmax over KV chunks)
+# ---------------------------------------------------------------------------
+
+
+def chunked_attention(q, k, v, q_pos, kv_pos, *, q_chunk: int = 1024,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Causal, position-masked attention (the reference's
+    ``chunked_attention`` without window or softcap): q (B, Sq, H, hd),
+    k/v (B, Skv, K, hd), q_pos (B, Sq), kv_pos (B, Skv) with -1 = invalid.
+    Query chunks of ``q_chunk`` walk key chunks of ``kv_chunk`` with an
+    online softmax, so no (Sq, Skv) score tensor larger than one chunk
+    pair exists. Scores and sums are f32; the result has q's dtype. Query
+    head ``h`` reads kv-head ``h // G``. A query with no valid key gets the
+    uniform average of the Skv values (the reference's chunked walk pads
+    the keys to whole chunks and averages over those pads too; dense
+    prefill never has such a query)."""
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qf = (q * (1.0 / math.sqrt(hd))).float().reshape(b, sq, kh, g, hd)
+    out = torch.empty((b, sq, kh, g, hd), dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, q_chunk):
+        qb = qf[:, q0:q0 + q_chunk]  # (B, qc, K, G, hd)
+        qp = q_pos[:, q0:q0 + q_chunk]
+        qc = qb.shape[1]
+        m = torch.full((b, kh, g, qc), NEG_INF, device=q.device)
+        l = torch.zeros((b, kh, g, qc), device=q.device)
+        acc = torch.zeros((b, kh, g, qc, hd), device=q.device)
+        for k0 in range(0, skv, kv_chunk):
+            kb = k[:, k0:k0 + kv_chunk].float()
+            vb = v[:, k0:k0 + kv_chunk].float()
+            kp = kv_pos[:, k0:k0 + kv_chunk]
+            s = torch.einsum("bqkgd,bckd->bkgqc", qb, kb)
+            mask = (kp[:, None, None, None, :] >= 0) & (
+                kp[:, None, None, None, :] <= qp[:, None, None, :, None])
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqc,bckd->bkgqd",
+                                                       p, vb)
+            m = m_new
+        res = acc / torch.clamp(l, min=1e-30)[..., None]  # (B, K, G, qc, hd)
+        out[:, q0:q0 + qc] = res.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Quantized-cache decode attention (the CUDA kernel)
+# ---------------------------------------------------------------------------
+
+
+def quantized_decode_attention(q, cache: KVCache, q_positions, pos, *,
+                               q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Decode-time attention over the kv-head-major int8 cache. A
+    single-token query streams the codes through the decode kernel
+    (``kernels.ops.decode_attention``: the CUDA kernel on the card, its
+    plain version on the CPU); longer queries dequantize the cache and take
+    ``chunked_attention``."""
+    b, s, h, hd = q.shape
+    kh = cache.k.shape[1]
+    if s == 1:
+        qh = q[:, 0].reshape(b, kh, h // kh, hd)
+        out = ops.decode_attention(qh, cache.k, cache.k_scale, cache.v,
+                                   cache.v_scale, cache.pos, pos)
+        return out.reshape(b, 1, h, hd).to(q.dtype)
+    k = (cache.k.float() * cache.k_scale[..., None]).transpose(1, 2)
+    v = (cache.v.float() * cache.v_scale[..., None]).transpose(1, 2)
+    return chunked_attention(q, k, v, q_positions, cache.pos,
+                             q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+
+# ---------------------------------------------------------------------------
+# Attention layer and MLP
+# ---------------------------------------------------------------------------
+
+
+def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
+                    cache: KVCache | None, pos, q_positions,
+                    q_chunk: int = 1024, kv_chunk: int = 1024,
+                    decode: bool = False):
+    """One attention layer (the reference's dense branches). During prefill
+    the cache is written and attention runs over the fresh k/v; with
+    ``decode=True`` attention reads the cache. Returns (output, cache)."""
+    b, s, _ = x.shape
+    h, kh, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    if spec.sliding_window is not None or spec.attn_softcap is not None \
+            or spec.qk_norm:
+        raise NotImplementedError("sliding windows, softcap and qk_norm are "
+                                  "not ported yet (ROADMAP queue 1, item 10)")
+    q = (x @ params["wq"]).reshape(b, s, h, hd)
+    k = (x @ params["wk"]).reshape(b, s, kh, hd)
+    v = (x @ params["wv"]).reshape(b, s, kh, hd)
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    if cache is not None:
+        cache = cache_update(cache, k, v, pos)
+    if cache is not None and decode:
+        if cache.quantized:
+            out = quantized_decode_attention(q, cache, q_positions, pos,
+                                             q_chunk=q_chunk,
+                                             kv_chunk=kv_chunk)
+        else:
+            out = chunked_attention(q, cache.k, cache.v, q_positions,
+                                    cache.pos, q_chunk=q_chunk,
+                                    kv_chunk=kv_chunk)
+    else:
+        out = chunked_attention(q, k, v, q_positions, q_positions,
+                                q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return out.reshape(b, s, h * hd) @ params["wo"], cache
+
+
+def mlp_layer(params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    act = {"silu": F.silu, "gelu": F.gelu}[activation]
+    up = x @ params["w_up"]
+    if "w_gate" in params:
+        up = act(x @ params["w_gate"]) * up
+    else:
+        up = act(up)
+    return up @ params["w_down"]

@@ -1,0 +1,156 @@
+"""Model assembly (port of ``repro/models/transformer.py``, the dense llama
+path): a decoder of ``len(pattern) × num_blocks`` layers whose parameters
+are stacked per pattern position. Two entry points:
+
+  prefill(params, cfg, tokens, cache_len, opts)      → (last_logits, caches)
+  decode_step(params, cfg, tokens, caches, pos, opts)→ (logits, caches)
+
+``caches`` is a list with one ``KVCache`` per layer, in depth order (the
+reference stacks them over blocks instead). ``decode_step`` writes the
+caches in place. Everything runs on the device of ``tokens``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, AttnSpec
+from repro_torch.kernels.decode_attention import padded_cache_len
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeOpts:
+    """Per-call knobs (the fields of the reference's ``RuntimeOpts`` that
+    the ported path reads)."""
+
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+    quantized_kv: bool = False
+    cache_dtype: str = "bfloat16"
+
+
+def layer_params(cfg: ArchConfig, params: dict) -> list:
+    """Per-layer ``(LayerSpec, nested param dict)`` in depth order: block
+    ``i``'s slice of each stacked leaf (views, no copies)."""
+    out = []
+    for i in range(cfg.num_blocks):
+        for pi, ls in enumerate(cfg.pattern):
+            p: dict = {}
+            prefix = f"blocks/p{pi}/"
+            for key, t in params.items():
+                if key.startswith(prefix):
+                    node = p
+                    *parents, leaf = key[len(prefix):].split("/")
+                    for name in parents:
+                        node = node.setdefault(name, {})
+                    node[leaf] = t[i]
+            out.append((ls, p))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Caches, positions, embedding and head
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ArchConfig, batch: int, cache_len: int,
+                opts: RuntimeOpts, device=None) -> list:
+    """One empty ``KVCache`` per layer. Quantized caches take the kernel's
+    kv-head-major int8 layout with the slot axis at
+    ``padded_cache_len(cache_len)`` (pad slots keep pos = -1)."""
+    caches = []
+    for _ in range(cfg.num_blocks):
+        for ls in cfg.pattern:
+            m = ls.mixer
+            if not isinstance(m, AttnSpec) or m.sliding_window:
+                raise NotImplementedError("only full attention layers are "
+                                          "ported (ROADMAP queue 1, item 10)")
+            size = padded_cache_len(cache_len) if opts.quantized_kv \
+                else cache_len
+            caches.append(L.init_cache(batch, size, m.num_kv_heads,
+                                       m.head_dim,
+                                       getattr(torch, opts.cache_dtype),
+                                       opts.quantized_kv, device))
+    return caches
+
+
+def make_positions(cfg: ArchConfig, b: int, s: int, device=None):
+    """Sequence-order positions (B, S) int32."""
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def rope_tables(cfg: ArchConfig, positions: torch.Tensor):
+    """(cos, sin) for the pattern's attention head_dim."""
+    return L.rope_table(positions, cfg.pattern[0].mixer.head_dim,
+                        cfg.rope_theta)
+
+
+def embed_inputs(cfg: ArchConfig, params: dict, tokens: torch.Tensor):
+    """Token embedding (B, S) → (B, S, D) in the embedding's dtype."""
+    return F.embedding(tokens, params["embed"])
+
+
+def apply_head(cfg: ArchConfig, params: dict, x: torch.Tensor):
+    """Final norm and head; the logits are f32."""
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    w = params["lm_head"] if "lm_head" in params else params["embed"].T
+    return (x @ w).float()
+
+
+# ---------------------------------------------------------------------------
+# Layers and entry points
+# ---------------------------------------------------------------------------
+
+
+def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
+                 opts: RuntimeOpts, decode: bool):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    out, cache = L.attention_layer(
+        p["mixer"], h, ls.mixer, rope_cs=rope_cs, cache=cache, pos=pos,
+        q_positions=q_positions, q_chunk=opts.q_chunk,
+        kv_chunk=opts.kv_chunk, decode=decode)
+    x = x + out
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp_layer(p["ffn"], h, ls.ffn.activation), cache
+
+
+def _apply_layers(cfg, params, x, caches, *, q_positions, pos,
+                  opts: RuntimeOpts, decode: bool):
+    rope_cs = rope_tables(cfg, q_positions)
+    for li, (ls, p) in enumerate(layer_params(cfg, params)):
+        x, caches[li] = _apply_layer(cfg, ls, p, x, rope_cs=rope_cs,
+                                     q_positions=q_positions,
+                                     cache=caches[li], pos=pos, opts=opts,
+                                     decode=decode)
+    return x
+
+
+def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+            cache_len: int | None = None, opts: RuntimeOpts = RuntimeOpts()):
+    """Process the prompt (B, S): last-position logits (B, V) f32 and the
+    filled caches (``cache_len`` slots, default S)."""
+    b, s = tokens.shape
+    positions = make_positions(cfg, b, s, device=tokens.device)
+    x = embed_inputs(cfg, params, tokens)
+    caches = init_caches(cfg, b, cache_len or s, opts, tokens.device)
+    x = _apply_layers(cfg, params, x, caches, q_positions=positions, pos=0,
+                      opts=opts, decode=False)
+    return apply_head(cfg, params, x[:, -1:])[:, 0], caches
+
+
+def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                caches: list, pos, opts: RuntimeOpts = RuntimeOpts()):
+    """One autoregressive step: ``tokens`` (B, 1); ``pos`` the absolute
+    position being written, a 0-d int32 tensor on the device (or an int).
+    Writes the caches in place; returns (logits (B, V) f32, caches)."""
+    b = tokens.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
+    positions = pos.reshape(1, 1).expand(b, 1)
+    x = embed_inputs(cfg, params, tokens)
+    x = _apply_layers(cfg, params, x, caches, q_positions=positions, pos=pos,
+                      opts=opts, decode=True)
+    return apply_head(cfg, params, x)[:, 0], caches

@@ -1,0 +1,131 @@
+"""Model parameters: a flat ``{path: tensor}`` dict whose keys are the JAX
+pytree's paths joined by ``/`` (the keys of the reference's ``arrays.npz``
+checkpoints), with every block leaf stacked over ``num_blocks`` on its
+leading axis, as in ``repro/models/transformer.py:98-121``:
+
+  embed (V, D)   final_norm (D,)   lm_head (D, V)  [untied configs]
+  blocks/p{i}/ln1, ln2                    (nb, D)
+  blocks/p{i}/mixer/wq, wk, wv            (nb, D, H·hd | K·hd)
+  blocks/p{i}/mixer/wo                    (nb, H·hd, D)
+  blocks/p{i}/ffn/w_up, w_gate            (nb, D, F)
+  blocks/p{i}/ffn/w_down                  (nb, F, D)
+
+Weights keep the ``x @ W`` layout, W (d_in, d_out), so nothing is
+transposed on the way across.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, AttnSpec, MLPSpec
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """``{key: (shape, init scale)}``; a scale of None means ones (norms).
+    The scales are the reference's: embed and head ×0.02, projections
+    ×1/√d_in (``layers.py:658-672,775-783``)."""
+    if cfg.embed != "token" or cfg.num_codebooks != 1 or cfg.embed_scale \
+            or cfg.final_softcap is not None or cfg.rope != "rope":
+        raise NotImplementedError(f"{cfg.name}: only the llama family's "
+                                  f"token embedding, RoPE and plain head are "
+                                  f"ported (ROADMAP queue 1, item 10)")
+    d, v, nb = cfg.d_model, cfg.vocab_size, cfg.num_blocks
+    specs = {"embed": ((v, d), 0.02), "final_norm": ((d,), None)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ((d, v), 0.02)
+    for i, ls in enumerate(cfg.pattern):
+        m, f = ls.mixer, ls.ffn
+        if not isinstance(m, AttnSpec) or not isinstance(f, MLPSpec):
+            raise NotImplementedError(f"{cfg.name}: only attention + MLP "
+                                      f"layers are ported (ROADMAP queue 1, "
+                                      f"item 10)")
+        p = f"blocks/p{i}/"
+        hq, hk = m.num_heads * m.head_dim, m.num_kv_heads * m.head_dim
+        specs[p + "ln1"] = ((nb, d), None)
+        specs[p + "mixer/wq"] = ((nb, d, hq), 1.0 / math.sqrt(d))
+        specs[p + "mixer/wk"] = ((nb, d, hk), 1.0 / math.sqrt(d))
+        specs[p + "mixer/wv"] = ((nb, d, hk), 1.0 / math.sqrt(d))
+        specs[p + "mixer/wo"] = ((nb, hq, d), 1.0 / math.sqrt(hq))
+        specs[p + "ln2"] = ((nb, d), None)
+        specs[p + "ffn/w_up"] = ((nb, d, f.d_ff), 1.0 / math.sqrt(d))
+        if f.gated:
+            specs[p + "ffn/w_gate"] = ((nb, d, f.d_ff), 1.0 / math.sqrt(d))
+        specs[p + "ffn/w_down"] = ((nb, f.d_ff, d), 1.0 / math.sqrt(f.d_ff))
+    return specs
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                dtype=torch.float32, device=None) -> dict:
+    """Random parameters drawn on ``device`` from ``generator`` (which must
+    live on that device), with the reference's shapes and scales. The draws
+    differ from the reference's JAX PRNG: to serve the same weights as the
+    reference, carry them across with :func:`from_jax_params`. Draws one
+    block at a time, so the f32 temporaries stay one block large."""
+    params = {}
+    for key, (shape, scale) in param_specs(cfg).items():
+        if scale is None:
+            params[key] = torch.ones(shape, dtype=dtype, device=device)
+            continue
+        t = torch.empty(shape, dtype=dtype, device=device)
+        for part in (t.unbind(0) if len(shape) == 3 else (t,)):
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   device=device) * scale)
+        params[key] = t
+    return params
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits as torch's
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def from_jax_params(tree, device=None) -> dict:
+    """The reference's parameter pytree (nested dicts of numpy-convertible
+    arrays) → the port's flat dict, bit for bit."""
+    return {k: _to_tensor(v).to(device) for k, v in _flatten(tree).items()}
+
+
+def to_jax_params(params: dict) -> dict:
+    """The port's flat dict → the reference's nested layout as numpy
+    arrays, bit for bit (bf16 needs numpy's ``bfloat16`` dtype, which the
+    ``ml_dtypes`` package registers)."""
+    tree: dict = {}
+    for key, t in params.items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            a = t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
+        else:
+            a = t.numpy().copy()
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = a
+    return tree
+
+
+def load_npz_checkpoint(path: str, device=None) -> dict:
+    """Parameters of a reference checkpoint (``training/checkpoint.py``
+    format), read from its ``arrays.npz`` with numpy alone; ``path`` is the
+    checkpoint directory or the ``.npz`` file. ``meta.msgpack`` holds
+    nothing the arrays lack and is not read."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "arrays.npz")
+    with np.load(path) as data:
+        return {k: _to_tensor(data[k]).to(device) for k in data.files}

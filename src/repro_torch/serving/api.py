@@ -1,0 +1,360 @@
+"""The request-level serving API (port of ``repro/serving/api.py``).
+
+  * :class:`~repro_torch.core.sampling.SamplingParams`: every per-request
+    knob in one frozen dataclass;
+  * :class:`GenerationRequest` / :class:`RequestOutput`: a prompt going in;
+    tokens, finish reason and latency metrics coming out, with per-token
+    :class:`TokenEvent` streaming in between;
+  * :class:`LLMServer`: the facade: ``submit()`` requests, ``stream()``
+    token events, ``run()`` to drain, ``abort()`` to cancel.
+
+Of the reference's three backends the port has ``"fused"`` so far
+(:class:`FusedBackend`, over :class:`~repro_torch.serving.engine.Engine`);
+``"paged"`` (the reference's default) and ``"split"`` raise
+``NotImplementedError`` until their slices land. Per request, token events
+arrive strictly in position order; finish events carry ``token = -1``,
+``index = len(generated)`` and the finish reason (``"stop"`` |
+``"length"`` | ``"abort"``).
+
+Quickstart::
+
+    from repro_torch.serving.api import LLMServer
+    from repro_torch.core.sampling import SamplingParams
+
+    server = LLMServer(cfg, params, RuntimeOpts(quantized_kv=True),
+                       backend="fused", cache_len=1024)
+    rid = server.submit(prompt, SamplingParams(max_tokens=32))
+    for ev in server.stream():          # or: outputs = server.run()
+        print(ev.rid, ev.index, ev.token)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+
+from repro_torch.core.sampling import SamplingParams, truncate_at_stop
+from repro_torch.models.transformer import RuntimeOpts
+from repro_torch.serving.engine import Engine
+
+@dataclasses.dataclass(frozen=True)
+class TokenEvent:
+    """One streamed token (or the finish marker, ``token = -1``)."""
+
+    rid: int
+    index: int  # 0-based generation index; strictly increasing per rid
+    token: int  # -1 on the finish marker
+    finished: bool = False
+    finish_reason: str | None = None  # set only on the finish marker
+    # the token's log-probability under the raw model distribution; None
+    # on finish markers
+    logprob: float | None = None
+
+
+@dataclasses.dataclass
+class GenerationRequest:
+    """A prompt plus its :class:`SamplingParams`; ``rid`` is assigned by
+    the backend at submit."""
+
+    prompt: np.ndarray
+    sampling: SamplingParams = SamplingParams()
+    rid: int = -1
+
+
+@dataclasses.dataclass
+class RequestMetrics:
+    """Wall-clock latency per request, as ``time.perf_counter()`` stamps
+    and differences (host clock: the fused backend's times include the
+    device work, which ends in a device→host copy)."""
+
+    submit_s: float = 0.0
+    ttft_s: float | None = None  # submit → first streamed token
+    latency_s: float | None = None  # submit → finish
+    e2e_s: float | None = None  # submit → finish (the SLO surfaces' name)
+    # server steps from submit to first token
+    ttft_ticks: int | None = None
+
+
+@dataclasses.dataclass
+class RequestOutput:
+    """Generated tokens (stop token included, truncated at it), finish
+    reason and metrics of one request."""
+
+    rid: int
+    prompt: np.ndarray
+    tokens: np.ndarray  # generated tokens only
+    finished: bool = False
+    finish_reason: str | None = None
+    metrics: RequestMetrics = dataclasses.field(default_factory=RequestMetrics)
+
+    @property
+    def full_tokens(self) -> np.ndarray:
+        """Prompt + generation."""
+        return np.concatenate([np.asarray(self.prompt, np.int32),
+                               np.asarray(self.tokens, np.int32)])
+
+
+class _RequestBook:
+    """Per-request bookkeeping: tracked requests, metrics, finished outputs,
+    deferred finish events, and the ``release`` memory valve."""
+
+    def __init__(self):
+        self._reqs: dict = {}
+        self._metrics: dict = {}
+        self._outputs: dict = {}
+        self._pending_events: list = []  # finish markers for the next step
+
+    def _track(self, req: GenerationRequest, rid: int) -> int:
+        req.rid = rid
+        self._reqs[rid] = req
+        self._metrics[rid] = RequestMetrics(submit_s=time.perf_counter())
+        return rid
+
+    def outputs(self) -> dict:
+        return dict(self._outputs)
+
+    def _release_dicts(self) -> tuple:
+        """Extra per-rid dicts a backend also retains (popped by release)."""
+        return ()
+
+    def release(self, rid: int) -> bool:
+        """Drop a FINISHED request's retained state; False for unknown or
+        unfinished rids."""
+        if rid not in self._outputs:
+            return False
+        for d in (self._outputs, self._metrics,
+                  self._reqs) + self._release_dicts():
+            d.pop(rid, None)
+        return True
+
+
+class _ReplayBackend(_RequestBook):
+    """Backends that compute whole requests and then replay them as
+    streams: queueing, abort, and the round-robin emitter (one token per
+    request per step)."""
+
+    def __init__(self):
+        super().__init__()
+        self._next_rid = 0
+        self._queued: list = []
+        # rid → [tokens, cursor, finish_reason, logprobs | None]
+        self._streams: dict = {}
+        self._steps = 0
+        self._submit_step: dict = {}
+
+    def submit(self, req: GenerationRequest) -> int:
+        rid = self._track(req, self._next_rid)
+        self._next_rid += 1
+        self._queued.append(req)
+        self._submit_step[rid] = self._steps
+        return rid
+
+    @property
+    def pending(self) -> bool:
+        return bool(self._queued or self._streams or self._pending_events)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._queued)
+
+    def _release_dicts(self) -> tuple:
+        return (self._submit_step,)
+
+    def abort(self, rid: int) -> bool:
+        """Cancel: a queued request never computes; a streaming one is cut
+        at its cursor. The finish marker arrives on the next ``step()``."""
+        for i, req in enumerate(self._queued):
+            if req.rid == rid:
+                # by index: dataclass equality would compare prompt arrays
+                del self._queued[i]
+                self._finalize(rid, np.zeros((0,), np.int32), "abort")
+                self._pending_events.append(TokenEvent(
+                    rid, 0, -1, finished=True, finish_reason="abort"))
+                return True
+        if rid in self._streams:
+            toks, cur, _, _ = self._streams.pop(rid)
+            self._finalize(rid, toks[:cur], "abort")
+            self._pending_events.append(TokenEvent(
+                rid, cur, -1, finished=True, finish_reason="abort"))
+            return True
+        return False
+
+    def _finalize(self, rid: int, gen, reason: str) -> None:
+        m = self._metrics[rid]
+        m.latency_s = m.e2e_s = time.perf_counter() - m.submit_s
+        self._outputs[rid] = RequestOutput(
+            rid, self._reqs[rid].prompt, np.asarray(gen, np.int32),
+            finished=True, finish_reason=reason, metrics=m)
+
+    def _emit_round(self) -> list:
+        events, self._pending_events = self._pending_events, []
+        self._steps += 1
+        now = time.perf_counter()
+        for rid in list(self._streams):
+            toks, cur, reason, lps = self._streams[rid]
+            if cur < len(toks):
+                m = self._metrics[rid]
+                if m.ttft_s is None:
+                    m.ttft_s = now - m.submit_s
+                    m.ttft_ticks = self._steps - self._submit_step[rid]
+                lp = None if lps is None else float(lps[cur])
+                events.append(TokenEvent(rid, cur, int(toks[cur]),
+                                         logprob=lp))
+                cur += 1
+                self._streams[rid][1] = cur
+            if cur >= len(toks):
+                del self._streams[rid]
+                self._finalize(rid, toks, reason)
+                events.append(TokenEvent(rid, cur, -1, finished=True,
+                                         finish_reason=reason))
+        return events
+
+
+class FusedBackend(_ReplayBackend):
+    """``Engine``'s prefill + decode loop behind the request API. Submitted
+    requests accumulate until the next ``step()``, which computes all of
+    them, grouped by prompt length (one ``Engine.generate_requests`` call
+    per group, run to the group's largest ``max_tokens``), then replays the
+    tokens as interleaved events. Per-request ``max_tokens`` and stop sets
+    truncate the replay."""
+
+    def __init__(self, cfg, params, opts: RuntimeOpts = RuntimeOpts(), *,
+                 cache_len: int = 4096, device=None):
+        super().__init__()
+        self.engine = Engine(cfg, params, opts, cache_len=cache_len,
+                             device=device)
+
+    def step(self) -> list:
+        if self._queued:
+            self._compute()
+        return self._emit_round()
+
+    def _compute(self) -> None:
+        groups: dict = {}
+        for req in self._queued:
+            groups.setdefault(req.prompt.shape, []).append(req)
+        self._queued = []
+        for group in groups.values():
+            prompts = np.stack([r.prompt for r in group])
+            res = self.engine.generate_requests(
+                prompts, [r.sampling for r in group])
+            for i, (row, req) in enumerate(zip(res.tokens, group)):
+                plen = req.prompt.shape[0]
+                gen = row[plen: plen + req.sampling.max_tokens]
+                toks, reason = truncate_at_stop(gen, req.sampling)
+                gen = np.asarray(toks, np.int32)
+                self._streams[req.rid] = [gen, 0, reason,
+                                          res.logprobs[i, : gen.shape[0]]]
+
+
+_NOT_PORTED = {"paged": "the paged backend is not ported yet (ROADMAP "
+                        "queue 1, items 5-7: kv_pool, Scheduler, "
+                        "PagedBackend)",
+               "split": "the split backend is not ported yet (ROADMAP "
+                        "queue 1, item 8)"}
+
+
+class LLMServer:
+    """The facade over a serving backend. ``backend`` is ``"fused"`` (extra
+    keyword arguments, e.g. ``cache_len=`` and ``device=``, reach
+    :class:`FusedBackend`) or an already-built backend. The reference's
+    default ``"paged"`` and its ``"split"`` raise ``NotImplementedError``
+    until their slices land. ``telemetry`` accepts only None for now."""
+
+    def __init__(self, cfg=None, params=None,
+                 opts: RuntimeOpts = RuntimeOpts(), *,
+                 backend="paged", telemetry=None, **backend_kwargs):
+        if telemetry is not None:
+            raise NotImplementedError("telemetry is not ported yet "
+                                      "(ROADMAP queue 1, item 7)")
+        if isinstance(backend, str):
+            if backend in _NOT_PORTED:
+                raise NotImplementedError(_NOT_PORTED[backend])
+            if backend != "fused":
+                raise ValueError(f"backend must be one of ['fused', 'paged', "
+                                 f"'split'], got {backend!r}")
+            backend = FusedBackend(cfg, params, opts, **backend_kwargs)
+        self.backend = backend
+
+    def submit(self, prompt,
+               sampling: SamplingParams = SamplingParams()) -> int:
+        """Enqueue ONE request (a 1-D token sequence); returns its rid."""
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim == 0:
+            prompt = prompt.reshape(1)
+        if prompt.ndim != 1:
+            raise ValueError(
+                f"submit takes ONE 1-D prompt, got shape {prompt.shape} — "
+                f"submit a batch as one request per row")
+        return self.backend.submit(GenerationRequest(prompt, sampling))
+
+    @property
+    def pending(self) -> bool:
+        return self.backend.pending
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests accepted but not yet computing."""
+        return getattr(self.backend, "queue_depth", 0)
+
+    def stream(self):
+        """Drive the backend, yielding :class:`TokenEvent`s, until every
+        submitted request has finished."""
+        while self.backend.pending:
+            yield from self.backend.step()
+
+    def run(self) -> dict:
+        """Drain everything; returns {rid: :class:`RequestOutput`}."""
+        for _ in self.stream():
+            pass
+        return self.backend.outputs()
+
+    def outputs(self) -> dict:
+        return self.backend.outputs()
+
+    def abort(self, rid: int) -> bool:
+        """Cancel a request; its partial output (reason ``"abort"``)
+        appears in :meth:`outputs`."""
+        return self.backend.abort(rid)
+
+    def release(self, rid: int) -> bool:
+        """Drop a finished request's retained output and metrics."""
+        return self.backend.release(rid)
+
+    def metrics(self) -> dict:
+        """Flat ``{name: number}`` metrics from the finished outputs still
+        retained: count, per-reason counts, and percentile summaries of
+        ``requests.ttft_s`` / ``latency_s`` / ``ttft_ticks`` / ``e2e_s`` /
+        ``tpot_s``."""
+        from repro_torch.serving.telemetry import Histogram
+
+        out: dict = {}
+        finished = self.backend.outputs()
+        out["requests.retained"] = len(finished)
+        ttft, lat = Histogram(), Histogram()
+        ticks, e2e, tpot = Histogram(), Histogram(), Histogram()
+        for o in finished.values():
+            out[f"requests.reason.{o.finish_reason}"] = out.get(
+                f"requests.reason.{o.finish_reason}", 0) + 1
+            m = o.metrics
+            if m.ttft_s is not None:
+                ttft.record(m.ttft_s)
+            if m.latency_s is not None:
+                lat.record(m.latency_s)
+            if m.ttft_ticks is not None:
+                ticks.record(m.ttft_ticks)
+            e2e_v = m.e2e_s if m.e2e_s is not None else m.latency_s
+            if e2e_v is not None:
+                e2e.record(e2e_v)
+                if m.ttft_s is not None and len(o.tokens) > 1:
+                    tpot.record((e2e_v - m.ttft_s) / (len(o.tokens) - 1))
+        for name, h in (("requests.ttft_s", ttft),
+                        ("requests.latency_s", lat),
+                        ("requests.ttft_ticks", ticks),
+                        ("requests.e2e_s", e2e),
+                        ("requests.tpot_s", tpot)):
+            for k, v in h.summary().items():
+                out[f"{name}.{k}"] = v
+        return out

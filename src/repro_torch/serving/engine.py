@@ -1,0 +1,137 @@
+"""Batched serving engine: one prefill and an on-device decode loop (port
+of ``repro/serving/engine.py``).
+
+The loop keeps the sampled tokens, their logprobs, the logits and the
+write position on the device; nothing is read back to the host between
+steps, and the finished tokens and logprobs are copied to the host once at
+the end. With ``RuntimeOpts(quantized_kv=True)`` each decode step streams
+the int8 KV cache through the decode-attention CUDA kernel at every layer.
+
+Requests are batched by equal prompt length. Unlike the reference, which
+rounds the number of decode steps up to a power of two so that lengths
+share XLA compiles, the port runs exactly ``max_new - 1`` decode steps;
+the first ``max_new`` tokens are the same.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.sampling import (SamplingParams, bias_rows,
+                                       broadcast_params, sample_tokens,
+                                       sampling_operands, token_logprobs)
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import RuntimeOpts, decode_step, prefill
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray  # (B, prompt + generated)
+    steps: int
+    # (B, generated) f32: each emitted token's log-probability under the
+    # raw model distribution; None only for zero-step generations
+    logprobs: np.ndarray | None = None
+
+
+def _fused_generate(params, cfg, opts, cache_len, max_new, tokens, sample):
+    """One prefill, then ``max_new - 1`` decode steps; ``sample(logits, t)``
+    draws the token at index ``t`` (a 0-d device tensor) from the logits
+    carried in from the previous step, and the last token needs no step.
+    Returns device tensors ((B, prompt + max_new) tokens,
+    (B, max_new) logprobs)."""
+    b, s = tokens.shape
+    logits, caches = prefill(params, cfg, tokens, cache_len, opts)
+    toks = torch.empty((b, max_new), dtype=tokens.dtype, device=tokens.device)
+    lps = torch.empty((b, max_new), dtype=torch.float32, device=tokens.device)
+    t = torch.zeros((), dtype=torch.int32, device=tokens.device)
+    for i in range(max_new):
+        nxt = sample(logits, t)
+        toks[:, i] = nxt
+        lps[:, i] = token_logprobs(logits, nxt)
+        if i + 1 < max_new:
+            # the token at index t is written at position s + t
+            logits, caches = decode_step(params, cfg, toks[:, i:i + 1],
+                                         caches, t + s, opts)
+            t += 1
+    return torch.cat([tokens, toks], dim=1), lps
+
+
+class Engine:
+    """``Engine(cfg, params, opts, cache_len=4096, device=None)``: params
+    (the flat dict of :mod:`repro_torch.params`) are moved to ``device``,
+    which is ``cuda`` unless the caller names another; with no device and
+    no CUDA card the constructor raises."""
+
+    def __init__(self, cfg: ArchConfig, params, opts: RuntimeOpts = RuntimeOpts(),
+                 cache_len: int = 4096, telemetry=None, device=None):
+        if telemetry is not None:
+            raise NotImplementedError("telemetry is not ported yet "
+                                      "(ROADMAP queue 1, item 7)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.opts = opts
+        self.cache_len = cache_len
+
+    def _prompts(self, prompts) -> torch.Tensor:
+        tokens = torch.as_tensor(np.asarray(prompts), device=self.device)
+        if tokens.dim() != 2:
+            raise ValueError(f"prompts must be (B, S) token ids, got shape "
+                             f"{tuple(tokens.shape)}")
+        return tokens
+
+    @torch.inference_mode()
+    def _run(self, tokens, max_new: int, sample):
+        out, lps = _fused_generate(self.params, self.cfg, self.opts,
+                                   self.cache_len, max_new, tokens, sample)
+        return GenerationResult(out.cpu().numpy(), max_new,
+                                logprobs=lps.cpu().numpy())
+
+    def generate_requests(self, prompts, sampling) -> GenerationResult:
+        """Serve a batch of equal-length prompts (B, S) with per-request
+        :class:`SamplingParams` (one for every row, or a list of B). Runs
+        to the batch's largest ``max_tokens``; per-row ``max_tokens`` and
+        stop truncation are the caller's (``serving.api`` does both).
+        All-greedy batches take a plain argmax."""
+        tokens = self._prompts(prompts)
+        b, s = tokens.shape
+        sampling = broadcast_params(sampling, b)
+        max_new = max(p.max_tokens for p in sampling)
+        if s + max_new > self.cache_len:
+            raise ValueError(f"prompt {s} + max_tokens {max_new} exceeds "
+                             f"cache_len {self.cache_len}")
+        bias = None
+        if any(p.logit_bias for p in sampling):
+            bias = torch.as_tensor(bias_rows(sampling, self.cfg.vocab_size),
+                                   device=self.device)
+        if all(p.greedy for p in sampling):
+            def sample(logits, t):
+                return torch.argmax(logits if bias is None else logits + bias,
+                                    dim=-1)
+        else:
+            seeds, temp, top_k, top_p = sampling_operands(sampling,
+                                                          self.device)
+
+            def sample(logits, t):
+                return sample_tokens(logits, seeds, t.expand(b), temp, top_k,
+                                     top_p, bias)
+        return self._run(tokens, max_new, sample)
+
+    def generate(self, prompts, max_new_tokens: int, temperature: float = 0.0,
+                 seed: int = 0) -> GenerationResult:
+        """``prompts`` (B, S) int, equal lengths. ``temperature > 0`` samples
+        every row at that temperature, row r with seed ``seed + r``."""
+        tokens = self._prompts(prompts)
+        b, s = tokens.shape
+        if s + max_new_tokens > self.cache_len:
+            raise ValueError(f"prompt {s} + max_new_tokens {max_new_tokens} "
+                             f"exceeds cache_len {self.cache_len}")
+        if max_new_tokens == 0:
+            return GenerationResult(tokens.cpu().numpy(), 0)
+        return self.generate_requests(prompts, [
+            SamplingParams(max_tokens=max_new_tokens, temperature=temperature,
+                           seed=seed + r) for r in range(b)])
