@@ -20,7 +20,15 @@ Phases, each printing one JSON line:
   serve    llama2-7b at full width (random bf16 weights, int8 KV cache)
            answering four requests through LLMServer(backend="fused");
            every kernel launch counter is set to 0 just before this run
-           and read just after.
+           and read just after;
+  paged    llama2-7b tiny through the paged Scheduler on the CPU (plain
+           versions) and on the card (kernels), then llama2-7b at full
+           width (the serve phase's weights) answering ten requests
+           through LLMServer(backend="paged") with chunked prefill, a
+           shared prefix and mid-stream admission, its streams held to the
+           dense (fused) path in bf16 and, on f32 weights, closely; the
+           counters are set to 0 just before the timed run and read just
+           after.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -40,7 +48,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-PHASES = ("env", "kernels", "model", "vehicle", "serve")
+PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged")
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -120,7 +128,8 @@ def phase_env(ctx) -> None:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    names = ["decode_attention"]
+    names = list(build.KERNELS)
+    build.build(*names)  # one nvcc per source, all started together
     for name in names:
         build.load(name)
     build_s = time.perf_counter() - t0
@@ -149,7 +158,7 @@ def _decode_inputs(torch, b, kh, g, hd, s, fill, qdtype, gen, device,
     return q, kc, ks, vc, vs, pos, q_pos
 
 
-def phase_kernels(ctx) -> None:
+def _kernel_k1(ctx) -> dict:
     import torch
     from repro_torch.kernels import decode_attention as da
 
@@ -181,7 +190,7 @@ def phase_kernels(ctx) -> None:
                            "atol": ATOL, "ok": ok})
             worst = max(worst, err)
             if not ok:
-                emit({"phase": "kernels", "checks": checks})
+                emit({"phase": "kernels", "decode_attention": checks})
                 raise SystemExit(f"decode_attention disagrees: {checks[-1]}")
 
     # time at the main path's shape with the main path's bf16 q
@@ -215,12 +224,258 @@ def phase_kernels(ctx) -> None:
         "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms}
-    emit({"phase": "kernels", "checks": checks,
-          "main_shape": [b, kh, g, hd, s], "bytes": nbytes, "flops": flops,
-          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-          "achieved_GBps": nbytes / kernel_ms / 1e6,
-          "clocks_sm_max_sm_power": [clocks_before, clocks_after]})
+    return {"checks": checks,
+            "main_shape": [b, kh, g, hd, s], "bytes": nbytes, "flops": flops,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "achieved_GBps": nbytes / kernel_ms / 1e6,
+            "clocks_sm_max_sm_power": [clocks_before, clocks_after]}
+
+
+def _paged_pool(torch, rng, kh, hd, page, nb, tokens, device):
+    """A pool holding ``tokens[r]`` tokens for row r (position t at page
+    ``table[r, t // page]``, slot ``t % page``, pages in random order),
+    random int8 codes everywhere (the trash page 0 included) and its block
+    table, all on ``device``. Returns (k_codes, k_scale, v_codes, v_scale,
+    pool_pos, block_table)."""
+    import numpy as np
+
+    need = [-(-n // page) for n in tokens]
+    p = 1 + sum(need) + 3
+    order = rng.permutation(np.arange(1, p))
+    bt = np.zeros((len(tokens), nb), np.int32)
+    pool_pos = np.full((p, page), -1, np.int32)
+    nxt = 0
+    for r, n in enumerate(tokens):
+        for b in range(need[r]):
+            bt[r, b] = order[nxt]
+            nxt += 1
+        for t in range(n):
+            pool_pos[bt[r, t // page], t % page] = t
+    arrays = (rng.integers(-127, 128, (p, kh, page, hd), dtype=np.int8),
+              rng.uniform(1e-3, 2e-2, (p, kh, page)).astype(np.float32),
+              rng.integers(-127, 128, (p, kh, page, hd), dtype=np.int8),
+              rng.uniform(1e-3, 2e-2, (p, kh, page)).astype(np.float32),
+              pool_pos, bt)
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _kernel_k2(ctx) -> dict:
+    """K2 against its plain version on the serve phase's shape and on edge
+    shapes, q in f32 and bf16; rows with no valid key must be exact zeros.
+    Then its time at the serve shape beside its bound, the plain version's
+    and SDPA's over the gathered, dequantized bf16 K/V."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    device = ctx["device"]
+    rng = np.random.default_rng(1)
+    serve = (8, 32, 1, 128, 16, 64, [1024, 700, 301, 64, 17, 1, 0, 500])
+    shapes = [  # (R, K, G, hd, page, nb, tokens per row; 0 = free slot)
+        serve,
+        (3, 2, 2, 32, 4, 8, [20, 7, 0]),  # llama2-7b tiny
+        (2, 2, 6, 64, 16, 10, [150, 33]),  # G = 6
+        (2, 4, 3, 256, 8, 12, [90, 5]),  # hd 256, ragged G
+        (2, 2, 1, 128, 64, 4, [200, 64]),  # largest page
+        (2, 1, 4, 64, 1, 40, [40, 13]),  # page of one slot
+    ]
+    checks, worst = [], 0.0
+    for (r, kh, g, hd, page, nb, toks) in shapes:
+        pool = _paged_pool(torch, rng, kh, hd, page, nb, toks, device)
+        q_pos = torch.tensor([n - 1 for n in toks], dtype=torch.int32,
+                             device=device)
+        for qdtype in (torch.float32, torch.bfloat16):
+            q = torch.from_numpy(rng.normal(size=(r, kh, g, hd)).astype(
+                np.float32)).to(device, qdtype)
+            got = pda.paged_decode_attention(q, *pool, q_pos)
+            want = pda.paged_decode_attention_ref(q, *pool, q_pos)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            empty = [i for i, n in enumerate(toks) if n == 0]
+            zeros = all(bool((got[i] == 0).all()) for i in empty)
+            ok = bool(torch.isfinite(got).all()) and err <= ATOL and zeros
+            checks.append({"shape": [r, kh, g, hd, page, nb], "tokens": toks,
+                           "q_dtype": str(qdtype)[6:], "max_abs_err": err,
+                           "atol": ATOL, "free_rows_exact_zero": zeros,
+                           "ok": ok})
+            worst = max(worst, err)
+            if not ok:
+                emit({"phase": "kernels", "paged_decode_attention": checks})
+                raise SystemExit(f"paged_decode_attention disagrees: "
+                                 f"{checks[-1]}")
+
+    r, kh, g, hd, page, nb, toks = serve
+    pool = _paged_pool(torch, rng, kh, hd, page, nb, toks, device)
+    kc, ks, vc, vs, pool_pos, bt = pool
+    q_pos = torch.tensor([n - 1 for n in toks], dtype=torch.int32,
+                         device=device)
+    q = torch.randn((r, kh, g, hd), device=device).to(torch.bfloat16)
+    # the library call is a yardstick only (the port never calls it)
+    kd = (pda.gather_pages(kc, bt).float()
+          * pda.gather_pages(ks, bt)[..., None]).to(torch.bfloat16)
+    vd = (pda.gather_pages(vc, bt).float()
+          * pda.gather_pages(vs, bt)[..., None]).to(torch.bfloat16)
+    kv_pos = pda.gather_pages(pool_pos, bt)
+    mask = ((kv_pos >= 0) & (kv_pos <= q_pos[:, None]))[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = ctx["timer"]({
+        "kernel": lambda: pda.paged_decode_attention(q, *pool, q_pos),
+        "plain": lambda: pda.paged_decode_attention_ref(q, *pool, q_pos),
+        "library": lambda: sdpa(q, kd, vd, attn_mask=mask)})
+    bw, f32_peak = peak_rates(ctx["device_name"])
+    # only the pages each row must read: 0 .. q_pos // page
+    pages = sum(min(-(-n // page), nb) for n in toks)
+    nbytes = (q.numel() * q.element_size() + pages * (
+        kh * page * (2 * hd + 8) + page * 4) + bt.numel() * 4 + r * 4
+        + r * kh * g * hd * 4)
+    flops = 4 * kh * g * hd * sum(toks)
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / f32_peak * 1e3
+    ctx["kernels"]["paged_decode_attention"] = {
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        "replaces": "src/repro/kernels/paged_decode_attention.py:121",
+        "launches": None, "max_abs_err": worst, "ms": ms["kernel"],
+        "plain_ms": ms["plain"], "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": ms["library"]}
+    return {"checks": checks, "main_shape": [r, kh, g, hd, page, nb],
+            "tokens": toks, "bytes": nbytes, "flops": flops,
+            "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], "bound_ms": max(bytes_ms, ops_ms),
+            "achieved_GBps": nbytes / ms["kernel"] / 1e6}
+
+
+def _prefill_inputs(torch, rng, r, s, kh, g, hd, page, nb, rows, dtype,
+                    device):
+    """K3's operands: row i is ``rows[i] = (history, fresh)`` tokens (the
+    pool holds both: the post-update convention) or None for a fully
+    padded row; fresh tokens are right-aligned from position ``history``."""
+    import numpy as np
+
+    totals = [0 if x is None else x[0] + x[1] for x in rows]
+    pool = _paged_pool(torch, rng, kh, hd, page, nb, totals, device)
+    q_pos = np.full((r, s), -1, np.int32)
+    for i, x in enumerate(rows):
+        if x is not None:
+            q_pos[i, s - x[1]:] = np.arange(x[0], x[0] + x[1])
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device, dtype)
+
+    return (rand(r, s, kh, g, hd), *pool,
+            torch.from_numpy(q_pos).to(device), rand(r, s, kh, hd),
+            rand(r, s, kh, hd))
+
+
+def _kernel_k3(ctx) -> dict:
+    """K3 against its plain version on the serve phase's chunk shape and on
+    edge shapes, q and fresh k/v in f32 and bf16; pad columns and padded
+    rows must be exact zeros. Then its time at the serve shape beside its
+    bound, the plain version's and SDPA's."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+
+    device = ctx["device"]
+    rng = np.random.default_rng(2)
+    serve = (8, 256, 32, 1, 128, 16, 64,
+             [(256, 256), None, (512, 88), None, (200, 150), None, None,
+              None])  # two continuation chunks, one fork, five pads
+    shapes = [  # (R, S, K, G, hd, page, nb, rows)
+        serve,
+        (3, 8, 2, 2, 32, 4, 8, [(9, 5), (0, 6), (13, 8)]),  # tiny
+        (2, 40, 2, 6, 64, 16, 8, [(33, 40), (0, 17)]),  # G = 6
+        (2, 50, 4, 3, 256, 8, 16, [(70, 50), (5, 31)]),  # hd 256, S = 50
+        (2, 37, 2, 1, 128, 16, 4, [(0, 37), (0, 12)]),  # no history at all
+    ]
+    checks, worst = [], 0.0
+    for (r, s, kh, g, hd, page, nb, rows) in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _prefill_inputs(torch, rng, r, s, kh, g, hd, page, nb,
+                                   rows, dtype, device)
+            start = ppa.first_call_position(args[7])
+            got = ppa.paged_prefill_attention(*args[:8], start, *args[8:])
+            want = ppa.paged_prefill_attention_ref(*args[:8], start,
+                                                   *args[8:])
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            pads = args[7] < 0  # (R, S): pad columns and padded rows
+            zeros = bool((got[pads] == 0).all())
+            ok = bool(torch.isfinite(got).all()) and err <= ATOL and zeros
+            checks.append({"shape": [r, s, kh, g, hd, page, nb],
+                           "rows": rows, "dtype": str(dtype)[6:],
+                           "max_abs_err": err, "atol": ATOL,
+                           "pads_exact_zero": zeros, "ok": ok})
+            worst = max(worst, err)
+            if not ok:
+                emit({"phase": "kernels", "paged_prefill_attention": checks})
+                raise SystemExit(f"paged_prefill_attention disagrees: "
+                                 f"{checks[-1]}")
+
+    r, s, kh, g, hd, page, nb, rows = serve
+    args = _prefill_inputs(torch, rng, r, s, kh, g, hd, page, nb, rows,
+                           torch.bfloat16, device)
+    q, kc, ks, vc, vs, pool_pos, bt, q_pos, kf, vf = args
+    start = ppa.first_call_position(q_pos)
+    # the library call is a yardstick only (the port never calls it): SDPA
+    # over the gathered, dequantized bf16 history and the fresh keys
+    kd = (pda.gather_pages(kc, bt).float()
+          * pda.gather_pages(ks, bt)[..., None]).to(torch.bfloat16)
+    vd = (pda.gather_pages(vc, bt).float()
+          * pda.gather_pages(vs, bt)[..., None]).to(torch.bfloat16)
+    hist = pda.gather_pages(pool_pos, bt)
+    kv_pos = torch.cat([torch.where(hist < start[:, None], hist, -1), q_pos],
+                       dim=1)
+    k_all = torch.cat([kd, kf.transpose(1, 2)], dim=2)
+    v_all = torch.cat([vd, vf.transpose(1, 2)], dim=2)
+    q_l = q[:, :, :, 0].transpose(1, 2).contiguous()  # G = 1: (R, K, S, hd)
+    mask = ((kv_pos[:, None, :] >= 0)
+            & (kv_pos[:, None, :] <= q_pos[:, :, None]))[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = ctx["timer"]({
+        "kernel": lambda: ppa.paged_prefill_attention(*args[:8], start,
+                                                      *args[8:]),
+        "plain": lambda: ppa.paged_prefill_attention_ref(*args[:8], start,
+                                                         *args[8:]),
+        "library": lambda: sdpa(q_l, k_all, v_all, attn_mask=mask)})
+    bw, f32_peak = peak_rates(ctx["device_name"])
+    # the history pages each row must read (slots below its start), and
+    # 4·hd flops (the dot and the weighted sum) per valid (query, key) pair
+    pages, pairs = 0, 0
+    for x in rows:
+        if x is None:
+            continue
+        hist_n, fresh = x
+        pages += min(-(-hist_n // page), nb)
+        pairs += fresh * hist_n + fresh * (fresh + 1) // 2
+    el = q.element_size()
+    nbytes = (q.numel() * el + kf.numel() * el * 2 + pages * (
+        kh * page * (2 * hd + 8) + page * 4) + bt.numel() * 4
+        + q_pos.numel() * 4 + r * 4 + q.numel() * 4)
+    flops = 4 * hd * kh * g * pairs
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / f32_peak * 1e3
+    ctx["kernels"]["paged_prefill_attention"] = {
+        "name": "paged_prefill_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
+        "replaces": "src/repro/kernels/paged_prefill_attention.py:200",
+        "launches": None, "max_abs_err": worst, "ms": ms["kernel"],
+        "plain_ms": ms["plain"], "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": ms["library"]}
+    return {"checks": checks, "main_shape": [r, s, kh, g, hd, page, nb],
+            "rows": rows, "bytes": nbytes, "flops": flops,
+            "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], "bound_ms": max(bytes_ms, ops_ms),
+            "achieved_TFLOPs": flops / ms["kernel"] / 1e9}
+
+
+def phase_kernels(ctx) -> None:
+    emit({"phase": "kernels", "decode_attention": _kernel_k1(ctx),
+          "paged_decode_attention": _kernel_k2(ctx),
+          "paged_prefill_attention": _kernel_k3(ctx)})
 
 
 def _greedy_stepwise(params, cfg, prompts, n, opts, cache_len, device):
@@ -360,6 +615,45 @@ def phase_vehicle(ctx) -> None:
         raise SystemExit("vehicle: the card's tokens differ from the CPU's")
 
 
+def _device_profile(torch, fn, n: int) -> tuple:
+    """``fn`` run ``n`` times under ``torch.profiler``: (device-busy ms per
+    call, the kernels by device time per call, largest first)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = []  # device kernels only: CPU ops would count their kernels again
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        rows.append({"ms": dev_us / n / 1e3, "kernel": evt.key[:60],
+                     "calls": evt.count / n})
+    rows.sort(key=lambda row: -row["ms"])
+    return sum(row["ms"] for row in rows), rows
+
+
+def _llama7b_params(ctx) -> tuple:
+    """llama2-7b's random bf16 weights from seed 0, drawn on the card once
+    and shared by the serve and paged phases; (params, seconds to draw)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+
+    if "params_7b" not in ctx:
+        t0 = time.perf_counter()
+        params = init_params(get_config("llama2-7b"), torch.Generator(
+            device=ctx["device"]).manual_seed(0), torch.bfloat16,
+            ctx["device"])
+        torch.cuda.synchronize()
+        ctx["params_7b"] = (params, time.perf_counter() - t0)
+    return ctx["params_7b"]
+
+
 def phase_serve(ctx) -> None:
     import numpy as np
     import torch
@@ -369,7 +663,6 @@ def phase_serve(ctx) -> None:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.models.transformer import (RuntimeOpts, decode_step,
                                                 prefill)
-    from repro_torch.params import init_params
     from repro_torch.serving import engine
     from repro_torch.serving.api import LLMServer
 
@@ -377,11 +670,7 @@ def phase_serve(ctx) -> None:
     cfg = get_config("llama2-7b")  # full width and depth
     opts = RuntimeOpts(quantized_kv=True)
     cache_len = 1024
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                         torch.bfloat16, device)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    params, init_s = _llama7b_params(ctx)
     n_params = sum(t.numel() for t in params.values())
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (128, 128, 96, 96)]
@@ -414,7 +703,7 @@ def phase_serve(ctx) -> None:
     wall_s = time.perf_counter() - t0
     launches = {"decode_attention": da.decode_attention.launches}
     peak = torch.cuda.max_memory_allocated()
-    ctx["launches"] = launches
+    ctx["launches"].update(launches)
 
     reasons = [o.finish_reason for o in outs]
     lengths = [len(o.tokens) for o in outs]
@@ -456,22 +745,7 @@ def phase_serve(ctx) -> None:
         # host included: the host issues about 1,000 kernels per step
         step_ms = ctx["timer"]({"step": step}, iters=20,
                                device_only=False)["step"]
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                step()
-            torch.cuda.synchronize()
-    rows = []  # device kernels only: CPU ops would count their kernels again
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        rows.append((dev_us / 5 / 1e3, evt.key[:60], evt.count / 5))
-    rows.sort(reverse=True)
-    device_ms = sum(r[0] for r in rows)
+        device_ms, rows = _device_profile(torch, step, 5)
     bw, _ = peak_rates(ctx["device_name"])
     weight_bytes = sum(t.numel() * t.element_size() for k, t in params.items()
                        if k != "embed") + b * cfg.d_model * 2
@@ -488,12 +762,294 @@ def phase_serve(ctx) -> None:
           "decode_step_ms": step_ms, "decode_step_batch": b,
           "decode_step_bound_ms": (weight_bytes + cache_bytes) / bw * 1e3,
           "profile_device_ms_per_step": device_ms,
-          "profile_top": [{"ms": r[0], "kernel": r[1], "calls": r[2]}
-                          for r in rows[:8]],
+          "profile_top": rows[:8],
           "max_memory_allocated": peak, "checks": checks,
           "ok": all(checks.values())})
     if not all(checks.values()):
         raise SystemExit(f"serve: failed checks {checks}")
+
+
+# paged against fused logits of llama2-7b at full width in bf16, a sanity
+# check only: the two paths' bf16 GEMMs round differently at their batch
+# shapes (one bf16 step at the largest logit is 2^-8 of it; the paths differ
+# by 0.9 to 1.8% of it on the H100, as far as the dense path alone moves
+# when only its batch size changes), so this bound cannot see a fault of K3
+PAGED_REL = 5e-2
+# the same in f32 on rows whose prefill reads earlier chunks or the shared
+# prefix back as int8 codes (K3's history): sound runs read 0.80 to 0.92%
+# of the largest logit on the H100
+HISTORY_REL = 2e-2
+# the f32 margin rule must compare at least this many tokens over the
+# greedy rows (random weights give flat logits, so it stops early)
+F32_MIN_COMPARED = 100
+
+
+def _record_logits(sched) -> dict:
+    """Wrap ``sched``'s sampler so that every emitted token's logits row is
+    kept on the host: {rid: [(V,) f32, ...]} in generation order. Each
+    sample then copies its logits to the host: for checks, not timings."""
+    rec, orig_sample, orig_emit = {}, sched._sample, sched._emit
+    last = {}
+
+    def sample(logits, t, rows=None):
+        last["logits"], last["rows"] = logits.float().cpu().numpy(), rows
+        return orig_sample(logits, t, rows)
+
+    def emit(st, token, logprob):
+        i = sched.slots.index(st)
+        rows = last["rows"]
+        r = i if rows is None else list(rows).index(i)
+        rec.setdefault(st.req.rid, []).append(last["logits"][r])
+        orig_emit(st, token, logprob)
+
+    sched._sample, sched._emit = sample, emit
+    return rec
+
+
+def _against_dense(params, cfg, opts, prompts, outs, rec, tols,
+                   device) -> tuple:
+    """The paged run's streams ``outs`` (rows ``tols`` names) fed to the
+    dense (fused) path on the same card: per row, the largest logit error
+    relative to the largest dense logit over every step and at the first
+    token, and whether the logits and (margin rule) the tokens agree within
+    ``tols[row]``. Returns (agree, tokens compared, {row: error},
+    {row: first-token error})."""
+    import numpy as np
+
+    agree, compared, rel, rel_first = True, 0, {}, {}
+    for i, tol in tols.items():
+        o = outs[i]
+        dense = _teacher_forced(params, cfg, prompts[i][None],
+                                o.tokens[None], opts, 1024, device)
+        err = np.abs(np.stack(rec[o.rid]) - dense[0]).max(-1) / np.abs(
+            dense).max()
+        rel[i], rel_first[i] = float(err.max()), float(err[0])
+        ok, c = _margin_agreement(o.tokens[None], dense.argmax(-1), dense,
+                                  tol)
+        agree = agree and ok and rel[i] <= tol
+        compared += c
+    return agree, compared, rel, rel_first
+
+
+def _paged_tiny(ctx) -> dict:
+    """llama2-7b tiny through the paged Scheduler on the CPU (plain
+    versions) and on the card (kernels K2 and K3): the card's tokens must
+    agree with the CPU's under the margin rule of the CPU's logits."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.params import init_params
+    from repro_torch.serving.scheduler import Scheduler
+
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(0, cfg.vocab_size, (10,))
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (18, 9, 4)]
+    prompts += [np.concatenate([prefix, rng.integers(0, cfg.vocab_size,
+                                                     (n,))]) for n in (5, 3)]
+    max_new = [6, 5, 8, 4, 6]
+
+    def serve(device, record):
+        sched = Scheduler(cfg, params, opts, num_pages=40, page_size=4,
+                          max_slots=2, prefill_chunk=4, device=device)
+        rec = _record_logits(sched) if record else None
+        rids = [sched.submit(p, n, prefix_key="sys" if i >= 3 else None,
+                             prefix_len=10 if i >= 3 else None)
+                for i, (p, n) in enumerate(zip(prompts, max_new))]
+        res = sched.run()
+        return ([res[r][len(p):] for r, p in zip(rids, prompts)],
+                [rec and np.stack(rec[r]) for r in rids], sched)
+
+    cpu, cpu_logits, _ = serve("cpu", True)
+    card, _, sched = serve(ctx["device"], False)
+    ok, compared = True, 0
+    for want, lg, got in zip(cpu, cpu_logits, card):
+        agree, c = _margin_agreement(got[None], want[None], lg[None],
+                                     MODEL_REL)
+        ok, compared = ok and agree, compared + c
+    return {"requests": len(prompts), "tokens_compared": compared,
+            "card_equals_cpu": all(np.array_equal(a, b)
+                                   for a, b in zip(cpu, card)),
+            "prefix_forks": sched.stats.prefix_forks,
+            "pool_reclaimed": sched.pool.pages_in_use == 0, "ok": ok
+            and sched.pool.pages_in_use == 0}
+
+
+def phase_paged(ctx) -> None:
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.params import init_params
+    from repro_torch.serving.api import LLMServer
+    from repro_torch.serving.scheduler import Scheduler
+
+    tiny = _paged_tiny(ctx)
+    device = ctx["device"]
+    cfg = get_config("llama2-7b")  # full width and depth
+    opts = RuntimeOpts(quantized_kv=True)
+    params, _ = _llama7b_params(ctx)
+    pool_kw = dict(num_pages=513, page_size=16, max_slots=8,
+                   max_seq_len=1024, device=device)
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, cfg.vocab_size, (200,))  # not page-aligned
+    lens = [600, 264, 300, 128, 96, 64, 150, 700, 200, 80]
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    for i in (1, 2):  # a pair sharing the 200-token prefix
+        prompts[i][:200] = shared
+    max_tokens = [48, 40, 32, 64, 64, 32, 48, 32, 40, 56]
+
+    def sampling(i, stop):
+        kw = dict(max_tokens=max_tokens[i])
+        if i in (1, 2):
+            kw.update(prefix_key="shared", prefix_len=200)
+        if i == 3:
+            kw.update(stop_token_ids=stop)
+        if i == 4:
+            kw.update(temperature=0.8, top_p=0.9, seed=7)
+        return SamplingParams(**kw)
+
+    def serve(stop, record=False, weights=params):
+        srv = LLMServer(cfg, weights, opts, backend="paged", **pool_kw)
+        rec = _record_logits(srv.backend.scheduler) if record else None
+        rids = [srv.submit(p, sampling(i, stop))
+                for i, p in enumerate(prompts)]
+        outs = srv.run()
+        return [outs[r] for r in rids], srv.backend.scheduler, rec
+
+    # a first run (it also warms up, and keeps every emitted token's
+    # logits) picks a stop token that will fire
+    first, first_sched, rec = serve((), record=True)
+    chunk = first_sched.prefill_chunk
+    # its pool must not count in the timed run's peak: the recording
+    # wrappers hold it in a reference cycle, so collect
+    del first_sched
+    gc.collect()
+    stop = int(first[3].tokens[10])
+    stop_at = list(first[3].tokens).index(stop) + 1
+
+    # the first run's greedy streams (not the seeded request 4) against the
+    # dense (fused) path on the same card, fed the same tokens: logits
+    # within PAGED_REL of the largest one, and tokens equal under the margin
+    # rule at that tolerance (a sanity check)
+    greedy = [i for i in range(len(prompts)) if i != 4]
+    agree, compared, rel, rel_first = _against_dense(
+        params, cfg, opts, prompts, first, rec,
+        {i: PAGED_REL for i in greedy}, device)
+    del rec
+
+    # the same traffic on f32 weights (the same draws): rows prefilled in
+    # one chunk hold the dense path to MODEL_REL; rows whose prefill reads
+    # int8 history (later chunks, the fork of request 2) to HISTORY_REL
+    params32 = init_params(cfg, torch.Generator(device=device).manual_seed(
+        0), torch.float32, device)
+    first32, sched32, rec32 = serve((), record=True, weights=params32)
+    del sched32
+    history = {i for i, n in enumerate(lens) if n > chunk} | {2}
+    agree32, compared32, rel32, rel32_first = _against_dense(
+        params32, cfg, opts, prompts, first32, rec32,
+        {i: HISTORY_REL if i in history else MODEL_REL for i in greedy},
+        device)
+    del params32, first32, rec32
+    gc.collect()
+
+    for fn in (da.decode_attention, pda.paged_decode_attention,
+               ppa.paged_prefill_attention):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, sched, _ = serve((stop,))
+    wall_s = time.perf_counter() - t0
+    launches = {"decode_attention": da.decode_attention.launches,
+                "paged_decode_attention": pda.paged_decode_attention.launches,
+                "paged_prefill_attention":
+                    ppa.paged_prefill_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    ctx["launches"].update({k: v for k, v in launches.items()
+                            if k != "decode_attention"})
+    st = sched.stats
+
+    reasons = [o.finish_reason for o in outs]
+    lengths = [len(o.tokens) for o in outs]
+    want_lengths = list(max_tokens)
+    want_lengths[3] = stop_at
+    kinds = {shape[0] for shape in sched._shapes}
+    checks = {
+        "tiny_card_equals_cpu_margin_rule": tiny["ok"],
+        "reasons": reasons == ["stop" if i == 3 else "length"
+                               for i in range(len(prompts))],
+        "lengths": lengths == want_lengths,
+        "greedy_equal_fused_margin_rule": agree,
+        "f32_greedy_equal_fused": agree32,
+        "f32_tokens_compared": compared32 >= F32_MIN_COMPARED,
+        "same_as_first_run": all(
+            np.array_equal(o.tokens, f.tokens[:len(o.tokens)])
+            for o, f in zip(outs, first)),
+        "pool_reclaimed": sched.pool.pages_in_use == 0
+        and not sched.pool.refcount.any(),
+        "prefix_forks": st.prefix_forks >= 1,
+        "one_shape_per_tick_kind": st.compiled_shapes == len(kinds),
+        "k2_launches": launches["paged_decode_attention"]
+        == cfg.num_layers * st.steps,
+        "k3_launches": launches["paged_prefill_attention"]
+        == cfg.num_layers * st.shared_prefill_calls,
+        "k1_not_launched": launches["decode_attention"] == 0,
+        "tokens_in_vocab": all(int(o.tokens.min()) >= 0 and int(
+            o.tokens.max()) < cfg.vocab_size for o in outs)}
+
+    # a decode tick with every slot decoding (128-token prompts), host
+    # included, and its device-busy time
+    tick = Scheduler(cfg, params, opts, **pool_kw)
+    for p in rng.integers(0, cfg.vocab_size, (8, 128)):
+        tick.submit(p, 200)
+    tick.step()  # every prompt in one chunk, first tokens sampled
+    tick_ms = ctx["timer"]({"tick": tick._decode_tick}, iters=20,
+                           device_only=False)["tick"]
+    device_ms, top = _device_profile(torch, tick._decode_tick, 5)
+    for rid in range(8):
+        tick.abort(rid)
+
+    delivered = sum(lengths)
+    computed = st.slot_ticks + len(prompts)  # decode rows + first tokens
+    emit({"phase": "paged", "tiny": tiny, "config": cfg.name,
+          "pool": {"num_pages": 513, "page_size": 16, "max_slots": 8,
+                   "max_seq_len": 1024, "prefill_chunk": sched.prefill_chunk,
+                   "page_bytes": sched.pool.page_bytes()},
+          "prompt_lens": lens, "finish_reasons": reasons,
+          "generated": lengths, "stop_token": stop, "ticks": sched._tick,
+          "decode_steps": st.steps, "prefill_calls": st.prefills,
+          "shared_prefill_calls": st.shared_prefill_calls,
+          "prefix_forks": st.prefix_forks,
+          "compiled_shapes": st.compiled_shapes, "tick_kinds": sorted(kinds),
+          "peak_occupancy": st.peak_occupancy,
+          "peak_shared_pages": st.peak_shared_pages, "launches": launches,
+          "wall_s": wall_s, "tokens_per_s": delivered / wall_s,
+          "computed_tokens_per_s": computed / wall_s,
+          "ttft_ticks": [st.ttft_ticks[o.rid] for o in outs],
+          "tokens_compared": compared, "tol": PAGED_REL,
+          "max_rel_logit_err_vs_fused": rel,
+          "first_token_rel_err_vs_fused": rel_first,
+          "f32": {"history_rows": sorted(history),
+                  "tol": {"one_chunk": MODEL_REL, "history": HISTORY_REL},
+                  "tokens_compared": compared32,
+                  "max_rel_logit_err_vs_fused": rel32,
+                  "first_token_rel_err_vs_fused": rel32_first},
+          "decode_tick_ms": tick_ms, "decode_tick_batch": 8,
+          "profile_device_ms_per_tick": device_ms,
+          "profile_top": top[:8], "max_memory_allocated": peak,
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise SystemExit(f"paged: failed checks {checks}")
 
 
 # ------------------------------------------------------------------- main
@@ -523,10 +1079,11 @@ def main(argv=None) -> int:
 
     device = resolve_device()
     ctx = {"device": device, "device_name": torch.cuda.get_device_name(0),
-           "smi": nvidia_smi(), "kernels": {}, "timer": Timer(torch, device)}
+           "smi": nvidia_smi(), "kernels": {}, "launches": {},
+           "timer": Timer(torch, device)}
     runners = {"env": phase_env, "kernels": phase_kernels,
                "model": phase_model, "vehicle": phase_vehicle,
-               "serve": phase_serve}
+               "serve": phase_serve, "paged": phase_paged}
     for name in PHASES:
         if name in phases:
             runners[name](ctx)

@@ -38,10 +38,11 @@ class SamplingParams:
     ``stop_token_ids`` and ``eos_id`` form :attr:`stop_set`: the output is
     truncated at the first such token, inclusive, with reason ``"stop"``.
     ``logit_bias`` maps token ids to additive biases applied before the
-    argmax and the filters; reported logprobs stay raw. ``priority``,
-    ``prefix_key``/``prefix_len``, ``latency_hint`` and ``speculate_k``
-    are read by the paged scheduler, which is not ported yet; the fused
-    backend ignores them, as the reference's does."""
+    argmax and the filters; reported logprobs stay raw.
+    ``prefix_key``/``prefix_len`` and ``latency_hint`` are read by the
+    paged scheduler; ``priority`` orders its preemption and
+    ``speculate_k`` its speculation, neither ported yet. The fused backend
+    ignores all five, as the reference's does."""
 
     max_tokens: int = 16
     temperature: float = 0.0
@@ -222,3 +223,12 @@ def token_logprobs(logits, tokens):
     (...) f32."""
     lp = torch.log_softmax(logits.float(), dim=-1)
     return torch.gather(lp, -1, tokens[..., None].long())[..., 0]
+
+
+def sample_tokens_with_logprobs(logits, seeds, t, temperature, top_k, top_p,
+                                bias=None):
+    """:func:`sample_tokens` and each drawn token's :func:`token_logprobs`
+    value under the RAW logits (``bias`` reshapes the draw only). Returns
+    ((R,) int64 tokens, (R,) f32 logprobs)."""
+    toks = sample_tokens(logits, seeds, t, temperature, top_k, top_p, bias)
+    return toks, token_logprobs(logits, toks)

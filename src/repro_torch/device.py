@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,3 +24,14 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def to_device(array, device: torch.device) -> torch.Tensor:
+    """A host (numpy) array as a tensor on ``device``, without a stream
+    sync: a plain ``.to("cuda")`` from pageable memory waits for the
+    stream to drain, so a CUDA copy goes through pinned memory,
+    asynchronously. On the CPU the result is a copy of ``array``."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-alone (no PyTorch headers, so a build takes seconds) into
+alone (no PyTorch headers, so a build takes seconds; :func:`build` starts
+one ``nvcc`` per source, all together) into
 ``build/repro_torch_kernels/<name>-<hash>.so`` at the root of the checkout.
 The hash covers the source and the flags, so an edited ``.cu`` rebuilds and
 an unchanged one is loaded as it is. Nothing here runs at import time.
@@ -20,6 +21,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+KERNELS = ("decode_attention", "paged_decode_attention",
+           "paged_prefill_attention")
 
 # name -> loaded library; filled by load()
 _LIBS: dict = {}
@@ -50,21 +54,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def build(name: str) -> None:
-    """Compile kernel ``name`` with ``nvcc`` unless its library exists."""
-    out = library_path(name)
-    if out.exists():
+def build(*names: str) -> None:
+    """Compile the named kernels whose libraries do not exist yet, one
+    ``nvcc`` per source, all started together."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a reader never sees a partial file
-    BUILD_LOG[name] = proc.stderr
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{stdout}{stderr}")
+            continue
+        os.replace(tmp, library_path(name))  # atomic: never a partial file
+        BUILD_LOG[name] = stderr
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,6 +5,8 @@ does not take; there is no fallback)."""
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import paged_decode_attention as _pda
+from repro_torch.kernels import paged_prefill_attention as _ppa
 
 
 def decode_attention(q, k_codes, k_scale, v_codes, v_scale, kv_pos, q_pos):
@@ -15,3 +17,26 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, kv_pos, q_pos):
                                         kv_pos, q_pos)
     return _da.decode_attention(q, k_codes, k_scale, v_codes, v_scale,
                                 kv_pos, q_pos)
+
+
+def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
+                           block_table, q_pos):
+    """Decode attention through the paged pool, q (R, K, G, hd) → (R, K, G,
+    hd) f32; see :mod:`repro_torch.kernels.paged_decode_attention`."""
+    fn = _pda.paged_decode_attention_ref if q.device.type == "cpu" \
+        else _pda.paged_decode_attention
+    return fn(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
+              q_pos)
+
+
+def paged_prefill_attention(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
+                            block_table, q_pos, k_fresh, v_fresh):
+    """Prefill attention through the paged pool, q (R, S, K, G, hd) →
+    (R, S, K, G, hd) f32; see :mod:`repro_torch.kernels.
+    paged_prefill_attention`. ``start`` is derived from ``q_pos`` here, on
+    the device, so the kernel and its callers never disagree on it."""
+    start = _ppa.first_call_position(q_pos)
+    fn = _ppa.paged_prefill_attention_ref if q.device.type == "cpu" \
+        else _ppa.paged_prefill_attention
+    return fn(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
+              q_pos, start, k_fresh, v_fresh)

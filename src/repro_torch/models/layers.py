@@ -1,12 +1,15 @@
-"""Model building blocks (port of ``repro/models/layers.py``, the dense
-llama path): RMSNorm, rotary embeddings, the KV cache and its int8 write,
+"""Model building blocks (port of ``repro/models/layers.py``, the llama
+path): RMSNorm, rotary embeddings, the KV caches and their int8 writes,
 position-masked prefill attention, int8-KV decode attention through the
-CUDA kernel, the attention layer and the gated MLP.
+CUDA kernels (dense and paged), prefill attention through the paged pool,
+the attention layer and the gated MLP.
 
-Caches come in two layouts, as in the reference:
+Caches come in three layouts, as in the reference:
   * fp (bf16/f32): token-major (B, S, K, hd), read by ``chunked_attention``;
   * int8-quantized: kv-head-major (B, K, S, hd) codes + per-(token, head)
-    f32 scales (B, K, S), the layout the decode kernel streams.
+    f32 scales (B, K, S), the layout the decode kernel streams;
+  * paged (:class:`PagedKVCache`): one layer's view of the shared pool,
+    page-major (P, K, page, hd) codes addressed through block tables.
 
 Shapes: activations (B, S, D); q/k/v (B, S, H|K, hd). Weights keep the
 reference's ``x @ W`` layout, W (d_in, d_out).
@@ -83,6 +86,32 @@ class KVCache:
         return self.k_scale is not None
 
 
+@dataclasses.dataclass
+class PagedKVCache:
+    """One layer's view of the shared paged KV pool
+    (``serving.kv_pool.PagedKVPool`` owns allocation):
+
+      k / v        (P, K, page, hd) int8    k/v_scale (P, K, page) f32
+      pos          (P, page) int32          (-1 = empty slot)
+      block_table  (R, nb) int32            page ids of each call row; 0 is
+                                            the reserved trash page
+
+    The leaves are views into the pool's tensors, so a write through this
+    cache (:func:`paged_cache_update`) lands in the pool IN PLACE; the
+    reference's functional pool instead returns new arrays."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    pos: torch.Tensor
+    block_table: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[-2]
+
+
 def init_cache(batch: int, size: int, kv_heads: int, head_dim: int,
                dtype=torch.bfloat16, quantized: bool = False,
                device=None) -> KVCache:
@@ -138,6 +167,42 @@ def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     b = cache.pos.shape[0]
     cache.pos.index_copy_(1, idx, idx.to(torch.int32).expand(b, s_new))
     return cache
+
+
+def paged_cache_update(cache: PagedKVCache, k_new: torch.Tensor,
+                       v_new: torch.Tensor, positions: torch.Tensor) -> None:
+    """Scatter ``k_new``/``v_new`` (R, S_new, K, hd) into the shared pool IN
+    PLACE (the reference returns a new pool).
+
+    ``positions`` (R, S_new) int32 are each token's absolute position. A
+    token lands at page ``block_table[r, p // page]``, slot ``p % page``.
+    Pads (negative positions), positions past the table's reach and
+    positions whose table entry is still 0 (page not yet allocated) go to
+    the trash page 0, slot 0, with ``pos = -1``: those duplicate writes
+    race, which is harmless because every one stores ``pos = -1``, and no
+    valid token ever lands on page 0. Codes and scales are
+    :func:`_quantize_kv`'s, bit-identical to the reference's. The
+    ``slots=`` argument of the reference (the packed tick) is not ported."""
+    page = cache.page_size
+    nbt = cache.block_table.shape[1]
+    valid = (positions >= 0) & (positions < nbt * page)
+    page_idx = torch.where(valid, positions // page, 0).long()
+    pages = torch.gather(cache.block_table, 1, page_idx)
+    pages = torch.where(valid, pages, 0)
+    valid = valid & (pages != 0)
+    pr = pages.reshape(-1).long()
+    sl = torch.where(valid, positions % page, 0).reshape(-1).long()
+    kc, ks = _quantize_kv(k_new)  # (R, S_new, K, hd), (R, S_new, K, 1)
+    vc, vs = _quantize_kv(v_new)
+    n, kh = pr.shape[0], k_new.shape[2]
+    # (P, K, page, ...) viewed as (P, page, K, ...): (page, slot) index
+    # pairs then select (N, K, ...) values, the reference's buf[pr, :, sl]
+    cache.k.transpose(1, 2).index_put_((pr, sl), kc.reshape(n, kh, -1))
+    cache.v.transpose(1, 2).index_put_((pr, sl), vc.reshape(n, kh, -1))
+    cache.k_scale.transpose(1, 2).index_put_((pr, sl), ks.reshape(n, kh))
+    cache.v_scale.transpose(1, 2).index_put_((pr, sl), vs.reshape(n, kh))
+    cache.pos.index_put_((pr, sl), torch.where(valid, positions,
+                                               -1).reshape(-1).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -214,18 +279,60 @@ def quantized_decode_attention(q, cache: KVCache, q_positions, pos, *,
                              q_chunk=q_chunk, kv_chunk=kv_chunk)
 
 
+def paged_prefill_attention(q, cache: PagedKVCache, k_fresh, v_fresh,
+                            q_positions):
+    """Prefill attention THROUGH the paged pool (continuation chunks and
+    shared-prefix forks): each row attends its pool history, masked to
+    stored positions below its first in-call position, plus the call's
+    fresh k/v (R, S, K, hd) at full precision, causally by ``q_positions``
+    (R, S). ``cache`` is the post-update pool. q (R, S, H, hd) is read in
+    place as (R, S, K, G, hd) by ``kernels.ops.paged_prefill_attention``
+    (the CUDA kernel on the card, its plain version on the CPU). The
+    reference's dense-gather fallback serves softcap and window layers,
+    which the port refuses before this point; it is not ported."""
+    b, s, h, hd = q.shape
+    kh = cache.k.shape[1]
+    out = ops.paged_prefill_attention(
+        q.reshape(b, s, kh, h // kh, hd), cache.k, cache.k_scale, cache.v,
+        cache.v_scale, cache.pos, cache.block_table, q_positions,
+        k_fresh, v_fresh)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def paged_decode_attention_layer(q, cache: PagedKVCache, q_positions):
+    """Decode-time attention through the paged pool: a single-token query
+    per row walks its block-table pages (``kernels.ops.
+    paged_decode_attention``). ``q_positions`` (R, 1) holds each row's
+    causal bound (-1 = a free slot, which gives zeros). A multi-token
+    decode is the speculative verify, not ported yet."""
+    b, s, h, hd = q.shape
+    if s != 1:
+        raise NotImplementedError("a paged decode of several tokens is the "
+                                  "speculative verify, not ported yet "
+                                  "(ROADMAP queue 1, item 6.3)")
+    kh = cache.k.shape[1]
+    out = ops.paged_decode_attention(
+        q[:, 0].reshape(b, kh, h // kh, hd), cache.k, cache.k_scale, cache.v,
+        cache.v_scale, cache.pos, cache.block_table,
+        q_positions[:, -1].contiguous())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention layer and MLP
 # ---------------------------------------------------------------------------
 
 
 def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
-                    cache: KVCache | None, pos, q_positions,
+                    cache: KVCache | PagedKVCache | None, pos, q_positions,
                     q_chunk: int = 1024, kv_chunk: int = 1024,
-                    decode: bool = False):
-    """One attention layer (the reference's dense branches). During prefill
-    the cache is written and attention runs over the fresh k/v; with
-    ``decode=True`` attention reads the cache. Returns (output, cache)."""
+                    decode: bool = False, attend_cache: bool = False):
+    """One attention layer (the reference's dense and paged branches).
+    During prefill the cache is written and attention runs over the fresh
+    k/v; with ``decode=True`` attention reads the cache. A paged cache is
+    written at the per-token ``q_positions``; with ``attend_cache=True`` a
+    paged prefill also attends the pool's history
+    (:func:`paged_prefill_attention`). Returns (output, cache)."""
     b, s, _ = x.shape
     h, kh, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     if spec.sliding_window is not None or spec.attn_softcap is not None \
@@ -239,6 +346,16 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
         cos, sin = rope_cs
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    if isinstance(cache, PagedKVCache):
+        paged_cache_update(cache, k, v, q_positions)
+        if decode:
+            out = paged_decode_attention_layer(q, cache, q_positions)
+        elif attend_cache:
+            out = paged_prefill_attention(q, cache, k, v, q_positions)
+        else:
+            out = chunked_attention(q, k, v, q_positions, q_positions,
+                                    q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return out.reshape(b, s, h * hd) @ params["wo"], cache
     if cache is not None:
         cache = cache_update(cache, k, v, pos)
     if cache is not None and decode:

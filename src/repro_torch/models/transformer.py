@@ -1,13 +1,20 @@
-"""Model assembly (port of ``repro/models/transformer.py``, the dense llama
+"""Model assembly (port of ``repro/models/transformer.py``, the llama
 path): a decoder of ``len(pattern) × num_blocks`` layers whose parameters
-are stacked per pattern position. Two entry points:
+are stacked per pattern position. Entry points:
 
   prefill(params, cfg, tokens, cache_len, opts)      → (last_logits, caches)
   decode_step(params, cfg, tokens, caches, pos, opts)→ (logits, caches)
 
-``caches`` is a list with one ``KVCache`` per layer, in depth order (the
-reference stacks them over blocks instead). ``decode_step`` writes the
-caches in place. Everything runs on the device of ``tokens``.
+and, over the paged pool (``serving.kv_pool.PagedKVPool.device_caches``):
+
+  paged_prefill(params, cfg, tokens, caches, positions, opts)
+  paged_prefill_shared(params, cfg, tokens, caches, positions, opts)
+  paged_decode_step(params, cfg, tokens, caches, pos, opts)
+
+``caches`` is a list with one ``KVCache`` (or ``PagedKVCache``) per layer,
+in depth order (the reference stacks them over blocks instead). Every entry
+point writes the caches in place. Everything runs on the device of
+``tokens``.
 """
 
 from __future__ import annotations
@@ -107,25 +114,25 @@ def apply_head(cfg: ArchConfig, params: dict, x: torch.Tensor):
 
 
 def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
-                 opts: RuntimeOpts, decode: bool):
+                 opts: RuntimeOpts, decode: bool, attend_cache: bool = False):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     out, cache = L.attention_layer(
         p["mixer"], h, ls.mixer, rope_cs=rope_cs, cache=cache, pos=pos,
         q_positions=q_positions, q_chunk=opts.q_chunk,
-        kv_chunk=opts.kv_chunk, decode=decode)
+        kv_chunk=opts.kv_chunk, decode=decode, attend_cache=attend_cache)
     x = x + out
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + L.mlp_layer(p["ffn"], h, ls.ffn.activation), cache
 
 
 def _apply_layers(cfg, params, x, caches, *, q_positions, pos,
-                  opts: RuntimeOpts, decode: bool):
+                  opts: RuntimeOpts, decode: bool, attend_cache: bool = False):
     rope_cs = rope_tables(cfg, q_positions)
     for li, (ls, p) in enumerate(layer_params(cfg, params)):
         x, caches[li] = _apply_layer(cfg, ls, p, x, rope_cs=rope_cs,
                                      q_positions=q_positions,
                                      cache=caches[li], pos=pos, opts=opts,
-                                     decode=decode)
+                                     decode=decode, attend_cache=attend_cache)
     return x
 
 
@@ -154,3 +161,53 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     x = _apply_layers(cfg, params, x, caches, q_positions=positions, pos=pos,
                       opts=opts, decode=True)
     return apply_head(cfg, params, x)[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# Paged (ragged) entry points
+# ---------------------------------------------------------------------------
+
+
+def _paged_forward(params, cfg, tokens, caches, positions, opts, *,
+                   decode: bool, attend_cache: bool = False):
+    positions = positions.to(torch.int32)
+    x = embed_inputs(cfg, params, tokens)
+    x = _apply_layers(cfg, params, x, caches, q_positions=positions, pos=0,
+                      opts=opts, decode=decode, attend_cache=attend_cache)
+    return apply_head(cfg, params, x[:, -1:])[:, 0], caches
+
+
+def paged_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                  caches: list, positions: torch.Tensor,
+                  opts: RuntimeOpts = RuntimeOpts()):
+    """Ragged prefill over the paged pool. ``tokens`` (R, S) are
+    RIGHT-ALIGNED: each row's prompt piece fills the trailing columns, and
+    left pads carry ``positions = -1`` (R, S), so the last column is every
+    row's last token. Attention covers the call's own tokens only; the
+    tokens are scattered into the pool pages of the block tables that
+    ``caches`` carry. Returns (last-column logits (R, V) f32, caches)."""
+    return _paged_forward(params, cfg, tokens, caches, positions, opts,
+                          decode=False)
+
+
+def paged_prefill_shared(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                         caches: list, positions: torch.Tensor,
+                         opts: RuntimeOpts = RuntimeOpts()):
+    """:func:`paged_prefill` for rows that start past position 0 (a
+    continuation chunk, or a fork of a shared prefix): each row also
+    attends the tokens already in its pool pages, below its first in-call
+    position (``layers.paged_prefill_attention``, kernel K3)."""
+    return _paged_forward(params, cfg, tokens, caches, positions, opts,
+                          decode=False, attend_cache=True)
+
+
+def paged_decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                      caches: list, pos: torch.Tensor,
+                      opts: RuntimeOpts = RuntimeOpts()):
+    """One ragged decode step over the paged pool: ``tokens`` (R, 1),
+    ``pos`` (R,) int32 on the device, each row's position being written
+    (-1 = a free slot: its write goes to the trash page and its attention
+    gives zeros). Attention runs through kernel K2. Returns (logits (R, V)
+    f32, caches)."""
+    return _paged_forward(params, cfg, tokens, caches, pos[:, None], opts,
+                          decode=True)

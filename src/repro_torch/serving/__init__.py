@@ -1,1 +1,2 @@
-"""Serving stack of the port: Engine, LLMServer and its fused backend."""
+"""Serving stack of the port: Engine, the paged pool and its scheduler,
+and LLMServer with its paged and fused backends."""

@@ -8,10 +8,12 @@
   * :class:`LLMServer`: the facade: ``submit()`` requests, ``stream()``
     token events, ``run()`` to drain, ``abort()`` to cancel.
 
-Of the reference's three backends the port has ``"fused"`` so far
+Of the reference's three backends the port has ``"paged"`` (the default:
+:class:`PagedBackend`, over the continuous-batching
+:class:`~repro_torch.serving.scheduler.Scheduler`) and ``"fused"``
 (:class:`FusedBackend`, over :class:`~repro_torch.serving.engine.Engine`);
-``"paged"`` (the reference's default) and ``"split"`` raise
-``NotImplementedError`` until their slices land. Per request, token events
+``"split"`` raises ``NotImplementedError`` until its slice lands. Per
+request, token events
 arrive strictly in position order; finish events carry ``token = -1``,
 ``index = len(generated)`` and the finish reason (``"stop"`` |
 ``"length"`` | ``"abort"``).
@@ -22,7 +24,7 @@ Quickstart::
     from repro_torch.core.sampling import SamplingParams
 
     server = LLMServer(cfg, params, RuntimeOpts(quantized_kv=True),
-                       backend="fused", cache_len=1024)
+                       num_pages=513, max_slots=8, max_seq_len=1024)
     rid = server.submit(prompt, SamplingParams(max_tokens=32))
     for ev in server.stream():          # or: outputs = server.run()
         print(ev.rid, ev.index, ev.token)
@@ -38,6 +40,7 @@ import numpy as np
 from repro_torch.core.sampling import SamplingParams, truncate_at_stop
 from repro_torch.models.transformer import RuntimeOpts
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.scheduler import Scheduler
 
 @dataclasses.dataclass(frozen=True)
 class TokenEvent:
@@ -249,19 +252,97 @@ class FusedBackend(_ReplayBackend):
                                           res.logprobs[i, : gen.shape[0]]]
 
 
-_NOT_PORTED = {"paged": "the paged backend is not ported yet (ROADMAP "
-                        "queue 1, items 5-7: kv_pool, Scheduler, "
-                        "PagedBackend)",
-               "split": "the split backend is not ported yet (ROADMAP "
+class PagedBackend(_RequestBook):
+    """The continuous-batching ``Scheduler`` behind the request API, with
+    true streaming: each ``step()`` is one scheduler tick, and the tick's
+    sampled tokens come back as events at once. ``abort()`` cancels in
+    place (pages reclaimed in the call); a drained scheduler releases its
+    pinned prefixes, as ``Scheduler.run`` does; ``release()`` also drops
+    the scheduler's retained results. Keyword arguments reach the
+    ``Scheduler`` (``num_pages=``, ``page_size=``, ``max_slots=``,
+    ``max_seq_len=``, ``prefill_chunk=``, ``tick_mode=``, ``device=``).
+    Of the reference's deployments only ``"fused"`` (one scheduler on one
+    card) is ported."""
+
+    def __init__(self, cfg, params, opts: RuntimeOpts = RuntimeOpts(), *,
+                 deployment: str = "fused", **scheduler_kwargs):
+        super().__init__()
+        if deployment in ("sharded", "disaggregated"):
+            raise NotImplementedError(f"deployment={deployment!r} is not "
+                                      f"ported yet (ROADMAP queue 1, item 9)")
+        if deployment != "fused":
+            raise ValueError(f"unknown deployment {deployment!r}: expected "
+                             f"'fused', 'sharded' or 'disaggregated'")
+        self.deployment = deployment
+        self.scheduler = Scheduler(cfg, params, opts, **scheduler_kwargs)
+
+    def submit(self, req: GenerationRequest) -> int:
+        return self._track(req, self.scheduler.submit(
+            req.prompt, sampling=req.sampling))
+
+    @property
+    def pending(self) -> bool:
+        return self.scheduler.pending or bool(self._pending_events)
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests waiting unadmitted in the scheduler's queue."""
+        return len(self.scheduler.queue)
+
+    def _release_dicts(self) -> tuple:
+        return (self.scheduler.results, self.scheduler.finish_reasons)
+
+    def step(self) -> list:
+        events, sched = self._pending_events, self.scheduler
+        self._pending_events = []
+        if sched.pending:
+            sched.step()
+        events += self._collect(time.perf_counter())
+        if not sched.pending:  # drained: the same reclamation as run()
+            sched.release_prefixes()
+        return events
+
+    def abort(self, rid: int) -> bool:
+        ok = self.scheduler.abort(rid)
+        if ok:  # the partial result now, its events on the next step
+            self._pending_events += self._collect(time.perf_counter())
+        return ok
+
+    def _collect(self, now: float) -> list:
+        sched, events = self.scheduler, []
+        for rid, idx, tok, lp in sched.drain_events():
+            m = self._metrics[rid]
+            if m.ttft_s is None:
+                m.ttft_s = now - m.submit_s
+            events.append(TokenEvent(rid, idx, tok, logprob=lp))
+        for rid in sched.drain_finished():
+            req = self._reqs[rid]
+            reason = sched.finish_reasons.get(rid, "length")
+            gen = np.asarray(sched.results[rid][req.prompt.shape[0]:],
+                             np.int32)
+            m = self._metrics[rid]
+            m.latency_s = m.e2e_s = now - m.submit_s
+            m.ttft_ticks = sched.stats.ttft_ticks.get(rid)
+            self._outputs[rid] = RequestOutput(
+                rid, req.prompt, gen, finished=True, finish_reason=reason,
+                metrics=m)
+            events.append(TokenEvent(rid, gen.shape[0], -1, finished=True,
+                                     finish_reason=reason))
+        return events
+
+
+_BACKENDS = {"fused": FusedBackend, "paged": PagedBackend}
+_NOT_PORTED = {"split": "the split backend is not ported yet (ROADMAP "
                         "queue 1, item 8)"}
 
 
 class LLMServer:
-    """The facade over a serving backend. ``backend`` is ``"fused"`` (extra
-    keyword arguments, e.g. ``cache_len=`` and ``device=``, reach
-    :class:`FusedBackend`) or an already-built backend. The reference's
-    default ``"paged"`` and its ``"split"`` raise ``NotImplementedError``
-    until their slices land. ``telemetry`` accepts only None for now."""
+    """The facade over a serving backend. ``backend`` is ``"paged"`` (the
+    default; extra keyword arguments, e.g. ``num_pages=``, ``max_slots=``
+    and ``device=``, reach :class:`PagedBackend`'s ``Scheduler``),
+    ``"fused"`` (``cache_len=`` and ``device=`` reach :class:`FusedBackend`)
+    or an already-built backend. ``"split"`` raises ``NotImplementedError``
+    until its slice lands. ``telemetry`` accepts only None for now."""
 
     def __init__(self, cfg=None, params=None,
                  opts: RuntimeOpts = RuntimeOpts(), *,
@@ -272,10 +353,10 @@ class LLMServer:
         if isinstance(backend, str):
             if backend in _NOT_PORTED:
                 raise NotImplementedError(_NOT_PORTED[backend])
-            if backend != "fused":
+            if backend not in _BACKENDS:
                 raise ValueError(f"backend must be one of ['fused', 'paged', "
                                  f"'split'], got {backend!r}")
-            backend = FusedBackend(cfg, params, opts, **backend_kwargs)
+            backend = _BACKENDS[backend](cfg, params, opts, **backend_kwargs)
         self.backend = backend
 
     def submit(self, prompt,

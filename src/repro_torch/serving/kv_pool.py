@@ -1,0 +1,444 @@
+"""Paged KV-cache pool: one shared block pool, per-request block tables,
+refcounted copy-on-write pages for prefix sharing (port of
+``repro/serving/kv_pool.py``).
+
+A fixed pool of ``page_size``-token pages (int8 codes + f32 scales per
+(token, kv-head), ``pos = -1`` marking an empty slot), an allocator with a
+LIFO free list, and per-request block tables ``(R, max_blocks) int32``
+that the paged attention kernels walk. Page 0 is RESERVED as the trash
+page: unused block-table entries and pad writes point at it, its positions
+stay -1, and the allocator hands out pages [1, P).
+
+Device layout: one tensor per leaf with a leading LAYER axis,
+
+  k / v          (L, P, K, page, hd) int8
+  k/v_scale      (L, P, K, page)     f32
+  pos            (L, P, page)        int32   (-1 = empty)
+
+so one layer's cache is a view (:meth:`device_caches`), and a scrub or a
+copy-on-write page copy is one indexed op over all layers. Unlike the
+reference, whose functional pool hands arrays through a jitted step and
+takes new ones back (``update_from``), the port's pool is written IN PLACE
+by the model (``models.layers.paged_cache_update``), by :meth:`_decref`'s
+scrub and by :meth:`_copy_page`; there is no ``update_from``.
+
+Ownership model (the refcount state machine): every non-trash page carries
+a host-side refcount, held by each active slot whose table names it and by
+each live :class:`SharedPrefix`::
+
+    free ──admit/append──▶ owned (1) ──share/fork──▶ shared (≥ 2)
+    shared ──decref──▶ owned ──decref──▶ free (positions scrubbed)
+
+Writes go only into pages the writer owns exclusively: :meth:`reserve_write`
+copies a shared boundary page first (copy-on-write, positions at or past
+the writer's length scrubbed in the copy). A page reaching refcount 0 is
+scrubbed and freed; a double free is an assert.
+
+Not ported yet: ``truncate`` (speculation), ``export_slot`` /
+``restore_slot`` (preemption swap) and ``mesh=`` (sharded pools).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, AttnSpec
+from repro_torch.device import resolve_device, to_device
+from repro_torch.kernels.paged_decode_attention import TRASH_PAGE
+from repro_torch.models.layers import PagedKVCache
+
+DEFAULT_PAGE_SIZE = 16
+
+
+class PoolExhaustedError(RuntimeError):
+    """Raised when an admit/append needs more pages than the pool has free."""
+
+
+def uniform_page_count(seq_len: int, page_size: int) -> int:
+    """Pages needed to hold ``seq_len`` tokens in uniform ``page_size``
+    pages (at least one)."""
+    return max(1, -(-seq_len // page_size))
+
+
+@dataclasses.dataclass
+class SharedPrefix:
+    """Handle to a pinned run of pool pages holding a shared prompt prefix:
+    ``pages`` cover the first ``n_tokens`` tokens, and the handle owns one
+    refcount reference per page until ``PagedKVPool.release_prefix``."""
+
+    pages: tuple
+    n_tokens: int
+    released: bool = False
+
+    @property
+    def num_pages(self) -> int:
+        return len(self.pages)
+
+
+class PagedKVPool:
+    """Fixed-size paged KV pool on ``device`` (``cuda`` unless the caller
+    names another; raises with no card) + host-side refcounting block
+    allocator (see the module docstring).
+
+    ``cfg`` must be an attention-only pattern without sliding windows.
+    ``*_tokens``/``*_len`` arguments count TOKENS, ``*_pages`` count PAGES,
+    ``*_bytes`` are device bytes across every layer."""
+
+    def __init__(self, cfg: ArchConfig, *, num_pages: int,
+                 page_size: int = DEFAULT_PAGE_SIZE, max_requests: int,
+                 max_seq_len: int | None = None, mesh=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError("sharded pools (mesh=) are not ported "
+                                      "yet (ROADMAP queue 1, item 9)")
+        if page_size <= 0:
+            raise ValueError(f"page_size must be positive, got {page_size}")
+        if num_pages < 2:
+            raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
+        specs = []
+        for ls in cfg.pattern:
+            m = ls.mixer
+            if not isinstance(m, AttnSpec):
+                raise NotImplementedError(
+                    f"PagedKVPool covers attention-only patterns, got "
+                    f"{m.kind}")
+            if m.sliding_window is not None:
+                raise NotImplementedError(
+                    "sliding-window layers ring-write inside their window; "
+                    "paged ring-append is not supported yet")
+            specs.append(m)
+        if len({(m.num_kv_heads, m.head_dim) for m in specs}) != 1:
+            raise NotImplementedError(
+                "pattern positions must share (num_kv_heads, head_dim)")
+
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.max_requests = max_requests
+        if max_seq_len is None:
+            max_seq_len = (num_pages - 1) * page_size
+        self.max_blocks = uniform_page_count(max_seq_len, page_size)
+        self.num_layers = cfg.num_layers
+        kh, hd = specs[0].num_kv_heads, specs[0].head_dim
+        self.kv_heads, self.head_dim = kh, hd
+
+        shape = (self.num_layers, num_pages, kh, page_size)
+        dev = self.device
+        self.k = torch.zeros(shape + (hd,), dtype=torch.int8, device=dev)
+        self.v = torch.zeros(shape + (hd,), dtype=torch.int8, device=dev)
+        self.k_scale = torch.zeros(shape, dtype=torch.float32, device=dev)
+        self.v_scale = torch.zeros(shape, dtype=torch.float32, device=dev)
+        self.pos = torch.full((self.num_layers, num_pages, page_size), -1,
+                              dtype=torch.int32, device=dev)
+
+        # host allocator: LIFO free list (the most recently freed page is
+        # reused first), trash page 0 excluded; refcounts 0 = free,
+        # 1 = exclusively owned, >= 2 = shared (copy-on-write)
+        self._free = list(range(num_pages - 1, 0, -1))
+        self.refcount = np.zeros((num_pages,), np.int32)
+        self.block_tables = np.zeros((max_requests, self.max_blocks),
+                                     np.int32)
+        self.lengths = np.zeros((max_requests,), np.int64)
+        self.active = np.zeros((max_requests,), bool)
+
+    # ------------------------------------------------------------ allocator
+
+    @property
+    def free_pages(self) -> int:
+        """PAGES on the free list."""
+        return len(self._free)
+
+    @property
+    def pages_in_use(self) -> int:
+        """Allocated PAGES, each shared page counted once."""
+        return (self.num_pages - 1) - len(self._free)
+
+    @property
+    def pages_shared(self) -> int:
+        """PAGES referenced by more than one owner."""
+        return int(np.sum(self.refcount > 1))
+
+    def pages_for(self, n_tokens: int) -> int:
+        """PAGES needed to hold ``n_tokens`` TOKENS (>= 1)."""
+        return uniform_page_count(n_tokens, self.page_size)
+
+    def _alloc(self) -> int:
+        page = self._free.pop()
+        assert self.refcount[page] == 0, f"free list held live page {page}"
+        self.refcount[page] = 1
+        return page
+
+    def _decref(self, pages) -> None:
+        """Drop one reference per page; pages reaching zero have their
+        positions scrubbed to -1 on the device (all layers, one op) and go
+        back on the free list."""
+        dead = []
+        for p in pages:
+            p = int(p)
+            assert self.refcount[p] > 0, f"double free of page {p}"
+            self.refcount[p] -= 1
+            if self.refcount[p] == 0:
+                dead.append(p)
+        if dead:
+            self.pos[:, dead] = -1
+            self._free.extend(reversed(dead))
+
+    def _copy_page(self, src: int, dst: int, keep_below: int) -> None:
+        """Copy-on-write copy of page ``src`` → ``dst`` across every layer,
+        keeping only stored positions < ``keep_below`` (the forker's own
+        history; another tenant's later tokens are scrubbed in the copy)."""
+        for leaf in (self.k, self.v, self.k_scale, self.v_scale):
+            leaf[:, dst] = leaf[:, src]
+        src_pos = self.pos[:, src]
+        self.pos[:, dst] = torch.where(src_pos < keep_below, src_pos, -1)
+
+    def _write_need(self, length: int, have: int, boundary_shared: bool,
+                    n_tokens: int):
+        """(cow_pages, new_pages, want_pages) for writing ``n_tokens`` past
+        ``length`` with ``have`` pages allocated, the boundary page shared
+        or not: the one growth formula of :meth:`reserve_write` and
+        :meth:`_fork_cost`."""
+        if n_tokens <= 0:
+            return 0, 0, have
+        want = self.pages_for(length + n_tokens)
+        boundary = length // self.page_size
+        cow = 1 if (boundary < have and boundary_shared) else 0
+        return cow, max(0, want - have), want
+
+    def _fork_cost(self, prefix: SharedPrefix, target_tokens: int):
+        """(pages needed from the free list now, eventual table pages) to
+        admit ``target_tokens`` onto ``prefix``, the CoW copy of a partial
+        boundary page included."""
+        cow, new, want = self._write_need(
+            prefix.n_tokens, prefix.num_pages, True,
+            target_tokens - prefix.n_tokens)
+        return cow + new, max(want, prefix.num_pages)
+
+    def can_admit(self, n_tokens: int,
+                  prefix: SharedPrefix | None = None) -> bool:
+        """Whether :meth:`admit` for ``n_tokens`` TOKENS would succeed."""
+        if self.active.all():
+            return False
+        if prefix is not None:
+            if prefix.released or n_tokens < prefix.n_tokens:
+                return False
+            need, want = self._fork_cost(prefix, n_tokens)
+        else:
+            need = want = self.pages_for(n_tokens)
+        return need <= len(self._free) and want <= self.max_blocks
+
+    def admit(self, prompt_len: int, reserve_tokens: int | None = None,
+              prefix: SharedPrefix | None = None) -> int:
+        """Reserve a slot row and pages for ``max(prompt_len,
+        reserve_tokens)`` TOKENS; returns the slot. With ``prefix`` the
+        slot's leading table entries alias the prefix's pages (one
+        reference each), its length starts at ``prefix.n_tokens``, and only
+        the suffix pages (plus one CoW copy of a partial boundary page) are
+        allocated. Capacity is checked before any state changes."""
+        if prompt_len < 1:
+            raise ValueError("cannot admit an empty prompt")
+        free_slots = np.flatnonzero(~self.active)
+        if free_slots.size == 0:
+            raise PoolExhaustedError(
+                f"no free request slots (all {self.max_requests} active)")
+        target = max(prompt_len, reserve_tokens or 0)
+        if prefix is not None:
+            if prefix.released:
+                raise ValueError("cannot admit onto a released SharedPrefix")
+            if prompt_len < prefix.n_tokens:
+                raise ValueError(
+                    f"prompt ({prompt_len} tokens) shorter than its shared "
+                    f"prefix ({prefix.n_tokens} tokens)")
+            need, want = self._fork_cost(prefix, target)
+            if want > self.max_blocks:
+                raise PoolExhaustedError(
+                    f"request needs {want} pages > max_blocks "
+                    f"{self.max_blocks}")
+            if need > len(self._free):
+                raise PoolExhaustedError(
+                    f"KV pool exhausted: fork needs {need} page(s) beyond "
+                    f"the {prefix.num_pages} shared, {len(self._free)} free "
+                    f"of {self.num_pages - 1}")
+            slot = int(free_slots[0])
+            self.active[slot] = True
+            for b, p in enumerate(prefix.pages):
+                self.block_tables[slot, b] = p
+                self.refcount[p] += 1
+            self.lengths[slot] = prefix.n_tokens
+            self.reserve_write(slot, target - prefix.n_tokens)
+            return slot
+        need = self.pages_for(target)
+        if need > self.max_blocks:
+            raise PoolExhaustedError(
+                f"prompt needs {need} pages > max_blocks {self.max_blocks}")
+        if need > len(self._free):
+            raise PoolExhaustedError(
+                f"KV pool exhausted: prompt needs {need} page(s), "
+                f"{len(self._free)} free of {self.num_pages - 1}")
+        slot = int(free_slots[0])
+        self.active[slot] = True
+        self.lengths[slot] = 0
+        self.reserve_write(slot, target)
+        return slot
+
+    def share_prefix(self, slot: int, n_tokens: int) -> SharedPrefix:
+        """Pin ``slot``'s pages covering its first ``n_tokens`` TOKENS as a
+        :class:`SharedPrefix` (one new reference per page, owned by the
+        handle). The caller guarantees those tokens are written."""
+        assert self.active[slot], f"slot {slot} is not active"
+        if n_tokens < 1:
+            raise ValueError("a shared prefix must cover at least one token")
+        pages = [int(p) for p in
+                 self.block_tables[slot][:self.pages_for(n_tokens)]]
+        if TRASH_PAGE in pages:
+            raise ValueError(
+                f"slot {slot} has only "
+                f"{int(np.count_nonzero(self.block_tables[slot]))} pages "
+                f"allocated; cannot share a {n_tokens}-token prefix")
+        for p in pages:
+            self.refcount[p] += 1
+        return SharedPrefix(tuple(pages), int(n_tokens))
+
+    def release_prefix(self, prefix: SharedPrefix) -> None:
+        """Drop the handle's page references (idempotent)."""
+        if prefix.released:
+            return
+        prefix.released = True
+        self._decref(prefix.pages)
+
+    def reserve_write(self, slot: int, n_tokens: int) -> None:
+        """Make the next ``n_tokens`` TOKEN positions of ``slot`` writable
+        without changing its length: CoW-copy a shared boundary page, then
+        allocate pages out to ``pages_for(length + n_tokens)``. All checks
+        come before any state change."""
+        assert self.active[slot], f"slot {slot} is not active"
+        if n_tokens <= 0:
+            return
+        length = int(self.lengths[slot])
+        have = int(np.count_nonzero(self.block_tables[slot]))
+        boundary = length // self.page_size
+        boundary_shared = (
+            boundary < have
+            and self.refcount[self.block_tables[slot, boundary]] > 1)
+        cow, new_pages, want = self._write_need(length, have,
+                                                boundary_shared, n_tokens)
+        if want > self.max_blocks:
+            raise PoolExhaustedError(
+                f"request needs {want} pages > max_blocks "
+                f"{self.max_blocks} (max_seq_len too small)")
+        if cow + new_pages > len(self._free):
+            raise PoolExhaustedError(
+                f"KV pool exhausted: slot {slot} needs {cow + new_pages} "
+                f"more page(s), {len(self._free)} free of "
+                f"{self.num_pages - 1}")
+        if cow:
+            old = int(self.block_tables[slot, boundary])
+            new = self._alloc()
+            self._copy_page(old, new, keep_below=length)
+            self.block_tables[slot, boundary] = new
+            self._decref([old])
+        for b in range(have, want):
+            self.block_tables[slot, b] = self._alloc()
+
+    def commit_prefill(self, slot: int, n_tokens: int) -> None:
+        """Record that the request's first ``n_tokens`` TOKENS were written
+        by a prefill (pages were reserved at admission)."""
+        assert self.active[slot], f"slot {slot} is not active"
+        length = int(self.lengths[slot])
+        assert length <= n_tokens, \
+            f"slot {slot} already holds {length} > {n_tokens} tokens"
+        if self.pages_for(n_tokens) > int(
+                np.count_nonzero(self.block_tables[slot])):
+            self.reserve_write(slot, n_tokens - length)
+        self.lengths[slot] = n_tokens
+
+    def append(self, slot: int, n_tokens: int = 1) -> None:
+        """Account ``n_tokens`` TOKENS about to be written to ``slot``
+        (CoW and page growth as needed); raises ``PoolExhaustedError`` with
+        no state change when the pool is full."""
+        assert self.active[slot], f"slot {slot} is not active"
+        self.reserve_write(slot, n_tokens)
+        self.lengths[slot] = int(self.lengths[slot]) + n_tokens
+
+    def free(self, slot: int) -> None:
+        """Return a finished request's page references: pages it owned
+        alone are scrubbed and freed, shared ones survive."""
+        assert self.active[slot], f"slot {slot} is not active"
+        self._decref([int(p) for p in self.block_tables[slot]
+                      if p != TRASH_PAGE])
+        self.block_tables[slot] = TRASH_PAGE
+        self.lengths[slot] = 0
+        self.active[slot] = False
+
+    # ----------------------------------------------------------- device views
+
+    def device_caches(self, rows=None) -> list:
+        """One :class:`~repro_torch.models.layers.PagedKVCache` per layer,
+        views of the pool's tensors, with the CURRENT block tables of
+        ``rows`` (default: every slot row) uploaded once and shared by all
+        layers (asynchronously: no stream sync)."""
+        bt = self.block_tables if rows is None else self.block_tables[rows]
+        bt = to_device(bt, self.device)
+        return [PagedKVCache(self.k[i], self.v[i], self.k_scale[i],
+                             self.v_scale[i], self.pos[i], bt)
+                for i in range(self.num_layers)]
+
+    def gather_dense(self, slot: int) -> tuple:
+        """``slot``'s cache reassembled densely from its pages (tests):
+        (k_codes, k_scale, v_codes, v_scale, pos), each with a leading
+        layer axis: (L, K, nb·page, hd), (L, K, nb·page), …, (L, nb·page)."""
+        bt = torch.as_tensor(self.block_tables[slot], dtype=torch.long,
+                             device=self.device)
+
+        def g(leaf):  # (L, P, K, page, ...) → (L, K, nb·page, ...)
+            x = leaf[:, bt]  # (L, nb, K, page, ...) or (L, nb, page)
+            if leaf.dim() == 3:
+                return x.reshape(x.shape[0], -1)
+            x = x.movedim(2, 1)
+            return x.reshape(x.shape[0], x.shape[1], -1, *x.shape[4:])
+
+        return (g(self.k), g(self.k_scale), g(self.v), g(self.v_scale),
+                g(self.pos))
+
+    # ----------------------------------------------------------- accounting
+
+    def page_bytes(self) -> int:
+        """Device BYTES of ONE page across every layer."""
+        kh, hd, ps = self.kv_heads, self.head_dim, self.page_size
+        return (2 * kh * ps * hd + 2 * kh * ps * 4 + ps * 4) * self.num_layers
+
+    def page_bytes_in_use(self) -> int:
+        """Page-granular occupancy in BYTES (shared pages counted once)."""
+        return self.pages_in_use * self.page_bytes()
+
+    def eq2_bytes(self, qa_bits: int = 8) -> int:
+        """The paper's analytical B_kv in BYTES (Eq. 2, ``core.opsc.
+        kv_cache_bytes``) summed over resident requests at the pool's int8
+        width: the LOGICAL total, which counts a shared prefix once per
+        request that shares it."""
+        from repro_torch.core.opsc import kv_cache_bytes
+
+        total = 0
+        for slot in np.flatnonzero(self.active):
+            w = int(self.lengths[slot])
+            if w > 0:
+                total += kv_cache_bytes(w, self.num_layers, self.num_layers,
+                                        self.kv_heads * self.head_dim,
+                                        qa_bits, qa_bits)
+        return total
+
+    def occupancy(self) -> float:
+        """Fraction of allocatable pages in use (shared pages once)."""
+        return self.pages_in_use / max(1, self.num_pages - 1)
+
+    def gauges(self) -> dict:
+        """One consistent occupancy sample: page counts, occupancy and the
+        page bytes resident on the device."""
+        return {"pages_in_use": self.pages_in_use,
+                "pages_shared": self.pages_shared,
+                "pages_free": self.free_pages,
+                "occupancy": self.occupancy(),
+                "page_bytes_in_use": self.page_bytes_in_use()}

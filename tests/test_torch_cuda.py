@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the CUDA kernels against their
-plain versions, the wrappers' refusals on card tensors, and the engine on
-the card against the CPU. Without a card they skip. This file imports
-nothing of JAX, so it also runs where only the port is installed:
+plain versions, the wrappers' refusals on card tensors, and the engine and
+the paged scheduler on the card against the CPU. Without a card they skip.
+This file imports nothing of JAX, so it also runs where only the port is
+installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -13,9 +14,12 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_decode_attention as pda
+from repro_torch.kernels import paged_prefill_attention as ppa
 from repro_torch.models.transformer import RuntimeOpts
 from repro_torch.params import init_params
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.scheduler import Scheduler
 
 torch.set_num_threads(2)
 
@@ -90,3 +94,125 @@ def test_engine_on_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(got.tokens, want.tokens)
     np.testing.assert_allclose(got.logprobs, want.logprobs, rtol=1e-3,
                                atol=1e-3)
+
+
+def _pool(rng, device, p=24, kh=2, page=16, hd=64, lens=(40, 0, 9)):
+    """A pool holding ``lens[r]`` tokens for row r in pages taken in random
+    order (page 0 is trash); a row of 0 tokens has an all-trash table."""
+    order = rng.permutation(np.arange(1, p))
+    nb = max(1, max(-(-n // page) for n in lens))
+    bt = np.zeros((len(lens), nb), np.int32)
+    pool_pos = np.full((p, page), -1, np.int32)
+    nxt = 0
+    for r, n in enumerate(lens):
+        for b in range(-(-n // page)):
+            bt[r, b] = order[nxt]
+            nxt += 1
+        for t in range(n):
+            pool_pos[bt[r, t // page], t % page] = t
+    arrays = (rng.integers(-127, 128, (p, kh, page, hd)).astype(np.int8),
+              rng.uniform(1e-3, 2e-2, (p, kh, page)).astype(np.float32),
+              rng.integers(-127, 128, (p, kh, page, hd)).astype(np.int8),
+              rng.uniform(1e-3, 2e-2, (p, kh, page)).astype(np.float32),
+              pool_pos, bt)
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+def test_paged_decode_kernel_matches_plain_version(cuda_device, qdtype):
+    """K2 with G = 3 and page 16; row 1 is a free slot (all-trash table,
+    q_pos = -1) and gives exact zeros."""
+    rng = np.random.default_rng(11)
+    pool = _pool(rng, cuda_device)
+    q = torch.from_numpy(rng.normal(size=(3, 2, 3, 64)).astype(
+        np.float32)).to(cuda_device, getattr(torch, qdtype))
+    q_pos = torch.tensor([39, -1, 8], dtype=torch.int32, device=cuda_device)
+    before = pda.paged_decode_attention.launches
+    got = ops.paged_decode_attention(q, *pool, q_pos)
+    assert pda.paged_decode_attention.launches == before + 1
+    want = pda.paged_decode_attention_ref(q, *pool, q_pos)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    assert (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_prefill_kernel_matches_plain_version(cuda_device, dtype):
+    """K3 with G = 2, S = 40 (no multiple of a tile): a continuation row,
+    a fully padded row and a row with no history; pads give exact zeros."""
+    rng = np.random.default_rng(12)
+    rows = [(33, 40), None, (0, 17)]
+    pool = _pool(rng, cuda_device, lens=[0 if x is None else sum(x)
+                                         for x in rows])
+    s, dt = 40, getattr(torch, dtype)
+    q_pos = np.full((3, s), -1, np.int32)
+    for i, x in enumerate(rows):
+        if x is not None:
+            q_pos[i, s - x[1]:] = np.arange(x[0], x[0] + x[1])
+    q_pos = torch.from_numpy(q_pos).to(cuda_device)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda_device, dt)
+
+    q, kf, vf = rand(3, s, 2, 2, 64), rand(3, s, 2, 64), rand(3, s, 2, 64)
+    before = ppa.paged_prefill_attention.launches
+    got = ops.paged_prefill_attention(q, *pool, q_pos, kf, vf)
+    assert ppa.paged_prefill_attention.launches == before + 1
+    start = ppa.first_call_position(q_pos)
+    want = ppa.paged_prefill_attention_ref(q, *pool, q_pos, start, kf, vf)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    assert (got[q_pos < 0] == 0).all()
+
+
+def test_paged_kernels_refuse_bad_card_input(cuda_device):
+    rng = np.random.default_rng(13)
+    kc, ks, vc, vs, pool_pos, bt = _pool(rng, cuda_device)
+    q = torch.zeros((3, 2, 3, 64), device=cuda_device)
+    q_pos = torch.tensor([39, -1, 8], dtype=torch.int32, device=cuda_device)
+    before = pda.paged_decode_attention.launches
+    for args in ((q, kc, ks, vc, vs, pool_pos, bt.cpu(), q_pos),
+                 (q, kc, ks, vc, vs, pool_pos, bt, q_pos.cpu()),
+                 (q, kc, ks, vc, vs, pool_pos.long(), bt, q_pos),
+                 (q, kc[:, :, :3].contiguous(), ks, vc, vs, pool_pos, bt,
+                  q_pos)):
+        with pytest.raises(ValueError):
+            pda.paged_decode_attention(*args)
+    assert pda.paged_decode_attention.launches == before
+
+
+def test_paged_scheduler_on_card_matches_cpu(cuda_device):
+    """llama2-7b tiny through the Scheduler with chunked prefill and a
+    shared prefix: the card's greedy tokens equal the CPU's, and K2 and K3
+    run once per layer per decode step and per pool-attending chunk call."""
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, (10,))
+    prompts = [rng.integers(0, cfg.vocab_size, (18,))] + [
+        np.concatenate([prefix, rng.integers(0, cfg.vocab_size, (n,))])
+        for n in (3, 5)]
+
+    def serve(device):
+        sched = Scheduler(cfg, params, opts, num_pages=32, page_size=4,
+                          max_slots=2, prefill_chunk=4, device=device)
+        rids = [sched.submit(p, 6, prefix_key="sys" if i else None,
+                             prefix_len=10 if i == 1 else None)
+                for i, p in enumerate(prompts)]
+        res = sched.run()
+        return [res[r] for r in rids], sched.stats
+
+    want, _ = serve("cpu")
+    k2, k3 = (pda.paged_decode_attention.launches,
+              ppa.paged_prefill_attention.launches)
+    got, stats = serve(cuda_device)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert pda.paged_decode_attention.launches - k2 \
+        == cfg.num_layers * stats.steps
+    assert ppa.paged_prefill_attention.launches - k3 \
+        == cfg.num_layers * stats.shared_prefill_calls > 0
