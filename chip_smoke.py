@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                 # every phase, as a check of the port
-    python3 chip_smoke.py --phases env,kernels
+    python3 chip_smoke.py --phases env,kernels,packed
 
 Phases, each printing one JSON line:
 
@@ -28,7 +28,17 @@ Phases, each printing one JSON line:
            shared prefix and mid-stream admission, its streams held to the
            dense (fused) path in bf16 and, on f32 weights, closely; the
            counters are set to 0 just before the timed run and read just
-           after.
+           after;
+  packed   llama2-7b tiny through the packed Scheduler with lazy growth
+           and preemption on the CPU and on the card, then the paged
+           phase's ten requests through LLMServer(backend="paged",
+           tick_mode="packed") at full width: reserve admission (513
+           pages; the counters are set to 0 just before it and read just
+           after: K4 once per layer and packed tick, K1 to K3 never), its
+           streams on f32 weights held to the dense path, and lazy growth
+           on a pool that forces preemption, with swap and with refill
+           resume, each stream held to the reserve run's; then one packed
+           tick beside the chunked tick doing the same work.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -48,7 +58,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged")
+PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed")
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -472,10 +482,225 @@ def _kernel_k3(ctx) -> dict:
             "achieved_TFLOPs": flops / ms["kernel"] / 1e9}
 
 
+def _varlen_inputs(torch, rng, segs, kh, g, hd, page, nb, pad, dtype,
+                   device, order=None):
+    """K4's operands: slot i holds ``segs[i] = (history, fresh)`` tokens in
+    its pages (the call's own tokens too: the post-update convention) and
+    contributes ``fresh`` rows from position ``history`` to the flat batch,
+    in slot order or in ``order``; ``pad`` pad rows close it. A slot with
+    fresh 0 is absent from the call. Returns the operands of
+    ``kernels.ops.varlen_attention`` (q, pool leaves, block table, q_pos,
+    tok_slot, k_fresh, v_fresh)."""
+    import numpy as np
+
+    pool = _paged_pool(torch, rng, kh, hd, page, nb,
+                       [h + n for h, n in segs], device)
+    t = sum(n for _, n in segs) + pad
+    q_pos = np.full((t,), -1, np.int32)
+    tok_slot = np.full((t,), -1, np.int32)
+    cur = 0
+    for i in (range(len(segs)) if order is None else order):
+        h, n = segs[i]
+        q_pos[cur:cur + n] = np.arange(h, h + n)
+        tok_slot[cur:cur + n] = i
+        cur += n
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device, dtype)
+
+    return (rand(kh, t, g, hd), *pool, torch.from_numpy(q_pos).to(device),
+            torch.from_numpy(tok_slot).to(device), rand(kh, t, hd),
+            rand(kh, t, hd))
+
+
+# K4's main-path shape: the default packed tick of the packed phase (budget
+# 256 + 8 slots): six decode rows, a continuation chunk of 200 over 256
+# tokens of history, a first chunk of 50, eight pad rows
+VARLEN_MAIN = dict(
+    segs=[(1023, 1), (700, 1), (300, 1), (64, 1), (17, 1), (1, 1),
+          (256, 200), (0, 50)], kh=32, g=1, hd=128, page=16, nb=64, pad=8)
+
+
+def _kernel_k4(ctx) -> dict:
+    """K4 against its plain version at the packed tick's shape and on packs
+    of decode rows, prefill chunks and both, an all-pad buffer and a
+    shuffled slot layout, over G, hd, page and q's dtype; pad rows must be
+    exact zeros, a row's result must not change bit for bit when its
+    segment moves in the buffer, and a pure-decode pack whose fresh k/v are
+    the pool's own entries must equal K2. Then its time at the packed
+    tick's shape beside its bound, the plain version's and SDPA's over the
+    gathered, dequantized bf16 keys."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import varlen_attention as va
+
+    device = ctx["device"]
+    rng = np.random.default_rng(5)
+    mixes = {  # name: (segs, pad, order)
+        "pure_decode": ([(5, 1), (90, 1), (33, 1), (0, 0), (140, 1)], 3,
+                        None),
+        "pure_prefill": ([(0, 37), (48, 21), (0, 5), (130, 64)], 0, None),
+        "mixed": ([(90, 1), (57, 40), (0, 70), (7, 1), (0, 0), (33, 1)], 5,
+                  None),
+        "shuffled": ([(90, 1), (57, 40), (0, 70), (7, 1), (200, 3)], 2,
+                     (3, 0, 4, 2, 1)),
+        "all_pad": ([(40, 0), (12, 0)], 9, None),
+    }
+    grid = [  # (G, hd, page): every G, both head dims, every page size
+        (1, 128, 16), (2, 64, 16), (4, 128, 1), (8, 64, 64), (1, 64, 64),
+        (8, 128, 1)]
+    m = VARLEN_MAIN
+    cases = [("main_path", m["segs"], m["pad"], None, m["kh"], m["g"],
+              m["hd"], m["page"], m["nb"])]  # (name, ..., K, G, hd, page, nb)
+    cases += [(name, segs, pad, order, 2, g, hd, page,
+               max(1, max(-(-(h + n) // page) for h, n in segs)))
+              for name, (segs, pad, order) in mixes.items()
+              for g, hd, page in grid]
+    checks, worst = [], 0.0
+    for name, segs, pad, order, kh, g, hd, page, nb in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _varlen_inputs(torch, rng, segs, kh, g, hd, page, nb, pad,
+                                  dtype, device, order)
+            start = va.segment_start(args[7], args[8], len(segs))
+            full = (*args[:9], start, *args[9:])
+            got = va.varlen_attention(*full)
+            want = va.varlen_attention_ref(*full)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            zeros = bool((got[:, args[8] < 0] == 0).all())
+            ok = bool(torch.isfinite(got).all()) and err <= ATOL and zeros
+            checks.append({"mix": name, "K": kh, "G": g, "hd": hd,
+                           "page": page, "nb": nb, "dtype": str(dtype)[6:],
+                           "max_abs_err": err, "atol": ATOL,
+                           "pads_exact_zero": zeros, "ok": ok})
+            worst = max(worst, err)
+            if not ok:
+                emit({"phase": "kernels", "varlen_attention": checks})
+                raise SystemExit(f"varlen_attention disagrees: "
+                                 f"{checks[-1]}")
+
+    # a row's result must not depend on where its segment sits in the
+    # buffer: the same tokens laid out in another slot order give
+    # bit-identical rows (the packed tick's streams rest on it)
+    segs, order = mixes["shuffled"][0], mixes["shuffled"][2]
+    placement = {}
+    for g, page in ((1, 16), (2, 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = list(_varlen_inputs(torch, rng, segs, 2, g, 128, page,
+                                       -(-203 // page), 2, dtype, device))
+            sl = args[8]
+            perm = torch.cat([torch.nonzero(sl == i)[:, 0] for i in order]
+                             + [torch.nonzero(sl < 0)[:, 0]])
+            moved = list(args)
+            for i in (0, 9, 10):
+                moved[i] = args[i][:, perm].contiguous()
+            moved[7], moved[8] = args[7][perm], args[8][perm]
+            start = va.segment_start(args[7], args[8], len(segs))
+            got = va.varlen_attention(*args[:9], start, *args[9:])
+            got_m = va.varlen_attention(*moved[:9], start, *moved[9:])
+            torch.cuda.synchronize()
+            placement[f"G{g}_page{page}_{str(dtype)[6:]}"] = bool(
+                torch.equal(got_m, got[:, perm]))
+    if not all(placement.values()):
+        raise SystemExit(f"varlen_attention rows change with their "
+                         f"placement: {placement}")
+
+    # a pure-decode pack whose fresh k/v are the pool's dequantized self
+    # entries is K2's problem (tests/test_varlen_packed.py:118)
+    segs, page, nb, kh, g, hd = ([(5, 1), (90, 1), (33, 1), (140, 1)], 16,
+                                 10, 4, 2, 128)
+    q, kc, ks, vc, vs, pool_pos, bt, q_pos, tok_slot, kf, vf = \
+        _varlen_inputs(torch, rng, segs, kh, g, hd, page, nb, 0,
+                       torch.float32, device)
+    for t, (h, _) in enumerate(segs):
+        pg, off = int(bt[t, h // page]), h % page
+        kf[:, t] = kc[pg, :, off].float() * ks[pg, :, off, None]
+        vf[:, t] = vc[pg, :, off].float() * vs[pg, :, off, None]
+    start = va.segment_start(q_pos, tok_slot, len(segs))
+    got = va.varlen_attention(q, kc, ks, vc, vs, pool_pos, bt, q_pos,
+                              tok_slot, start, kf, vf)
+    want = pda.paged_decode_attention(q.transpose(0, 1).contiguous(), kc, ks,
+                                      vc, vs, pool_pos, bt, q_pos)
+    torch.cuda.synchronize()
+    k2_err = float((got.transpose(0, 1) - want).abs().max())
+    if not k2_err <= 1e-5:
+        raise SystemExit(f"varlen_attention differs from K2 on a pure-decode "
+                         f"pack by {k2_err}")
+
+    args = _varlen_inputs(torch, rng, m["segs"], m["kh"], m["g"], m["hd"],
+                          m["page"], m["nb"], m["pad"], torch.bfloat16,
+                          device)
+    q, kc, ks, vc, vs, pool_pos, bt, q_pos, tok_slot, kf, vf = args
+    r = len(m["segs"])
+    start = va.segment_start(q_pos, tok_slot, r)
+    full = (*args[:9], start, *args[9:])
+    # the library call is a yardstick only (the port never calls it): SDPA
+    # over every slot's history, gathered and dequantized to bf16, and the
+    # fresh keys, with the varlen mask
+    kh, t, hd = m["kh"], q.shape[1], m["hd"]
+    kd = (pda.gather_pages(kc, bt).float()
+          * pda.gather_pages(ks, bt)[..., None]).to(torch.bfloat16)
+    vd = (pda.gather_pages(vc, bt).float()
+          * pda.gather_pages(vs, bt)[..., None]).to(torch.bfloat16)
+    hist = pda.gather_pages(pool_pos, bt)  # (R, Sp)
+    sp = hist.shape[1]
+    ok_hist = (hist >= 0) & (hist < start[:, None])
+    own = tok_slot[:, None] == torch.arange(r, device=device)
+    fresh_ok = ((tok_slot[None, :] == tok_slot[:, None])
+                & (tok_slot[None, :] >= 0)
+                & (q_pos[None, :] <= q_pos[:, None]) & (q_pos[None, :] >= 0))
+    mask = torch.cat([(own[:, :, None] & ok_hist[None]).reshape(t, r * sp),
+                      fresh_ok], dim=1)
+    k_all = torch.cat([kd.transpose(0, 1).reshape(kh, r * sp, hd), kf],
+                      dim=1)[None]
+    v_all = torch.cat([vd.transpose(0, 1).reshape(kh, r * sp, hd), vf],
+                      dim=1)[None]
+    q_l = q[:, :, 0][None]  # G = 1: (1, K, T, hd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = ctx["timer"]({
+        "kernel": lambda: va.varlen_attention(*full),
+        "plain": lambda: va.varlen_attention_ref(*full),
+        "library": lambda: sdpa(q_l, k_all, v_all, attn_mask=mask)})
+    bw, f32_peak = peak_rates(ctx["device_name"])
+    # the history pages each slot must read (slots below its start), and
+    # 4·hd flops per valid (query, key) pair: a row sees its slot's
+    # history and its segment's fresh keys up to itself
+    pages, pairs = 0, 0
+    for h, n in m["segs"]:
+        if n:
+            pages += min(-(-h // m["page"]), m["nb"])
+            pairs += n * h + n * (n + 1) // 2
+    el = q.element_size()
+    nbytes = (q.numel() * el + kf.numel() * el * 2 + pages * (
+        kh * m["page"] * (2 * hd + 8) + m["page"] * 4) + bt.numel() * 4
+        + 2 * t * 4 + r * 4 + q.numel() * 4)
+    flops = 4 * hd * kh * m["g"] * pairs
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / f32_peak * 1e3
+    ctx["kernels"]["varlen_attention"] = {
+        "name": "varlen_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/varlen_attention.cu",
+        "replaces": "src/repro/kernels/varlen_attention.py:186",
+        "launches": None, "max_abs_err": worst, "ms": ms["kernel"],
+        "plain_ms": ms["plain"], "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": ms["library"]}
+    return {"checks": checks, "placement_bit_identical": placement,
+            "k2_pure_decode_max_abs_err": k2_err,
+            "main_shape": {k: v for k, v in m.items()}, "T": t,
+            "pages": pages, "pairs_per_head": pairs, "bytes": nbytes,
+            "flops": flops, "kernel_ms": ms["kernel"],
+            "plain_ms": ms["plain"], "library_ms": ms["library"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "achieved_TFLOPs": flops / ms["kernel"] / 1e9}
+
+
 def phase_kernels(ctx) -> None:
     emit({"phase": "kernels", "decode_attention": _kernel_k1(ctx),
           "paged_decode_attention": _kernel_k2(ctx),
-          "paged_prefill_attention": _kernel_k3(ctx)})
+          "paged_prefill_attention": _kernel_k3(ctx),
+          "varlen_attention": _kernel_k4(ctx)})
 
 
 def _greedy_stepwise(params, cfg, prompts, n, opts, cache_len, device):
@@ -878,13 +1103,46 @@ def _paged_tiny(ctx) -> dict:
             and sched.pool.pages_in_use == 0}
 
 
+# the paged and packed phases' traffic: ten requests, more than the eight
+# slots; prompt lengths and max_tokens per request
+TEN_LENS = [600, 264, 300, 128, 96, 64, 150, 700, 200, 80]
+TEN_MAX_TOKENS = [48, 40, 32, 64, 64, 32, 48, 32, 40, 56]
+SHARED_PREFIX = 200  # requests 1 and 2 share it (not page-aligned)
+
+
+def _ten_requests(cfg) -> tuple:
+    """The ten prompts (seed 4), ``sampling(i, stop)``, the request
+    options of prompt i (requests 1 and 2 share a 200-token prefix, 3
+    stops on the tokens ``stop``, 4 is seeded at temperature 0.8), and the
+    generator, for further draws."""
+    import numpy as np
+    from repro_torch.core.sampling import SamplingParams
+
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, cfg.vocab_size, (SHARED_PREFIX,))
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in TEN_LENS]
+    for i in (1, 2):
+        prompts[i][:SHARED_PREFIX] = shared
+
+    def sampling(i, stop):
+        kw = dict(max_tokens=TEN_MAX_TOKENS[i])
+        if i in (1, 2):
+            kw.update(prefix_key="shared", prefix_len=SHARED_PREFIX)
+        if i == 3:
+            kw.update(stop_token_ids=stop)
+        if i == 4:
+            kw.update(temperature=0.8, top_p=0.9, seed=7)
+        return SamplingParams(**kw)
+
+    return prompts, sampling, rng
+
+
 def phase_paged(ctx) -> None:
     import gc
 
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.sampling import SamplingParams
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import paged_prefill_attention as ppa
@@ -900,23 +1158,8 @@ def phase_paged(ctx) -> None:
     params, _ = _llama7b_params(ctx)
     pool_kw = dict(num_pages=513, page_size=16, max_slots=8,
                    max_seq_len=1024, device=device)
-    rng = np.random.default_rng(4)
-    shared = rng.integers(0, cfg.vocab_size, (200,))  # not page-aligned
-    lens = [600, 264, 300, 128, 96, 64, 150, 700, 200, 80]
-    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
-    for i in (1, 2):  # a pair sharing the 200-token prefix
-        prompts[i][:200] = shared
-    max_tokens = [48, 40, 32, 64, 64, 32, 48, 32, 40, 56]
-
-    def sampling(i, stop):
-        kw = dict(max_tokens=max_tokens[i])
-        if i in (1, 2):
-            kw.update(prefix_key="shared", prefix_len=200)
-        if i == 3:
-            kw.update(stop_token_ids=stop)
-        if i == 4:
-            kw.update(temperature=0.8, top_p=0.9, seed=7)
-        return SamplingParams(**kw)
+    lens, max_tokens = TEN_LENS, TEN_MAX_TOKENS
+    prompts, sampling, rng = _ten_requests(cfg)
 
     def serve(stop, record=False, weights=params):
         srv = LLMServer(cfg, weights, opts, backend="paged", **pool_kw)
@@ -1052,6 +1295,340 @@ def phase_paged(ctx) -> None:
         raise SystemExit(f"paged: failed checks {checks}")
 
 
+def _packed_tiny(ctx) -> dict:
+    """llama2-7b tiny through the packed Scheduler with lazy growth on a
+    pool small enough to preempt (swap resume), on the CPU (plain
+    versions) and on the card (kernel K4): the card's tokens must agree
+    with the CPU's under the margin rule of the CPU's logits."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.params import init_params
+    from repro_torch.serving.scheduler import Scheduler
+
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(0, cfg.vocab_size, (10,))
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (18, 9, 4)]
+    prompts += [np.concatenate([prefix, rng.integers(0, cfg.vocab_size,
+                                                     (n,))]) for n in (5, 3)]
+    max_new = [6, 5, 8, 4, 6]
+
+    def serve(device, record):
+        # 9 usable pages of 4 tokens for 2 slots: growth must preempt
+        sched = Scheduler(cfg, params, opts, num_pages=10, page_size=4,
+                          max_slots=2, prefill_chunk=4, tick_mode="packed",
+                          lazy_growth=True, device=device)
+        rec = _record_logits(sched) if record else None
+        rids = [sched.submit(p, n, prefix_key="sys" if i >= 3 else None,
+                             prefix_len=10 if i >= 3 else None,
+                             priority=i % 2)
+                for i, (p, n) in enumerate(zip(prompts, max_new))]
+        res = sched.run()
+        return ([res[r][len(p):] for r, p in zip(rids, prompts)],
+                [rec and np.stack(rec[r]) for r in rids], sched)
+
+    cpu, cpu_logits, cpu_sched = serve("cpu", True)
+    card, _, sched = serve(ctx["device"], False)
+    ok, compared = True, 0
+    for want, lg, got in zip(cpu, cpu_logits, card):
+        agree, c = _margin_agreement(got[None], want[None], lg[None],
+                                     MODEL_REL)
+        ok, compared = ok and agree, compared + c
+    preempt = [cpu_sched.stats.preemptions, sched.stats.preemptions]
+    reclaimed = sched.pool.pages_in_use == 0 and sched.pool.swap_bytes == 0
+    return {"requests": len(prompts), "tokens_compared": compared,
+            "card_equals_cpu": all(np.array_equal(a, b)
+                                   for a, b in zip(cpu, card)),
+            "preemptions_cpu_card": preempt,
+            "compiled_shapes": sched.stats.compiled_shapes,
+            "pool_reclaimed": reclaimed,
+            "ok": ok and min(preempt) >= 1 and reclaimed
+            and sched.stats.compiled_shapes == 1}
+
+
+def _record_pieces(sched) -> dict:
+    """Wrap ``sched``'s pool so that every prefill piece it commits is kept
+    per request: {rid: [(first token, end token), ...]} in order."""
+    pieces, orig = {}, sched.pool.commit_prefill
+
+    def commit(slot, n_tokens):
+        lo = int(sched.pool.lengths[slot])
+        pieces.setdefault(sched.slots[slot].req.rid, []).append(
+            (lo, int(n_tokens)))
+        orig(slot, n_tokens)
+
+    sched.pool.commit_prefill = commit
+    return pieces
+
+
+def _hold_streams(ref, run, greedy, tol) -> dict:
+    """The greedy streams of ``run`` against those of ``ref``, each a tuple
+    (outputs, logits by rid or None, prefill pieces by rid): per row
+    bit-identity (tokens and length) and the first position that differs,
+    and agreement under the margin rule of ``run``'s own logits at
+    ``tol``. A packed row's result depends on its own inputs only, so a row
+    whose prefill was cut into the same pieces in both runs (the fork's
+    creator's too) must be bit-identical: ``same_pieces_identical``."""
+    import numpy as np
+
+    (ref_outs, _, ref_pieces), (outs, rec, pieces) = ref, run
+    agree, compared, same, first_diff, same_pieces = True, 0, {}, {}, {}
+    for i in greedy:
+        a, b = ref_outs[i].tokens, outs[i].tokens
+        n = min(len(a), len(b))
+        same[i] = bool(np.array_equal(a, b))
+        diff = np.nonzero(a[:n] != b[:n])[0]
+        first_diff[i] = int(diff[0]) if diff.size else None
+        ok, c = _margin_agreement(b[None, :n], a[None, :n],
+                                  np.stack(rec[outs[i].rid])[None, :n], tol)
+        agree, compared = agree and ok, compared + c
+        rows = (1, 2) if i == 2 else (i,)  # the fork reads its creator's
+        same_pieces[i] = all(ref_pieces[ref_outs[j].rid]
+                             == pieces[outs[j].rid] for j in rows)
+    return {"agree": agree, "tokens_compared": compared,
+            "bit_identical": same, "first_difference": first_diff,
+            "same_pieces": same_pieces,
+            "same_pieces_identical": all(same[i] for i in greedy
+                                         if same_pieces[i])}
+
+
+def phase_packed(ctx) -> None:
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import varlen_attention as va
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.params import init_params
+    from repro_torch.serving.api import LLMServer
+    from repro_torch.serving.kv_pool import uniform_page_count
+    from repro_torch.serving.scheduler import Scheduler
+
+    tiny = _packed_tiny(ctx)
+    device = ctx["device"]
+    cfg = get_config("llama2-7b")  # full width and depth
+    opts = RuntimeOpts(quantized_kv=True)
+    params, _ = _llama7b_params(ctx)
+    page, slots = 16, 8
+    sched_kw = dict(page_size=page, max_slots=slots, max_seq_len=1024,
+                    prefill_chunk=256, tick_mode="packed", device=device)
+    lens, max_tokens = TEN_LENS, TEN_MAX_TOKENS
+    prompts, sampling, rng = _ten_requests(cfg)
+    greedy = [i for i in range(len(prompts)) if i != 4]
+
+    def serve(stop, num_pages=513, record=False, weights=params, **kw):
+        srv = LLMServer(cfg, weights, opts, backend="paged",
+                        num_pages=num_pages, **sched_kw, **kw)
+        sched = srv.backend.scheduler
+        rec = _record_logits(sched) if record else None
+        pieces = _record_pieces(sched)
+        rids = [srv.submit(p, sampling(i, stop))
+                for i, p in enumerate(prompts)]
+        outs = srv.run()
+        return [outs[r] for r in rids], sched, rec, pieces
+
+    # a first run (it also warms up) picks a stop token that will fire
+    first, first_sched, _, _ = serve(())
+    budget = first_sched.token_budget
+    del first_sched
+    gc.collect()
+    stop = int(first[3].tokens[10])
+    stop_at = list(first[3].tokens).index(stop) + 1
+
+    # the same traffic on f32 weights against the dense path fed the same
+    # tokens: rows prefilled in one piece to MODEL_REL, rows whose prefill
+    # reads int8 history (a later piece, or the fork of request 2) to
+    # HISTORY_REL, as in the paged phase
+    params32 = init_params(cfg, torch.Generator(device=device).manual_seed(
+        0), torch.float32, device)
+    first32, sched32, rec32, pieces32 = serve((), record=True,
+                                              weights=params32)
+    rid_row = {o.rid: i for i, o in enumerate(first32)}
+    history = {rid_row[r] for r, p in pieces32.items() if len(p) > 1} | {2}
+    del sched32
+    agree32, compared32, rel32, rel32_first = _against_dense(
+        params32, cfg, opts, prompts, first32, rec32,
+        {i: HISTORY_REL if i in history else MODEL_REL for i in greedy},
+        device)
+    del params32, first32, rec32
+    gc.collect()
+
+    # reserve admission, 513 pages: the main path's run
+    kernels = {"decode_attention": da.decode_attention,
+               "paged_decode_attention": pda.paged_decode_attention,
+               "paged_prefill_attention": ppa.paged_prefill_attention,
+               "varlen_attention": va.varlen_attention}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, sched, _, pieces = serve((stop,))
+    wall_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ctx["launches"]["varlen_attention"] = launches["varlen_attention"]
+    st = sched.stats
+
+    reasons = [o.finish_reason for o in outs]
+    lengths = [len(o.tokens) for o in outs]
+    want_lengths = list(max_tokens)
+    want_lengths[3] = stop_at
+    # every prompt token is prefilled once (the fork's shared prefix not at
+    # all), and every generated token but each request's first (it rides
+    # its last prefill row) and its last (never fed back) is a decode row
+    want_tokens = (sum(lens) - SHARED_PREFIX * st.prefix_forks
+                   + sum(lengths) - len(prompts))
+    checks = {
+        "tiny_card_equals_cpu_margin_rule": tiny["ok"],
+        "reasons": reasons == ["stop" if i == 3 else "length"
+                               for i in range(len(prompts))],
+        "lengths": lengths == want_lengths,
+        "pool_reclaimed": sched.pool.pages_in_use == 0
+        and not sched.pool.refcount.any(),
+        "compiled_shapes_1": st.compiled_shapes == 1,
+        "packed_tokens_exact": st.packed_tokens == want_tokens
+        and st.packed_tokens + st.packed_pad_tokens
+        == st.packed_ticks * budget,
+        "k4_launches": launches["varlen_attention"]
+        == cfg.num_layers * st.packed_ticks,
+        "k1_k2_k3_not_launched": launches["decode_attention"]
+        == launches["paged_decode_attention"]
+        == launches["paged_prefill_attention"] == 0,
+        "f32_greedy_equal_dense": agree32,
+        "f32_tokens_compared": compared32 >= F32_MIN_COMPARED,
+        "prefix_forks": st.prefix_forks >= 1,
+        "tokens_in_vocab": all(int(o.tokens.min()) >= 0 and int(
+            o.tokens.max()) < cfg.vocab_size for o in outs)}
+    reserve = {"num_pages": 513, "ticks": sched._tick,
+               "packed_ticks": st.packed_ticks,
+               "packed_tokens": st.packed_tokens,
+               "packed_pad_tokens": st.packed_pad_tokens,
+               "prefill_tokens": st.prefill_tokens,
+               "decode_rows": st.slot_ticks, "prefix_forks": st.prefix_forks,
+               "compiled_shapes": st.compiled_shapes,
+               "finish_reasons": reasons, "generated": lengths,
+               "launches": launches, "wall_s": wall_s,
+               "tokens_per_s": sum(lengths) / wall_s,
+               "ttft_ticks": [st.ttft_ticks[o.rid] for o in outs],
+               "peak_occupancy": st.peak_occupancy,
+               "max_memory_allocated": peak}
+    del sched
+    gc.collect()
+
+    # lazy growth on a pool between the first eight requests' admission
+    # pages (prompt + 1 token) and their worst case, the fork's shared
+    # full pages counted once: decode growth must preempt
+    shared = SHARED_PREFIX // page
+    lazy_pages = sum(uniform_page_count(n + 1, page)
+                     for n in lens[:slots]) - shared
+    worst_pages = sum(uniform_page_count(n + m, page) for n, m in
+                      zip(lens[:slots], max_tokens[:slots])) - shared
+    lazy_pool = 1 + lazy_pages + (worst_pages - lazy_pages) // 2
+    lazy = {"num_pages": lazy_pool, "admission_pages": lazy_pages,
+            "worst_case_pages": worst_pages}
+    for resume in ("swap", "refill"):
+        t0 = time.perf_counter()
+        outs_l, sched_l, rec_l, pieces_l = serve(
+            (stop,), num_pages=lazy_pool, record=True, lazy_growth=True,
+            resume=resume)
+        run_s = time.perf_counter() - t0
+        sl = sched_l.stats
+        held = _hold_streams((outs, None, pieces), (outs_l, rec_l, pieces_l),
+                             greedy, PAGED_REL)
+        lazy[resume] = {
+            "preemptions": sl.preemptions, "peak_swap_bytes":
+            sl.peak_swap_bytes, "swap_transfers": sched_l._swap.transfers,
+            "swap_bytes_moved": sched_l._swap.bytes_moved,
+            "swap_seconds": sched_l._swap.seconds, "ticks": sched_l._tick,
+            "compiled_shapes": sl.compiled_shapes, "wall_s": run_s,
+            "finish_reasons": [o.finish_reason for o in outs_l],
+            "generated": [len(o.tokens) for o in outs_l], **held}
+        checks[f"{resume}_preempted"] = sl.preemptions >= 1
+        checks[f"{resume}_pool_reclaimed"] = (
+            sched_l.pool.pages_in_use == 0
+            and not sched_l.pool.refcount.any()
+            and sched_l.pool.swap_bytes == 0)
+        checks[f"{resume}_streams_held_to_reserve"] = held["agree"]
+        checks[f"{resume}_same_pieces_bit_identical"] = \
+            held["same_pieces_identical"]
+        del sched_l, rec_l
+        gc.collect()
+
+    # one tick with seven slots decoding (128-token prompts) and the eighth
+    # in flight with a 256-token continuation chunk over 256 tokens of
+    # history, host included, packed (one K4 call per layer) beside chunked
+    # (a K3 chunk call and a K2 decode call per layer): before each tick
+    # the long prompt is set back to 256 written tokens, so every tick
+    # carries the same work
+    def armed(tick_mode):
+        sch = Scheduler(cfg, params, opts, num_pages=513,
+                        **dict(sched_kw, tick_mode=tick_mode))
+        for p in rng.integers(0, cfg.vocab_size, (slots - 1, 128)):
+            sch.submit(p, 200)
+        sch.submit(rng.integers(0, cfg.vocab_size, (1000,)), 8)
+        while any(s is None or (s.prefilling and s.req.rid < slots - 1)
+                  for s in sch.slots):
+            sch.step()
+        long = next(i for i, s in enumerate(sch.slots) if s.prefilling)
+        st_long = sch.slots[long]
+
+        def tick():
+            st_long.prefilled = 256
+            sch.pool.lengths[long] = 256
+            if tick_mode == "packed":
+                sch._packed_tick()
+            else:
+                sch._prefill_chunk_tick()
+                sch._decode_tick()
+        return sch, tick
+
+    sch_p, tick_p = armed("packed")
+    sch_c, tick_c = armed("chunked")
+    ms = ctx["timer"]({"packed": tick_p, "chunked": tick_c}, iters=20,
+                      device_only=False)
+    dev_p, top_p = _device_profile(torch, tick_p, 5)
+    dev_c, top_c = _device_profile(torch, tick_c, 5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        tick_p()
+    torch.cuda.synchronize()
+    tick_peak = torch.cuda.max_memory_allocated()
+    tick = {"packed_ms": ms["packed"], "chunked_ms": ms["chunked"],
+            "packed_device_ms": dev_p, "chunked_device_ms": dev_c,
+            "packed_idle_share": 1 - dev_p / ms["packed"],
+            "chunked_idle_share": 1 - dev_c / ms["chunked"],
+            "packed_top": top_p[:8], "chunked_top": top_c[:8],
+            "packed_live_rows": slots - 1 + 256, "token_budget": budget,
+            "packed_peak_memory_allocated": tick_peak}
+    del sch_p, sch_c, tick_p, tick_c
+    gc.collect()
+
+    emit({"phase": "packed", "tiny": tiny, "config": cfg.name,
+          "pool": {"page_size": page, "max_slots": slots,
+                   "max_seq_len": 1024, "prefill_chunk": 256,
+                   "token_budget": budget},
+          "prompt_lens": lens, "stop_token": stop, "reserve": reserve,
+          "f32": {"history_rows": sorted(history),
+                  "tol": {"one_piece": MODEL_REL, "history": HISTORY_REL},
+                  "tokens_compared": compared32,
+                  "max_rel_logit_err_vs_dense": rel32,
+                  "first_token_rel_err_vs_dense": rel32_first},
+          "lazy": lazy, "lazy_tol": PAGED_REL, "tick": tick,
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise SystemExit(f"packed: failed checks {checks}")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1083,7 +1660,8 @@ def main(argv=None) -> int:
            "timer": Timer(torch, device)}
     runners = {"env": phase_env, "kernels": phase_kernels,
                "model": phase_model, "vehicle": phase_vehicle,
-               "serve": phase_serve, "paged": phase_paged}
+               "serve": phase_serve, "paged": phase_paged,
+               "packed": phase_packed}
     for name in PHASES:
         if name in phases:
             runners[name](ctx)

@@ -7,6 +7,7 @@ from __future__ import annotations
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import paged_prefill_attention as _ppa
+from repro_torch.kernels import varlen_attention as _va
 
 
 def decode_attention(q, k_codes, k_scale, v_codes, v_scale, kv_pos, q_pos):
@@ -40,3 +41,18 @@ def paged_prefill_attention(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
         else _ppa.paged_prefill_attention
     return fn(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
               q_pos, start, k_fresh, v_fresh)
+
+
+def varlen_attention(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
+                     block_table, q_pos, tok_slot, start, k_fresh, v_fresh):
+    """Token-packed varlen attention through the paged pool, one flat batch
+    q (K, T, G, hd) → (K, T, G, hd) f32; see :mod:`repro_torch.kernels.
+    varlen_attention`. ``start`` is :func:`segment_start`'s, which the
+    packed step computes once per tick for all of its layers."""
+    fn = _va.varlen_attention_ref if q.device.type == "cpu" \
+        else _va.varlen_attention
+    return fn(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
+              q_pos, tok_slot, start, k_fresh, v_fresh)
+
+
+segment_start = _va.segment_start

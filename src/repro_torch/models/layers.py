@@ -2,7 +2,7 @@
 path): RMSNorm, rotary embeddings, the KV caches and their int8 writes,
 position-masked prefill attention, int8-KV decode attention through the
 CUDA kernels (dense and paged), prefill attention through the paged pool,
-the attention layer and the gated MLP.
+token-packed varlen attention, the attention layer and the gated MLP.
 
 Caches come in three layouts, as in the reference:
   * fp (bf16/f32): token-major (B, S, K, hd), read by ``chunked_attention``;
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -170,7 +171,8 @@ def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
 
 
 def paged_cache_update(cache: PagedKVCache, k_new: torch.Tensor,
-                       v_new: torch.Tensor, positions: torch.Tensor) -> None:
+                       v_new: torch.Tensor, positions: torch.Tensor,
+                       slots: torch.Tensor | None = None) -> None:
     """Scatter ``k_new``/``v_new`` (R, S_new, K, hd) into the shared pool IN
     PLACE (the reference returns a new pool).
 
@@ -181,13 +183,21 @@ def paged_cache_update(cache: PagedKVCache, k_new: torch.Tensor,
     the trash page 0, slot 0, with ``pos = -1``: those duplicate writes
     race, which is harmless because every one stores ``pos = -1``, and no
     valid token ever lands on page 0. Codes and scales are
-    :func:`_quantize_kv`'s, bit-identical to the reference's. The
-    ``slots=`` argument of the reference (the packed tick) is not ported."""
+    :func:`_quantize_kv`'s, bit-identical to the reference's.
+
+    ``slots`` (R, S_new) int32 switches to the SEGMENT-AWARE scatter of the
+    packed tick: each token's block-table row is its own slot id rather
+    than its batch row (the packed call's batch is one flat row whose
+    tokens span many requests); a token with slot -1 is a pad."""
     page = cache.page_size
     nbt = cache.block_table.shape[1]
     valid = (positions >= 0) & (positions < nbt * page)
     page_idx = torch.where(valid, positions // page, 0).long()
-    pages = torch.gather(cache.block_table, 1, page_idx)
+    if slots is None:
+        pages = torch.gather(cache.block_table, 1, page_idx)
+    else:
+        valid = valid & (slots >= 0)
+        pages = cache.block_table[slots.clamp(min=0).long(), page_idx]
     pages = torch.where(valid, pages, 0)
     valid = valid & (pages != 0)
     pr = pages.reshape(-1).long()
@@ -318,21 +328,92 @@ def paged_decode_attention_layer(q, cache: PagedKVCache, q_positions):
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
+class PackedLayout(NamedTuple):
+    """The layout of a packed step's flat buffer, built once per step by
+    :func:`packed_layout` and read by every layer."""
+
+    slots: torch.Tensor  # (1, T) int32: each token's slot, -1 for a pad
+    start: torch.Tensor  # (R,) int32: each slot's first in-call position
+    quant_rows: torch.Tensor | None  # (D,) int: rows whose fresh k/v
+    #                                  take the int8 round trip
+
+
+def packed_layout(positions: torch.Tensor, slots: torch.Tensor,
+                  num_slots: int, quant_rows=None) -> PackedLayout:
+    """A packed step's :class:`PackedLayout` from its (1, T) ``positions``
+    and ``slots`` over ``num_slots`` block-table rows (computed on their
+    device, no host sync) and the buffer rows ``quant_rows`` (D,) whose
+    fresh k/v a layer attends through the int8 round trip (None or empty:
+    none)."""
+    slots = slots.to(torch.int32)
+    return PackedLayout(slots, ops.segment_start(positions, slots,
+                                                 num_slots), quant_rows)
+
+
+def varlen_attention_layer(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
+                           q_positions, packed: PackedLayout):
+    """Token-packed VARLEN attention through the pool, the packed tick's
+    route: ONE flat batch (batch dim 1) whose tokens span many requests,
+    q (1, T, H, hd), per-token ``q_positions`` (1, T) and the buffer's
+    ``packed`` layout, the call's fresh k/v (1, T, K, hd). Each token
+    attends its own slot's pool history (stored positions below the slot's
+    first in-call position) and the causally ordered fresh keys of its own
+    segment; pad rows (slot -1) give exact zeros. ``cache`` is the
+    post-update pool. The operands go to ``kernels.ops.varlen_attention``
+    (the CUDA kernel on the card, its plain version on the CPU) as
+    (K, T, ...) views of the model's tensors, and the result comes back as
+    a view too: nothing is transposed in memory. Softcapped and windowed layers have no varlen route (the
+    reference refuses them too)."""
+    if spec.attn_softcap is not None or spec.sliding_window is not None:
+        raise NotImplementedError(
+            "the token-packed varlen path requires kernel-eligible "
+            "attention (no softcap, no sliding window)")
+    b, t, h, hd = q.shape
+    kh = cache.k.shape[1]
+    qk = q.reshape(t, kh, h // kh, hd).transpose(0, 1)  # (K, T, G, hd)
+    kf = k_fresh.reshape(t, kh, hd).transpose(0, 1)  # (K, T, hd)
+    vf = v_fresh.reshape(t, kh, hd).transpose(0, 1)
+    out = ops.varlen_attention(
+        qk, cache.k, cache.k_scale, cache.v, cache.v_scale, cache.pos,
+        cache.block_table, q_positions.reshape(-1).to(torch.int32),
+        packed.slots.reshape(-1), packed.start, kf, vf)
+    return out.transpose(0, 1).reshape(b, t, h, hd).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention layer and MLP
 # ---------------------------------------------------------------------------
 
 
+def _dequant_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``x`` (1, T, K, hd) with its ``rows`` replaced by their int8 round
+    trip (:func:`_quantize_kv`, then dequantized)."""
+    codes, scale = _quantize_kv(x[0].index_select(0, rows))
+    return x[0].index_copy(0, rows, (codes.float() * scale).to(x.dtype))[None]
+
+
 def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
                     cache: KVCache | PagedKVCache | None, pos, q_positions,
                     q_chunk: int = 1024, kv_chunk: int = 1024,
-                    decode: bool = False, attend_cache: bool = False):
+                    decode: bool = False, attend_cache: bool = False,
+                    packed: PackedLayout | None = None):
     """One attention layer (the reference's dense and paged branches).
     During prefill the cache is written and attention runs over the fresh
     k/v; with ``decode=True`` attention reads the cache. A paged cache is
     written at the per-token ``q_positions``; with ``attend_cache=True`` a
     paged prefill also attends the pool's history
-    (:func:`paged_prefill_attention`). Returns (output, cache)."""
+    (:func:`paged_prefill_attention`); with a ``packed`` layout the call
+    is one flat token-packed batch (B = 1), written through the
+    segment-aware scatter and attended through
+    :func:`varlen_attention_layer`.
+
+    The layout's ``quant_rows`` (the reference's ``quant_fresh`` mask, as
+    row indices) name rows whose fresh k/v are attended through the int8
+    quantize→dequantize round trip: the values the pool write just stored
+    for them, so a packed decode token attends its OWN key as a sequential
+    decode step reads it back from the pool. Only those rows are
+    quantized; the pool write always uses the original k/v. Returns
+    (output, cache)."""
     b, s, _ = x.shape
     h, kh, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     if spec.sliding_window is not None or spec.attn_softcap is not None \
@@ -347,8 +428,16 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     if isinstance(cache, PagedKVCache):
-        paged_cache_update(cache, k, v, q_positions)
-        if decode:
+        paged_cache_update(cache, k, v, q_positions,
+                           slots=None if packed is None else packed.slots)
+        if packed is not None:
+            k_att, v_att = k, v
+            rows = packed.quant_rows
+            if rows is not None and rows.numel():
+                k_att, v_att = (_dequant_rows(t, rows) for t in (k, v))
+            out = varlen_attention_layer(q, cache, k_att, v_att, spec,
+                                         q_positions, packed)
+        elif decode:
             out = paged_decode_attention_layer(q, cache, q_positions)
         elif attend_cache:
             out = paged_prefill_attention(q, cache, k, v, q_positions)

@@ -10,6 +10,8 @@ and, over the paged pool (``serving.kv_pool.PagedKVPool.device_caches``):
   paged_prefill(params, cfg, tokens, caches, positions, opts)
   paged_prefill_shared(params, cfg, tokens, caches, positions, opts)
   paged_decode_step(params, cfg, tokens, caches, pos, opts)
+  packed_step(params, cfg, tokens, caches, positions, slots, logit_rows,
+              opts, quant_rows)
 
 ``caches`` is a list with one ``KVCache`` (or ``PagedKVCache``) per layer,
 in depth order (the reference stacks them over blocks instead). Every entry
@@ -114,25 +116,29 @@ def apply_head(cfg: ArchConfig, params: dict, x: torch.Tensor):
 
 
 def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
-                 opts: RuntimeOpts, decode: bool, attend_cache: bool = False):
+                 opts: RuntimeOpts, decode: bool, attend_cache: bool = False,
+                 packed: L.PackedLayout | None = None):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     out, cache = L.attention_layer(
         p["mixer"], h, ls.mixer, rope_cs=rope_cs, cache=cache, pos=pos,
         q_positions=q_positions, q_chunk=opts.q_chunk,
-        kv_chunk=opts.kv_chunk, decode=decode, attend_cache=attend_cache)
+        kv_chunk=opts.kv_chunk, decode=decode, attend_cache=attend_cache,
+        packed=packed)
     x = x + out
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + L.mlp_layer(p["ffn"], h, ls.ffn.activation), cache
 
 
 def _apply_layers(cfg, params, x, caches, *, q_positions, pos,
-                  opts: RuntimeOpts, decode: bool, attend_cache: bool = False):
+                  opts: RuntimeOpts, decode: bool, attend_cache: bool = False,
+                  packed: L.PackedLayout | None = None):
     rope_cs = rope_tables(cfg, q_positions)
     for li, (ls, p) in enumerate(layer_params(cfg, params)):
         x, caches[li] = _apply_layer(cfg, ls, p, x, rope_cs=rope_cs,
                                      q_positions=q_positions,
                                      cache=caches[li], pos=pos, opts=opts,
-                                     decode=decode, attend_cache=attend_cache)
+                                     decode=decode, attend_cache=attend_cache,
+                                     packed=packed)
     return x
 
 
@@ -211,3 +217,38 @@ def paged_decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     f32, caches)."""
     return _paged_forward(params, cfg, tokens, caches, pos[:, None], opts,
                           decode=True)
+
+
+def packed_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                caches: list, positions: torch.Tensor, slots: torch.Tensor,
+                logit_rows: torch.Tensor, opts: RuntimeOpts = RuntimeOpts(),
+                quant_rows: torch.Tensor | None = None):
+    """ONE token-packed step over the paged pool: the whole scheduler tick,
+    every decoding slot's next token and up to a budget of prefill-chunk
+    tokens, as one flat batch.
+
+    ``tokens``/``positions``/``slots`` are (1, T): a fixed ``token_budget``
+    buffer laid out slot-major (each active slot one contiguous run, a
+    length-1 run for a decode token), tail-padded with ``positions =
+    slots = -1`` rows, whose writes go to the trash page and whose
+    attention gives exact zeros. Attention runs through kernel K4
+    (``layers.varlen_attention_layer``). ``logit_rows`` (R,) names the
+    buffer row holding each slot's LAST token (any row for an absent slot:
+    the scheduler never samples it); the head runs on those R rows only,
+    so the logits are (R, V) f32.
+
+    ``quant_rows`` (D,) int names the rows whose fresh self-keys are
+    attended through the int8 round trip (the reference's ``quant_fresh``
+    mask, as indices): the scheduler's decode rows, so they read their own
+    key as a sequential decode step reads it back from the pool. The
+    buffer's layout (each slot's first position, :func:`layers.
+    packed_layout`) is computed once here for every layer. Returns
+    (logits (R, V) f32, caches)."""
+    positions = positions.to(torch.int32)
+    x = embed_inputs(cfg, params, tokens)
+    packed = L.packed_layout(positions, slots, caches[0].block_table.shape[0],
+                             quant_rows)
+    x = _apply_layers(cfg, params, x, caches, q_positions=positions, pos=0,
+                      opts=opts, decode=False, packed=packed)
+    xl = x[0].index_select(0, logit_rows.long())  # (R, D)
+    return apply_head(cfg, params, xl), caches

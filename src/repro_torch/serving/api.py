@@ -10,7 +10,8 @@
 
 Of the reference's three backends the port has ``"paged"`` (the default:
 :class:`PagedBackend`, over the continuous-batching
-:class:`~repro_torch.serving.scheduler.Scheduler`) and ``"fused"``
+:class:`~repro_torch.serving.scheduler.Scheduler` with its packed, chunked
+and wave ticks and reserve or lazy admission) and ``"fused"``
 (:class:`FusedBackend`, over :class:`~repro_torch.serving.engine.Engine`);
 ``"split"`` raises ``NotImplementedError`` until its slice lands. Per
 request, token events
@@ -260,7 +261,9 @@ class PagedBackend(_RequestBook):
     pinned prefixes, as ``Scheduler.run`` does; ``release()`` also drops
     the scheduler's retained results. Keyword arguments reach the
     ``Scheduler`` (``num_pages=``, ``page_size=``, ``max_slots=``,
-    ``max_seq_len=``, ``prefill_chunk=``, ``tick_mode=``, ``device=``).
+    ``max_seq_len=``, ``prefill_chunk=``, ``tick_mode=`` with
+    ``"packed"``, ``"chunked"`` or ``"wave"``, ``token_budget=``,
+    ``lazy_growth=``, ``resume=``, ``preempt_cooldown=``, ``device=``).
     Of the reference's deployments only ``"fused"`` (one scheduler on one
     card) is ported."""
 
@@ -338,8 +341,9 @@ _NOT_PORTED = {"split": "the split backend is not ported yet (ROADMAP "
 
 class LLMServer:
     """The facade over a serving backend. ``backend`` is ``"paged"`` (the
-    default; extra keyword arguments, e.g. ``num_pages=``, ``max_slots=``
-    and ``device=``, reach :class:`PagedBackend`'s ``Scheduler``),
+    default; extra keyword arguments, e.g. ``num_pages=``, ``max_slots=``,
+    ``tick_mode="packed"``, ``lazy_growth=True`` and ``device=``, reach
+    :class:`PagedBackend`'s ``Scheduler``),
     ``"fused"`` (``cache_len=`` and ``device=`` reach :class:`FusedBackend`)
     or an already-built backend. ``"split"`` raises ``NotImplementedError``
     until its slice lands. ``telemetry`` accepts only None for now."""

@@ -34,8 +34,12 @@ copies a shared boundary page first (copy-on-write, positions at or past
 the writer's length scrubbed in the copy). A page reaching refcount 0 is
 scrubbed and freed; a double free is an assert.
 
-Not ported yet: ``truncate`` (speculation), ``export_slot`` /
-``restore_slot`` (preemption swap) and ``mesh=`` (sharded pools).
+Preemption swap: :meth:`PagedKVPool.export_slot` copies a slot's written
+pages to host memory and :meth:`PagedKVPool.restore_slot` writes them back
+into fresh pages, bit-identically; ``swap_bytes`` counts the host bytes
+the snapshots hold.
+
+Not ported yet: ``truncate`` (speculation) and ``mesh=`` (sharded pools).
 """
 
 from __future__ import annotations
@@ -143,6 +147,9 @@ class PagedKVPool:
                                      np.int32)
         self.lengths = np.zeros((max_requests,), np.int64)
         self.active = np.zeros((max_requests,), bool)
+        # host BYTES held by export_slot snapshots not yet restored or
+        # discarded (preemption swap)
+        self.swap_bytes = 0
 
     # ------------------------------------------------------------ allocator
 
@@ -373,6 +380,64 @@ class PagedKVPool:
         self.lengths[slot] = 0
         self.active[slot] = False
 
+    # ------------------------------------------------------ preemption swap
+
+    def export_slot(self, slot: int, n_tokens: int | None = None) -> dict:
+        """Host snapshot of ``slot``'s WRITTEN pages (the first
+        ``pages_for(n_tokens)`` table entries) for evict-to-queue
+        preemption: ``{"length": tokens, "data": (k, v, k_scale, v_scale,
+        pos)}``, CPU tensors with a leading layer axis and a page-run axis.
+        Read-only: the slot stays live until the caller frees it.
+        :meth:`restore_slot` puts it back bit-identically.
+
+        ``n_tokens`` (TOKENS, default the slot's accounted length) lets the
+        caller leave out positions it has appended but not yet written."""
+        assert self.active[slot], f"slot {slot} is not active"
+        n = int(self.lengths[slot]) if n_tokens is None else int(n_tokens)
+        assert 1 <= n <= int(self.lengths[slot]), \
+            f"cannot export {n} of slot {slot}'s {int(self.lengths[slot])}"
+        pages = [int(p) for p in self.block_tables[slot][:self.pages_for(n)]]
+        assert TRASH_PAGE not in pages, f"slot {slot} under-allocated"
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        data = tuple(leaf[:, idx].cpu() for leaf in
+                     (self.k, self.v, self.k_scale, self.v_scale, self.pos))
+        snapshot = {"length": n, "data": data}
+        self.swap_bytes += self.snapshot_bytes(snapshot)
+        return snapshot
+
+    @staticmethod
+    def snapshot_bytes(snapshot: dict) -> int:
+        """Host BYTES one :meth:`export_slot` snapshot holds."""
+        return sum(t.numel() * t.element_size() for t in snapshot["data"])
+
+    def discard_snapshot(self, snapshot: dict) -> None:
+        """Drop a snapshot that will never be restored (its request was
+        aborted while swapped out): releases its ``swap_bytes``."""
+        self.swap_bytes -= self.snapshot_bytes(snapshot)
+        assert self.swap_bytes >= 0, "snapshot discarded twice"
+
+    def restore_slot(self, snapshot: dict,
+                     reserve_tokens: int | None = None) -> int:
+        """Re-admit a preempted request from an :meth:`export_slot`
+        snapshot: allocates fresh pages (plus ``reserve_tokens`` of
+        headroom, in TOKENS) and writes the saved codes, scales and
+        positions back, so every later decoded token is bit-identical to
+        the run that was never preempted. Returns the new slot; raises
+        ``PoolExhaustedError`` (changing nothing) when the pool cannot hold
+        it yet."""
+        n = int(snapshot["length"])
+        slot = self.admit(n, reserve_tokens=reserve_tokens)
+        pages = [int(p) for p in self.block_tables[slot][:self.pages_for(n)]]
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        for leaf, saved in zip((self.k, self.v, self.k_scale, self.v_scale,
+                                self.pos), snapshot["data"]):
+            leaf[:, idx] = saved.to(self.device)
+        self.lengths[slot] = n
+        # the snapshot is consumed: its host bytes are no longer held
+        self.swap_bytes -= self.snapshot_bytes(snapshot)
+        assert self.swap_bytes >= 0, "snapshot restored twice"
+        return slot
+
     # ----------------------------------------------------------- device views
 
     def device_caches(self, rows=None) -> list:
@@ -435,10 +500,12 @@ class PagedKVPool:
         return self.pages_in_use / max(1, self.num_pages - 1)
 
     def gauges(self) -> dict:
-        """One consistent occupancy sample: page counts, occupancy and the
-        page bytes resident on the device."""
+        """One consistent occupancy sample: page counts, the host bytes of
+        swapped-out snapshots, occupancy and the page bytes resident on the
+        device."""
         return {"pages_in_use": self.pages_in_use,
                 "pages_shared": self.pages_shared,
                 "pages_free": self.free_pages,
+                "swap_bytes": self.swap_bytes,
                 "occupancy": self.occupancy(),
                 "page_bytes_in_use": self.page_bytes_in_use()}

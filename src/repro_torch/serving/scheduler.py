@@ -1,20 +1,32 @@
 """Continuous-batching scheduler over the paged KV pool, with explicit
-prefix sharing (port of ``repro/serving/scheduler.py``, the ``"chunked"``
-and ``"wave"`` ticks with reserve admission).
+prefix sharing, lazy page growth and preemption (port of
+``repro/serving/scheduler.py``: the ``"packed"``, ``"chunked"`` and
+``"wave"`` ticks, reserve and lazy admission, swap and refill resume).
 
 Requests of ragged prompt and generation lengths share one decode batch and
 one pool; a finished request's slot and pages go to the next queued request
 without draining the batch. Per request:
 
-  admit   — the queue head is admitted when a slot row and the pages of its
-            WORST case (prompt + max_new_tokens) are free, so a decode can
-            never meet an exhausted pool: the queue is the backpressure. A
-            request submitted with ``prefix_key=`` attaches to the shared
-            prefix: the first such request (the creator) prefills the whole
-            prompt and its prefix pages are pinned as a
-            ``kv_pool.SharedPrefix``; later requests FORK, their tables
-            aliasing the pinned pages, and prefill only their suffix;
-  prefill — ``tick_mode="chunked"`` (default): every prompt goes in fixed
+  admit   — the queue head is admitted when a slot row and its admission
+            pages are free. Reserve admission (default) takes the pages of
+            the WORST case (prompt + max_new_tokens), so a decode can never
+            meet an exhausted pool: the queue is the backpressure. Lazy
+            admission (``lazy_growth=True``) takes the prompt's pages and
+            one token of headroom; decode grows page by page and an
+            exhausted pool is resolved by PREEMPTION (below). A request
+            submitted with ``prefix_key=`` attaches to the shared prefix:
+            the first such request (the creator) prefills the whole prompt
+            and its prefix pages are pinned as a ``kv_pool.SharedPrefix``;
+            later requests FORK, their tables aliasing the pinned pages,
+            and prefill only their suffix;
+  tick    — ``tick_mode="packed"``: ONE call serves the whole tick. Every
+            decoding slot's next token and up to ``token_budget`` prefill-
+            chunk tokens ride in one flat ``(1, token_budget)`` buffer, each
+            slot one contiguous segment (a decode token is a length-1
+            segment), attended in one pass by kernel K4
+            (``transformer.packed_step``): one call shape, one dispatch per
+            tick, pad only in the buffer's tail.
+            ``"chunked"`` (default): every prompt goes in fixed
             ``prefill_chunk``-token pieces, and each tick advances every
             mid-prefill slot by one chunk through one fixed-shape
             ``(max_slots, chunk)`` call. First chunks attend only
@@ -22,10 +34,20 @@ without draining the batch. Per request:
             ``Engine``'s prefill); continuation chunks and forks also attend
             their pool history (``transformer.paged_prefill_shared``, kernel
             K3). ``"wave"``: the admitted group prefills raggedly in one
-            right-aligned call of a bucketed ``(R_adm, S_pad)`` shape;
-  decode  — every decoding slot steps together through one fixed
-            ``(max_slots, 1)`` ``paged_decode_step`` (kernel K2), each row at
-            its own position; free and mid-prefill rows ride along masked;
+            right-aligned call of a bucketed ``(R_adm, S_pad)`` shape. In
+            both, every decoding slot then steps together through one fixed
+            ``(max_slots, 1)`` ``paged_decode_step`` (kernel K2), each row
+            at its own position; free and mid-prefill rows ride along
+            masked;
+  preempt — (lazy) when a decoding slot's growth exhausts the pool, idle
+            pinned prefixes are released first; then the lowest-priority
+            (ties: most recently admitted) running request goes back to the
+            queue head with the tokens it generated, its pages freed. It
+            resumes by ``resume="swap"`` (default: its written pages were
+            copied to host memory and come back bit-identically,
+            ``page_transport.HostSwapTransport``) or ``"refill"`` (it
+            re-prefills prompt + generated tokens). A preempted request
+            waits ``preempt_cooldown`` extra ticks while others run;
   evict   — at ``max_tokens`` or a stop token the slot's page references go
             back to the pool.
 
@@ -37,9 +59,9 @@ wherever the two paths give it bit-identical logits (in f32 on the CPU; in
 bf16 on the card their logits differ and so may the draws). Each tick reads
 back only the sampled tokens and their logprobs, in one copy.
 
-Not ported yet, and refused with ``NotImplementedError``: lazy growth with
-preemption and swap, the packed tick, speculation, ``auto_prefix``,
-``mesh=`` and telemetry (ROADMAP queue 1, items 6, 7 and 9).
+Not ported yet, and refused with ``NotImplementedError``: speculation,
+``auto_prefix``, ``mesh=`` and telemetry (ROADMAP queue 1, items 6.3, 6.4,
+9 and 7).
 """
 
 from __future__ import annotations
@@ -55,11 +77,12 @@ from repro_torch.core.sampling import (SamplingParams, bias_rows,
                                        sample_tokens_with_logprobs,
                                        truncate_at_stop)
 from repro_torch.device import resolve_device, to_device
-from repro_torch.models.transformer import (RuntimeOpts, paged_decode_step,
-                                            paged_prefill,
+from repro_torch.models.transformer import (RuntimeOpts, packed_step,
+                                            paged_decode_step, paged_prefill,
                                             paged_prefill_shared)
 from repro_torch.serving.kv_pool import (DEFAULT_PAGE_SIZE, PagedKVPool,
                                          PoolExhaustedError)
+from repro_torch.serving.page_transport import HostSwapTransport
 
 # the adaptive-prefill ladder ``prefill_chunk="auto"`` expands to, picked
 # per tick by batch composition (Scheduler._pick_chunk)
@@ -69,9 +92,6 @@ AUTO_CHUNK_LADDER = (64, 128, 256)
 _GREEDY = SamplingParams()
 
 _NOT_PORTED = {
-    "lazy_growth": "lazy growth with preemption and swap (ROADMAP queue 1, "
-                   "item 6.4)",
-    "packed": "the packed tick and token_budget (ROADMAP queue 1, item 6.2)",
     "speculate_k": "speculative decoding (ROADMAP queue 1, item 6.3)",
     "auto_prefix": "auto_prefix (ROADMAP queue 1, item 6.4)",
     "mesh": "mesh= (ROADMAP queue 1, item 9)",
@@ -82,14 +102,36 @@ _NOT_PORTED = {
 @dataclasses.dataclass
 class Request:
     rid: int
-    prompt: np.ndarray  # (S,) int32
+    prompt: np.ndarray  # (S,) int32, the ORIGINAL prompt
     sampling: SamplingParams  # every per-request knob, stop set included
     prefix_key: object = None  # hashable; same key ⇒ shared prompt prefix
     submit_tick: int = 0  # scheduler tick at submission (TTFT in ticks)
+    # resume state of a preempted request: the tokens it generated (never
+    # sampled again) and, with swap resume, the host snapshot of its pages
+    generated: list = dataclasses.field(default_factory=list)
+    snapshot: dict | None = dataclasses.field(default=None, repr=False)
+    # anti-thrash backoff: not re-admitted before this tick while any
+    # other slot runs
+    cooldown_until: int = 0
 
     @property
     def max_new_tokens(self) -> int:
         return self.sampling.max_tokens
+
+    @property
+    def priority(self) -> int:
+        """Lower is preempted first."""
+        return self.sampling.priority
+
+    @property
+    def prefill_tokens(self) -> np.ndarray:
+        """TOKENS a (re-)prefill writes: the prompt and every generated
+        token already fed to the model (all but the last, which is the next
+        decode input)."""
+        if not self.generated:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt, np.asarray(self.generated[:-1], np.int32)])
 
 
 @dataclasses.dataclass
@@ -106,12 +148,13 @@ class _PrefixEntry:
 class _SlotState:
     req: Request
     generated: list
-    prefilled: int = 0  # prompt TOKENS already written to the pool
+    seq: int = 0  # admission sequence number (preemption tie-break)
+    prefilled: int = 0  # prompt/resume TOKENS already written to the pool
 
     @property
     def prefilling(self) -> bool:
         """More chunks to write before the slot decodes."""
-        return self.prefilled < len(self.req.prompt)
+        return self.prefilled < len(self.req.prefill_tokens)
 
     @property
     def done(self) -> bool:
@@ -123,22 +166,29 @@ class _SlotState:
 
 @dataclasses.dataclass
 class SchedulerStats:
-    steps: int = 0  # decode steps executed
-    prefills: int = 0  # prefill CALLS (waves, or per-tick chunk calls)
+    steps: int = 0  # decode steps executed (packed ticks with decode rows)
+    prefills: int = 0  # prefill CALLS (waves, per-tick chunk calls, or
+    #                    packed ticks carrying a prefill piece)
     shared_prefill_calls: int = 0  # of those, calls that attend the pool
     #                                (continuation chunks and forks: K3)
     prefill_chunks: int = 0  # per-slot chunks written (chunked mode)
-    admitted: int = 0
+    admitted: int = 0  # admissions, resumptions included
     evicted: int = 0  # completed requests
     aborted: int = 0
+    preemptions: int = 0  # evict-to-queue events (lazy growth)
     prefix_forks: int = 0  # admissions that attached to a shared prefix
     slot_ticks: int = 0  # Σ decoding slots over decode steps
     peak_occupancy: float = 0.0
     peak_pool_bytes: int = 0  # physical page bytes (shared pages once)
     peak_eq2_bytes: int = 0  # logical per-request Eq. 2 bytes
     peak_shared_pages: int = 0  # pages with refcount > 1
-    compiled_shapes: int = 0  # distinct step-call shapes (kind, R, S)
-    prefill_tokens: int = 0  # prompt TOKENS written by prefill calls
+    peak_swap_bytes: int = 0  # host bytes held by swapped-out snapshots
+    compiled_shapes: int = 0  # distinct step-call shapes (kind, R, S);
+    #                           exactly 1 for a packed run
+    packed_ticks: int = 0  # token-packed calls dispatched
+    packed_tokens: int = 0  # live tokens those calls carried
+    packed_pad_tokens: int = 0  # tail-pad rows they carried
+    prefill_tokens: int = 0  # prompt/resume TOKENS written by prefill calls
     # rid → ticks from submit to the first sampled token
     ttft_ticks: dict = dataclasses.field(default_factory=dict)
     # chunk size → ticks it was picked (adaptive prefill_chunk)
@@ -153,11 +203,21 @@ def _bucket(n: int) -> int:
 class Scheduler:
     """Continuous-batching front end over one shared ``PagedKVPool`` on
     ``device`` (``cuda`` unless the caller names another; raises with no
-    card). ``submit`` enqueues; ``step`` runs one admit → prefill → decode
-    → evict tick; ``run`` drains. ``prefill_chunk`` is a size, ``"auto"``
-    (:data:`AUTO_CHUNK_LADDER`) or a tuple of sizes, picked per tick: small
-    when decoding slots dominate or one hints
-    ``latency_hint="interactive"``, large when the batch is prefill-heavy.
+    card). ``submit`` enqueues; ``step`` runs one tick; ``run`` drains.
+    ``prefill_chunk`` is a size, ``"auto"`` (:data:`AUTO_CHUNK_LADDER`) or
+    a tuple of sizes, picked per tick: small when decoding slots dominate
+    or one hints ``latency_hint="interactive"``, large when the batch is
+    prefill-heavy.
+
+    ``tick_mode="packed"`` serves each tick in ONE token-packed call over a
+    flat ``(1, token_budget)`` buffer (see the module docstring);
+    ``token_budget`` defaults to ``prefill_chunk + max_slots`` (a chunk's
+    worth of prefill beside a full decode batch) and is raised to at least
+    ``max_slots + 1`` (every decoding slot a row, and one for prefill).
+    ``lazy_growth=True`` admits on current need and preempts on an
+    exhausted pool; ``resume`` ("swap" or "refill") says how a preempted
+    request comes back, and ``preempt_cooldown`` (ticks) how long it waits
+    while others run (0: re-admit at once).
 
     Not thread-safe: ``submit``, ``abort`` and ``step`` must run on one
     thread."""
@@ -166,18 +226,19 @@ class Scheduler:
                  opts: RuntimeOpts = RuntimeOpts(), *,
                  num_pages: int = 128, page_size: int = DEFAULT_PAGE_SIZE,
                  max_slots: int = 4, max_seq_len: int | None = None,
-                 lazy_growth: bool = False,
+                 lazy_growth: bool = False, resume: str = "swap",
                  prefill_chunk: int | str | tuple = 256,
-                 tick_mode: str = "chunked",
+                 preempt_cooldown: int = 1, tick_mode: str = "chunked",
                  token_budget: int | None = None, speculate_k: int = 0,
                  auto_prefix: bool = False, telemetry=None, mesh=None,
                  device=None):
         if tick_mode not in ("packed", "chunked", "wave"):
             raise ValueError(f"tick_mode must be 'packed', 'chunked' or "
                              f"'wave', got {tick_mode}")
-        refused = {"lazy_growth": lazy_growth,
-                   "packed": tick_mode == "packed" or token_budget is not None,
-                   "speculate_k": speculate_k > 0, "auto_prefix": auto_prefix,
+        if resume not in ("swap", "refill"):
+            raise ValueError(f"resume must be 'swap' or 'refill', got "
+                             f"{resume}")
+        refused = {"speculate_k": speculate_k > 0, "auto_prefix": auto_prefix,
                    "mesh": mesh is not None,
                    "telemetry": telemetry is not None}
         for name, on in refused.items():
@@ -201,11 +262,21 @@ class Scheduler:
                                 max_seq_len=max_seq_len, device=self.device)
         self.max_slots = max_slots
         self.tick_mode = tick_mode
+        self.lazy_growth = lazy_growth
+        self.resume = resume
+        self.preempt_cooldown = preempt_cooldown
         # no prompt exceeds the block table's reach, so no chunk need either
         reach = self.pool.max_blocks * page_size
         self._chunk_ladder = tuple(sorted({min(c, reach) for c in ladder}))
         self.prefill_chunk = self._chunk_ladder[-1]
+        if token_budget is None:
+            token_budget = self.prefill_chunk + max_slots
+        # every decoding slot needs a row, and prefill at least one
+        self.token_budget = max(int(token_budget), max_slots + 1)
+        # the preempt/resume page mover (bytes and host time accounted)
+        self._swap = HostSwapTransport()
         self._tick = 0
+        self._admit_seq = 0
         self._shapes: set = set()  # distinct step-call shapes dispatched
         self.queue: deque = deque()
         self.slots: list = [None] * max_slots
@@ -303,14 +374,18 @@ class Scheduler:
                           if k in live}
 
     def abort(self, rid: int) -> bool:
-        """Cancel a request wherever it is — queued, mid-prefill or
-        decoding. The partial result (prompt + tokens emitted so far) is
-        recorded with reason ``"abort"``; a live slot's pages return to
-        the pool now. False when the rid is unknown or already finished."""
+        """Cancel a request wherever it is — queued (swapped out too),
+        mid-prefill or decoding. The partial result (prompt + tokens
+        emitted so far) is recorded with reason ``"abort"``; a live slot's
+        pages return to the pool now (a swapped-out one's snapshot is
+        dropped). False when the rid is unknown or already finished."""
         for req in self.queue:
             if req.rid == rid:
+                if req.snapshot is not None:  # swapped out: drop its bytes
+                    self.pool.discard_snapshot(req.snapshot)
+                    req.snapshot = None
                 self.queue.remove(req)
-                self._finish_abort(req, [])
+                self._finish_abort(req, req.generated)
                 return True
         for i, st in enumerate(self.slots):
             if st is not None and st.req.rid == rid:
@@ -404,20 +479,33 @@ class Scheduler:
         self.stats.compiled_shapes = len(self._shapes)
 
     def _admission_target(self, req: Request) -> int:
-        """TOKENS the admission reserves: the request's worst-case final
+        """TOKENS the admission reserves. Reserve admission: the request's
+        worst-case final length. Lazy: its (re-)prefill length plus ONE
+        decode token of headroom (capped at the final written length), so
+        an admitted request decodes at least one token before it can be
+        preempted; a swap snapshot never holds more than that prefill
         length."""
-        return len(req.prompt) + req.max_new_tokens
+        final = len(req.prompt) + req.max_new_tokens
+        if not self.lazy_growth:
+            return final
+        # final - 1: the last sampled token is emitted, never written
+        return min(len(req.prefill_tokens) + 1, final - 1)
 
-    def _admit_wave(self) -> list:
+    def _admit_wave(self) -> tuple:
         """Admit queue heads while a slot row and their pages fit. FIFO: a
         head that does not fit blocks the queue; a head whose shared prefix
-        its creator is still writing waits, then forks. Returns the slots
-        admitted."""
-        admitted = []
+        its creator is still writing waits, then forks; a freshly preempted
+        head waits out its cooldown while any slot runs. A swapped-out head
+        comes back from its snapshot. Returns (slots needing a prefill,
+        slots restored from a snapshot)."""
+        admitted, restored = [], []
         while self.queue:
             req = self.queue[0]
+            if (req.cooldown_until > self._tick
+                    and any(st is not None for st in self.slots)):
+                break
             handle, entry = None, None
-            if req.prefix_key is not None:
+            if req.snapshot is None and req.prefix_key is not None:
                 entry = self._prefixes.get(req.prefix_key)
                 if entry is not None:
                     if entry.handle is not None:
@@ -427,19 +515,29 @@ class Scheduler:
             target = self._admission_target(req)
             if not self.pool.can_admit(target, prefix=handle):
                 break
-            slot = self.pool.admit(len(req.prompt), reserve_tokens=target,
-                                   prefix=handle)
-            if handle is not None:
-                self.stats.prefix_forks += 1
-            elif entry is not None:
-                entry.creator_rid = req.rid
-            admitted.append(slot)
+            if req.snapshot is not None:
+                slot = self._swap.swap_in(self.pool, req.snapshot,
+                                          reserve_tokens=target)
+                req.snapshot = None
+                restored.append(slot)
+            else:
+                slot = self.pool.admit(len(req.prefill_tokens),
+                                       reserve_tokens=target, prefix=handle)
+                if handle is not None:
+                    self.stats.prefix_forks += 1
+                elif entry is not None:
+                    entry.creator_rid = req.rid
+                admitted.append(slot)
             self.queue.popleft()
-            # tokens already resident: 0, or the shared prefix of a fork
+            # tokens already resident: 0, the shared prefix of a fork, or a
+            # restored snapshot (for a victim preempted mid-prefill, less
+            # than its prompt: it resumes chunking where it left off)
             self.slots[slot] = _SlotState(
-                req, [], prefilled=int(self.pool.lengths[slot]))
+                req, list(req.generated), self._admit_seq,
+                prefilled=int(self.pool.lengths[slot]))
+            self._admit_seq += 1
             self._set_ops(slot, req.sampling)
-        return admitted
+        return admitted, restored
 
     def _emit(self, st: _SlotState, token: int, logprob: float) -> None:
         st.generated.append(token)
@@ -448,6 +546,11 @@ class Scheduler:
 
     def _record_first_token(self, st: _SlotState, token: int,
                             logprob: float) -> None:
+        """Emit the slot's first sampled token and record its TTFT. A
+        resumed request keeps the tokens it emitted: its last one is the
+        next decode input, and this sample is dropped."""
+        if st.generated:
+            return
         self._emit(st, token, logprob)
         self.stats.ttft_ticks.setdefault(st.req.rid,
                                          self._tick - st.req.submit_tick)
@@ -482,7 +585,7 @@ class Scheduler:
         """One ragged right-aligned prefill over the admitted rows; the last
         column is every row's final prompt token → its first sampled token.
         Forked rows carry only their suffix and attend the shared pages."""
-        toks = [self.slots[s].req.prompt for s in admitted]
+        toks = [self.slots[s].req.prefill_tokens for s in admitted]
         starts = [int(self.pool.lengths[s]) for s in admitted]  # 0 or prefix
         lens = [t.size - st for t, st in zip(toks, starts)]
         s_pad = _bucket(max(lens))
@@ -552,11 +655,11 @@ class Scheduler:
             ends = {}
             for i in group:
                 st = self.slots[i]
-                prompt = st.req.prompt
-                lo, hi = st.prefilled, min(st.prefilled + c, prompt.size)
-                tokens[i, c - (hi - lo):] = prompt[lo:hi]
+                toks = st.req.prefill_tokens
+                lo, hi = st.prefilled, min(st.prefilled + c, toks.size)
+                tokens[i, c - (hi - lo):] = toks[lo:hi]
                 posn[i, c - (hi - lo):] = np.arange(lo, hi)
-                ends[i] = (hi, prompt.size)
+                ends[i] = (hi, toks.size)
             logits = self._prefill_call(kind, tokens, posn)
             # sample only when some row completes its prompt this call
             first, first_lp = self._sample(
@@ -590,12 +693,69 @@ class Scheduler:
             return True
         return False
 
+    def _preempt_one(self, requester: int) -> bool:
+        """Evict the lowest-priority (ties: most recently admitted) running
+        request to the queue head with its generated tokens, freeing its
+        pages for ``requester``'s growth; an idle pinned prefix goes first.
+        Refuses (False) when the requester is the only candidate: the pool
+        is then too small for it, and the caller fails loudly."""
+        if self._release_idle_prefix():
+            return True
+        cands = [(st.req.priority, -st.seq, i)
+                 for i, st in enumerate(self.slots) if st is not None]
+        if not cands:
+            return False
+        victim = min(cands)[2]
+        if victim == requester and len(cands) == 1:
+            return False
+        st = self.slots[victim]
+        st.req.generated = list(st.generated)
+        st.req.cooldown_until = self._tick + 1 + self.preempt_cooldown
+        # only positions WRITTEN: the last generated token is the next
+        # decode input, not yet in the pool; a victim still prefilling has
+        # written its chunks so far, and one admitted this tick nothing
+        written = (len(st.req.prompt) + len(st.generated) - 1
+                   if st.generated else st.prefilled)
+        if self.resume == "swap" and written:
+            st.req.snapshot = self._swap.swap_out(self.pool, victim,
+                                                  n_tokens=written)
+            self.stats.peak_swap_bytes = max(self.stats.peak_swap_bytes,
+                                             self.pool.swap_bytes)
+        entry = self._prefixes.get(st.req.prefix_key) \
+            if st.req.prefix_key is not None else None
+        if (st.req.snapshot is None and entry is not None
+                and entry.handle is None and entry.creator_rid == st.req.rid):
+            # a creator that comes back without its pages must not wait for
+            # itself: it (or a fork behind it) materializes the prefix anew
+            entry.creator_rid = None
+        self.pool.free(victim)
+        self.slots[victim] = None
+        self._set_ops(victim, _GREEDY)
+        self.queue.appendleft(st.req)
+        self.stats.preemptions += 1
+        return True
+
     def _grow_decode_slots(self) -> None:
-        """Account one token per decoding slot. Admission reserved every
-        request's worst case, so this never exhausts the pool."""
-        for i, st in enumerate(self.slots):
-            if st is not None and not st.prefilling:
-                self.pool.append(i, 1)
+        """Account one token per decoding slot. Reserve admission reserved
+        every request's worst case, so that never exhausts the pool; under
+        lazy growth a page-boundary growth that does is resolved by
+        preemption before the step runs (a victim's untaken step is simply
+        not taken: it resumes from the tokens it emitted)."""
+        for i in range(self.max_slots):
+            if self.slots[i] is None or self.slots[i].prefilling:
+                continue
+            while True:
+                try:
+                    self.pool.append(i, 1)
+                    break
+                except PoolExhaustedError:
+                    if not self._preempt_one(requester=i):
+                        raise PoolExhaustedError(
+                            f"request {self.slots[i].req.rid} cannot grow: "
+                            f"the pool's {self.pool.num_pages - 1} page(s) "
+                            f"cannot hold its worst case even alone")
+                    if self.slots[i] is None:
+                        break  # it was the victim: no step for it
 
     def _decode_tick(self) -> None:
         """One ragged decode step over EVERY slot row (one call shape);
@@ -603,6 +763,8 @@ class Scheduler:
         self._grow_decode_slots()
         active = [i for i, st in enumerate(self.slots)
                   if st is not None and not st.prefilling]
+        if not active:
+            return
         self._register_shape("decode", self.max_slots, 1)
         tokens = np.zeros((self.max_slots, 1), np.int32)
         pos = np.full((self.max_slots,), -1, np.int32)
@@ -623,6 +785,85 @@ class Scheduler:
             self._emit(self.slots[i], int(nxt[i]), float(lps[i]))
         self.stats.steps += 1
         self.stats.slot_ticks += len(active)
+
+    def _packed_tick(self) -> bool:
+        """ONE token-packed call for the whole tick: every decoding slot's
+        next-token row and, up to the remaining budget, every mid-prefill
+        slot's next piece, laid out slot-major as contiguous segments of a
+        fixed ``(1, token_budget)`` buffer (tail rows carry position and
+        slot -1). Decode rows are never cut and are named in ``quant_rows``
+        (the reference's ``quant_fresh``), so they attend their own key as
+        a sequential decode step reads it from the pool. The call gathers each slot's LAST row into (R, V) logits,
+        sampled with the per-slot operands in one readback. Returns whether
+        anything was dispatched."""
+        self._grow_decode_slots()
+        t_budget = self.token_budget
+        tokens = np.zeros((1, t_budget), np.int32)
+        posn = np.full((1, t_budget), -1, np.int32)
+        slot_ids = np.full((1, t_budget), -1, np.int32)
+        logit_rows = np.zeros((self.max_slots,), np.int32)
+        t_idx = np.zeros((self.max_slots,), np.int32)
+        decode_rows = [i for i, st in enumerate(self.slots)
+                       if st is not None and not st.prefilling]
+        budget = t_budget - len(decode_rows)
+        cap = self._pick_chunk() if any(
+            st is not None and st.prefilling for st in self.slots) else 0
+        cur = 0
+        pieces = {}  # slot → (lo, hi, total) prefill piece taken this tick
+        for i, st in enumerate(self.slots):
+            if st is None:
+                continue
+            if not st.prefilling:
+                tokens[0, cur] = st.generated[-1]
+                posn[0, cur] = int(self.pool.lengths[i]) - 1
+                slot_ids[0, cur] = i
+                logit_rows[i] = cur
+                t_idx[i] = len(st.generated)
+                cur += 1
+            elif budget > 0:
+                toks = st.req.prefill_tokens
+                lo = st.prefilled
+                hi = min(lo + min(cap, budget), toks.size)
+                n = hi - lo
+                tokens[0, cur:cur + n] = toks[lo:hi]
+                posn[0, cur:cur + n] = np.arange(lo, hi)
+                slot_ids[0, cur:cur + n] = i
+                logit_rows[i] = cur + n - 1
+                pieces[i] = (lo, hi, toks.size)
+                budget -= n
+                cur += n
+        if cur == 0:
+            return False
+        self._register_shape("packed", self.max_slots, t_budget)
+        dev = self.device
+        with torch.inference_mode():
+            logits, _ = packed_step(
+                self.params, self.cfg, to_device(tokens, dev),
+                self.pool.device_caches(), to_device(posn, dev),
+                to_device(slot_ids, dev), to_device(logit_rows, dev),
+                self.opts, quant_rows=to_device(
+                    logit_rows[decode_rows].astype(np.int64), dev))
+        nxt, lps = self._sample(logits, t_idx)
+        for i, (lo, hi, total) in pieces.items():
+            st = self.slots[i]
+            self.pool.commit_prefill(i, hi)
+            st.prefilled = hi
+            self.stats.prefill_chunks += 1
+            self.stats.prefill_tokens += hi - lo
+            self._maybe_pin_prefix(st, i)
+            if hi == total:  # prompt complete → first token
+                self._record_first_token(st, int(nxt[i]), float(lps[i]))
+        for i in decode_rows:
+            self._emit(self.slots[i], int(nxt[i]), float(lps[i]))
+        self.stats.packed_ticks += 1
+        self.stats.packed_tokens += cur
+        self.stats.packed_pad_tokens += t_budget - cur
+        if pieces:
+            self.stats.prefills += 1
+        if decode_rows:
+            self.stats.steps += 1
+            self.stats.slot_ticks += len(decode_rows)
+        return True
 
     def _evict_finished(self) -> None:
         for i, st in enumerate(self.slots):
@@ -659,17 +900,32 @@ class Scheduler:
             return
         req = self.queue[0]
         need = self.pool.pages_for(self._admission_target(req))
+        kind = "for admission" if self.lazy_growth else "worst-case"
         raise PoolExhaustedError(
-            f"request {req.rid} needs {need} pages worst-case but the "
+            f"request {req.rid} needs {need} pages {kind} but the "
             f"whole pool has {self.pool.num_pages - 1} (max_blocks "
             f"{self.pool.max_blocks}); it can never be admitted")
 
     def step(self) -> bool:
-        """One tick: admit, advance prefill (one chunk per mid-prefill slot,
-        or the whole wave), evict what finished on its first token, decode
-        the ragged batch, evict. Returns whether work remains."""
+        """One tick. Packed: admit, then ONE token-packed call carrying
+        every decode token and up to a budget of prefill tokens, then
+        evict. Chunked and wave: admit, advance prefill (one chunk per
+        mid-prefill slot, or the whole wave), evict what finished on its
+        first token, decode the ragged batch, evict. Returns whether work
+        remains."""
         self._tick += 1
-        admitted = self._admit_wave()
+        admitted, restored = self._admit_wave()
+        self.stats.admitted += len(restored)
+        if self.tick_mode == "packed":
+            self.stats.admitted += len(admitted)
+            did = self._packed_tick()
+            if did or restored:
+                self._track_occupancy()
+                self._evict_finished()
+            elif (not admitted and self.queue
+                  and all(st is None for st in self.slots)):
+                self._fail_stuck_queue()
+            return self.pending
         if self.tick_mode == "wave":
             # fresh and forked rows prefill separately: only forks pay the
             # pool-history walk
@@ -681,14 +937,14 @@ class Scheduler:
         else:
             self.stats.admitted += len(admitted)
             did_prefill = self._prefill_chunk_tick()
-        if did_prefill:
+        if did_prefill or restored:
             self._track_occupancy()
             self._evict_finished()  # max_tokens == 1 finishes here
         if any(st is not None and not st.prefilling for st in self.slots):
             self._decode_tick()
             self._track_occupancy()
             self._evict_finished()
-        elif (not admitted and self.queue
+        elif (not admitted and not restored and self.queue
               and all(st is None for st in self.slots)):
             self._fail_stuck_queue()
         return self.pending

@@ -16,6 +16,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import paged_prefill_attention as ppa
+from repro_torch.kernels import varlen_attention as va
 from repro_torch.models.transformer import RuntimeOpts
 from repro_torch.params import init_params
 from repro_torch.serving.engine import Engine
@@ -216,3 +217,118 @@ def test_paged_scheduler_on_card_matches_cpu(cuda_device):
         == cfg.num_layers * stats.steps
     assert ppa.paged_prefill_attention.launches - k3 \
         == cfg.num_layers * stats.shared_prefill_calls > 0
+
+
+def _varlen(rng, device, segs, pad, dtype, kh=2, g=2, hd=64, page=16):
+    """K4's operands: slot i holds ``segs[i] = (history, fresh)`` tokens in
+    its pages and contributes ``fresh`` rows of the flat batch from
+    position ``history``; ``pad`` pad rows close it."""
+    pool = _pool(rng, device, p=40, kh=kh, page=page, hd=hd,
+                 lens=[h + n for h, n in segs])
+    t = sum(n for _, n in segs) + pad
+    q_pos = np.full((t,), -1, np.int32)
+    tok_slot = np.full((t,), -1, np.int32)
+    cur = 0
+    for i, (h, n) in enumerate(segs):
+        q_pos[cur:cur + n] = np.arange(h, h + n)
+        tok_slot[cur:cur + n] = i
+        cur += n
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device, dtype)
+
+    return (rand(kh, t, g, hd), *pool, torch.from_numpy(q_pos).to(device),
+            torch.from_numpy(tok_slot).to(device), rand(kh, t, hd),
+            rand(kh, t, hd))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("segs,pad", [
+    ([(90, 1), (57, 40), (0, 70), (7, 1)], 5),  # decode rows and chunks
+    ([(5, 1), (30, 1), (0, 0), (64, 1)], 3),  # pure decode, a slot absent
+    ([(3, 0), (4, 0)], 6),  # an all-pad buffer
+])
+def test_varlen_kernel_matches_plain_version(cuda_device, dtype, segs, pad):
+    """K4 (through ``kernels.ops``) against its plain version at 1e-4, G =
+    2, page 16; pad rows give exact zeros."""
+    rng = np.random.default_rng(14)
+    args = _varlen(rng, cuda_device, segs, pad, getattr(torch, dtype))
+    start = ops.segment_start(args[7], args[8], len(segs))
+    before = va.varlen_attention.launches
+    got = ops.varlen_attention(*args[:9], start, *args[9:])
+    assert va.varlen_attention.launches == before + 1
+    want = va.varlen_attention_ref(*args[:9], start, *args[9:])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    assert (got[:, args[8] < 0] == 0).all()
+
+
+def test_varlen_kernel_reads_transposed_views(cuda_device):
+    """The model hands K4 (K, T, ...) views of its (T, K, ...) tensors: the
+    result equals the kernel's on contiguous copies, laid out as q is."""
+    rng = np.random.default_rng(15)
+    args = list(_varlen(rng, cuda_device, [(20, 3), (0, 9)], 4,
+                        torch.float32))
+    start = va.segment_start(args[7], args[8], 2)
+    want = va.varlen_attention(*args[:9], start, *args[9:])
+    for i in (0, 9, 10):
+        args[i] = args[i].transpose(0, 1).contiguous().transpose(0, 1)
+    got = va.varlen_attention(*args[:9], start, *args[9:])
+    assert got.stride() == args[0].stride()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_packed_scheduler_on_card_matches_cpu(cuda_device):
+    """llama2-7b tiny through the packed Scheduler with lazy growth and
+    swap preemption: the card's greedy tokens equal the CPU's, and K4 runs
+    once per layer per packed tick (K2 and K3 never)."""
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(29)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (5, 24)]
+
+    def serve(device):
+        sched = Scheduler(cfg, params, opts, num_pages=10, page_size=4,
+                          max_slots=2, prefill_chunk=4, lazy_growth=True,
+                          tick_mode="packed", device=device)
+        rids = [sched.submit(p, n, priority=pr)
+                for p, n, pr in zip(prompts, (10, 3), (1, 0))]
+        res = sched.run()
+        return [res[r] for r in rids], sched.stats
+
+    want, _ = serve("cpu")
+    k2, k3, k4 = (pda.paged_decode_attention.launches,
+                  ppa.paged_prefill_attention.launches,
+                  va.varlen_attention.launches)
+    got, stats = serve(cuda_device)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert stats.preemptions >= 1
+    assert va.varlen_attention.launches - k4 \
+        == cfg.num_layers * stats.packed_ticks
+    assert (pda.paged_decode_attention.launches,
+            ppa.paged_prefill_attention.launches) == (k2, k3)
+
+
+def test_varlen_kernel_rows_do_not_depend_on_placement(cuda_device):
+    """The same tokens laid out in another slot order give bit-identical
+    rows: which fresh keys share a tile depends on the segment alone."""
+    rng = np.random.default_rng(16)
+    segs = [(90, 1), (57, 40), (0, 70), (7, 1)]
+    args = list(_varlen(rng, cuda_device, segs, 3, torch.float32))
+    sl = args[8]
+    perm = torch.cat([torch.nonzero(sl == i)[:, 0] for i in (2, 0, 3, 1)]
+                     + [torch.nonzero(sl < 0)[:, 0]])
+    moved = list(args)
+    for i in (0, 9, 10):
+        moved[i] = args[i][:, perm].contiguous()
+    moved[7], moved[8] = args[7][perm], args[8][perm]
+    start = ops.segment_start(args[7], args[8], len(segs))
+    got = ops.varlen_attention(*args[:9], start, *args[9:])
+    got_moved = ops.varlen_attention(*moved[:9], start, *moved[9:])
+    torch.cuda.synchronize()
+    assert torch.equal(got_moved, got[:, perm])
