@@ -38,7 +38,17 @@ Phases, each printing one JSON line:
            streams on f32 weights held to the dense path, and lazy growth
            on a pool that forces preemption, with swap and with refill
            resume, each stream held to the reserve run's; then one packed
-           tick beside the chunked tick doing the same work.
+           tick beside the chunked tick doing the same work;
+  split    llama2-7b tiny through the split engine on the CPU and on the
+           card, then llama2-7b at full width answering four requests
+           through LLMServer(backend="split") with the paper's OPSC
+           defaults at ℓ = 8 (edge blocks as int4 codes through K7, TS +
+           TAB-Q payloads through K6 and K5, int8 KV through K1): the
+           counters are set to 0 just before that run and read just after;
+           its payloads held to the plain versions'; a full-precision,
+           uncompressed split held to the Engine bit for bit; a paged cloud
+           with a shared prefix and the stateless I_kv = 0 cloud held to the
+           dense cloud; one decode step timed by stage.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -58,7 +68,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed")
+PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed",
+          "split")
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -176,6 +187,8 @@ def _kernel_k1(ctx) -> dict:
     gen = torch.Generator(device=device).manual_seed(0)
     shapes = [  # (B, K, G, hd, S, fill, per-row q_pos or None)
         (4, 32, 1, 128, 1024, 1024, None),  # main path
+        (1, 32, 1, 128, 1024, 160, None),  # split: one request (96-160)
+        (4, 32, 1, 128, 1024, 111, None),  # split: four 96-token rows
         (4, 32, 1, 128, 4096, 200, None),  # long cache, 200 slots filled
         (2, 2, 2, 32, 96, 50, None),  # llama2-7b tiny
         (2, 2, 6, 64, 600, 450, None),  # G = 6, S not a multiple of 512
@@ -284,6 +297,7 @@ def _kernel_k2(ctx) -> dict:
     serve = (8, 32, 1, 128, 16, 64, [1024, 700, 301, 64, 17, 1, 0, 500])
     shapes = [  # (R, K, G, hd, page, nb, tokens per row; 0 = free slot)
         serve,
+        (4, 32, 1, 128, 16, 64, [111, 104, 97, 100]),  # split's cloud
         (3, 2, 2, 32, 4, 8, [20, 7, 0]),  # llama2-7b tiny
         (2, 2, 6, 64, 16, 10, [150, 33]),  # G = 6
         (2, 4, 3, 256, 8, 12, [90, 5]),  # hd 256, ragged G
@@ -396,6 +410,8 @@ def _kernel_k3(ctx) -> dict:
               None])  # two continuation chunks, one fork, five pads
     shapes = [  # (R, S, K, G, hd, page, nb, rows)
         serve,
+        # the split's shared-prefix prefill: rows 1+ read row 0's prefix
+        (4, 96, 32, 1, 128, 16, 64, [(0, 96), (64, 32), (64, 32), (64, 32)]),
         (3, 8, 2, 2, 32, 4, 8, [(9, 5), (0, 6), (13, 8)]),  # tiny
         (2, 40, 2, 6, 64, 16, 8, [(33, 40), (0, 17)]),  # G = 6
         (2, 50, 4, 3, 256, 8, 16, [(70, 50), (5, 31)]),  # hd 256, S = 50
@@ -696,11 +712,221 @@ def _kernel_k4(ctx) -> dict:
             "achieved_TFLOPs": flops / ms["kernel"] / 1e9}
 
 
+# the bf16 tensor cores' dense peak of an H100 SXM (NVIDIA's data sheet, at
+# the full power limit): int8 weight codes are exact in bf16, so K7's
+# products are work the tensor cores could do at this rate
+BF16_PEAK = 989e12
+# K7 against its plain version: f32 sums in another order, bounded by a
+# multiple of the largest possible sum of term magnitudes, |x| @ |codes|
+# times the scale (a dropped row of codes moves a result by about 1/K of
+# it: 9e-5 at K = 11008)
+K7_REL = 1e-5
+# the decode payload, K5's and K6's main-path input: one token's f32
+# split-layer hidden state of llama2-7b; and the shapes they are checked at
+PAYLOAD_SHAPE = (1, 4096)
+K5_K6_CHECKS = dict(t=(1, 7, 96, 128, 600), d=(64, 4096))
+K5_K6_CODEC = (128, 4096)  # a 128-token prefill payload
+# K7's checks (M, K, N): llama2-7b's edge products at the split phase's
+# decode (M = 1, 4) and prefill (96, 128, and 384 = 4 x 96) sizes and at
+# 600, then ragged ones; its timed decode product (w_up's) and the prefill
+# M it is also timed at
+K7_CHECKS = [(m, k, n) for m in (1, 4, 96, 128, 384, 600)
+             for k, n in ((4096, 4096), (4096, 11008), (11008, 4096))] + [
+    (3, 100, 17), (70, 130, 50), (5, 1000, 33), (1, 1, 1), (2, 11008, 8)]
+K7_MAIN = (1, 4096, 11008)
+# K7's device functions (csrc/dequant_matmul.cu), as a profile names them
+K7_DEVICE_NAMES = ("gemm_kernel", "gemv_kernel", "splitk_reduce_kernel")
+K7_PREFILL_M = 128
+
+
+def _activations(torch, gen, t, d, dtype, device, outliers=0):
+    """bf16-rounded activations (ties in magnitude, as the split engine's
+    payload input has), ``outliers`` of them scaled by 30."""
+    x = torch.randn((t, d), generator=gen, device=device) * 2.0
+    if outliers:
+        idx = torch.randperm(t * d, generator=gen, device=device)[:outliers]
+        x.view(-1)[idx] *= 30.0
+    return x.to(torch.bfloat16).to(dtype)
+
+
+def _kernel_k5_k6(ctx) -> dict:
+    """K5 (``tabq_quantize``) at every bit width and K6 (``ts_mask``)
+    against their plain versions: identical outputs at the payload shapes
+    (T = 1 decode, 96 and 128 prefill) and edge shapes, f32 and bf16;
+    the codec through both with more outliers than its carrier holds; and
+    at the decode payload's shape, their times."""
+    import torch
+    from repro_torch.core.payload import encode
+    from repro_torch.kernels import tabq_quantize as tq
+    from repro_torch.kernels import ts_mask as tsm
+
+    device = ctx["device"]
+    gen = torch.Generator(device=device).manual_seed(5)
+    checks, ok = [], True
+    err = {"tabq_quantize": 0.0, "ts_mask": 0.0}  # max |kernel - plain|
+
+    def same(name, got, want) -> bool:
+        for a, b in zip(got, want):
+            err[name] = max(err[name], float((a.float() - b.float()).abs()
+                                             .max()))
+        return all(torch.equal(a, b) for a, b in zip(got, want))
+
+    for t in K5_K6_CHECKS["t"]:
+        for d in K5_K6_CHECKS["d"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = _activations(torch, gen, t, d, dtype, device,
+                                 outliers=max(1, t * d // 512))
+                x[0, :3] = 0.0
+                k5 = all([same("tabq_quantize", tq.tabq_quantize(x, bits),
+                               tq.tabq_quantize_ref(x, bits))
+                          for bits in range(1, 9)])
+                k6 = all([same("ts_mask", tsm.ts_mask(x, tau),
+                               tsm.ts_mask_ref(x, tau))
+                          for tau in (0.5, 5.0, 1e3)])
+                checks.append({"shape": [t, d], "dtype": str(dtype)[6:],
+                               "k5_identical_bits_1_to_8": k5,
+                               "k6_identical": k6})
+                ok = ok and k5 and k6
+    # the codec: K5 and K6 on the card, their plain versions on the CPU,
+    # far more entries above tau than the carrier holds
+    t, d = K5_K6_CODEC
+    x = _activations(torch, gen, t, d, torch.float32, device,
+                     outliers=t * d // 256)
+    got, want = encode(x, tau=5.0), encode(x.cpu(), tau=5.0)
+    payload_ok = (all(torch.equal(getattr(got.below, f).cpu(),
+                                  getattr(want.below, f))
+                      for f in ("codes", "sign", "scale", "zero", "bits"))
+                  and torch.equal(got.above.indices.cpu(), want.above.indices)
+                  and torch.equal(got.above.values.cpu(), want.above.values)
+                  and got.payload_bits() == want.payload_bits())
+    overflow = [int(want.above.count), want.above.values.shape[0]]
+    ok = ok and payload_ok and overflow[0] > overflow[1]
+    torch.cuda.synchronize()
+    if not ok:
+        emit({"phase": "kernels", "tabq_ts": checks, "max_abs_err": err,
+              "payload_identical": payload_ok, "overflow": overflow})
+        raise SystemExit("tabq_quantize or ts_mask differs from its plain "
+                         "version")
+
+    # time at the decode payload's shape: f32 input, K5 at the top level
+    t, d = PAYLOAD_SHAPE
+    x = _activations(torch, gen, t, d, torch.float32, device)
+    ms5 = ctx["timer"]({"kernel": lambda: tq.tabq_quantize(x, 7),
+                        "plain": lambda: tq.tabq_quantize_ref(x, 7)})
+    ms6 = ctx["timer"]({"kernel": lambda: tsm.ts_mask(x, 5.0),
+                        "plain": lambda: tsm.ts_mask_ref(x, 5.0)})
+    bw, f32_peak = peak_rates(ctx["device_name"])
+    rows = {}
+    # (name, bytes: x read once and the outputs written once, f32
+    # operations a value, times)
+    for name, nbytes, ops_per, ms, src, stem in (
+            ("tabq_quantize", t * d * (4 + 2) + t * 8, 10, ms5,
+             "tabq_kernel.py:59", "tabq_quantize"),
+            ("ts_mask", t * d * (4 + 4 + 1) + t * 4, 2, ms6,
+             "ts_mask.py:32", "ts_mask")):
+        bytes_ms, ops_ms = nbytes / bw * 1e3, t * d * ops_per / f32_peak * 1e3
+        ctx["kernels"][name] = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{stem}.cu",
+            "replaces": f"src/repro/kernels/{src}", "launches": None,
+            "max_abs_err": err[name], "ms": ms["kernel"],
+            "plain_ms": ms["plain"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+        rows[name] = {"main_shape": [t, d], "bytes": nbytes,
+                      "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+                      "bound_ms": max(bytes_ms, ops_ms)}
+    return {"checks": checks, "max_abs_err": err,
+            "payload_identical": payload_ok,
+            "overflow_count_capacity": overflow, "timed": rows,
+            "library": "none: no one PyTorch call computes per-token AIQ "
+                       "with the rebase, or the split with its counts"}
+
+
+def _kernel_k7(ctx) -> dict:
+    """K7 (``dequant_matmul``) against its plain version on llama2-7b's
+    edge products at decode (M = 1, 4) and prefill (M = 96, 128, 384, 600)
+    sizes and on ragged ones, f32 and bf16 x; at the decode product of w_up its time
+    beside the bf16 product over the dequantized weights, the reference's
+    fake-quant product."""
+    import torch
+    from repro_torch.kernels import dequant_matmul as dm
+
+    device = ctx["device"]
+    gen = torch.Generator(device=device).manual_seed(7)
+    checks, worst = [], 0.0
+    for m, k, n in K7_CHECKS:
+        codes = torch.randint(-7, 8, (k, n), generator=gen, device=device,
+                              dtype=torch.int8)
+        scale = torch.rand((n,), generator=gen, device=device) * 0.01 + 1e-4
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+            got = dm.dequant_matmul(x, codes, scale)
+            want = dm.dequant_matmul_ref(x, codes, scale)
+            bound = float((x.float().abs() @ codes.float().abs()
+                           * scale).max())
+            torch.cuda.synchronize()
+            rel = float((got - want).abs().max()) / bound
+            ok = bool(torch.isfinite(got).all()) and rel <= K7_REL
+            checks.append({"m_k_n": [m, k, n], "x_dtype": str(dtype)[6:],
+                           "rel_err": rel, "max_abs_err": float(
+                               (got - want).abs().max()), "ok": ok})
+            worst = max(worst, checks[-1]["max_abs_err"])
+            if not ok:
+                emit({"phase": "kernels", "dequant_matmul": checks})
+                raise SystemExit(f"dequant_matmul disagrees: {checks[-1]}")
+
+    # time at the decode product of w_up, bf16 x as the edge's hidden state
+    m, k, n = K7_MAIN
+    codes = torch.randint(-7, 8, (k, n), generator=gen, device=device,
+                          dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen, device=device) * 0.01 + 1e-4
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    w = (codes.float() * scale).to(torch.bfloat16)  # the reference's weight
+    ms = ctx["timer"]({"kernel": lambda: dm.dequant_matmul(x, codes, scale),
+                       "plain": lambda: dm.dequant_matmul_ref(x, codes, scale),
+                       "library": lambda: x @ w})
+    # and the prefill product at the main path's 128-token prompt
+    mp = K7_PREFILL_M
+    xp = torch.randn((mp, k), generator=gen, device=device).to(torch.bfloat16)
+    ms_p = ctx["timer"]({"kernel": lambda: dm.dequant_matmul(xp, codes, scale),
+                         "library": lambda: xp @ w}, iters=10)
+    bw, _ = peak_rates(ctx["device_name"])
+
+    def bound(m):
+        nbytes = m * k * 2 + k * n + n * 4 + m * n * 4
+        b_ms, o_ms = nbytes / bw * 1e3, 2 * m * n * k / BF16_PEAK * 1e3
+        return nbytes, max(b_ms, o_ms), "bytes" if b_ms >= o_ms \
+            else "operations"
+
+    nbytes, bound_ms, bound_by = bound(1)
+    ctx["kernels"]["dequant_matmul"] = {
+        "name": "dequant_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
+        "replaces": "src/repro/kernels/dequant_matmul.py:52",
+        "launches": None, "max_abs_err": worst, "ms": ms["kernel"],
+        "plain_ms": ms["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": ms["library"]}
+    return {"checks": checks, "tol_rel_to_abs_sum": K7_REL,
+            "main_shape": [m, k, n], "bytes": nbytes, "bound_ms": bound_ms,
+            "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"],
+            "achieved_GBps": nbytes / ms["kernel"] / 1e6,
+            "prefill": {"m": mp, "kernel_ms": ms_p["kernel"],
+                        "library_ms": ms_p["library"],
+                        "bound_ms": bound(mp)[1],
+                        "achieved_TFLOPs": 2 * mp * n * k
+                        / ms_p["kernel"] / 1e9}}
+
+
 def phase_kernels(ctx) -> None:
     emit({"phase": "kernels", "decode_attention": _kernel_k1(ctx),
           "paged_decode_attention": _kernel_k2(ctx),
           "paged_prefill_attention": _kernel_k3(ctx),
-          "varlen_attention": _kernel_k4(ctx)})
+          "varlen_attention": _kernel_k4(ctx),
+          "tabq_quantize_ts_mask": _kernel_k5_k6(ctx),
+          "dequant_matmul": _kernel_k7(ctx)})
 
 
 def _greedy_stepwise(params, cfg, prompts, n, opts, cache_len, device):
@@ -1629,6 +1855,372 @@ def phase_packed(ctx) -> None:
         raise SystemExit(f"packed: failed checks {checks}")
 
 
+# the split phase's traffic: four requests through LLMServer(backend=
+# "split"), ℓ = 8 of llama2-7b's 32 layers on the edge as int4 codes
+SPLIT_LAYER = 8  # ℓ
+SPLIT_LENS = (128, 128, 96, 96)
+SPLIT_MAX_TOKENS = 32
+SPLIT_SHARED_PREFIX = 64  # four whole 16-token pages
+
+
+def _record_cloud_logits(eng) -> list:
+    """Wrap ``eng._cloud_back`` so that the logits (B, V) of every cloud
+    call are kept on the host in call order: the logits each emitted token
+    was drawn from (checks only, not timings)."""
+    rec, orig = [], eng._cloud_back
+
+    def back(*args, **kw):
+        logits = orig(*args, **kw)
+        rec.append(logits.float().cpu().numpy())
+        return logits
+
+    eng._cloud_back = back
+    return rec
+
+
+def _logits_agree(got, want, got_lg, want_lg, tol) -> dict:
+    """Greedy ``got`` tokens (B, n) against ``want`` under the margin rule
+    of ``want_lg`` at ``tol``, and the largest logit error relative to the
+    largest logit over the steps whose token history is still the same."""
+    import numpy as np
+
+    ok, compared = _margin_agreement(got, want, want_lg, tol)
+    same = np.cumprod(got == want, axis=1)  # history equal up to step t
+    rel = 0.0
+    for r in range(got.shape[0]):
+        upto = 1 + int(same[r].sum()) if same[r].sum() < got.shape[1] \
+            else got.shape[1]
+        err = np.abs(got_lg[r, :upto] - want_lg[r, :upto]).max()
+        rel = max(rel, float(err / np.abs(want_lg).max()))
+    return {"ok": ok and rel <= tol, "tokens_compared": compared,
+            "max_rel_logit_err": rel, "tol": tol,
+            "tokens_equal_all": bool(np.array_equal(got, want))}
+
+
+def _split_tiny(ctx) -> dict:
+    """llama2-7b tiny (f32) through the split engine, int4-code front,
+    TS + TAB-Q payloads, int8 KV, on the CPU (plain versions) and on the
+    card (K1, K5, K6, K7): the card's tokens agree with the CPU's under the
+    margin rule of the CPU's logits, and the logits agree."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.opsc import OPSCConfig
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.params import init_params
+    from repro_torch.serving.split_engine import SplitEngine
+
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 12))
+    # τ = 0.5: the tiny model's hidden states exceed it, so TS's carrier
+    # is used (and overflows)
+    opsc = OPSCConfig(split_layer=1, qw_front=4, tau=0.5)
+    n, runs = 16, []
+    for dev in ("cpu", ctx["device"]):
+        eng = SplitEngine(cfg, params, opsc, opts=opts, cache_len=64,
+                          device=dev)
+        rec = _record_cloud_logits(eng)
+        toks, st = eng.generate(prompts, n)
+        runs.append((toks[:, 12:], np.stack(rec, 1), st))
+    (want, want_lg, wst), (got, got_lg, gst) = runs
+    return {"steps": n, **_logits_agree(got, want, got_lg, want_lg,
+                                        SPLIT_TINY_REL),
+            "uplink_bits_card_cpu": [gst.uplink_bits_measured,
+                                     wst.uplink_bits_measured]}
+
+
+# tiny split on the card against the CPU, f32 weights: the front's f32 sums
+# run in another order, so a TAB-Q code on a rounding boundary can land one
+# step apart, which moves the logits more than MODEL_REL allows
+SPLIT_TINY_REL = 2e-2
+
+
+def _payloads_identical(held, opsc) -> dict:
+    """The payloads of hidden states ``held`` (recorded from the main
+    run): TS + TAB-Q through K5 and K6 on the card against their plain
+    versions on the CPU, every field and the measured bits."""
+    import torch
+    from repro_torch.core.payload import decode, encode
+
+    fields = ("codes", "sign", "scale", "zero", "bits")
+    same, tokens = True, 0
+    for h in held:
+        x = h.reshape(-1, h.shape[-1]).float()
+        kw = dict(tau=opsc.tau, delta=opsc.delta, max_bits=opsc.max_act_bits)
+        got, want = encode(x, **kw), encode(x.cpu(), **kw)
+        same = same and all(torch.equal(getattr(got.below, f).cpu(),
+                                        getattr(want.below, f))
+                            for f in fields) \
+            and torch.equal(got.above.indices.cpu(), want.above.indices) \
+            and torch.equal(got.above.values.cpu(), want.above.values) \
+            and got.payload_bits() == want.payload_bits() \
+            and torch.equal(decode(got).cpu(), decode(want))
+        tokens += x.shape[0]
+    return {"payloads": len(held), "tokens": tokens, "identical": same}
+
+
+def phase_split(ctx) -> None:
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.opsc import OPSCConfig
+    from repro_torch.core.sampling import SamplingParams, truncate_at_stop
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import tabq_quantize as tq
+    from repro_torch.kernels import ts_mask as tsm
+    from repro_torch.models.transformer import RuntimeOpts, init_caches
+    from repro_torch.serving.api import LLMServer
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.split_engine import SplitEngine
+
+    tiny = _split_tiny(ctx)
+    device = ctx["device"]
+    cfg = get_config("llama2-7b")  # full width and depth
+    opts = RuntimeOpts(quantized_kv=True)
+    params, _ = _llama7b_params(ctx)
+    # the paper's OPSC defaults: int4 front, τ 5, Δ 0.2, 8-bit TAB-Q
+    opsc = OPSCConfig(split_layer=SPLIT_LAYER, qw_front=4)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in SPLIT_LENS]
+    n_new = SPLIT_MAX_TOKENS
+
+    def requests(stop):
+        return [SamplingParams(max_tokens=n_new),
+                SamplingParams(max_tokens=n_new, stop_token_ids=stop),
+                SamplingParams(max_tokens=n_new, temperature=0.8, top_p=0.9,
+                               seed=7),
+                SamplingParams(max_tokens=n_new)]
+
+    def serve(srv, sps):
+        rids = [srv.submit(p, sp) for p, sp in zip(prompts, sps)]
+        outs = srv.run()
+        return [outs[r] for r in rids]
+
+    srv = LLMServer(cfg, params, opts, backend="split", opsc=opsc,
+                    cache_len=1024, device=device)
+    eng = srv.backend.engine
+    # a first run (it also warms up) picks a stop token that will fire and
+    # keeps the first request's hidden states at the split
+    held = []
+
+    def compress(h):
+        if len(held) < 6:  # the prefill and five decode payloads
+            held.append(h.detach().clone())
+        return SplitEngine._compress(eng, h)
+
+    eng._compress = compress
+    first = serve(srv, requests(()))
+    del eng._compress
+    payloads = _payloads_identical(held, opsc)
+    del held
+    stop = int(first[1].tokens[10])
+    stop_at = list(first[1].tokens).index(stop) + 1
+
+    kernels = {"decode_attention": da.decode_attention,
+               "tabq_quantize": tq.tabq_quantize, "ts_mask": tsm.ts_mask,
+               "dequant_matmul": dm.dequant_matmul}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = serve(srv, requests((stop,)))
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ctx["launches"].update({k: v for k, v in launches.items()
+                            if k != "decode_attention"})
+
+    payloads_n = len(prompts) * n_new  # one prefill + n_new - 1 decodes
+    decodes = len(prompts) * (n_new - 1)
+    reasons = [o.finish_reason for o in outs]
+    lengths = [len(o.tokens) for o in outs]
+    stats = [o.split_stats for o in outs]
+    checks = {
+        "tiny_card_equals_cpu_margin_rule": tiny["ok"],
+        "payloads_identical_to_plain": payloads["identical"],
+        "reasons": reasons == ["length", "stop", "length", "length"],
+        "lengths": lengths == [n_new, stop_at, n_new, n_new],
+        "same_as_first_run": all(
+            np.array_equal(o.tokens, f.tokens[:len(o.tokens)])
+            for o, f in zip(outs, first)),
+        "tokens_in_vocab": all(int(o.tokens.min()) >= 0 and int(
+            o.tokens.max()) < cfg.vocab_size for o in outs),
+        "k5_launches": launches["tabq_quantize"] == 6 * payloads_n,
+        "k6_launches": launches["ts_mask"] == payloads_n,
+        "k7_launches": launches["dequant_matmul"]
+        == 7 * opsc.split_layer * payloads_n,
+        "k1_launches": launches["decode_attention"]
+        == cfg.num_layers * decodes,
+        "no_early_exit": all(s.early_exits == 0 for s in stats)}
+
+    # with a full-precision front and no compression, each stream is the
+    # Engine's on that prompt alone, bit for bit (logprobs too)
+    srv16 = LLMServer(cfg, params, opts, backend="split",
+                      opsc=OPSCConfig(split_layer=SPLIT_LAYER,
+                                      qw_front=16),
+                      compress=False, cache_len=1024, device=device)
+    outs16 = serve(srv16, requests((stop,)))
+    eng16 = srv16.backend.engine
+    engine = Engine(cfg, params, opts, cache_len=1024, device=device)
+    equal16 = []
+    for p, sp, o in zip(prompts, requests((stop,)), outs16):
+        want = engine.generate_requests(p[None], [sp])
+        toks, _, lps = eng16.generate(p[None], n_new, compress=False,
+                                      sampling=sp, with_logprobs=True)
+        gen, _ = truncate_at_stop(want.tokens[0, len(p):], sp)
+        equal16.append(bool(np.array_equal(toks, want.tokens)
+                            and np.array_equal(lps, want.logprobs)
+                            and gen == o.tokens.tolist()))
+    checks["uncompressed_fp_front_equals_engine"] = all(equal16)
+    del srv16, eng16, engine, outs16
+    gc.collect()
+
+    # four edge devices with a 64-token shared prefix: the paged cloud (K3
+    # reads the prefix on rows 1+, K2 decodes) held to the dense cloud.
+    # Uncompressed: with TS + TAB-Q the shared run would encode row 0 alone
+    # and rows 1+ without their prefix, so TS's carrier capacity (1/1024 of
+    # a payload) and the payloads would differ from the dense run's
+    blen = 96
+    base = rng.integers(0, cfg.vocab_size, (4, blen))
+    base[:, :SPLIT_SHARED_PREFIX] = base[0, :SPLIT_SHARED_PREFIX]
+    common = dict(opts=opts, cache_len=1024, device=device)
+    dense = SplitEngine(cfg, params, opsc, **common)
+    rec = _record_cloud_logits(dense)
+    t_dense, st_dense = dense.generate(base, 16, compress=False)
+    dense_lg = np.stack(rec, 1)
+    del dense
+    paged = SplitEngine(cfg, params, opsc, paged_cloud_kv=True,
+                        cloud_pool_pages=48, cloud_page_size=16, **common)
+    rec = _record_cloud_logits(paged)
+    k2, k3 = (pda.paged_decode_attention.launches,
+              ppa.paged_prefill_attention.launches)
+    t_paged, st_paged = paged.generate(
+        base, 16, compress=False, shared_prefix_len=SPLIT_SHARED_PREFIX)
+    k2 = pda.paged_decode_attention.launches - k2
+    k3 = ppa.paged_prefill_attention.launches - k3
+    paged_cmp = _logits_agree(t_paged[:, blen:], t_dense[:, blen:],
+                              np.stack(rec, 1), dense_lg, PAGED_REL)
+    del paged
+    gc.collect()
+    back_layers = cfg.num_layers - opsc.split_layer
+    checks["paged_shared_prefix_agrees_with_dense"] = paged_cmp["ok"]
+    checks["shared_prefix_pages"] = st_paged.shared_prefix_pages \
+        == SPLIT_SHARED_PREFIX // 16
+    checks["paged_k2_k3_launches"] = (k2, k3) == (back_layers * 15,
+                                                  back_layers)
+    checks["shared_prefix_ships_less"] = \
+        st_paged.uplink_bits_measured < st_dense.uplink_bits_measured
+
+    # I_kv = 0, short: the stateless cloud re-runs its 24 layers over the
+    # whole received history every step; held to the I_kv = 1 engine
+    ikv0 = SplitEngine(cfg, params, OPSCConfig(
+        split_layer=SPLIT_LAYER, qw_front=4, i_kv=0), **common)
+    rec0 = _record_cloud_logits(ikv0)
+    p0 = prompts[3][None]
+    t_ikv0, st_ikv0 = ikv0.generate(p0, 6)
+    del ikv0
+    rec1 = _record_cloud_logits(eng)
+    t_ikv1, st_ikv1 = eng.generate(p0, 6)
+    del eng._cloud_back
+    plen = p0.shape[1]
+    ikv0_cmp = _logits_agree(t_ikv0[:, plen:], t_ikv1[:, plen:],
+                             np.stack(rec0, 1), np.stack(rec1, 1), PAGED_REL)
+    checks["ikv0_agrees_with_ikv1"] = ikv0_cmp["ok"]
+    checks["ikv0_eq3_smaller"] = st_ikv0.uplink_bits_eq3 \
+        < st_ikv1.uplink_bits_eq3
+    gc.collect()
+
+    # one decode step at B = 1 after a 128-token prompt, by stage: edge
+    # (8 layers, K7 and K1), payload (TS + TAB-Q + reconstruct, with the
+    # host sync that reads its bits) and cloud (24 layers and the head)
+    with torch.inference_mode():
+        nfront = eng.split_block
+        edge_c = init_caches(cfg, 1, 1024, opts, device, nfront)
+        cloud_c = init_caches(cfg, 1, 1024, opts, device,
+                              cfg.num_blocks - nfront)
+        toks = torch.as_tensor(prompts[0][None], device=device)
+        h, _ = eng._compress(eng._edge_front(toks, edge_c, 0, decode=False))
+        nxt = eng._cloud_back(h, cloud_c, 0, decode=False).argmax(-1)[:, None]
+        pos = torch.tensor(128, dtype=torch.int32, device=device)
+        h_edge = eng._edge_front(nxt, edge_c, pos, decode=True)
+        h_rec, bits = eng._compress(h_edge)
+        stages = {
+            "edge": lambda: eng._edge_front(nxt, edge_c, pos, decode=True),
+            "payload": lambda: eng._compress(h_edge),
+            "cloud": lambda: eng._cloud_back(h_rec, cloud_c, pos,
+                                             decode=True),
+            "step": lambda: eng._cloud_back(eng._compress(eng._edge_front(
+                nxt, edge_c, pos, decode=True))[0], cloud_c, pos,
+                decode=True)}
+        stage_ms = ctx["timer"](stages, iters=20, device_only=False)
+        device_ms = {k: _device_profile(torch, fn, 5)[0]
+                     for k, fn in stages.items()}
+        _, top = _device_profile(torch, stages["step"], 5)
+        # and the edge's 128-token prefill (it rewrites the same cache
+        # entries): its device time and how much of it is K7's
+        prefill_ms, prefill_top = _device_profile(
+            torch, lambda: eng._edge_front(toks, edge_c, 0, decode=False), 3)
+        del edge_c, cloud_c
+    bw, _ = peak_rates(ctx["device_name"])
+    front_keys = [k for k in params if k.startswith("blocks/")]
+    bf16_front = sum(params[k][:nfront].numel() * 2 for k in front_keys)
+    cloud_bytes = sum(params[k][nfront:].numel() * 2 for k in front_keys) \
+        + params["lm_head"].numel() * 2
+    step_bound_ms = (eng.edge_weight_bytes() + cloud_bytes) / bw * 1e3
+
+    emit({"phase": "split", "tiny": tiny, "config": cfg.name,
+          "opsc": vars(opsc), "kv": "int8", "cache_len": 1024,
+          "prompt_lens": list(SPLIT_LENS), "finish_reasons": reasons,
+          "generated": lengths, "stop_token": stop, "launches": launches,
+          "payloads": payloads_n, "wall_s": wall_s,
+          "tokens_per_s": sum(lengths) / wall_s,
+          "computed_tokens_per_s": len(prompts) * n_new / wall_s,
+          "uplink_bits_measured": [s.uplink_bits_measured for s in stats],
+          "uplink_bits_eq3": [s.uplink_bits_eq3 for s in stats],
+          "measured_over_eq3": sum(s.uplink_bits_measured for s in stats)
+          / sum(s.uplink_bits_eq3 for s in stats),
+          "decode_payload_bits": bits,
+          "edge_weight_bytes": eng.edge_weight_bytes(),
+          "edge_weight_bytes_bf16": bf16_front,
+          "edge_weight_bytes_eq1": bf16_front // 2 * opsc.qw_front // 8,
+          "payload_check": payloads,
+          "uncompressed_equal_engine": equal16,
+          "paged_shared_prefix": {
+              "shared_prefix_pages": st_paged.shared_prefix_pages,
+              "cloud_pool_bytes_peak": st_paged.cloud_pool_bytes_peak,
+              "uplink_bits_paged": st_paged.uplink_bits_paged,
+              "uplink_bits_measured_paged_dense": [
+                  st_paged.uplink_bits_measured,
+                  st_dense.uplink_bits_measured],
+              "k2_k3_launches": [k2, k3], **paged_cmp},
+          "ikv0": {"uplink_bits_eq3_ikv0_ikv1": [st_ikv0.uplink_bits_eq3,
+                                                 st_ikv1.uplink_bits_eq3],
+                   **ikv0_cmp},
+          "decode_step_b1": {"host_included_ms": stage_ms,
+                             "device_busy_ms": device_ms,
+                             "idle_share": {k: 1 - device_ms[k] / stage_ms[k]
+                                            for k in stage_ms},
+                             "bound_ms": step_bound_ms,
+                             "profile_top": top[:10]},
+          "edge_prefill_128": {
+              "device_busy_ms": prefill_ms,
+              "k7_ms": sum(r["ms"] for r in prefill_top if any(
+                  k in r["kernel"] for k in K7_DEVICE_NAMES)),
+              "profile_top": prefill_top[:8]},
+          "max_memory_allocated": peak, "checks": checks,
+          "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise SystemExit(f"split: failed checks {checks}")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1661,7 +2253,7 @@ def main(argv=None) -> int:
     runners = {"env": phase_env, "kernels": phase_kernels,
                "model": phase_model, "vehicle": phase_vehicle,
                "serve": phase_serve, "paged": phase_paged,
-               "packed": phase_packed}
+               "packed": phase_packed, "split": phase_split}
     for name in PHASES:
         if name in phases:
             runners[name](ctx)

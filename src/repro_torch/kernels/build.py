@@ -23,7 +23,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("decode_attention", "paged_decode_attention",
-           "paged_prefill_attention", "varlen_attention")
+           "paged_prefill_attention", "varlen_attention", "tabq_quantize",
+           "ts_mask", "dequant_matmul")
 
 # name -> loaded library; filled by load()
 _LIBS: dict = {}

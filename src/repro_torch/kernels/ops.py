@@ -5,8 +5,11 @@ does not take; there is no fallback)."""
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import dequant_matmul as _dm
 from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import paged_prefill_attention as _ppa
+from repro_torch.kernels import tabq_quantize as _tq
+from repro_torch.kernels import ts_mask as _ts
 from repro_torch.kernels import varlen_attention as _va
 
 
@@ -56,3 +59,27 @@ def varlen_attention(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
 
 
 segment_start = _va.segment_start
+
+
+def tabq_quantize(x, bits: int):
+    """Per-token asymmetric quantization of |x| (T, D) at ``bits`` bits →
+    (codes, scale, zero, sign); see :mod:`repro_torch.kernels.
+    tabq_quantize`."""
+    fn = _tq.tabq_quantize_ref if x.device.type == "cpu" \
+        else _tq.tabq_quantize
+    return fn(x, bits)
+
+
+def ts_mask(x, tau: float):
+    """Threshold split of x (T, D) → (below, mask, per-row counts); see
+    :mod:`repro_torch.kernels.ts_mask`."""
+    fn = _ts.ts_mask_ref if x.device.type == "cpu" else _ts.ts_mask
+    return fn(x, tau)
+
+
+def dequant_matmul(x, codes, scale):
+    """x (M, K) times int8 codes (K, N) with per-output-channel scales →
+    (M, N) f32; see :mod:`repro_torch.kernels.dequant_matmul`."""
+    fn = _dm.dequant_matmul_ref if x.device.type == "cpu" \
+        else _dm.dequant_matmul
+    return fn(x, codes, scale)

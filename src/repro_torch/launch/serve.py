@@ -1,8 +1,10 @@
 """Serving launcher: a batch of random prompts through the port's
-``Engine`` (port of ``repro/launch/serve.py``, non-split branch).
+``Engine``, or with ``--split`` through the paper's ``SplitEngine`` (port
+of ``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
-      --tiny --batch 4 --new 16 --quantized-kv [--device cpu]
+      --tiny --batch 4 --new 16 --quantized-kv [--device cpu] \
+      [--split --split-layer 1 --qw-front 8 [--deadline-ms 0.1]]
 
 Runs on the CUDA card unless ``--device`` names another device.
 """
@@ -14,10 +16,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.channel import ChannelConfig
+from repro_torch.core.opsc import OPSCConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import RuntimeOpts
 from repro_torch.params import init_params
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.split_engine import SplitEngine
 
 
 def main(argv=None):
@@ -31,10 +36,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     ap.add_argument("--split", action="store_true")
+    ap.add_argument("--split-layer", type=int, default=1)
+    ap.add_argument("--qw-front", type=int, default=8)
+    ap.add_argument("--deadline-ms", type=float, default=None)
     args = ap.parse_args(argv)
-    if args.split:
-        raise NotImplementedError("--split: the split engine is not ported "
-                                  "yet (ROADMAP queue 1, item 8)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -46,8 +51,30 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)
-    eng = Engine(cfg, params, opts, cache_len=args.prompt_len + args.new,
-                 device=device)
+    cache_len = args.prompt_len + args.new
+
+    if args.split:
+        # snap the split to a pattern boundary (OPSC splits between blocks)
+        plen = len(cfg.pattern)
+        ell = max(plen, args.split_layer - args.split_layer % plen)
+        if ell != args.split_layer:
+            print(f"[serve/split] split_layer {args.split_layer} → {ell} "
+                  f"(pattern boundary)")
+        eng = SplitEngine(cfg, params, OPSCConfig(split_layer=ell,
+                                                  qw_front=args.qw_front),
+                          channel=ChannelConfig(),
+                          deadline_s=(args.deadline_ms or 0) / 1e3 or None,
+                          opts=opts, cache_len=cache_len, device=device)
+        t0 = time.perf_counter()
+        tokens, stats = eng.generate(prompts, args.new)
+        dt = time.perf_counter() - t0
+        print(f"[serve/split] {tokens.shape[0]}×{args.new} tokens in "
+              f"{dt:.2f}s on {device}; uplink "
+              f"{stats.uplink_bits_measured / 8e3:.1f} KB measured "
+              f"({stats.uplink_bits_eq3 / 8e3:.1f} KB Eq.3), "
+              f"early_exits={stats.early_exits}")
+        return
+    eng = Engine(cfg, params, opts, cache_len=cache_len, device=device)
     t0 = time.perf_counter()
     res = eng.generate(prompts, args.new)
     dt = time.perf_counter() - t0

@@ -12,7 +12,10 @@ Caches come in three layouts, as in the reference:
     page-major (P, K, page, hd) codes addressed through block tables.
 
 Shapes: activations (B, S, D); q/k/v (B, S, H|K, hd). Weights keep the
-reference's ``x @ W`` layout, W (d_in, d_out).
+reference's ``x @ W`` layout, W (d_in, d_out); a weight held as int8 codes
+with per-output-channel scales (``core.quant.QuantizedTensor``, the split
+engine's edge segment) goes through the int8-weight kernel K7
+(:func:`matmul`).
 """
 
 from __future__ import annotations
@@ -24,9 +27,25 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quant import QuantizedTensor
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
+
+
+def matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for x (..., d_in). A dense ``w`` (d_in, d_out) is a plain
+    product; a :class:`QuantizedTensor` of int8 codes (d_in, d_out) with one
+    scale per output column goes through ``kernels.ops.dequant_matmul``
+    (K7 on the card, its plain version on the CPU), summed in f32 and cast
+    back to x's dtype. The dequantized weight is never built."""
+    if not isinstance(w, QuantizedTensor):
+        return x @ w
+    k, n = w.codes.shape
+    out = ops.dequant_matmul(x.reshape(-1, k).contiguous(), w.codes,
+                             w.scale.reshape(n))
+    return out.to(x.dtype).reshape(*x.shape[:-1], n)
+
 
 # ---------------------------------------------------------------------------
 # Norms and position encodings
@@ -420,9 +439,9 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
             or spec.qk_norm:
         raise NotImplementedError("sliding windows, softcap and qk_norm are "
                                   "not ported yet (ROADMAP queue 1, item 10)")
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k = (x @ params["wk"]).reshape(b, s, kh, hd)
-    v = (x @ params["wv"]).reshape(b, s, kh, hd)
+    q = matmul(x, params["wq"]).reshape(b, s, h, hd)
+    k = matmul(x, params["wk"]).reshape(b, s, kh, hd)
+    v = matmul(x, params["wv"]).reshape(b, s, kh, hd)
     if rope_cs is not None:
         cos, sin = rope_cs
         q = apply_rope(q, cos, sin)
@@ -444,7 +463,7 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
         else:
             out = chunked_attention(q, k, v, q_positions, q_positions,
                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
-        return out.reshape(b, s, h * hd) @ params["wo"], cache
+        return matmul(out.reshape(b, s, h * hd), params["wo"]), cache
     if cache is not None:
         cache = cache_update(cache, k, v, pos)
     if cache is not None and decode:
@@ -459,14 +478,14 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
     else:
         out = chunked_attention(q, k, v, q_positions, q_positions,
                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
-    return out.reshape(b, s, h * hd) @ params["wo"], cache
+    return matmul(out.reshape(b, s, h * hd), params["wo"]), cache
 
 
 def mlp_layer(params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     act = {"silu": F.silu, "gelu": F.gelu}[activation]
-    up = x @ params["w_up"]
+    up = matmul(x, params["w_up"])
     if "w_gate" in params:
-        up = act(x @ params["w_gate"]) * up
+        up = act(matmul(x, params["w_gate"])) * up
     else:
         up = act(up)
-    return up @ params["w_down"]
+    return matmul(up, params["w_down"])

@@ -42,11 +42,14 @@ class RuntimeOpts:
     cache_dtype: str = "bfloat16"
 
 
-def layer_params(cfg: ArchConfig, params: dict) -> list:
+def layer_params(cfg: ArchConfig, params: dict, blocks=None) -> list:
     """Per-layer ``(LayerSpec, nested param dict)`` in depth order: block
-    ``i``'s slice of each stacked leaf (views, no copies)."""
+    ``i``'s slice of each stacked leaf (views, no copies), for the blocks
+    ``range(*blocks)`` (default: all). A leaf may be a
+    ``core.quant.QuantizedTensor``, whose block slice is its codes' and
+    scales' slice."""
     out = []
-    for i in range(cfg.num_blocks):
+    for i in range(*(blocks or (0, cfg.num_blocks))):
         for pi, ls in enumerate(cfg.pattern):
             p: dict = {}
             prefix = f"blocks/p{pi}/"
@@ -67,12 +70,13 @@ def layer_params(cfg: ArchConfig, params: dict) -> list:
 
 
 def init_caches(cfg: ArchConfig, batch: int, cache_len: int,
-                opts: RuntimeOpts, device=None) -> list:
-    """One empty ``KVCache`` per layer. Quantized caches take the kernel's
-    kv-head-major int8 layout with the slot axis at
-    ``padded_cache_len(cache_len)`` (pad slots keep pos = -1)."""
+                opts: RuntimeOpts, device=None, num_blocks=None) -> list:
+    """One empty ``KVCache`` per layer of ``num_blocks`` blocks (default:
+    all). Quantized caches take the kernel's kv-head-major int8 layout with
+    the slot axis at ``padded_cache_len(cache_len)`` (pad slots keep pos =
+    -1)."""
     caches = []
-    for _ in range(cfg.num_blocks):
+    for _ in range(cfg.num_blocks if num_blocks is None else num_blocks):
         for ls in cfg.pattern:
             m = ls.mixer
             if not isinstance(m, AttnSpec) or m.sliding_window:
@@ -131,9 +135,11 @@ def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
 
 def _apply_layers(cfg, params, x, caches, *, q_positions, pos,
                   opts: RuntimeOpts, decode: bool, attend_cache: bool = False,
-                  packed: L.PackedLayout | None = None):
+                  packed: L.PackedLayout | None = None, blocks=None):
+    """Run the layers of the blocks ``range(*blocks)`` (default: all) over
+    ``x``; ``caches`` holds one cache per layer of those blocks."""
     rope_cs = rope_tables(cfg, q_positions)
-    for li, (ls, p) in enumerate(layer_params(cfg, params)):
+    for li, (ls, p) in enumerate(layer_params(cfg, params, blocks)):
         x, caches[li] = _apply_layer(cfg, ls, p, x, rope_cs=rope_cs,
                                      q_positions=q_positions,
                                      cache=caches[li], pos=pos, opts=opts,

@@ -8,16 +8,16 @@
   * :class:`LLMServer`: the facade: ``submit()`` requests, ``stream()``
     token events, ``run()`` to drain, ``abort()`` to cancel.
 
-Of the reference's three backends the port has ``"paged"`` (the default:
+The port has the reference's three backends: ``"paged"`` (the default:
 :class:`PagedBackend`, over the continuous-batching
 :class:`~repro_torch.serving.scheduler.Scheduler` with its packed, chunked
-and wave ticks and reserve or lazy admission) and ``"fused"``
-(:class:`FusedBackend`, over :class:`~repro_torch.serving.engine.Engine`);
-``"split"`` raises ``NotImplementedError`` until its slice lands. Per
-request, token events
-arrive strictly in position order; finish events carry ``token = -1``,
-``index = len(generated)`` and the finish reason (``"stop"`` |
-``"length"`` | ``"abort"``).
+and wave ticks and reserve or lazy admission), ``"fused"``
+(:class:`FusedBackend`, over :class:`~repro_torch.serving.engine.Engine`)
+and ``"split"`` (:class:`SplitBackend`, over the paper's
+:class:`~repro_torch.serving.split_engine.SplitEngine`). Per request,
+token events arrive strictly in position order; finish events carry
+``token = -1``, ``index = len(generated)`` and the finish reason
+(``"stop"`` | ``"length"`` | ``"abort"`` | ``"deadline"``).
 
 Quickstart::
 
@@ -42,6 +42,8 @@ from repro_torch.core.sampling import SamplingParams, truncate_at_stop
 from repro_torch.models.transformer import RuntimeOpts
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.split_engine import SplitEngine
+
 
 @dataclasses.dataclass(frozen=True)
 class TokenEvent:
@@ -92,6 +94,7 @@ class RequestOutput:
     finished: bool = False
     finish_reason: str | None = None
     metrics: RequestMetrics = dataclasses.field(default_factory=RequestMetrics)
+    split_stats: object | None = None  # split_engine.SplitStats (split only)
 
     @property
     def full_tokens(self) -> np.ndarray:
@@ -145,6 +148,7 @@ class _ReplayBackend(_RequestBook):
         self._queued: list = []
         # rid → [tokens, cursor, finish_reason, logprobs | None]
         self._streams: dict = {}
+        self._split_stats: dict = {}
         self._steps = 0
         self._submit_step: dict = {}
 
@@ -164,7 +168,7 @@ class _ReplayBackend(_RequestBook):
         return len(self._queued)
 
     def _release_dicts(self) -> tuple:
-        return (self._submit_step,)
+        return (self._split_stats, self._submit_step)
 
     def abort(self, rid: int) -> bool:
         """Cancel: a queued request never computes; a streaming one is cut
@@ -190,7 +194,8 @@ class _ReplayBackend(_RequestBook):
         m.latency_s = m.e2e_s = time.perf_counter() - m.submit_s
         self._outputs[rid] = RequestOutput(
             rid, self._reqs[rid].prompt, np.asarray(gen, np.int32),
-            finished=True, finish_reason=reason, metrics=m)
+            finished=True, finish_reason=reason, metrics=m,
+            split_stats=self._split_stats.get(rid))
 
     def _emit_round(self) -> list:
         events, self._pending_events = self._pending_events, []
@@ -251,6 +256,43 @@ class FusedBackend(_ReplayBackend):
                 gen = np.asarray(toks, np.int32)
                 self._streams[req.rid] = [gen, 0, reason,
                                           res.logprobs[i, : gen.shape[0]]]
+
+
+class SplitBackend(_ReplayBackend):
+    """The paper's split system behind the request API: each request runs
+    ``SplitEngine.generate`` (edge front → TS + TAB-Q uplink → cloud back,
+    the Algorithm 2 deadline ladder) with its own sampling params, one
+    request per ``step()``, then replays its tokens as events. The
+    :class:`RequestOutput` carries the call's ``SplitStats``; a generation
+    the deadline ladder cut short finishes with reason ``"deadline"``.
+    ``opsc=`` is required; other keyword arguments (``cache_len=``,
+    ``deadline_s=``, ``paged_cloud_kv=``, ``device=``, ...) reach the
+    ``SplitEngine``. ``SamplingParams(speculate_k=)`` above 0 raises: the
+    speculative split is not ported yet (ROADMAP queue 1, item 6.3)."""
+
+    def __init__(self, cfg, params, opts: RuntimeOpts = RuntimeOpts(), *,
+                 opsc=None, compress: bool = True, **split_kwargs):
+        if opsc is None:
+            raise ValueError("the split backend needs opsc=OPSCConfig(...)")
+        super().__init__()
+        self.compress = compress
+        self.engine = SplitEngine(cfg, params, opsc, opts=opts,
+                                  **split_kwargs)
+
+    def step(self) -> list:
+        if self._queued and not self._streams:
+            req = self._queued.pop(0)
+            sp = req.sampling
+            toks, stats, lps = self.engine.generate(
+                req.prompt[None], sp.max_tokens, compress=self.compress,
+                sampling=sp, with_logprobs=True, speculate_k=sp.speculate_k)
+            gen, reason = truncate_at_stop(toks[0, req.prompt.shape[0]:], sp)
+            if reason == "length" and len(gen) < sp.max_tokens:
+                reason = "deadline"  # Algorithm 2 cut the generation short
+            self._split_stats[req.rid] = stats
+            self._streams[req.rid] = [np.asarray(gen, np.int32), 0, reason,
+                                      lps[0, : len(gen)]]
+        return self._emit_round()
 
 
 class PagedBackend(_RequestBook):
@@ -334,9 +376,8 @@ class PagedBackend(_RequestBook):
         return events
 
 
-_BACKENDS = {"fused": FusedBackend, "paged": PagedBackend}
-_NOT_PORTED = {"split": "the split backend is not ported yet (ROADMAP "
-                        "queue 1, item 8)"}
+_BACKENDS = {"fused": FusedBackend, "paged": PagedBackend,
+             "split": SplitBackend}
 
 
 class LLMServer:
@@ -344,9 +385,10 @@ class LLMServer:
     default; extra keyword arguments, e.g. ``num_pages=``, ``max_slots=``,
     ``tick_mode="packed"``, ``lazy_growth=True`` and ``device=``, reach
     :class:`PagedBackend`'s ``Scheduler``),
-    ``"fused"`` (``cache_len=`` and ``device=`` reach :class:`FusedBackend`)
-    or an already-built backend. ``"split"`` raises ``NotImplementedError``
-    until its slice lands. ``telemetry`` accepts only None for now."""
+    ``"fused"`` (``cache_len=`` and ``device=`` reach :class:`FusedBackend`),
+    ``"split"`` (``opsc=``, ``compress=`` and the ``SplitEngine``'s keyword
+    arguments reach :class:`SplitBackend`) or an already-built backend.
+    ``telemetry`` accepts only None for now."""
 
     def __init__(self, cfg=None, params=None,
                  opts: RuntimeOpts = RuntimeOpts(), *,
@@ -355,8 +397,6 @@ class LLMServer:
             raise NotImplementedError("telemetry is not ported yet "
                                       "(ROADMAP queue 1, item 7)")
         if isinstance(backend, str):
-            if backend in _NOT_PORTED:
-                raise NotImplementedError(_NOT_PORTED[backend])
             if backend not in _BACKENDS:
                 raise ValueError(f"backend must be one of ['fused', 'paged', "
                                  f"'split'], got {backend!r}")

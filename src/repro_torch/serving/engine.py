@@ -60,6 +60,29 @@ def _fused_generate(params, cfg, opts, cache_len, max_new, tokens, sample):
     return torch.cat([tokens, toks], dim=1), lps
 
 
+def make_sampler(sampling: list, vocab_size: int, device):
+    """``sample(logits (B, V), t)`` → (B,) tokens for the rows'
+    :class:`SamplingParams`, ``t`` a 0-d device tensor, the generation
+    index of the token drawn. All-greedy batches take a plain argmax (with
+    any logit bias added first); the rest draw through
+    :func:`sample_tokens`."""
+    b = len(sampling)
+    bias = None
+    if any(p.logit_bias for p in sampling):
+        bias = torch.as_tensor(bias_rows(sampling, vocab_size), device=device)
+    if all(p.greedy for p in sampling):
+        def sample(logits, t):
+            return torch.argmax(logits if bias is None else logits + bias,
+                                dim=-1)
+    else:
+        seeds, temp, top_k, top_p = sampling_operands(sampling, device)
+
+        def sample(logits, t):
+            return sample_tokens(logits, seeds, t.expand(b), temp, top_k,
+                                 top_p, bias)
+    return sample
+
+
 class Engine:
     """``Engine(cfg, params, opts, cache_len=4096, device=None)``: params
     (the flat dict of :mod:`repro_torch.params`) are moved to ``device``,
@@ -104,22 +127,9 @@ class Engine:
         if s + max_new > self.cache_len:
             raise ValueError(f"prompt {s} + max_tokens {max_new} exceeds "
                              f"cache_len {self.cache_len}")
-        bias = None
-        if any(p.logit_bias for p in sampling):
-            bias = torch.as_tensor(bias_rows(sampling, self.cfg.vocab_size),
-                                   device=self.device)
-        if all(p.greedy for p in sampling):
-            def sample(logits, t):
-                return torch.argmax(logits if bias is None else logits + bias,
-                                    dim=-1)
-        else:
-            seeds, temp, top_k, top_p = sampling_operands(sampling,
-                                                          self.device)
-
-            def sample(logits, t):
-                return sample_tokens(logits, seeds, t.expand(b), temp, top_k,
-                                     top_p, bias)
-        return self._run(tokens, max_new, sample)
+        return self._run(tokens, max_new,
+                         make_sampler(sampling, self.cfg.vocab_size,
+                                      self.device))
 
     def generate(self, prompts, max_new_tokens: int, temperature: float = 0.0,
                  seed: int = 0) -> GenerationResult:

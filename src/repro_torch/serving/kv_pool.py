@@ -87,13 +87,16 @@ class PagedKVPool:
     names another; raises with no card) + host-side refcounting block
     allocator (see the module docstring).
 
-    ``cfg`` must be an attention-only pattern without sliding windows.
-    ``*_tokens``/``*_len`` arguments count TOKENS, ``*_pages`` count PAGES,
-    ``*_bytes`` are device bytes across every layer."""
+    ``cfg`` must be an attention-only pattern without sliding windows;
+    ``num_blocks`` overrides ``cfg.num_blocks``, so a split engine's cloud
+    pools only its own segment's layers. ``*_tokens``/``*_len`` arguments
+    count TOKENS, ``*_pages`` count PAGES, ``*_bytes`` are device bytes
+    across every layer the pool covers."""
 
     def __init__(self, cfg: ArchConfig, *, num_pages: int,
                  page_size: int = DEFAULT_PAGE_SIZE, max_requests: int,
-                 max_seq_len: int | None = None, mesh=None, device=None):
+                 max_seq_len: int | None = None, num_blocks: int | None = None,
+                 mesh=None, device=None):
         if mesh is not None:
             raise NotImplementedError("sharded pools (mesh=) are not ported "
                                       "yet (ROADMAP queue 1, item 9)")
@@ -125,7 +128,8 @@ class PagedKVPool:
         if max_seq_len is None:
             max_seq_len = (num_pages - 1) * page_size
         self.max_blocks = uniform_page_count(max_seq_len, page_size)
-        self.num_layers = cfg.num_layers
+        nb = cfg.num_blocks if num_blocks is None else num_blocks
+        self.num_layers = nb * len(cfg.pattern)
         kh, hd = specs[0].num_kv_heads, specs[0].head_dim
         self.kv_heads, self.head_dim = kh, hd
 
@@ -474,6 +478,19 @@ class PagedKVPool:
         """Device BYTES of ONE page across every layer."""
         kh, hd, ps = self.kv_heads, self.head_dim, self.page_size
         return (2 * kh * ps * hd + 2 * kh * ps * 4 + ps * 4) * self.num_layers
+
+    def page_bytes_written(self) -> int:
+        """BYTES of the distinct pages that hold at least one token: what a
+        page-level KV shipment moves (reserved but empty pages left out, a
+        page shared between requests counted once)."""
+        written: set = set()
+        for slot in np.flatnonzero(self.active):
+            n = int(self.lengths[slot])
+            if n > 0:
+                written.update(
+                    int(p) for p in self.block_tables[slot][:self.pages_for(n)]
+                    if p != TRASH_PAGE)
+        return self.page_bytes() * len(written)
 
     def page_bytes_in_use(self) -> int:
         """Page-granular occupancy in BYTES (shared pages counted once)."""

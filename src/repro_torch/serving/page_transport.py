@@ -1,5 +1,6 @@
 """Movers of paged-KV bytes between memory domains (port of
-``repro/serving/page_transport.py``, the host-swap part).
+``repro/serving/page_transport.py``: the host-swap and TAB-Q uplink
+movers).
 
 :class:`PageTransport` keeps the accounting every mover shares: the bytes
 moved, the transfers and the host seconds they took. The VALUES moved are
@@ -7,10 +8,11 @@ never touched, so the bit-identity of the mechanism underneath survives.
 :class:`HostSwapTransport` is the scheduler's preempt/resume mover: device
 pages → host snapshot → device pages on one pool
 (``kv_pool.PagedKVPool.export_slot`` / ``restore_slot``).
+:class:`TabqUplinkTransport` is the split engine's edge→cloud mover.
 
-Not ported yet: the TAB-Q uplink and page-stream movers and the
-disaggregated scheduler (ROADMAP queue 1, item 9), and the telemetry spans
-the reference records per transfer (item 7).
+Not ported yet: the page-stream mover and the disaggregated scheduler
+(ROADMAP queue 1, item 9), and the telemetry spans and events the
+reference records per transfer (item 7).
 """
 
 from __future__ import annotations
@@ -58,3 +60,15 @@ class HostSwapTransport(PageTransport):
         slot = pool.restore_slot(snapshot, reserve_tokens=reserve_tokens)
         self._record(t0, nbytes)
         return slot
+
+
+class TabqUplinkTransport(PageTransport):
+    """The split engine's edge→cloud mover of TS+TAB-Q activation payloads.
+    The engine computes each payload (compression is model code); this
+    class keeps the wire accounting, the payload's bits rounded up to whole
+    bytes, one transfer a payload."""
+
+    kind = "tabq_uplink"
+
+    def uplink(self, bits: float) -> None:
+        self._record(time.perf_counter(), -(-int(bits) // 8))

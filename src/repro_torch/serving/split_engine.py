@@ -1,0 +1,418 @@
+"""Split-computing serving engine, the paper's system (§2, Fig. 3); port of
+``repro/serving/split_engine.py``.
+
+The model is cut at OPSC's split point. The *edge* runs blocks [0, split)
+with its weights held as int8 codes and per-output-channel scales at
+``Q_w1`` bits (OPSC's front segment; every projection goes through the
+int8-weight kernel K7, and the dequantized weights never exist). The
+*cloud* runs blocks [split, L) at full precision. The split-layer hidden
+state crosses as a TS + TAB-Q payload (``core.payload``: kernels K6 and
+K5); its measured bit count drives the ε-outage channel model, and
+Algorithm 2's ladder escalates (drop the KV cache from the uplink, then
+stop generating) when the deadline would be missed.
+
+``I_kv`` (paper §2.2.1, Eq. 2/3): with I_kv = 1 the uplink is accounted at
+the Eq. (2) KV-cache size and the cloud decodes incrementally from its
+caches (dense, or a paged pool with ``paged_cloud_kv=True``); with I_kv = 0
+only hidden states cross, and the cloud re-runs its segment over the whole
+received history every step.
+
+Unlike the reference, whose front segment is fake-quantized (quantized and
+dequantized back to the weights' dtype), the port multiplies by the codes
+themselves: in f32 the products agree up to summation order and the
+rounding of code × scale, in bf16 also up to the weights' bf16 rounding,
+which the reference applies and K7 does not.
+
+Not ported yet: split-boundary speculation (``speculate_k``, ROADMAP queue
+1, item 6.3) and ``telemetry=`` (item 7). Only the llama family's configs
+are ported (item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.channel import ChannelConfig, LatencyModel, optimal_rate
+from repro_torch.core.opsc import OPSCConfig, payload_bytes
+from repro_torch.core.payload import decode as payload_decode
+from repro_torch.core.payload import encode as payload_encode
+from repro_torch.core.quant import QuantizedTensor, quantize_sym
+from repro_torch.core.sampling import (SamplingParams, broadcast_params,
+                                       token_logprobs)
+from repro_torch.device import resolve_device, to_device
+from repro_torch.models.transformer import (RuntimeOpts, _apply_layers,
+                                            apply_head, embed_inputs,
+                                            init_caches)
+from repro_torch.serving.engine import make_sampler
+from repro_torch.serving.kv_pool import DEFAULT_PAGE_SIZE, PagedKVPool
+from repro_torch.serving.page_transport import TabqUplinkTransport
+
+
+def slice_blocks(params: dict, lo: int, hi: int) -> dict:
+    """``params`` with every stacked ``blocks/...`` leaf cut to the blocks
+    [lo, hi) (views); the other leaves are shared."""
+    return {k: v[lo:hi] if k.startswith("blocks/") else v
+            for k, v in params.items()}
+
+
+def quantize_front_blocks(params: dict, bits: int) -> dict:
+    """OPSC front-segment weights: every stacked (nb, d_in, d_out) matrix
+    of ``params`` becomes a :class:`QuantizedTensor` of int8 codes with one
+    scale per block and output column (``quantize_sym`` over d_in, the
+    reference's ``_fake_quant_blocks`` without the dequantization); norms
+    and the embedding stay as they are. ``bits`` ≥ 16 keeps the full
+    precision weights (the paper's high-precision segment)."""
+    if bits >= 16:
+        return params
+    if bits > 8:
+        raise NotImplementedError(
+            f"qw_front={bits}: codes wider than int8 need an int32-weight "
+            f"product, which the port does not have (K7 takes int8)")
+    out = dict(params)
+    for key, x in params.items():
+        if key.startswith("blocks/") and x.dim() >= 3:
+            out[key] = quantize_sym(x.reshape(x.shape[0], -1, x.shape[-1]),
+                                    bits, dim=-2)
+    return out
+
+
+@dataclasses.dataclass
+class SplitStats:
+    tokens_generated: int = 0
+    uplink_bits_measured: float = 0.0  # the real TS + TAB-Q payload bits
+    uplink_bits_eq3: float = 0.0  # the paper's analytical accounting
+    latency_s: float = 0.0  # modelled deadline-ladder latency
+    early_exits: int = 0
+    kv_dropped_steps: int = 0
+    # paged cloud (paged_cloud_kv=True, I_kv=1): the per-step KV shipment
+    # at PAGE granularity under uplink_bits_eq3's convention (the whole
+    # written cache every step), and the pool's peak residency including
+    # the worst-case reservation; both count a page shared between edge
+    # devices once, which is what shared_prefix_len buys
+    uplink_bits_paged: float = 0.0
+    cloud_pool_bytes_peak: int = 0
+    shared_prefix_pages: int = 0  # pool pages pinned by the shared prefix
+    uplink_round_trips: int = 0  # decode-phase payloads (prefill excluded)
+
+
+class SplitEngine:
+    def __init__(self, cfg: ArchConfig, params: dict, opsc: OPSCConfig,
+                 channel: ChannelConfig = ChannelConfig(),
+                 deadline_s: float | None = None,
+                 compute_per_layer_s: float = 1e-4,
+                 opts: RuntimeOpts = RuntimeOpts(),
+                 cache_len: int = 4096,
+                 paged_cloud_kv: bool = False,
+                 cloud_pool_pages: int = 256,
+                 cloud_page_size: int | None = None,
+                 telemetry=None, device=None):
+        """The paper's split system on ``device`` (``cuda`` unless the
+        caller names another; raises with no card): edge blocks [0, split)
+        as int8 codes at ``opsc.qw_front`` bits (full precision at 16 or
+        more), cloud blocks [split, L) at full precision, a TS + TAB-Q
+        payload between them. ``params`` is the flat dict of
+        :mod:`repro_torch.params`.
+
+        ``paged_cloud_kv=True`` (I_kv = 1 only) gives the cloud a
+        ``PagedKVPool`` of ``cloud_pool_pages`` pages of ``cloud_page_size``
+        tokens (None: the pool default) over its own segment's layers in
+        place of a dense per-request cache; each ``generate`` call admits
+        its rows with worst-case reservation (prompt + max_new tokens).
+        ``cache_len`` (tokens) bounds every per-request history buffer."""
+        if telemetry is not None:
+            raise NotImplementedError("telemetry is not ported yet "
+                                      "(ROADMAP queue 1, item 7)")
+        if opsc.split_layer % len(cfg.pattern):
+            raise ValueError("the split point must fall on a pattern "
+                             "boundary")
+        self.device = resolve_device(device)
+        self.cfg, self.opts, self.opsc = cfg, opts, opsc
+        self.cache_len = cache_len
+        self.paged_cloud_kv = paged_cloud_kv
+        self.cloud_pool_pages = cloud_pool_pages
+        self.cloud_page_size = cloud_page_size
+        self.split_block = opsc.split_layer // len(cfg.pattern)
+        # the edge→cloud mover: every payload's wire accounting
+        self._uplink = TabqUplinkTransport()
+
+        # the cloud reads blocks [split, nb) of these; the edge holds its
+        # own quantized copy of blocks [0, split)
+        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.edge_params = quantize_front_blocks(
+            slice_blocks(self.params, 0, self.split_block), opsc.qw_front)
+
+        self.channel = channel
+        self.rate = optimal_rate(channel)
+        self.latency = LatencyModel(channel, self.rate, compute_per_layer_s)
+        self.deadline_s = deadline_s
+
+    def edge_weight_bytes(self) -> int:
+        """Device bytes of the edge segment's block weights: when quantized,
+        the int8 codes (one byte a code at any ``qw_front``; OPSC's Eq. 1
+        counts ``qw_front`` bits) and their f32 scales."""
+        total = 0
+        for k, v in self.edge_params.items():
+            if k.startswith("blocks/"):
+                parts = (v.codes, v.scale) if isinstance(v, QuantizedTensor) \
+                    else (v,)
+                total += sum(t.numel() * t.element_size() for t in parts)
+        return total
+
+    # ------------------------------------------------------------- stages
+
+    def _positions(self, b: int, s: int, pos) -> torch.Tensor:
+        """(B, S) int32 positions pos .. pos + S - 1 (``pos`` an int or a
+        0-d int32 tensor on the device)."""
+        ar = torch.arange(s, dtype=torch.int32, device=self.device) + pos
+        return ar[None].expand(b, s)
+
+    def _edge_front(self, tokens, caches, pos, decode: bool):
+        """Blocks [0, split) over ``tokens`` (B, S) written at ``pos``:
+        the split-layer hidden states (B, S, D)."""
+        b, s = tokens.shape
+        x = embed_inputs(self.cfg, self.edge_params, tokens)
+        return _apply_layers(self.cfg, self.edge_params, x, caches,
+                             q_positions=self._positions(b, s, pos), pos=pos,
+                             opts=self.opts, decode=decode,
+                             blocks=(0, self.split_block))
+
+    def _cloud_back(self, h, caches, pos, decode: bool, positions=None,
+                    attend_cache: bool = False):
+        """Blocks [split, L) and the head over ``h`` (B, S, D): last
+        position logits (B, V) f32. ``positions`` (B, S) overrides
+        ``pos`` (the shared-prefix prefill, whose rows 1+ mask their
+        prefix columns with -1 and, with ``attend_cache``, read the prefix
+        that row 0 writes into the shared pool pages in this call)."""
+        b, s = h.shape[:2]
+        if positions is None:
+            positions = self._positions(b, s, pos)
+        x = _apply_layers(self.cfg, self.params, h, caches,
+                          q_positions=positions, pos=pos, opts=self.opts,
+                          decode=decode, attend_cache=attend_cache,
+                          blocks=(self.split_block, self.cfg.num_blocks))
+        return apply_head(self.cfg, self.params, x[:, -1:])[:, 0]
+
+    # ------------------------------------------------------------ payload
+
+    def _compress(self, h: torch.Tensor):
+        """TS + TAB-Q over ``h`` (B, S, D) as f32 and back (Eq. 7):
+        (reconstruction in h's dtype, measured payload bits). Reading the
+        bits back syncs the host, as the ladder needs them there."""
+        b, s, d = h.shape
+        p = payload_encode(h.reshape(b * s, d).float(), tau=self.opsc.tau,
+                           delta=self.opsc.delta,
+                           max_bits=self.opsc.max_act_bits)
+        rec = payload_decode(p).reshape(b, s, d).to(h.dtype)
+        return rec, float(p.payload_bits())
+
+    def _eq3_bits(self, w: int, i_kv: int) -> float:
+        c = self.cfg
+        m = c.pattern[0].mixer
+        return payload_bytes(w, self.opsc.split_layer, c.num_layers,
+                             m.num_kv_heads * m.head_dim, c.d_model,
+                             self.opsc.qa_front, self.opsc.qa_back,
+                             i_kv) * 8.0
+
+    # ----------------------------------------------------------- generate
+
+    @torch.inference_mode()
+    def generate(self, prompts, max_new_tokens: int, compress: bool = True,
+                 shared_prefix_len: int = 0, sampling=None,
+                 with_logprobs: bool = False, speculate_k: int = 0) -> tuple:
+        """Split-computing generation over ``prompts`` (B, S) int. Returns
+        (tokens (B, S + generated), SplitStats), or with
+        ``with_logprobs=True`` also (B, generated) f32 logprobs of each
+        emitted token under the raw cloud-head distribution.
+
+        ``sampling``: one ``SamplingParams`` for every row or a list of B;
+        None or all-greedy rows take the exact argmax. The sampler is
+        ``Engine``'s, so with a full-precision front (``qw_front`` ≥ 16)
+        and ``compress=False`` a stream is bit-identical to ``Engine``'s.
+
+        ``shared_prefix_len`` (tokens; needs ``paged_cloud_kv=True`` and
+        I_kv = 1) declares that every row begins with the same prefix: the
+        cloud holds it once (rows 1+ fork row 0's pool pages, rounded down
+        to whole pages), and rows 1+ neither compress nor ship their prefix
+        columns."""
+        if speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        if speculate_k:
+            raise NotImplementedError("split-boundary speculation is not "
+                                      "ported yet (ROADMAP queue 1, item "
+                                      "6.3)")
+        cfg, opts, dev = self.cfg, self.opts, self.device
+        prompts = np.asarray(prompts)
+        if prompts.ndim != 2:
+            raise ValueError(f"prompts must be (B, S) token ids, got shape "
+                             f"{prompts.shape}")
+        b, s = prompts.shape
+        if s + max_new_tokens > self.cache_len:
+            raise ValueError(f"prompt {s} + max_new_tokens {max_new_tokens} "
+                             f"exceeds cache_len {self.cache_len}")
+        tokens = torch.as_tensor(prompts, device=dev)
+        stats = SplitStats()
+        sample = make_sampler(broadcast_params(
+            SamplingParams() if sampling is None else sampling, b),
+            cfg.vocab_size, dev)
+
+        nfront = self.split_block
+        nback = cfg.num_blocks - nfront
+        edge_caches = init_caches(cfg, b, self.cache_len, opts, dev, nfront)
+        pool, aligned = None, 0
+        if shared_prefix_len and not (self.paged_cloud_kv and self.opsc.i_kv):
+            raise ValueError("shared_prefix_len needs paged_cloud_kv=True "
+                             "and I_kv=1 (the prefix lives in cloud pages)")
+        if self.paged_cloud_kv and self.opsc.i_kv:
+            pool = PagedKVPool(
+                cfg, num_pages=self.cloud_pool_pages,
+                page_size=self.cloud_page_size or DEFAULT_PAGE_SIZE,
+                max_requests=b, max_seq_len=self.cache_len,
+                num_blocks=nback, device=dev)
+            if shared_prefix_len and b > 1:
+                declared = min(int(shared_prefix_len), s - 1)
+                # validate the declared prefix even when page rounding
+                # leaves nothing to share
+                if not np.all(prompts[:, :declared] == prompts[:1, :declared]):
+                    raise ValueError(
+                        f"shared_prefix_len={shared_prefix_len}: rows do "
+                        f"not share their first {declared} prompt tokens")
+                # whole pages only: no copy-on-write, and rows admitted in
+                # the same prefill read the pages row 0 writes
+                aligned = declared // pool.page_size * pool.page_size
+            reserve = s + max_new_tokens
+            if aligned:
+                slot0 = pool.admit(s, reserve_tokens=reserve)
+                handle = pool.share_prefix(slot0, aligned)
+                for _ in range(b - 1):
+                    pool.admit(s, reserve_tokens=reserve, prefix=handle)
+                pool.release_prefix(handle)  # the rows hold their own refs
+                stats.shared_prefix_pages = aligned // pool.page_size
+            else:
+                for _ in range(b):
+                    # worst-case reservation: a decode append never finds
+                    # the pool full
+                    pool.admit(s, reserve_tokens=reserve)
+            cloud_caches = pool.device_caches()
+        else:
+            cloud_caches = init_caches(cfg, b, self.cache_len, opts, dev,
+                                       nback)
+
+        def account_pages():
+            if pool is not None:
+                # the shipment moves the written pages; residency counts
+                # the whole reservation the cloud holds
+                stats.uplink_bits_paged += pool.page_bytes_written() * 8
+                stats.cloud_pool_bytes_peak = max(stats.cloud_pool_bytes_peak,
+                                                  pool.page_bytes_in_use())
+
+        # ---- prefill both segments; the prompt crosses the same uplink
+        h = self._edge_front(tokens, edge_caches, 0, decode=False)
+        if aligned:
+            # the shared prefix crosses once, with row 0; rows 1+ ship only
+            # their suffix and the cloud takes their prefix from row 0's
+            # (causality makes prefix hidden states row-independent)
+            if compress:
+                rec0, bits0 = self._compress(h[:1])
+                recs, bits_s = self._compress(h[1:, aligned:])
+            else:
+                rec0, bits0 = h[:1], float(h[:1].numel() * 16)
+                recs = h[1:, aligned:]
+                bits_s = float(recs.numel() * 16)
+            pre = rec0[:, :aligned].expand(b - 1, aligned, h.shape[2])
+            h = torch.cat([rec0, torch.cat([pre, recs], dim=1)]).to(h.dtype)
+            bits = bits0 + bits_s
+        elif compress:
+            h, bits = self._compress(h)
+        else:
+            bits = float(h.numel() * 16)  # uncompressed 16-bit uplink
+        stats.uplink_bits_measured += bits
+        self._uplink.uplink(bits)
+        if aligned:
+            posn = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+            posn[1:, :aligned] = -1  # rows 1+ neither write nor re-read it
+            logits = self._cloud_back(h, cloud_caches, 0, decode=False,
+                                      positions=to_device(posn, dev),
+                                      attend_cache=True)
+        else:
+            logits = self._cloud_back(h, cloud_caches, 0, decode=False)
+        stats.uplink_bits_eq3 += self._eq3_bits(s, self.opsc.i_kv)
+        if pool is not None:
+            for r in range(b):
+                pool.commit_prefill(r, s)
+            account_pages()
+
+        # device buffers: the split-layer history (for the stateless
+        # I_kv = 0 cloud), the tokens and their logprobs, read back once
+        h_buf = torch.zeros((b, self.cache_len, h.shape[2]), dtype=h.dtype,
+                            device=dev)
+        h_buf[:, :s] = h
+        tok_buf = torch.empty((b, max_new_tokens), dtype=tokens.dtype,
+                              device=dev)
+        lp_buf = torch.empty((b, max_new_tokens), dtype=torch.float32,
+                             device=dev)
+        t = torch.zeros((), dtype=torch.int32, device=dev)
+        n_hist, n_out, i_kv, pos = s, 0, self.opsc.i_kv, s
+        for step in range(max_new_tokens):
+            nxt = sample(logits, t)
+            tok_buf[:, step] = nxt
+            if with_logprobs:
+                lp_buf[:, step] = token_logprobs(logits, nxt)
+            n_out = step + 1
+            if step + 1 == max_new_tokens:
+                break
+            pos_t = t + s  # the position the token is written at
+            h = self._edge_front(tok_buf[:, step:step + 1], edge_caches,
+                                 pos_t, decode=True)
+            if compress:
+                h_c, bits = self._compress(h)
+            else:
+                h_c, bits = h, float(h.numel() * 16)
+            # Algorithm 2's ladder on the modelled total latency
+            w = pos + 1
+            if self.deadline_s is not None:
+                lat = self.latency.total_latency(w, self.opsc.split_layer,
+                                                 bits)
+                if lat > self.deadline_s and i_kv == 1:
+                    i_kv = 0  # drop the KV cache from the uplink
+                    stats.kv_dropped_steps += 1
+                    lat = self.latency.total_latency(
+                        w, self.opsc.split_layer, self._eq3_bits(w, 0))
+                if lat > self.deadline_s:
+                    stats.early_exits += 1
+                    stats.latency_s += lat
+                    break
+                stats.latency_s += lat
+            stats.uplink_bits_measured += bits
+            stats.uplink_bits_eq3 += self._eq3_bits(w, i_kv)
+            stats.uplink_round_trips += 1
+            self._uplink.uplink(bits)
+
+            h_buf[:, n_hist] = h_c[:, 0]
+            n_hist += 1
+            if i_kv:
+                if pool is not None:  # grow each request by one token
+                    for r in range(b):
+                        pool.append(r, 1)
+                    cloud_caches = pool.device_caches()
+                logits = self._cloud_back(h_c, cloud_caches, pos_t,
+                                          decode=True)
+                account_pages()
+            else:
+                # stateless cloud: its segment over the whole history,
+                # "losing the benefits of the cache"
+                fresh = init_caches(cfg, b, n_hist, opts, dev, nback)
+                logits = self._cloud_back(h_buf[:, :n_hist], fresh, 0,
+                                          decode=False)
+            pos += 1
+            t += 1
+            stats.tokens_generated += 1
+
+        out = tok_buf[:, :n_out].cpu().numpy()
+        toks = np.concatenate([prompts, out.astype(prompts.dtype)], axis=1)
+        if with_logprobs:
+            return toks, stats, lp_buf[:, :n_out].cpu().numpy()
+        return toks, stats

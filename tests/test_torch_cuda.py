@@ -12,15 +12,21 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.opsc import OPSCConfig
+from repro_torch.core.payload import encode as payload_encode
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import dequant_matmul as dm
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import paged_prefill_attention as ppa
+from repro_torch.kernels import tabq_quantize as tq
+from repro_torch.kernels import ts_mask as tsm
 from repro_torch.kernels import varlen_attention as va
 from repro_torch.models.transformer import RuntimeOpts
 from repro_torch.params import init_params
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.split_engine import SplitEngine
 
 torch.set_num_threads(2)
 
@@ -332,3 +338,121 @@ def test_varlen_kernel_rows_do_not_depend_on_placement(cuda_device):
     got_moved = ops.varlen_attention(*moved[:9], start, *moved[9:])
     torch.cuda.synchronize()
     assert torch.equal(got_moved, got[:, perm])
+
+
+def _activations(rng, t, d, dtype, outliers=0):
+    """bf16-rounded activations (ties in magnitude), a few outliers."""
+    x = (rng.normal(size=(t, d)) * 2.0).astype(np.float32)
+    if outliers:
+        x.reshape(-1)[rng.choice(t * d, outliers, replace=False)] *= 30.0
+    return torch.from_numpy(x).to(torch.bfloat16).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d", [(1, 4096), (7, 64), (128, 4096), (3, 100)])
+def test_tabq_and_ts_kernels_equal_plain_versions(cuda_device, dtype, t, d):
+    """K5 at every bit width and K6 are bit-identical to their plain
+    versions: codes, scales, zeros, signs; below, mask and counts."""
+    rng = np.random.default_rng(t + d)
+    x = _activations(rng, t, d, getattr(torch, dtype), outliers=t).to(
+        cuda_device)
+    x[0, :4] = 0.0
+    for bits in range(1, 9):
+        before = tq.tabq_quantize.launches
+        got = ops.tabq_quantize(x, bits)
+        assert tq.tabq_quantize.launches == before + 1
+        want = tq.tabq_quantize_ref(x, bits)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), bits
+    for tau in (0.5, 5.0, 1e3):
+        got = ops.ts_mask(x, tau)
+        want = tsm.ts_mask_ref(x, tau)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), tau
+
+
+def test_payload_on_card_equals_cpu(cuda_device):
+    """The codec through K5 and K6 on the card equals the plain versions
+    on the CPU, with more entries above τ than the carrier holds."""
+    rng = np.random.default_rng(3)
+    x = _activations(rng, 16, 1024, torch.float32, outliers=60)
+    got = payload_encode(x.to(cuda_device), tau=5.0)
+    want = payload_encode(x, tau=5.0)
+    assert int(want.above.count) > want.above.values.shape[0]
+    for name in ("codes", "sign", "scale", "zero", "bits"):
+        assert torch.equal(getattr(got.below, name).cpu(),
+                           getattr(want.below, name)), name
+    assert torch.equal(got.above.indices.cpu(), want.above.indices)
+    assert torch.equal(got.above.values.cpu(), want.above.values)
+    assert got.payload_bits() == want.payload_bits()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (1, 11008, 4096),
+                                   (4, 4096, 11008), (3, 100, 17),
+                                   (128, 11008, 4096), (70, 130, 50)])
+def test_dequant_matmul_kernel_matches_plain_version(cuda_device, dtype, m,
+                                                     k, n):
+    """K7 (split-K GEMV for M <= 4, tiled above) against its plain
+    version: f32 sums in another order, so within 1e-5 of the largest
+    possible term sum |x| @ |codes| * scale."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        cuda_device, getattr(torch, dtype))
+    codes = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(
+        np.int8)).to(cuda_device)
+    scale = torch.from_numpy(rng.uniform(1e-3, 1e-1, (n,)).astype(
+        np.float32)).to(cuda_device)
+    before = dm.dequant_matmul.launches
+    got = ops.dequant_matmul(x, codes, scale)
+    assert dm.dequant_matmul.launches == before + 1
+    want = dm.dequant_matmul_ref(x, codes, scale)
+    bound = (x.float().abs() @ codes.float().abs() * scale).max()
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(bound)
+
+
+def test_split_kernels_refuse_bad_card_input(cuda_device):
+    x = torch.zeros((2, 64), device=cuda_device)
+    codes = torch.zeros((64, 8), dtype=torch.int8, device=cuda_device)
+    scale = torch.ones(8, device=cuda_device)
+    counts = (tq.tabq_quantize.launches, tsm.ts_mask.launches,
+              dm.dequant_matmul.launches)
+    for bad in (x.double(), x.t(), x[None]):
+        with pytest.raises(ValueError):
+            tq.tabq_quantize(bad, 4)
+        with pytest.raises(ValueError):
+            tsm.ts_mask(bad, 1.0)
+    with pytest.raises(ValueError):
+        tq.tabq_quantize(x, 9)
+    for args in ((x, codes.float(), scale), (x, codes[:32], scale),
+                 (x, codes, scale[:4]), (x, codes.t().contiguous().t(),
+                                         scale), (x, codes, scale.cpu())):
+        with pytest.raises(ValueError):
+            dm.dequant_matmul(*args)
+    assert (tq.tabq_quantize.launches, tsm.ts_mask.launches,
+            dm.dequant_matmul.launches) == counts
+
+
+def test_split_engine_on_card_matches_cpu(cuda_device):
+    """llama2-7b tiny through the split engine (int4-code front, TS +
+    TAB-Q payload, int8 KV): the card's tokens equal the CPU's, and the
+    run launches K5, K6 and K7."""
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
+    opsc = OPSCConfig(split_layer=1, qw_front=4, tau=0.5)
+    want, wst = SplitEngine(cfg, params, opsc, opts=opts, cache_len=32,
+                            device="cpu").generate(prompts, 6)
+    before = (tq.tabq_quantize.launches, tsm.ts_mask.launches,
+              dm.dequant_matmul.launches)
+    got, gst = SplitEngine(cfg, params, opsc, opts=opts, cache_len=32,
+                           device=cuda_device).generate(prompts, 6)
+    after = (tq.tabq_quantize.launches, tsm.ts_mask.launches,
+             dm.dequant_matmul.launches)
+    np.testing.assert_array_equal(got, want)
+    assert gst.uplink_bits_measured == wst.uplink_bits_measured
+    assert after[0] - before[0] == 6 * 6  # six TAB-Q levels, six payloads
+    assert after[1] - before[1] == 6
+    assert after[2] - before[2] == 7 * 6  # seven products, six edge calls

@@ -21,6 +21,7 @@ from repro.models import transformer as JT
 from repro.serving.engine import Engine as JaxEngine
 from repro.training.checkpoint import restore_checkpoint
 from repro_torch.configs import get_config
+from repro_torch.core.opsc import OPSCConfig
 from repro_torch.core.sampling import SamplingParams
 from repro_torch.models.transformer import RuntimeOpts
 from repro_torch.params import from_jax_params, load_npz_checkpoint
@@ -28,6 +29,7 @@ from repro_torch.serving.api import LLMServer
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.kv_pool import PagedKVPool
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.split_engine import SplitEngine
 
 torch.set_num_threads(2)
 
@@ -210,11 +212,14 @@ def test_fused_backend_mixed_lengths_and_stop(tiny_model):
 
 
 def test_llm_server_refuses_unported_backends_and_bad_input(tiny_model):
-    """Only ``"split"`` is refused now; the default backend (``"paged"``)
-    serves on the CPU when asked for it."""
+    """Every backend is ported; an unported deployment of the paged one is
+    refused, and so is a split backend without its OPSC config. The
+    default backend (``"paged"``) serves on the CPU when asked for it."""
     cfg, _, params = tiny_model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMServer(cfg, params, OPTS_Q, backend="split")
+        LLMServer(cfg, params, OPTS_Q, deployment="sharded", device="cpu")
+    with pytest.raises(ValueError, match="opsc"):
+        LLMServer(cfg, params, OPTS_Q, backend="split", device="cpu")
     srv = LLMServer(cfg, params, OPTS_Q, device="cpu")  # "paged" by default
     p = np.random.default_rng(2).integers(0, 256, (5,))
     rid = srv.submit(p, SamplingParams(max_tokens=3))
@@ -246,19 +251,25 @@ def test_entry_points_raise_without_a_device(tiny_model, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cfg, params, OPTS_Q)
-    for backend in ("fused", "paged"):
+    for backend, kw in (("fused", {}), ("paged", {}),
+                        ("split", {"opsc": OPSCConfig(split_layer=1)})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            LLMServer(cfg, params, OPTS_Q, backend=backend)
+            LLMServer(cfg, params, OPTS_Q, backend=backend, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SplitEngine(cfg, params, OPSCConfig(split_layer=1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Scheduler(cfg, params, OPTS_Q)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedKVPool(cfg, num_pages=8, max_requests=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "llama2-7b", "--tiny"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "llama2-7b", "--tiny", "--split"])
     serve.main(["--arch", "llama2-7b", "--tiny", "--batch", "1", "--new", "2",
                 "--quantized-kv", "--device", "cpu"])
+    serve.main(["--arch", "llama2-7b", "--tiny", "--batch", "1", "--new", "2",
+                "--quantized-kv", "--device", "cpu", "--split",
+                "--qw-front", "4"])
 
 
 def test_port_imports_nothing_of_jax():
