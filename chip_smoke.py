@@ -97,6 +97,26 @@ def peak_rates(name: str) -> tuple:
     return 3.35e12, 67e12
 
 
+# the bf16 tensor cores' dense peak of an H100 SXM (NVIDIA's data sheet, at
+# the full power limit): int8 codes and bf16 operands are exact in bf16, so
+# K7's products and K3's and K4's on bf16 inputs are work the tensor cores
+# could do at this rate
+BF16_PEAK = 989e12
+
+
+def attention_bound(ctx, nbytes: int, flops: int, bf16: bool) -> dict:
+    """The least time of an attention call: its bytes over the memory rate
+    and its operations over the bf16 tensor cores' peak for bf16 inputs
+    (exact there), the f32 CUDA-core peak for f32 ones; both terms."""
+    bw, f32_peak = peak_rates(ctx["device_name"])
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = flops / (BF16_PEAK if bf16 else f32_peak) * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "ops_peak": "bf16" if bf16 else "f32",
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 class Timer:
     """Medians of CUDA-event timings of single calls, with the 50 MB L2
     flushed before each call (a decode layer finds its cache cold). Several
@@ -396,8 +416,9 @@ def _prefill_inputs(torch, rng, r, s, kh, g, hd, page, nb, rows, dtype,
 def _kernel_k3(ctx) -> dict:
     """K3 against its plain version on the serve phase's chunk shape and on
     edge shapes, q and fresh k/v in f32 and bf16; pad columns and padded
-    rows must be exact zeros. Then its time at the serve shape beside its
-    bound, the plain version's and SDPA's."""
+    rows must be exact zeros, and the main path's shapes in bf16 must take
+    the tensor cores. Then its time at the serve shape beside its bound,
+    the plain version's and SDPA's."""
     import numpy as np
     import torch
     from repro_torch.kernels import paged_decode_attention as pda
@@ -418,12 +439,15 @@ def _kernel_k3(ctx) -> dict:
         (2, 37, 2, 1, 128, 16, 4, [(0, 37), (0, 12)]),  # no history at all
     ]
     checks, worst = [], 0.0
-    for (r, s, kh, g, hd, page, nb, rows) in shapes:
+    routes = ppa.paged_prefill_attention.route_launches
+    for i, (r, s, kh, g, hd, page, nb, rows) in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16):
             args = _prefill_inputs(torch, rng, r, s, kh, g, hd, page, nb,
                                    rows, dtype, device)
             start = ppa.first_call_position(args[7])
+            before = dict(routes)
             got = ppa.paged_prefill_attention(*args[:8], start, *args[8:])
+            way = next(k for k in routes if routes[k] != before[k])
             want = ppa.paged_prefill_attention_ref(*args[:8], start,
                                                    *args[8:])
             torch.cuda.synchronize()
@@ -431,9 +455,11 @@ def _kernel_k3(ctx) -> dict:
             pads = args[7] < 0  # (R, S): pad columns and padded rows
             zeros = bool((got[pads] == 0).all())
             ok = bool(torch.isfinite(got).all()) and err <= ATOL and zeros
+            if dtype == torch.bfloat16 and i < 2:  # the main path's shapes
+                ok = ok and way == "tensor_cores"
             checks.append({"shape": [r, s, kh, g, hd, page, nb],
                            "rows": rows, "dtype": str(dtype)[6:],
-                           "max_abs_err": err, "atol": ATOL,
+                           "route": way, "max_abs_err": err, "atol": ATOL,
                            "pads_exact_zero": zeros, "ok": ok})
             worst = max(worst, err)
             if not ok:
@@ -467,35 +493,35 @@ def _kernel_k3(ctx) -> dict:
         "plain": lambda: ppa.paged_prefill_attention_ref(*args[:8], start,
                                                          *args[8:]),
         "library": lambda: sdpa(q_l, k_all, v_all, attn_mask=mask)})
-    bw, f32_peak = peak_rates(ctx["device_name"])
-    # the history pages each row must read (slots below its start), and
-    # 4·hd flops (the dot and the weighted sum) per valid (query, key) pair
-    pages, pairs = 0, 0
+    # the history pages each row must read (slots below its start), the
+    # live queries' q and fresh k/v, all of the f32 output; and 4·hd flops
+    # (the dot and the weighted sum) per valid (query, key) pair
+    pages, pairs, live = 0, 0, 0
     for x in rows:
         if x is None:
             continue
         hist_n, fresh = x
         pages += min(-(-hist_n // page), nb)
         pairs += fresh * hist_n + fresh * (fresh + 1) // 2
+        live += fresh
     el = q.element_size()
-    nbytes = (q.numel() * el + kf.numel() * el * 2 + pages * (
+    nbytes = (live * kh * (g + 2) * hd * el + pages * (
         kh * page * (2 * hd + 8) + page * 4) + bt.numel() * 4
         + q_pos.numel() * 4 + r * 4 + q.numel() * 4)
-    flops = 4 * hd * kh * g * pairs
-    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / f32_peak * 1e3
+    bound = attention_bound(ctx, nbytes, 4 * hd * kh * g * pairs,
+                            q.dtype == torch.bfloat16)
     ctx["kernels"]["paged_prefill_attention"] = {
         "name": "paged_prefill_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
         "replaces": "src/repro/kernels/paged_prefill_attention.py:200",
         "launches": None, "max_abs_err": worst, "ms": ms["kernel"],
-        "plain_ms": ms["plain"], "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": ms["library"]}
+        "plain_ms": ms["plain"], "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "library_ms": ms["library"]}
     return {"checks": checks, "main_shape": [r, s, kh, g, hd, page, nb],
-            "rows": rows, "bytes": nbytes, "flops": flops,
+            "rows": rows, "live_queries": live, **bound,
             "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
-            "library_ms": ms["library"], "bound_ms": max(bytes_ms, ops_ms),
-            "achieved_TFLOPs": flops / ms["kernel"] / 1e9}
+            "library_ms": ms["library"],
+            "achieved_TFLOPs": bound["flops"] / ms["kernel"] / 1e9}
 
 
 def _varlen_inputs(torch, rng, segs, kh, g, hd, page, nb, pad, dtype,
@@ -679,43 +705,38 @@ def _kernel_k4(ctx) -> dict:
         "kernel": lambda: va.varlen_attention(*full),
         "plain": lambda: va.varlen_attention_ref(*full),
         "library": lambda: sdpa(q_l, k_all, v_all, attn_mask=mask)})
-    bw, f32_peak = peak_rates(ctx["device_name"])
-    # the history pages each slot must read (slots below its start), and
-    # 4·hd flops per valid (query, key) pair: a row sees its slot's
-    # history and its segment's fresh keys up to itself
-    pages, pairs = 0, 0
+    # the history pages each slot must read (slots below its start), the
+    # live rows' q and fresh k/v, all of the f32 output; and 4·hd flops per
+    # valid (query, key) pair: a row sees its slot's history and its
+    # segment's fresh keys up to itself
+    pages, pairs, live = 0, 0, 0
     for h, n in m["segs"]:
         if n:
             pages += min(-(-h // m["page"]), m["nb"])
             pairs += n * h + n * (n + 1) // 2
+            live += n
     el = q.element_size()
-    nbytes = (q.numel() * el + kf.numel() * el * 2 + pages * (
+    nbytes = (live * kh * (m["g"] + 2) * hd * el + pages * (
         kh * m["page"] * (2 * hd + 8) + m["page"] * 4) + bt.numel() * 4
         + 2 * t * 4 + r * 4 + q.numel() * 4)
-    flops = 4 * hd * kh * m["g"] * pairs
-    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / f32_peak * 1e3
+    bound = attention_bound(ctx, nbytes, 4 * hd * kh * m["g"] * pairs,
+                            q.dtype == torch.bfloat16)
     ctx["kernels"]["varlen_attention"] = {
         "name": "varlen_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/varlen_attention.cu",
         "replaces": "src/repro/kernels/varlen_attention.py:186",
         "launches": None, "max_abs_err": worst, "ms": ms["kernel"],
-        "plain_ms": ms["plain"], "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": ms["library"]}
+        "plain_ms": ms["plain"], "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "library_ms": ms["library"]}
     return {"checks": checks, "placement_bit_identical": placement,
             "k2_pure_decode_max_abs_err": k2_err,
             "main_shape": {k: v for k, v in m.items()}, "T": t,
-            "pages": pages, "pairs_per_head": pairs, "bytes": nbytes,
-            "flops": flops, "kernel_ms": ms["kernel"],
-            "plain_ms": ms["plain"], "library_ms": ms["library"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "achieved_TFLOPs": flops / ms["kernel"] / 1e9}
+            "pages": pages, "pairs_per_head": pairs, "live_rows": live,
+            **bound, "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"],
+            "achieved_TFLOPs": bound["flops"] / ms["kernel"] / 1e9}
 
 
-# the bf16 tensor cores' dense peak of an H100 SXM (NVIDIA's data sheet, at
-# the full power limit): int8 weight codes are exact in bf16, so K7's
-# products are work the tensor cores could do at this rate
-BF16_PEAK = 989e12
 # K7 against its plain version: f32 sums in another order, bounded by a
 # multiple of the largest possible sum of term magnitudes, |x| @ |codes|
 # times the scale (a dropped row of codes moves a result by about 1/K of
@@ -732,10 +753,16 @@ K5_K6_CODEC = (128, 4096)  # a 128-token prefill payload
 # M it is also timed at
 K7_CHECKS = [(m, k, n) for m in (1, 4, 96, 128, 384, 600)
              for k, n in ((4096, 4096), (4096, 11008), (11008, 4096))] + [
-    (3, 100, 17), (70, 130, 50), (5, 1000, 33), (1, 1, 1), (2, 11008, 8)]
+    (3, 100, 17), (70, 130, 50), (5, 1000, 33), (1, 1, 1), (2, 11008, 8),
+    # the tensor cores' ragged edges: M, N and K no multiple of a tile
+    (70, 200, 80), (130, 1000, 48)]
+# the prefill sizes the split phase launches: with bf16 x they must take
+# the tensor cores
+K7_TC_M = (96, 128, 384, 600)
 K7_MAIN = (1, 4096, 11008)
 # K7's device functions (csrc/dequant_matmul.cu), as a profile names them
-K7_DEVICE_NAMES = ("gemm_kernel", "gemv_kernel", "splitk_reduce_kernel")
+K7_DEVICE_NAMES = ("gemm_kernel", "gemv_kernel", "splitk_reduce_kernel",
+                   "tc_gemm_kernel")
 K7_PREFILL_M = 128
 
 
@@ -847,30 +874,36 @@ def _kernel_k5_k6(ctx) -> dict:
 def _kernel_k7(ctx) -> dict:
     """K7 (``dequant_matmul``) against its plain version on llama2-7b's
     edge products at decode (M = 1, 4) and prefill (M = 96, 128, 384, 600)
-    sizes and on ragged ones, f32 and bf16 x; at the decode product of w_up its time
-    beside the bf16 product over the dequantized weights, the reference's
-    fake-quant product."""
+    sizes and on ragged ones, f32 and bf16 x (the prefill sizes in bf16
+    must take the tensor cores); at the decode product of w_up, and at the
+    128-token prefill, its time beside the bf16 product over the
+    dequantized weights, the reference's fake-quant product."""
     import torch
     from repro_torch.kernels import dequant_matmul as dm
 
     device = ctx["device"]
     gen = torch.Generator(device=device).manual_seed(7)
     checks, worst = [], 0.0
+    routes = dm.dequant_matmul.route_launches
     for m, k, n in K7_CHECKS:
         codes = torch.randint(-7, 8, (k, n), generator=gen, device=device,
                               dtype=torch.int8)
         scale = torch.rand((n,), generator=gen, device=device) * 0.01 + 1e-4
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+            before = dict(routes)
             got = dm.dequant_matmul(x, codes, scale)
+            way = next(r for r in routes if routes[r] != before[r])
             want = dm.dequant_matmul_ref(x, codes, scale)
             bound = float((x.float().abs() @ codes.float().abs()
                            * scale).max())
             torch.cuda.synchronize()
             rel = float((got - want).abs().max()) / bound
             ok = bool(torch.isfinite(got).all()) and rel <= K7_REL
+            if dtype == torch.bfloat16 and m in K7_TC_M:
+                ok = ok and way == "tensor_cores"
             checks.append({"m_k_n": [m, k, n], "x_dtype": str(dtype)[6:],
-                           "rel_err": rel, "max_abs_err": float(
+                           "route": way, "rel_err": rel, "max_abs_err": float(
                                (got - want).abs().max()), "ok": ok})
             worst = max(worst, checks[-1]["max_abs_err"])
             if not ok:
@@ -1434,6 +1467,8 @@ def phase_paged(ctx) -> None:
     for fn in (da.decode_attention, pda.paged_decode_attention,
                ppa.paged_prefill_attention):
         fn.launches = 0
+    k3_routes = ppa.paged_prefill_attention.route_launches
+    k3_routes.update(dict.fromkeys(k3_routes, 0))
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1443,6 +1478,7 @@ def phase_paged(ctx) -> None:
                 "paged_decode_attention": pda.paged_decode_attention.launches,
                 "paged_prefill_attention":
                     ppa.paged_prefill_attention.launches}
+    k3_routes = dict(k3_routes)
     peak = torch.cuda.max_memory_allocated()
     ctx["launches"].update({k: v for k, v in launches.items()
                             if k != "decode_attention"})
@@ -1472,6 +1508,8 @@ def phase_paged(ctx) -> None:
         == cfg.num_layers * st.steps,
         "k3_launches": launches["paged_prefill_attention"]
         == cfg.num_layers * st.shared_prefill_calls,
+        "k3_on_tensor_cores": k3_routes["tensor_cores"]
+        == launches["paged_prefill_attention"],
         "k1_not_launched": launches["decode_attention"] == 0,
         "tokens_in_vocab": all(int(o.tokens.min()) >= 0 and int(
             o.tokens.max()) < cfg.vocab_size for o in outs)}
@@ -1502,6 +1540,7 @@ def phase_paged(ctx) -> None:
           "compiled_shapes": st.compiled_shapes, "tick_kinds": sorted(kinds),
           "peak_occupancy": st.peak_occupancy,
           "peak_shared_pages": st.peak_shared_pages, "launches": launches,
+          "k3_routes": k3_routes,
           "wall_s": wall_s, "tokens_per_s": delivered / wall_s,
           "computed_tokens_per_s": computed / wall_s,
           "ttft_ticks": [st.ttft_ticks[o.rid] for o in outs],
@@ -1833,6 +1872,10 @@ def phase_packed(ctx) -> None:
             "packed_device_ms": dev_p, "chunked_device_ms": dev_c,
             "packed_idle_share": 1 - dev_p / ms["packed"],
             "chunked_idle_share": 1 - dev_c / ms["chunked"],
+            "packed_k4_ms": sum(r["ms"] for r in top_p
+                                if "varlen_attention" in r["kernel"]),
+            "chunked_k3_ms": sum(r["ms"] for r in top_c
+                                 if "prefill" in r["kernel"]),
             "packed_top": top_p[:8], "chunked_top": top_c[:8],
             "packed_live_rows": slots - 1 + 256, "token_budget": budget,
             "packed_peak_memory_allocated": tick_peak}
@@ -2028,12 +2071,15 @@ def phase_split(ctx) -> None:
                "dequant_matmul": dm.dequant_matmul}
     for fn in kernels.values():
         fn.launches = 0
+    k7_routes = dm.dequant_matmul.route_launches
+    k7_routes.update(dict.fromkeys(k7_routes, 0))
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = serve(srv, requests((stop,)))
     wall_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
+    k7_routes = dict(k7_routes)
     peak = torch.cuda.max_memory_allocated()
     ctx["launches"].update({k: v for k, v in launches.items()
                             if k != "decode_attention"})
@@ -2057,6 +2103,11 @@ def phase_split(ctx) -> None:
         "k6_launches": launches["ts_mask"] == payloads_n,
         "k7_launches": launches["dequant_matmul"]
         == 7 * opsc.split_layer * payloads_n,
+        # each prompt's edge prefill on the tensor cores, decode on the GEMV
+        "k7_prefill_on_tensor_cores": k7_routes == {
+            "gemv": 7 * opsc.split_layer * decodes,
+            "tensor_cores": 7 * opsc.split_layer * len(prompts),
+            "cuda_cores": 0},
         "k1_launches": launches["decode_attention"]
         == cfg.num_layers * decodes,
         "no_early_exit": all(s.early_exits == 0 for s in stats)}
@@ -2180,6 +2231,7 @@ def phase_split(ctx) -> None:
           "opsc": vars(opsc), "kv": "int8", "cache_len": 1024,
           "prompt_lens": list(SPLIT_LENS), "finish_reasons": reasons,
           "generated": lengths, "stop_token": stop, "launches": launches,
+          "k7_routes": k7_routes,
           "payloads": payloads_n, "wall_s": wall_s,
           "tokens_per_s": sum(lengths) / wall_s,
           "computed_tokens_per_s": len(prompts) * n_new / wall_s,

@@ -2,8 +2,9 @@
 // front segment's projections.
 //
 // Replaces the Pallas TPU kernel repro/kernels/dequant_matmul.py
-// (dequant_matmul, pallas_call at line 52). Python wrapper, launch count and
-// plain PyTorch version: repro_torch/kernels/dequant_matmul.py.
+// (dequant_matmul, pallas_call at line 52). Python wrapper, route choice,
+// launch counts and plain PyTorch version:
+// repro_torch/kernels/dequant_matmul.py.
 //
 //   x      (M, K)  f32 or bf16
 //   codes  (K, N)  int8    symmetric weight codes
@@ -11,16 +12,16 @@
 //   out    (M, N)  f32     (x @ codes) * scale, summed in f32
 //
 // The dequantized weights never exist in device memory: codes are widened
-// to f32 in registers and the scale multiplies once at the end, as on the
-// TPU. Any M, N, K (the TPU kernel needed its 128/128/512 blocks to divide
+// in registers and the scale multiplies once at the end, as on the TPU.
+// Any M, N, K (the TPU kernel needed its 128/128/512 blocks to divide
 // them; llama2-7b's w_down has K = 11008 = 21.5 * 512).
 //
 // Bound: the decode product (M = 1) reads K*N code bytes for 2*K*N flops,
-// so device-memory bytes bound it; a prefill product (M in the hundreds)
-// has 2*M flops a code byte and is bound by operations (on the CUDA cores
-// here; tensor cores are later work).
+// so device-memory bytes bound it. A prefill product has 2*M flops a code
+// byte; on the bf16 tensor cores (about 295 flops a byte at the ridge) the
+// code bytes still bound it up to M of about 150, the operations above.
 //
-// Design, two kernels chosen by M:
+// Three kernels, chosen by the wrapper from shapes and dtypes:
 //  * M <= 4 (decode): a split-K GEMV. A block of 8 warps covers 256
 //    columns (each lane one 8-byte load of 8 codes, so a warp reads 256
 //    contiguous bytes of a row; one code a lane when N or the base is not
@@ -29,9 +30,24 @@
 //    memory. With more than one K range, each range writes its partial sums
 //    to a workspace and a second kernel adds the ranges in a fixed order,
 //    so a result does not depend on timing (no atomics).
-//  * M > 4 (prefill): a tiled product, 64x64 outputs a block, K in steps of
-//    16 staged in shared memory as f32, 4x4 outputs a thread.
+//  * M > 4, bf16 x, N % 16 == 0, K % 8 == 0, 16-byte aligned bases
+//    (prefill): a split-K product on the tensor cores (tc_gemm_kernel)
+//    with wgmma, computed transposed, out^T = codes^T . x^T: 128 columns of
+//    out by 128 rows of x a block, 64 columns a warpgroup. K in steps of
+//    64 through a 4-stage ring in shared memory, each stage filled by two
+//    TMA copies (x's rows and the codes' rows, both in the 128-byte
+//    swizzle) completing on an mbarrier. x is wgmma's operand B, read from
+//    shared memory by descriptor. Each step a warpgroup widens the next
+//    step's codes to bf16 (exact) in registers, its operand A, while its
+//    wgmma of this step run (f32 accumulators): a lane reads the two
+//    adjacent codes of its A rows g and g + 8 with one 2-byte load a row.
+//    The scale multiplies once at the end. The K ranges fill the SMs (two
+//    blocks each) and meet in splitk_reduce_kernel as the GEMV's do.
+//  * other M > 4 (f32 x, a ragged N or K, an unaligned base): the tiled
+//    CUDA-core product, 64x64 outputs a block, K in steps of 16 staged in
+//    shared memory as f32, 4x4 outputs a thread.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -175,6 +191,262 @@ gemm_kernel(const void* __restrict__ x, int x_bf16,
   }
 }
 
+// ---- the tensor-core product (M > 4, bf16 x): out^T = codes^T . x^T, so
+// that the widened codes are wgmma's register operand A and x's staged
+// rows its shared-memory operand B
+
+constexpr int kTcBM = 128;  // rows of x a block (wgmma's N)
+constexpr int kTcBN = 128;  // columns of out a block: 64 a warpgroup
+constexpr int kTcBK = 64, kTcStages = 4;
+constexpr int kTcThreads = 256;  // two warpgroups
+constexpr int kTcXBytes = kTcBM * kTcBK * 2;
+constexpr int kTcStage = kTcXBytes + kTcBK * kTcBN;  // 24 KB, 1 KB-aligned
+// the stages, their barriers, and slack to align the stages to 1 KB
+constexpr int kTcSmem = kTcStages * kTcStage + kTcStages * 8 + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// the TMA copy of the box at (c0 inner, c1 outer) of ``map`` into shared
+// memory, completing on ``bar``; out-of-bounds elements land as zeros
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps a register that an asynchronous wgmma reads or writes where it is
+// until here (the compiler does not know the wgmma is still running)
+__device__ __forceinline__ void keep(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+__device__ __forceinline__ void keep(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// shared-memory descriptor of a K-major bf16 tile of 8-row x 128-byte
+// atoms with the 128-byte swizzle, the atoms 1024 bytes apart
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (64 x 128 f32) += a (64 x 16 bf16, registers) * B (16 x 128 bf16,
+// shared memory, K-major)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15, "
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31, "
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47, "
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// byte j (0..3) of a word of int8 codes whose sign bits are flipped, as
+// f32: 2^23 + (code + 128) built in the mantissa, minus 2^23 + 128 (exact)
+__device__ __forceinline__ float code_at(uint32_t flipped, int j) {
+  return __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540 + j)) -
+         8388736.f;
+}
+
+// two f32 that are small integers (exact in bf16) as a bf16 pair, lo in
+// the low half: their upper halves
+__device__ __forceinline__ uint32_t pack_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+__global__ void __launch_bounds__(kTcThreads, 2)
+tc_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
+               const __grid_constant__ CUtensorMap codes_map,
+               const float* __restrict__ scale, float* __restrict__ out,
+               float* __restrict__ partial, int M, int N, int K,
+               int k_chunk) {
+  extern __shared__ uint8_t tc_raw[];
+  // the swizzle repeats every 1024 bytes: stages start on that boundary
+  uint8_t* smem = tc_raw + ((1024 - (smem_u32(tc_raw) & 1023)) & 1023);
+  const uint32_t full = smem_u32(smem + kTcStages * kTcStage);  // barriers
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * kTcBN, m0 = blockIdx.y * kTcBM;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
+  const int steps = (k_end - k_begin + kTcBK - 1) / kTcBK;
+
+  // stage s, filled by one thread's two TMA copies completing on barrier
+  // s: the x tile [128][64] bf16, then the codes tile [64][128] int8, both
+  // in the 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r & 7))
+  auto load_stage = [&](int s, int step) {
+    const uint32_t base = smem_u32(smem + s * kTcStage);
+    const int k0 = k_begin + step * kTcBK;
+    mbar_expect_tx(full + 8 * s, kTcStage);
+    tma_load_2d(base, &x_map, full + 8 * s, k0, m0);
+    tma_load_2d(base + kTcXBytes, &codes_map, full + 8 * s, n0, k0);
+  };
+
+  // A of warp w (rows 16w .. 16w + 15 of its warpgroup's 64): row q + 8h
+  // is out column n0 + a_col - 2g + 2q + h, so lane (g, t) reads the two
+  // adjacent codes of its rows g and g + 8 with one load from each of rows
+  // 2t, 2t+1, 2t+8, 2t+9 of a k16 step (the swizzle puts the four rows'
+  // chunks in distinct banks)
+  const int a_col = (warp / 4) * 64 + (warp % 4) * 16 + 2 * g;
+  auto widen_a = [&](int s, uint32_t (&a)[4][4]) {
+    const uint8_t* cs = smem + s * kTcStage + kTcXBytes + (a_col & 15);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t r[4];  // bytes: row g, row g + 8; sign bits flipped
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = kk * 16 + 2 * t + (i & 1) + 8 * (i >> 1);
+        r[i] = *reinterpret_cast<const uint16_t*>(
+                   cs + row * kTcBN + (((a_col >> 4) ^ (row & 7)) << 4)) ^
+               0x8080u;
+      }
+      a[kk][0] = pack_exact(code_at(r[0], 0), code_at(r[1], 0));
+      a[kk][1] = pack_exact(code_at(r[0], 1), code_at(r[1], 1));
+      a[kk][2] = pack_exact(code_at(r[2], 0), code_at(r[3], 0));
+      a[kk][3] = pack_exact(code_at(r[2], 1), code_at(r[3], 1));
+    }
+  };
+
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+
+  // one K step: 4 wgmma of this stage's x with ``a`` (widened the step
+  // before); while they run, the last step's wgmma are waited for, which
+  // frees ``a_next`` and the last step's stage for the step kTcStages - 1
+  // ahead, and the next step's codes are widened into ``a_next``
+  auto step_once = [&](int step, uint32_t (&a)[4][4],
+                       uint32_t (&a_next)[4][4]) {
+    const uint32_t xs = smem_u32(smem + (step % kTcStages) * kTcStage);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16(d, a[kk], sw128_desc(xs + kk * 32));
+    wgmma_commit();
+    wgmma_wait<1>();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) keep(a_next[kk][e]);
+    __syncthreads();  // every warpgroup is past the last step's wgmma
+    if (tid == 0 && step + kTcStages - 1 < steps)
+      load_stage((step + kTcStages - 1) % kTcStages, step + kTcStages - 1);
+    if (step + 1 < steps) {
+      const int s = (step + 1) % kTcStages;
+      mbar_wait(full + 8 * s, ((step + 1) / kTcStages) & 1);
+      widen_a(s, a_next);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kTcStages; ++s) mbar_init(full + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < kTcStages - 1 && s < steps; ++s) load_stage(s, s);
+  mbar_wait(full, 0);  // stage 0 has landed
+  uint32_t a0[4][4], a1[4][4];  // two buffers: registers are not indexed
+  widen_a(0, a0);
+  for (int step = 0; step < steps; step += 2) {
+    step_once(step, a0, a1);
+    if (step + 1 < steps) step_once(step + 1, a1, a0);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) keep(d[i]);
+
+  // lane (g, t) holds, for each 8-row group j of the x tile, rows
+  // m0 + 8j + 2t + e at out columns n0 + a_col (its A row g) and
+  // n0 + a_col + 1 (row g + 8)
+  const int n = n0 + a_col;
+  if (n >= N) return;  // N % 16 == 0: both columns or neither
+  const float2 sc = *reinterpret_cast<const float2*>(scale + n);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * j + 2 * t + e;
+      if (m >= M) continue;
+      float2 v = make_float2(d[4 * j + e], d[4 * j + 2 + e]);
+      if (partial != nullptr) {
+        *reinterpret_cast<float2*>(
+            partial + ((size_t)blockIdx.z * M + m) * N + n) = v;
+      } else {
+        v.x *= sc.x;
+        v.y *= sc.y;
+        *reinterpret_cast<float2*>(out + (size_t)m * N + n) = v;
+      }
+    }
+  }
+}
+
 template <int VEC, int MT>
 cudaError_t launch_gemv(const void* x, int x_bf16, const int8_t* codes,
                         const float* scale, float* out, float* partial, int M,
@@ -230,4 +502,71 @@ extern "C" int dequant_matmul_launch(const void* x, int x_bf16,
                     : (int)launch_gemv<1, 4>(x, x_bf16, c, s, o, p, M, N, K,
                                              splits, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core product: ``splits`` K ranges of ``k_chunk`` rows (a
+// multiple of 64), with ``partial`` a (splits, M, N) f32 workspace when
+// splits > 1. Needs N % 16 == 0, K % 8 == 0 and 16-byte aligned x, codes
+// and scale.
+extern "C" int dequant_matmul_tc_launch(const void* x, const void* codes,
+                                        const void* scale, void* out,
+                                        void* partial, int M, int N, int K,
+                                        int splits, int k_chunk,
+                                        void* stream) {
+  if (M < 1 || N < 1 || K < 1 || N % 16 || K % 8 || splits < 1 ||
+      k_chunk < 1 || k_chunk % kTcBK || (long long)splits * k_chunk < K ||
+      (long long)(splits - 1) * k_chunk >= K ||
+      (splits > 1 && partial == nullptr) ||
+      (M + kTcBM - 1) / kTcBM > 65535 || splits > 65535 ||
+      ((uintptr_t)x | (uintptr_t)codes | (uintptr_t)scale) % 16)
+    return (int)cudaErrorInvalidValue;
+  static decltype(&cuTensorMapEncodeTiled) encode = nullptr;
+  if (encode == nullptr) {  // cuTensorMapEncodeTiled's address, and the
+    void* fn = nullptr;     // opt-in to more than 48 KB of shared memory
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &found);
+    if (e != cudaSuccess) return (int)e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorSymbolNotFound;
+    e = cudaFuncSetAttribute(tc_gemm_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kTcSmem);
+    if (e != cudaSuccess) return (int)e;
+    encode = reinterpret_cast<decltype(&cuTensorMapEncodeTiled)>(fn);
+  }
+  // x (M, K) bf16 in boxes of 64 x 128 rows; codes (K, N) int8 in boxes
+  // of 128 x 64 rows; both with the 128-byte swizzle
+  CUtensorMap maps[2];
+  const cuuint64_t x_dim[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t c_dim[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t x_stride[1] = {(cuuint64_t)K * 2};
+  const cuuint64_t c_stride[1] = {(cuuint64_t)N};
+  const cuuint32_t x_box[2] = {kTcBK, kTcBM}, c_box[2] = {kTcBN, kTcBK};
+  const cuuint32_t one[2] = {1, 1};
+  if (encode(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(x), x_dim, x_stride, x_box, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+             const_cast<void*>(codes), c_dim, c_stride, c_box, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, splits);
+  float* p = static_cast<float*>(partial);
+  tc_gemm_kernel<<<grid, kTcThreads, kTcSmem, st>>>(
+      maps[0], maps[1], static_cast<const float*>(scale),
+      static_cast<float*>(out), splits > 1 ? p : nullptr, M, N, K, k_chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t mn = (size_t)M * N;
+  const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
+  splitk_reduce_kernel<<<blocks, 256, 0, st>>>(
+      p, static_cast<const float*>(scale), static_cast<float*>(out), splits,
+      M, N);
+  return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """Int8-weight matrix product (the OPSC front segment's projections): the
-CUDA kernel's wrapper, its launch count and its plain PyTorch version.
+CUDA kernels' wrapper, its route choice and launch counts, and its plain
+PyTorch version.
 
-The kernel (``csrc/dequant_matmul.cu``) replaces the Pallas TPU kernel
+The kernels (``csrc/dequant_matmul.cu``) replace the Pallas TPU kernel
 ``repro/kernels/dequant_matmul.py::dequant_matmul``:
 
   x      (M, K)  f32 or bf16
@@ -15,11 +16,22 @@ projection whose weight is a ``core.quant.QuantizedTensor`` here: the
 edge segment of ``serving.split_engine.SplitEngine``.
 
 What bounds it on an H100: at M = 1 (a decode step) reading the K·N code
-bytes (device-memory bytes); at a prefill's M of a hundred or more the
-2·M·K·N operations, on the CUDA cores in this version. For M ≤ 4 the
-kernel is a split-K GEMV; the wrapper picks the K split so that about two
-blocks run on each SM, and allocates the (splits, M, N) f32 workspace the
-kernel's fixed-order reduction reads.
+bytes; at a prefill's M of a hundred the code bytes still (2·M flops a
+byte, under the bf16 tensor cores' ridge of about 295), the operations
+above. :func:`route` picks one of three kernels from shapes, dtypes and
+alignment before the launch:
+
+  * ``"gemv"`` (M ≤ 4): a split-K GEMV; :func:`gemv_plan` picks the K
+    split so that about two blocks run on each SM;
+  * ``"tensor_cores"`` (M > 4, bf16 x, N % 16 == 0, K % 8 == 0, 16-byte
+    aligned bases, as TMA's copies need): a split-K product on the bf16
+    tensor cores (``wgmma``); :func:`tc_plan` picks the K split;
+  * ``"cuda_cores"`` (any other M > 4: f32 x, a ragged N or K): the tiled
+    product on the CUDA cores.
+
+A split product writes its K ranges' partial sums to a (splits, M, N) f32
+workspace the wrapper allocates, and a second kernel adds them in a fixed
+order, so a run repeats its bits.
 """
 
 from __future__ import annotations
@@ -33,6 +45,12 @@ from repro_torch.kernels import build
 
 GEMV_MAX_M = 4  # at most this many rows of x take the split-K GEMV
 MIN_SPLIT_ROWS = 128  # rows of codes a GEMV K range holds at least
+# the tensor-core kernel's rows of x and columns of out a block, its K
+# step, and the blocks that fit on an SM (``tc_gemm_kernel``: 97 KB of
+# shared memory, at most 128 registers a thread)
+TC_TILE_M, TC_TILE_N, TC_STEP_K, TC_BLOCKS_PER_SM = 128, 128, 64, 2
+TC_MIN_SPLIT_STEPS = 4  # K steps a tensor-core K range holds at least
+ROUTES = ("gemv", "tensor_cores", "cuda_cores")
 
 
 def dequant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
@@ -47,6 +65,15 @@ def _launcher():
     fn = build.load("dequant_matmul").dequant_matmul_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _tc_launcher():
+    fn = build.load("dequant_matmul").dequant_matmul_tc_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -67,11 +94,39 @@ def gemv_plan(m: int, n: int, k: int, vec: int, sms: int) -> tuple:
     return mt, -(-k // chunk)
 
 
+def tc_plan(m: int, n: int, k: int, sms: int) -> tuple:
+    """(row tiles, column tiles, K ranges, rows of codes a range) of the
+    tensor-core product: as many K ranges as keep every block of the
+    product resident at once (``TC_BLOCKS_PER_SM`` on each of ``sms``
+    SMs), each at least ``TC_MIN_SPLIT_STEPS`` steps of ``TC_STEP_K``; one
+    range when the tiles alone fill the card."""
+    tiles_m, tiles_n = -(-m // TC_TILE_M), -(-n // TC_TILE_N)
+    steps = -(-k // TC_STEP_K)
+    want = max(1, min(TC_BLOCKS_PER_SM * sms // (tiles_m * tiles_n),
+                      steps // TC_MIN_SPLIT_STEPS))
+    chunk = -(-steps // want)
+    return tiles_m, tiles_n, -(-steps // chunk), chunk * TC_STEP_K
+
+
+def route(m: int, n: int, k: int, x_dtype: torch.dtype,
+          *addresses: int) -> str:
+    """The kernel an (m, k) x (k, n) product takes (one of ``ROUTES``),
+    from its shape, x's dtype and the base addresses of x, codes and scale:
+    by shape, not a fallback (a launch that fails raises)."""
+    if m <= GEMV_MAX_M:
+        return "gemv"
+    if x_dtype == torch.bfloat16 and n % 16 == 0 and k % 8 == 0 \
+            and all(a % 16 == 0 for a in addresses):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (shapes in the module
     docstring). Raises on any input the kernel does not take; there is no
-    fallback. Adds one to ``dequant_matmul.launches`` per call."""
+    fallback. Adds one to ``dequant_matmul.launches`` per call and to the
+    route's count in ``dequant_matmul.route_launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"dequant_matmul launches a CUDA kernel; x is on "
                          f"{x.device} (use kernels.ops for CPU tensors)")
@@ -95,24 +150,43 @@ def dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    vec = 8 if n % 8 == 0 and codes.data_ptr() % 8 == 0 else 1
-    mt, splits, partial = 0, 1, None
-    if m <= GEMV_MAX_M:
-        mt, splits = gemv_plan(m, n, k, vec, _sm_count(x.device.index or 0))
-        if splits > 1:
-            partial = torch.empty((splits, m, n), dtype=torch.float32,
-                                  device=x.device)
+    way = route(m, n, k, x.dtype, x.data_ptr(), codes.data_ptr(),
+                scale.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    sms = _sm_count(x.device.index or 0)
+    splits, partial = 1, None
     with torch.cuda.device(x.device):
-        err = _launcher()(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
-            scale.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(), m, n, k, vec,
-            mt, splits, torch.cuda.current_stream(x.device).cuda_stream)
+        if way == "tensor_cores":
+            _, _, splits, chunk = tc_plan(m, n, k, sms)
+            if splits > 1:
+                partial = torch.empty((splits, m, n), dtype=torch.float32,
+                                      device=x.device)
+            err = _tc_launcher()(
+                x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                out.data_ptr(),
+                None if partial is None else partial.data_ptr(), m, n, k,
+                splits, chunk, stream)
+        else:
+            vec = 8 if n % 8 == 0 and codes.data_ptr() % 8 == 0 else 1
+            mt = 0
+            if way == "gemv":
+                mt, splits = gemv_plan(m, n, k, vec, sms)
+                if splits > 1:
+                    partial = torch.empty((splits, m, n),
+                                          dtype=torch.float32,
+                                          device=x.device)
+            err = _launcher()(
+                x.data_ptr(), int(x.dtype == torch.bfloat16),
+                codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                None if partial is None else partial.data_ptr(), m, n, k,
+                vec, mt, splits, stream)
     if err != 0:
-        raise RuntimeError(f"dequant_matmul kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"dequant_matmul kernel launch failed ({way}): "
+                           f"CUDA error {err}")
     dequant_matmul.launches += 1
+    dequant_matmul.route_launches[way] += 1
     return out
 
 
 dequant_matmul.launches = 0
+dequant_matmul.route_launches = dict.fromkeys(ROUTES, 0)

@@ -30,11 +30,17 @@ zeros. History is walked only over logical slots below
 ``min(start, max q_pos + 1)``: page ``b`` holds positions
 ``[b·page, (b+1)·page)``.
 
-What bounds it on an H100: at a serving chunk (S = 256, a few hundred keys
-of history) the work is ``4·hd`` flops per (query row, valid key) in f32 on
-the CUDA cores, against history pages read once per row; it is bound by
-operations. The kernel stages a tile of dequantized keys and values in
-shared memory and scores it against 32 query rows at a time.
+What bounds it on an H100: ``4·hd`` flops per (query row, valid key),
+each needed history page read once per row, the f32 output written once.
+:func:`route` picks the kernel from q's dtype, hd, S and alignment before
+the launch:
+
+  * ``"tensor_cores"`` (bf16 q, the main path): Q·Kᵀ and P·V on the bf16
+    tensor cores (int8 codes and bf16 operands are exact there), 64 query
+    rows a block, key tiles through a two-stage ``cp.async`` ring; P
+    carried as hi + lo bf16. A serving chunk is then bound by its bytes;
+  * ``"cuda_cores"`` (f32 q, and any shape the first does not take): f32
+    FMAs on the CUDA cores, 32 query rows a block; bound by operations.
 """
 
 from __future__ import annotations
@@ -51,6 +57,9 @@ from repro_torch.kernels.paged_decode_attention import (check_on_card,
                                                         gather_pages)
 
 NO_CALL_POSITION = 2 ** 30  # start of a row with no in-call token
+TC_HEAD_DIMS = (32, 64, 128, 256)  # the tensor-core kernel's templates
+TC_MAX_S = 32768  # its fresh-tile mask covers this many tokens a row
+ROUTES = ("tensor_cores", "cuda_cores")
 
 
 def first_call_position(q_pos: torch.Tensor) -> torch.Tensor:
@@ -96,6 +105,27 @@ def _launcher():
     return fn
 
 
+@functools.cache
+def _tc_launcher():
+    lib = build.load("paged_prefill_attention")
+    fn = lib.paged_prefill_attention_tc_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, ctypes.c_float, p, p, p, p, p, p, p, p, p, p, p,
+                   i, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def route(dtype: torch.dtype, hd: int, s: int, *addresses: int) -> str:
+    """The kernel a call takes (one of ``ROUTES``) from q's dtype, the head
+    dim, the tokens a row and the base addresses of q, the codes and the
+    fresh k/v: by shape, not a fallback (a launch that fails raises)."""
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS and s <= TC_MAX_S \
+            and all(a % 16 == 0 for a in addresses):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def _check(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
            q_pos, start, k_fresh, v_fresh):
     if q.dim() != 5 or q.dtype not in (torch.float32, torch.bfloat16) \
@@ -123,26 +153,34 @@ def paged_prefill_attention(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
     """Launch the CUDA kernel on the current stream (see the module
     docstring for shapes). Raises on any input the kernel does not take;
     there is no fallback. Adds one to ``paged_prefill_attention.launches``
-    per launch."""
+    per launch and to the route's count in ``paged_prefill_attention.
+    route_launches``."""
     _check(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
            q_pos, start, k_fresh, v_fresh)
     r, s, kh, g, hd = q.shape
     out = torch.empty((r, s, kh, g, hd), dtype=torch.float32,
                       device=q.device)
-    with torch.cuda.device(q.device):
-        err = _launcher()(
-            q.data_ptr(), int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5,
-            k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
-            v_scale.data_ptr(), pool_pos.data_ptr(), block_table.data_ptr(),
-            q_pos.data_ptr(), start.data_ptr(), k_fresh.data_ptr(),
-            v_fresh.data_ptr(), out.data_ptr(), r, s, kh, g, hd,
-            k_codes.shape[2], block_table.shape[1],
+    way = route(q.dtype, hd, s, q.data_ptr(), k_codes.data_ptr(),
+                v_codes.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr())
+    rest = (1.0 / hd ** 0.5, k_codes.data_ptr(), k_scale.data_ptr(),
+            v_codes.data_ptr(), v_scale.data_ptr(), pool_pos.data_ptr(),
+            block_table.data_ptr(), q_pos.data_ptr(), start.data_ptr(),
+            k_fresh.data_ptr(), v_fresh.data_ptr(), out.data_ptr(), r, s, kh,
+            g, hd, k_codes.shape[2], block_table.shape[1],
             torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        if way == "tensor_cores":
+            err = _tc_launcher()(q.data_ptr(), *rest)
+        else:
+            err = _launcher()(q.data_ptr(), int(q.dtype == torch.bfloat16),
+                              *rest)
     if err != 0:
-        raise RuntimeError(f"paged_prefill_attention kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"paged_prefill_attention kernel launch failed "
+                           f"({way}): CUDA error {err}")
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.route_launches[way] += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.route_launches = dict.fromkeys(ROUTES, 0)

@@ -145,13 +145,17 @@ def test_paged_decode_kernel_matches_plain_version(cuda_device, qdtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_paged_prefill_kernel_matches_plain_version(cuda_device, dtype):
-    """K3 with G = 2, S = 40 (no multiple of a tile): a continuation row,
-    a fully padded row and a row with no history; pads give exact zeros."""
+@pytest.mark.parametrize("hd,rows", [
+    (64, [(33, 40), None, (0, 17)]),
+    (128, [(150, 40), (0, 40), (70, 25)])])  # three 64-key history tiles
+def test_paged_prefill_kernel_matches_plain_version(cuda_device, dtype, hd,
+                                                    rows):
+    """K3 with G = 2, S = 40 (no multiple of a tile): continuation rows, a
+    fully padded row and rows with no history; pads give exact zeros. bf16
+    takes the tensor cores, f32 the CUDA cores."""
     rng = np.random.default_rng(12)
-    rows = [(33, 40), None, (0, 17)]
-    pool = _pool(rng, cuda_device, lens=[0 if x is None else sum(x)
-                                         for x in rows])
+    pool = _pool(rng, cuda_device, p=40, hd=hd,
+                 lens=[0 if x is None else sum(x) for x in rows])
     s, dt = 40, getattr(torch, dtype)
     q_pos = np.full((3, s), -1, np.int32)
     for i, x in enumerate(rows):
@@ -163,10 +167,14 @@ def test_paged_prefill_kernel_matches_plain_version(cuda_device, dtype):
         return torch.from_numpy(rng.normal(size=shape).astype(
             np.float32)).to(cuda_device, dt)
 
-    q, kf, vf = rand(3, s, 2, 2, 64), rand(3, s, 2, 64), rand(3, s, 2, 64)
+    q, kf, vf = rand(3, s, 2, 2, hd), rand(3, s, 2, hd), rand(3, s, 2, hd)
     before = ppa.paged_prefill_attention.launches
+    routes = dict(ppa.paged_prefill_attention.route_launches)
     got = ops.paged_prefill_attention(q, *pool, q_pos, kf, vf)
     assert ppa.paged_prefill_attention.launches == before + 1
+    way = "tensor_cores" if dtype == "bfloat16" else "cuda_cores"
+    routes[way] += 1
+    assert ppa.paged_prefill_attention.route_launches == routes
     start = ppa.first_call_position(q_pos)
     want = ppa.paged_prefill_attention_ref(q, *pool, q_pos, start, kf, vf)
     torch.cuda.synchronize()
@@ -390,12 +398,15 @@ def test_payload_on_card_equals_cpu(cuda_device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (1, 11008, 4096),
                                    (4, 4096, 11008), (3, 100, 17),
-                                   (128, 11008, 4096), (70, 130, 50)])
+                                   (128, 11008, 4096), (70, 130, 50),
+                                   (128, 4096, 11008), (96, 4096, 4096),
+                                   (70, 200, 80)])
 def test_dequant_matmul_kernel_matches_plain_version(cuda_device, dtype, m,
                                                      k, n):
-    """K7 (split-K GEMV for M <= 4, tiled above) against its plain
-    version: f32 sums in another order, so within 1e-5 of the largest
-    possible term sum |x| @ |codes| * scale."""
+    """K7 (split-K GEMV for M <= 4; above, the tensor cores for bf16 x
+    with N % 16 == 0 and K % 8 == 0, the CUDA cores otherwise) against its
+    plain version: f32 sums in another order, so within 1e-5 of the
+    largest possible term sum |x| @ |codes| * scale."""
     rng = np.random.default_rng(m + k + n)
     x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
         cuda_device, getattr(torch, dtype))
@@ -404,8 +415,13 @@ def test_dequant_matmul_kernel_matches_plain_version(cuda_device, dtype, m,
     scale = torch.from_numpy(rng.uniform(1e-3, 1e-1, (n,)).astype(
         np.float32)).to(cuda_device)
     before = dm.dequant_matmul.launches
+    routes = dict(dm.dequant_matmul.route_launches)
     got = ops.dequant_matmul(x, codes, scale)
     assert dm.dequant_matmul.launches == before + 1
+    way = "gemv" if m <= 4 else "tensor_cores" if (
+        dtype == "bfloat16" and n % 16 == 0 and k % 8 == 0) else "cuda_cores"
+    routes[way] += 1
+    assert dm.dequant_matmul.route_launches == routes
     want = dm.dequant_matmul_ref(x, codes, scale)
     bound = (x.float().abs() @ codes.float().abs() * scale).max()
     torch.cuda.synchronize()
