@@ -567,12 +567,14 @@ VARLEN_MAIN = dict(
 def _kernel_k4(ctx) -> dict:
     """K4 against its plain version at the packed tick's shape and on packs
     of decode rows, prefill chunks and both, an all-pad buffer and a
-    shuffled slot layout, over G, hd, page and q's dtype; pad rows must be
+    shuffled slot layout, over G, hd, page and q's dtype (bf16 must take
+    the tensor-core route, f32 the CUDA cores); pad rows must be
     exact zeros, a row's result must not change bit for bit when its
     segment moves in the buffer, and a pure-decode pack whose fresh k/v are
     the pool's own entries must equal K2. Then its time at the packed
-    tick's shape beside its bound, the plain version's and SDPA's over the
-    gathered, dequantized bf16 keys."""
+    tick's shape, with the work list given as the packed step builds it
+    once a tick (its own time beside), beside its bound, the plain
+    version's and SDPA's over the gathered, dequantized bf16 keys."""
     import numpy as np
     import torch
     from repro_torch.kernels import paged_decode_attention as pda
@@ -601,21 +603,26 @@ def _kernel_k4(ctx) -> dict:
               for name, (segs, pad, order) in mixes.items()
               for g, hd, page in grid]
     checks, worst = [], 0.0
+    routes = va.varlen_attention.route_launches
     for name, segs, pad, order, kh, g, hd, page, nb in cases:
         for dtype in (torch.float32, torch.bfloat16):
             args = _varlen_inputs(torch, rng, segs, kh, g, hd, page, nb, pad,
                                   dtype, device, order)
             start = va.segment_start(args[7], args[8], len(segs))
             full = (*args[:9], start, *args[9:])
+            before = dict(routes)
             got = va.varlen_attention(*full)
+            way = next(k for k in routes if routes[k] != before[k])
             want = va.varlen_attention_ref(*full)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             zeros = bool((got[:, args[8] < 0] == 0).all())
-            ok = bool(torch.isfinite(got).all()) and err <= ATOL and zeros
+            ok = bool(torch.isfinite(got).all()) and err <= ATOL and zeros \
+                and way == ("tensor_cores" if dtype == torch.bfloat16
+                            else "cuda_cores")
             checks.append({"mix": name, "K": kh, "G": g, "hd": hd,
                            "page": page, "nb": nb, "dtype": str(dtype)[6:],
-                           "max_abs_err": err, "atol": ATOL,
+                           "route": way, "max_abs_err": err, "atol": ATOL,
                            "pads_exact_zero": zeros, "ok": ok})
             worst = max(worst, err)
             if not ok:
@@ -677,6 +684,8 @@ def _kernel_k4(ctx) -> dict:
     q, kc, ks, vc, vs, pool_pos, bt, q_pos, tok_slot, kf, vf = args
     r = len(m["segs"])
     start = va.segment_start(q_pos, tok_slot, r)
+    # the work list, as the packed step builds it once a tick for its layers
+    rows = va.segment_rows(tok_slot, r)
     full = (*args[:9], start, *args[9:])
     # the library call is a yardstick only (the port never calls it): SDPA
     # over every slot's history, gathered and dequantized to bf16, and the
@@ -702,9 +711,10 @@ def _kernel_k4(ctx) -> dict:
     q_l = q[:, :, 0][None]  # G = 1: (1, K, T, hd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = ctx["timer"]({
-        "kernel": lambda: va.varlen_attention(*full),
+        "kernel": lambda: va.varlen_attention(*full, rows),
         "plain": lambda: va.varlen_attention_ref(*full),
-        "library": lambda: sdpa(q_l, k_all, v_all, attn_mask=mask)})
+        "library": lambda: sdpa(q_l, k_all, v_all, attn_mask=mask),
+        "work_list": lambda: va.segment_rows(tok_slot, r)})
     # the history pages each slot must read (slots below its start), the
     # live rows' q and fresh k/v, all of the f32 output; and 4·hd flops per
     # valid (query, key) pair: a row sees its slot's history and its
@@ -733,7 +743,7 @@ def _kernel_k4(ctx) -> dict:
             "main_shape": {k: v for k, v in m.items()}, "T": t,
             "pages": pages, "pairs_per_head": pairs, "live_rows": live,
             **bound, "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
-            "library_ms": ms["library"],
+            "library_ms": ms["library"], "work_list_ms": ms["work_list"],
             "achieved_TFLOPs": bound["flops"] / ms["kernel"] / 1e9}
 
 
@@ -757,13 +767,14 @@ K7_CHECKS = [(m, k, n) for m in (1, 4, 96, 128, 384, 600)
     # the tensor cores' ragged edges: M, N and K no multiple of a tile
     (70, 200, 80), (130, 1000, 48)]
 # the prefill sizes the split phase launches: with bf16 x they must take
-# the tensor cores
+# the tensor cores, from dequant_matmul.LARGE_M_MIN rows the large-M kernel
 K7_TC_M = (96, 128, 384, 600)
 K7_MAIN = (1, 4096, 11008)
+# the prefill M K7 is timed at beside x @ W (w_up's K and N)
+K7_TIMED_M = (128, 384, 600)
 # K7's device functions (csrc/dequant_matmul.cu), as a profile names them
 K7_DEVICE_NAMES = ("gemm_kernel", "gemv_kernel", "splitk_reduce_kernel",
-                   "tc_gemm_kernel")
-K7_PREFILL_M = 128
+                   "tc_gemm_kernel", "tc_large_kernel")
 
 
 def _activations(torch, gen, t, d, dtype, device, outliers=0):
@@ -875,9 +886,10 @@ def _kernel_k7(ctx) -> dict:
     """K7 (``dequant_matmul``) against its plain version on llama2-7b's
     edge products at decode (M = 1, 4) and prefill (M = 96, 128, 384, 600)
     sizes and on ragged ones, f32 and bf16 x (the prefill sizes in bf16
-    must take the tensor cores); at the decode product of w_up, and at the
-    128-token prefill, its time beside the bf16 product over the
-    dequantized weights, the reference's fake-quant product."""
+    must take the tensor cores, from ``LARGE_M_MIN`` rows the large-M
+    kernel); at the decode product of w_up, and at ``K7_TIMED_M`` prefill
+    rows, its time beside the bf16 product over the dequantized weights,
+    the reference's fake-quant product."""
     import torch
     from repro_torch.kernels import dequant_matmul as dm
 
@@ -901,7 +913,9 @@ def _kernel_k7(ctx) -> dict:
             rel = float((got - want).abs().max()) / bound
             ok = bool(torch.isfinite(got).all()) and rel <= K7_REL
             if dtype == torch.bfloat16 and m in K7_TC_M:
-                ok = ok and way == "tensor_cores"
+                ok = ok and way == ("tensor_cores_large_m"
+                                    if m >= dm.LARGE_M_MIN
+                                    else "tensor_cores")
             checks.append({"m_k_n": [m, k, n], "x_dtype": str(dtype)[6:],
                            "route": way, "rel_err": rel, "max_abs_err": float(
                                (got - want).abs().max()), "ok": ok})
@@ -920,11 +934,6 @@ def _kernel_k7(ctx) -> dict:
     ms = ctx["timer"]({"kernel": lambda: dm.dequant_matmul(x, codes, scale),
                        "plain": lambda: dm.dequant_matmul_ref(x, codes, scale),
                        "library": lambda: x @ w})
-    # and the prefill product at the main path's 128-token prompt
-    mp = K7_PREFILL_M
-    xp = torch.randn((mp, k), generator=gen, device=device).to(torch.bfloat16)
-    ms_p = ctx["timer"]({"kernel": lambda: dm.dequant_matmul(xp, codes, scale),
-                         "library": lambda: xp @ w}, iters=10)
     bw, _ = peak_rates(ctx["device_name"])
 
     def bound(m):
@@ -933,6 +942,23 @@ def _kernel_k7(ctx) -> dict:
         return nbytes, max(b_ms, o_ms), "bytes" if b_ms >= o_ms \
             else "operations"
 
+    # and the prefill products: the main path's 128-token prompt, the four
+    # 96-token rows of a shared prefix (384) and a 600-token prompt
+    prefill = {}
+    for mp in K7_TIMED_M:
+        xp = torch.randn((mp, k), generator=gen, device=device).to(
+            torch.bfloat16)
+        ms_p = ctx["timer"]({
+            "kernel": lambda: dm.dequant_matmul(xp, codes, scale),
+            "library": lambda: xp @ w}, iters=10)
+        prefill[mp] = {"route": dm.route(mp, n, k, xp.dtype, xp.data_ptr(),
+                                         codes.data_ptr(), scale.data_ptr()),
+                       "kernel_ms": ms_p["kernel"],
+                       "library_ms": ms_p["library"],
+                       "bound_ms": bound(mp)[1], "bound_by": bound(mp)[2],
+                       "achieved_TFLOPs": 2 * mp * n * k
+                       / ms_p["kernel"] / 1e9}
+
     nbytes, bound_ms, bound_by = bound(1)
     ctx["kernels"]["dequant_matmul"] = {
         "name": "dequant_matmul", "route": "cuda",
@@ -940,17 +966,60 @@ def _kernel_k7(ctx) -> dict:
         "replaces": "src/repro/kernels/dequant_matmul.py:52",
         "launches": None, "max_abs_err": worst, "ms": ms["kernel"],
         "plain_ms": ms["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": ms["library"]}
+        "library_ms": ms["library"],
+        "prefill": {str(mp): {key: r[key] for key in (
+            "route", "kernel_ms", "library_ms", "bound_ms", "bound_by")}
+            for mp, r in prefill.items()}}
     return {"checks": checks, "tol_rel_to_abs_sum": K7_REL,
             "main_shape": [m, k, n], "bytes": nbytes, "bound_ms": bound_ms,
             "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
             "library_ms": ms["library"],
             "achieved_GBps": nbytes / ms["kernel"] / 1e6,
-            "prefill": {"m": mp, "kernel_ms": ms_p["kernel"],
-                        "library_ms": ms_p["library"],
-                        "bound_ms": bound(mp)[1],
-                        "achieved_TFLOPs": 2 * mp * n * k
-                        / ms_p["kernel"] / 1e9}}
+            "prefill": prefill}
+
+
+def _graph_replay(ctx) -> dict:
+    """One bf16 K4 call at ``VARLEN_MAIN`` (its work list built inside the
+    call) and one K7 call at M 600 captured in a ``torch.cuda.CUDAGraph``
+    and replayed: the replay must equal the eager result bit for bit (no
+    host read-back, a grid from shapes alone)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import varlen_attention as va
+
+    device = ctx["device"]
+    m = VARLEN_MAIN
+    args = _varlen_inputs(torch, np.random.default_rng(6), m["segs"],
+                          m["kh"], m["g"], m["hd"], m["page"], m["nb"],
+                          m["pad"], torch.bfloat16, device)
+    start = va.segment_start(args[7], args[8], len(m["segs"]))
+    gen = torch.Generator(device=device).manual_seed(8)
+    x = torch.randn((600, 4096), generator=gen, device=device).to(
+        torch.bfloat16)
+    codes = torch.randint(-7, 8, (4096, 11008), generator=gen, device=device,
+                          dtype=torch.int8)
+    scale = torch.rand((11008,), generator=gen, device=device) * 0.01 + 1e-4
+    calls = {"varlen_attention": lambda: va.varlen_attention(
+        *args[:9], start, *args[9:]),
+        "dequant_matmul": lambda: dm.dequant_matmul(x, codes, scale)}
+    res = {}
+    for name, fn in calls.items():
+        eager = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up off the default stream
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        res[name] = bool(torch.equal(out, eager))
+    if not all(res.values()):
+        raise SystemExit(f"a graph replay differs from the eager call: {res}")
+    return {"replay_bit_identical": res}
 
 
 def phase_kernels(ctx) -> None:
@@ -959,7 +1028,8 @@ def phase_kernels(ctx) -> None:
           "paged_prefill_attention": _kernel_k3(ctx),
           "varlen_attention": _kernel_k4(ctx),
           "tabq_quantize_ts_mask": _kernel_k5_k6(ctx),
-          "dequant_matmul": _kernel_k7(ctx)})
+          "dequant_matmul": _kernel_k7(ctx),
+          "cuda_graph": _graph_replay(ctx)})
 
 
 def _greedy_stepwise(params, cfg, prompts, n, opts, cache_len, device):
@@ -1714,8 +1784,11 @@ def phase_packed(ctx) -> None:
     # HISTORY_REL, as in the paged phase
     params32 = init_params(cfg, torch.Generator(device=device).manual_seed(
         0), torch.float32, device)
+    k4_routes = va.varlen_attention.route_launches
+    k4_routes.update(dict.fromkeys(k4_routes, 0))
     first32, sched32, rec32, pieces32 = serve((), record=True,
                                               weights=params32)
+    k4_routes_f32 = dict(k4_routes)
     rid_row = {o.rid: i for i, o in enumerate(first32)}
     history = {rid_row[r] for r, p in pieces32.items() if len(p) > 1} | {2}
     del sched32
@@ -1733,12 +1806,14 @@ def phase_packed(ctx) -> None:
                "varlen_attention": va.varlen_attention}
     for fn in kernels.values():
         fn.launches = 0
+    k4_routes.update(dict.fromkeys(k4_routes, 0))
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs, sched, _, pieces = serve((stop,))
     wall_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    k4_routes_bf16 = dict(k4_routes)
     peak = torch.cuda.max_memory_allocated()
     ctx["launches"]["varlen_attention"] = launches["varlen_attention"]
     st = sched.stats
@@ -1765,6 +1840,12 @@ def phase_packed(ctx) -> None:
         == st.packed_ticks * budget,
         "k4_launches": launches["varlen_attention"]
         == cfg.num_layers * st.packed_ticks,
+        # bf16 weights: every K4 launch on the tensor cores; f32 weights
+        # (the dense comparison): every one on the CUDA cores
+        "k4_bf16_on_tensor_cores": k4_routes_bf16 == {
+            "tensor_cores": launches["varlen_attention"], "cuda_cores": 0},
+        "k4_f32_on_cuda_cores": k4_routes_f32["tensor_cores"] == 0
+        and k4_routes_f32["cuda_cores"] > 0,
         "k1_k2_k3_not_launched": launches["decode_attention"]
         == launches["paged_decode_attention"]
         == launches["paged_prefill_attention"] == 0,
@@ -1781,7 +1862,8 @@ def phase_packed(ctx) -> None:
                "decode_rows": st.slot_ticks, "prefix_forks": st.prefix_forks,
                "compiled_shapes": st.compiled_shapes,
                "finish_reasons": reasons, "generated": lengths,
-               "launches": launches, "wall_s": wall_s,
+               "launches": launches, "k4_routes": k4_routes_bf16,
+               "k4_routes_f32": k4_routes_f32, "wall_s": wall_s,
                "tokens_per_s": sum(lengths) / wall_s,
                "ttft_ticks": [st.ttft_ticks[o.rid] for o in outs],
                "peak_occupancy": st.peak_occupancy,
@@ -1873,7 +1955,7 @@ def phase_packed(ctx) -> None:
             "packed_idle_share": 1 - dev_p / ms["packed"],
             "chunked_idle_share": 1 - dev_c / ms["chunked"],
             "packed_k4_ms": sum(r["ms"] for r in top_p
-                                if "varlen_attention" in r["kernel"]),
+                                if "varlen" in r["kernel"]),
             "chunked_k3_ms": sum(r["ms"] for r in top_c
                                  if "prefill" in r["kernel"]),
             "packed_top": top_p[:8], "chunked_top": top_c[:8],
@@ -2103,10 +2185,15 @@ def phase_split(ctx) -> None:
         "k6_launches": launches["ts_mask"] == payloads_n,
         "k7_launches": launches["dequant_matmul"]
         == 7 * opsc.split_layer * payloads_n,
-        # each prompt's edge prefill on the tensor cores, decode on the GEMV
+        # each prompt's edge prefill on the tensor cores (the route its
+        # length takes: from LARGE_M_MIN tokens the large-M kernel), decode
+        # on the GEMV
         "k7_prefill_on_tensor_cores": k7_routes == {
             "gemv": 7 * opsc.split_layer * decodes,
-            "tensor_cores": 7 * opsc.split_layer * len(prompts),
+            **{way: 7 * opsc.split_layer * sum(
+                ("tensor_cores_large_m" if len(p) >= dm.LARGE_M_MIN
+                 else "tensor_cores") == way for p in prompts)
+               for way in ("tensor_cores_large_m", "tensor_cores")},
             "cuda_cores": 0},
         "k1_launches": launches["decode_attention"]
         == cfg.num_layers * decodes,

@@ -21,7 +21,7 @@
 // byte; on the bf16 tensor cores (about 295 flops a byte at the ridge) the
 // code bytes still bound it up to M of about 150, the operations above.
 //
-// Three kernels, chosen by the wrapper from shapes and dtypes:
+// Four kernels, chosen by the wrapper from shapes and dtypes:
 //  * M <= 4 (decode): a split-K GEMV. A block of 8 warps covers 256
 //    columns (each lane one 8-byte load of 8 codes, so a warp reads 256
 //    contiguous bytes of a row; one code a lane when N or the base is not
@@ -30,7 +30,14 @@
 //    memory. With more than one K range, each range writes its partial sums
 //    to a workspace and a second kernel adds the ranges in a fixed order,
 //    so a result does not depend on timing (no atomics).
-//  * M > 4, bf16 x, N % 16 == 0, K % 8 == 0, 16-byte aligned bases
+//  * bf16 x with M at or above the wrapper's threshold (a long prefill,
+//    rows of several prompts), the same alignment: tc_large_kernel, the
+//    same arithmetic in a persistent, warp-specialised kernel (see its
+//    note below): tiles of rows of x sized to M so that the units of work
+//    fill the SMs evenly, a producer warp feeding the ring by TMA against
+//    "empty" mbarriers, two consumer warpgroups that only widen codes and
+//    run wgmma;
+//  * smaller M > 4, bf16 x, N % 16 == 0, K % 8 == 0, 16-byte aligned bases
 //    (prefill): a split-K product on the tensor cores (tc_gemm_kernel)
 //    with wgmma, computed transposed, out^T = codes^T . x^T: 128 columns of
 //    out by 128 rows of x a block, 64 columns a warpgroup. K in steps of
@@ -208,8 +215,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
 
@@ -275,11 +283,17 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// d (64 x 128 f32) += a (64 x 16 bf16, registers) * B (16 x 128 bf16,
-// shared memory, K-major)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t desc) {
+// d (64 x N f32) += a (64 x 16 bf16, registers) * B (16 x N bf16, shared
+// memory, K-major): one specialisation for each N a kernel takes
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -306,6 +320,152 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<104>(float (&d)[52],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51}, "
+      "{%52, %53, %54, %55}, %56, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<200>(float (&d)[100],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %105, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n200k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+      "%96,%97,%98,%99}, "
+      "{%100, %101, %102, %103}, %104, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+      "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,"
+      "%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 
 // byte j (0..3) of a word of int8 codes whose sign bits are flipped, as
 // f32: 2^23 + (code + 128) built in the mantissa, minus 2^23 + 128 (exact)
@@ -387,7 +547,7 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n128k16(d, a[kk], sw128_desc(xs + kk * 32));
+      wgmma_rs<128>(d, a[kk], sw128_desc(xs + kk * 32));
     wgmma_commit();
     wgmma_wait<1>();
 #pragma unroll
@@ -405,7 +565,7 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   };
 
   if (tid == 0) {
-    for (int s = 0; s < kTcStages; ++s) mbar_init(full + 8 * s);
+    for (int s = 0; s < kTcStages; ++s) mbar_init(full + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -447,6 +607,255 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
+// ---- the large-M product (bf16 x, M >= the wrapper's threshold):
+// tc_large_kernel, warp-specialised and persistent. The tile is 128 * JN
+// columns of out by BM rows of x, BM chosen by the wrapper to fit M
+// (wgmma's N); a unit of work is a tile and one K range. One CTA an SM
+// walks units blockIdx.x, + gridDim.x, ...: one thread of the producer
+// warpgroup (which hands its registers to the consumers) keeps a ring of
+// stages full by TMA (x's rows and JN boxes of codes), waiting on each
+// stage's "empty" mbarrier; two consumer warpgroups, 64 * JN columns each,
+// wait on its "full" mbarrier and, as tc_gemm_kernel does, run one group
+// of wgmma a K step with the codes widened into registers (operand A) the
+// step before, and release the stage by arriving on "empty" once the wgmma
+// that read it have completed: no block-wide barrier in the K loop, and
+// the producer runs ahead into the next unit while the consumers store
+// this one's results. What holds it back: a K step costs a fixed time
+// beside its tile's rows, most of it the widening, which overlaps the
+// tensor cores little, as a wgmma's issue waits for its register operand
+// (the wrapper's plan weighs both). Widening the codes in the producer's
+// warps, or into shared memory for wgmma to read, was slower.
+
+constexpr int kLgConsumerWarps = 8;                         // two warpgroups
+constexpr int kLgThreads = (kLgConsumerWarps + 4) * 32;     // + the producer's
+// registers a thread: the producer warpgroup gives its own up to the
+// consumers' accumulators (128 * 40 + 256 * 232 <= 64K)
+constexpr int kLgProducerRegs = 40, kLgConsumerRegs = 232;
+constexpr int kLgRing = 212992;  // bytes of shared memory for the ring
+
+template <int BM, int JN>
+struct Lg {
+  static constexpr int XBYTES = BM * kTcBK * 2;           // x's BM rows
+  static constexpr int STAGE = XBYTES + JN * kTcBK * 128;  // + JN code boxes
+  static constexpr int STAGES = kLgRing / STAGE < 8 ? kLgRing / STAGE : 8;
+  // the stages, full and empty barriers, slack to align the stages to 1 KB
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  static_assert(XBYTES % 1024 == 0, "stages keep the swizzle's alignment");
+};
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// mbar_wait that traps after about 10 s instead of hanging the card, should
+// a phase never complete
+__device__ __forceinline__ void mbar_wait_bounded(uint32_t bar,
+                                                  uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+template <int BM, int JN>
+__global__ void __launch_bounds__(kLgThreads, 1)
+tc_large_kernel(const __grid_constant__ CUtensorMap x_map,
+                const __grid_constant__ CUtensorMap codes_map,
+                const float* __restrict__ scale, float* __restrict__ out,
+                float* __restrict__ partial, int M, int N, int K,
+                int tiles_m, int tiles_n, int splits, int k_chunk) {
+  using L = Lg<BM, JN>;
+  extern __shared__ uint8_t lg_raw[];
+  uint8_t* smem = lg_raw + ((1024 - (smem_u32(lg_raw) & 1023)) & 1023);
+  const uint32_t full = smem_u32(smem + L::STAGES * L::STAGE);
+  const uint32_t empty = full + 8 * L::STAGES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int units = tiles_m * tiles_n * splits;
+  if (tid == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kLgConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // unit u: row tile fastest, so the CTAs that run together share codes
+  auto unit = [&](int u, int& m0, int& n0, int& k_begin, int& steps) {
+    const int r = u % tiles_m, z = (u / tiles_m) % splits;
+    const int c = u / (tiles_m * splits);
+    m0 = r * BM;
+    n0 = c * 128 * JN;
+    k_begin = z * k_chunk;
+    steps = (min(K, k_begin + k_chunk) - k_begin + kTcBK - 1) / kTcBK;
+    return z;
+  };
+
+  if (warp >= kLgConsumerWarps) {  // the producer: one thread issues TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kLgProducerRegs));
+    if (warp != kLgConsumerWarps || lane != 0) return;
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      int m0, n0, k_begin, steps;
+      unit(u, m0, n0, k_begin, steps);
+      for (int step = 0; step < steps; ++step, ++it) {
+        const int s = it % L::STAGES;
+        if (it >= L::STAGES)  // the consumers have released the stage
+          mbar_wait_bounded(empty + 8 * s, ((it / L::STAGES) - 1) & 1);
+        const uint32_t base = smem_u32(smem + s * L::STAGE);
+        const int k0 = k_begin + step * kTcBK;
+        mbar_expect_tx(full + 8 * s, L::STAGE);
+        tma_load_2d(base, &x_map, full + 8 * s, k0, m0);
+#pragma unroll
+        for (int h = 0; h < JN; ++h)
+          tma_load_2d(base + L::XBYTES + h * kTcBK * 128, &codes_map,
+                      full + 8 * s, n0 + 128 * h, k0);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kLgConsumerRegs));
+  // consumer warp (wg, wq) holds, for sub-tile j, A rows g and g + 8 as
+  // tile column col[j] and col[j] + 1 (box col[j] / 128 of the stage)
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
+  int col[JN];
+#pragma unroll
+  for (int j = 0; j < JN; ++j) col[j] = (wg * JN + j) * 64 + wq * 16 + 2 * g;
+  // a K step's A fragments from the stage's codes: four k16 slices (a
+  // lane reads the two adjacent codes of its rows g and g + 8 with one
+  // 2-byte load a K row; the swizzle puts the four rows in distinct banks)
+  auto widen = [&](const uint8_t* cs, uint32_t (&a)[4][JN][4]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        const uint8_t* box = cs + (col[j] >> 7) * (kTcBK * 128) +
+                             (col[j] & 15);
+        const int c16 = (col[j] & 127) >> 4;
+        uint32_t r[4];  // bytes: row g, row g + 8; sign bits flipped
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = kk * 16 + 2 * t + (i & 1) + 8 * (i >> 1);
+          r[i] = *reinterpret_cast<const uint16_t*>(
+                     box + row * 128 + ((c16 ^ (row & 7)) << 4)) ^
+                 0x8080u;
+        }
+        a[kk][j][0] = pack_exact(code_at(r[0], 0), code_at(r[1], 0));
+        a[kk][j][1] = pack_exact(code_at(r[0], 1), code_at(r[1], 1));
+        a[kk][j][2] = pack_exact(code_at(r[2], 0), code_at(r[3], 0));
+        a[kk][j][3] = pack_exact(code_at(r[2], 1), code_at(r[3], 1));
+      }
+    }
+  };
+
+  float d[JN][BM / 2];
+  int it = 0;  // the ring position of the step being multiplied
+  // one K step: its 4 * JN wgmma with ``a`` (widened the step before) as
+  // one group; then the last step's group is waited for, which frees
+  // ``a_next`` and the last step's stage (released to the producer), and
+  // the next step's codes are widened into ``a_next``
+  auto step_once = [&](int step, int steps, uint32_t (&a)[4][JN][4],
+                       uint32_t (&a_next)[4][JN][4]) {
+    const uint32_t xs = smem_u32(smem + (it % L::STAGES) * L::STAGE);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < JN; ++j)
+        wgmma_rs<BM>(d[j], a[kk][j], sw128_desc(xs + kk * 32));
+    wgmma_commit();
+    wgmma_wait<1>();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < JN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) keep(a_next[kk][j][e]);
+    if (step > 0 && lane == 0)
+      mbar_arrive(empty + 8 * ((it - 1) % L::STAGES));
+    ++it;
+    if (step + 1 < steps) {
+      const int s = it % L::STAGES;
+      mbar_wait_bounded(full + 8 * s, (it / L::STAGES) & 1);
+      widen(smem + s * L::STAGE + L::XBYTES, a_next);
+    }
+  };
+
+  uint32_t a0[4][JN][4], a1[4][JN][4];  // registers are not indexed
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int m0, n0, k_begin, steps;
+    const int z = unit(u, m0, n0, k_begin, steps);
+#pragma unroll
+    for (int j = 0; j < JN; ++j)
+#pragma unroll
+      for (int i = 0; i < BM / 2; ++i) d[j][i] = 0.f;
+    {
+      const int s = it % L::STAGES;
+      mbar_wait_bounded(full + 8 * s, (it / L::STAGES) & 1);
+      widen(smem + s * L::STAGE + L::XBYTES, a0);
+    }
+    for (int step = 0; step < steps; step += 2) {
+      step_once(step, steps, a0, a1);
+      if (step + 1 < steps) step_once(step + 1, steps, a1, a0);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < JN; ++j)
+#pragma unroll
+      for (int i = 0; i < BM / 2; ++i) keep(d[j][i]);
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % L::STAGES));
+
+    // lane (g, t) holds, for each 8-row group jj of the x tile, rows
+    // m0 + 8jj + 2t + e at out columns n0 + col[j] and n0 + col[j] + 1
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const int n = n0 + col[j];
+      if (n >= N) continue;  // N % 16 == 0: both columns or neither
+      const float2 sc = *reinterpret_cast<const float2*>(scale + n);
+#pragma unroll
+      for (int jj = 0; jj < BM / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 8 * jj + 2 * t + e;
+          if (m >= M) continue;
+          float2 v = make_float2(d[j][4 * jj + e], d[j][4 * jj + 2 + e]);
+          if (partial != nullptr) {
+            *reinterpret_cast<float2*>(
+                partial + ((size_t)z * M + m) * N + n) = v;
+          } else {
+            v.x *= sc.x;
+            v.y *= sc.y;
+            *reinterpret_cast<float2*>(out + (size_t)m * N + n) = v;
+          }
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch_reduce(const float* partial, const float* scale,
+                          float* out, int splits, int M, int N,
+                          cudaStream_t st) {
+  const size_t mn = (size_t)M * N;
+  const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
+  splitk_reduce_kernel<<<blocks, 256, 0, st>>>(partial, scale, out, splits,
+                                               M, N);
+  return cudaGetLastError();
+}
+
 template <int VEC, int MT>
 cudaError_t launch_gemv(const void* x, int x_bf16, const int8_t* codes,
                         const float* scale, float* out, float* partial, int M,
@@ -458,10 +867,85 @@ cudaError_t launch_gemv(const void* x, int x_bf16, const int8_t* codes,
       k_chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const size_t mn = (size_t)M * N;
-  const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
-  splitk_reduce_kernel<<<blocks, 256, 0, st>>>(partial, scale, out, splits, M,
-                                               N);
+  return launch_reduce(partial, scale, out, splits, M, N, st);
+}
+
+constexpr int kMaxDevices = 64;
+
+// the opt-in to ``bytes`` of dynamic shared memory for ``fn``, made once on
+// each device: cudaFuncSetAttribute acts on the current device only
+template <typename Fn>
+cudaError_t smem_opt_in(Fn fn, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return e;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// x (M, K) bf16 in boxes of 64 x ``rows`` rows; codes (K, N) int8 in boxes
+// of 128 x 64 rows; both with the 128-byte swizzle. The entry point of
+// cuTensorMapEncodeTiled is looked up once a process: a tensor map does not
+// depend on the device.
+cudaError_t encode_maps(CUtensorMap (&maps)[2], const void* x,
+                        const void* codes, int M, int N, int K, int rows) {
+  static decltype(&cuTensorMapEncodeTiled) encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &found);
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<decltype(&cuTensorMapEncodeTiled)>(fn);
+  }
+  const cuuint64_t x_dim[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t c_dim[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t x_stride[1] = {(cuuint64_t)K * 2};
+  const cuuint64_t c_stride[1] = {(cuuint64_t)N};
+  const cuuint32_t x_box[2] = {kTcBK, (cuuint32_t)rows};
+  const cuuint32_t c_box[2] = {kTcBN, kTcBK};
+  const cuuint32_t one[2] = {1, 1};
+  if (encode(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(x), x_dim, x_stride, x_box, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+             const_cast<void*>(codes), c_dim, c_stride, c_box, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+struct LargeArgs {
+  const float* scale;
+  float* out;
+  float* partial;
+  int M, N, K, splits, k_chunk, ctas;
+  cudaStream_t st;
+};
+
+template <int BM, int JN>
+cudaError_t launch_large(const CUtensorMap (&maps)[2], const LargeArgs& a) {
+  constexpr int bytes = Lg<BM, JN>::SMEM;
+  static bool opted[kMaxDevices] = {};
+  cudaError_t e = smem_opt_in(tc_large_kernel<BM, JN>, bytes, opted);
+  if (e != cudaSuccess) return e;
+  const int tiles_m = (a.M + BM - 1) / BM;
+  const int tiles_n = (a.N + 128 * JN - 1) / (128 * JN);
+  tc_large_kernel<BM, JN><<<a.ctas, kLgThreads, bytes, a.st>>>(
+      maps[0], maps[1], a.scale, a.out, a.partial, a.M, a.N, a.K, tiles_m,
+      tiles_n, a.splits, a.k_chunk);
   return cudaGetLastError();
 }
 
@@ -520,53 +1004,59 @@ extern "C" int dequant_matmul_tc_launch(const void* x, const void* codes,
       (M + kTcBM - 1) / kTcBM > 65535 || splits > 65535 ||
       ((uintptr_t)x | (uintptr_t)codes | (uintptr_t)scale) % 16)
     return (int)cudaErrorInvalidValue;
-  static decltype(&cuTensorMapEncodeTiled) encode = nullptr;
-  if (encode == nullptr) {  // cuTensorMapEncodeTiled's address, and the
-    void* fn = nullptr;     // opt-in to more than 48 KB of shared memory
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                            cudaEnableDefault, &found);
-    if (e != cudaSuccess) return (int)e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return (int)cudaErrorSymbolNotFound;
-    e = cudaFuncSetAttribute(tc_gemm_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kTcSmem);
-    if (e != cudaSuccess) return (int)e;
-    encode = reinterpret_cast<decltype(&cuTensorMapEncodeTiled)>(fn);
-  }
-  // x (M, K) bf16 in boxes of 64 x 128 rows; codes (K, N) int8 in boxes
-  // of 128 x 64 rows; both with the 128-byte swizzle
+  static bool opted[kMaxDevices] = {};
+  cudaError_t e = smem_opt_in(tc_gemm_kernel, kTcSmem, opted);
+  if (e != cudaSuccess) return (int)e;
   CUtensorMap maps[2];
-  const cuuint64_t x_dim[2] = {(cuuint64_t)K, (cuuint64_t)M};
-  const cuuint64_t c_dim[2] = {(cuuint64_t)N, (cuuint64_t)K};
-  const cuuint64_t x_stride[1] = {(cuuint64_t)K * 2};
-  const cuuint64_t c_stride[1] = {(cuuint64_t)N};
-  const cuuint32_t x_box[2] = {kTcBK, kTcBM}, c_box[2] = {kTcBN, kTcBK};
-  const cuuint32_t one[2] = {1, 1};
-  if (encode(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(x), x_dim, x_stride, x_box, one,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      encode(&maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-             const_cast<void*>(codes), c_dim, c_stride, c_box, one,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  e = encode_maps(maps, x, codes, M, N, K, kTcBM);
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM, splits);
   float* p = static_cast<float*>(partial);
   tc_gemm_kernel<<<grid, kTcThreads, kTcSmem, st>>>(
       maps[0], maps[1], static_cast<const float*>(scale),
       static_cast<float*>(out), splits > 1 ? p : nullptr, M, N, K, k_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t mn = (size_t)M * N;
-  const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
-  splitk_reduce_kernel<<<blocks, 256, 0, st>>>(
-      p, static_cast<const float*>(scale), static_cast<float*>(out), splits,
-      M, N);
-  return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return (int)launch_reduce(p, static_cast<const float*>(scale),
+                            static_cast<float*>(out), splits, M, N, st);
+}
+
+// The large-M product: tiles of ``bm`` rows of x (96, 104, 128, or with
+// ``jn`` 1 also 200 and 256) by 128 * ``jn`` columns of out, ``splits`` K
+// ranges of ``k_chunk`` rows (a multiple of 64), walked by ``ctas`` CTAs;
+// ``partial`` as for dequant_matmul_tc_launch. The same needs as that one.
+extern "C" int dequant_matmul_large_launch(const void* x, const void* codes,
+                                           const void* scale, void* out,
+                                           void* partial, int M, int N,
+                                           int K, int bm, int jn, int splits,
+                                           int k_chunk, int ctas,
+                                           void* stream) {
+  if (M < 1 || N < 1 || K < 1 || N % 16 || K % 8 || splits < 1 ||
+      k_chunk < 1 || k_chunk % kTcBK || (long long)splits * k_chunk < K ||
+      (long long)(splits - 1) * k_chunk >= K ||
+      (splits > 1 && partial == nullptr) || ctas < 1 || bm < 1 ||
+      (long long)((M + bm - 1) / bm) * ((N + 128 * jn - 1) / (128 * jn)) *
+              splits > 2147483647LL ||
+      ((uintptr_t)x | (uintptr_t)codes | (uintptr_t)scale) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[2];
+  cudaError_t e = encode_maps(maps, x, codes, M, N, K, bm);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  LargeArgs args{static_cast<const float*>(scale), static_cast<float*>(out),
+                 splits > 1 ? static_cast<float*>(partial) : nullptr,
+                 M, N, K, splits, k_chunk, ctas, st};
+  if (jn == 2 && bm == 96) e = launch_large<96, 2>(maps, args);
+  else if (jn == 2 && bm == 104) e = launch_large<104, 2>(maps, args);
+  else if (jn == 2 && bm == 128) e = launch_large<128, 2>(maps, args);
+  else if (jn == 1 && bm == 96) e = launch_large<96, 1>(maps, args);
+  else if (jn == 1 && bm == 104) e = launch_large<104, 1>(maps, args);
+  else if (jn == 1 && bm == 128) e = launch_large<128, 1>(maps, args);
+  else if (jn == 1 && bm == 200) e = launch_large<200, 1>(maps, args);
+  else if (jn == 1 && bm == 256) e = launch_large<256, 1>(maps, args);
+  else return (int)cudaErrorInvalidValue;
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return (int)launch_reduce(static_cast<float*>(partial), args.scale,
+                            args.out, splits, M, N, st);
 }

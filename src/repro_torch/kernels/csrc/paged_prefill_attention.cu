@@ -73,6 +73,24 @@ constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKeys = 32;                     // keys per tile (one per lane)
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
+
+// the opt-in to ``bytes`` of dynamic shared memory for ``fn``, made once on
+// each device: cudaFuncSetAttribute acts on the current device only
+template <typename Fn>
+cudaError_t smem_opt_in(Fn fn, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return e;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
 
 __device__ __forceinline__ float load_f(const void* p, size_t i, int bf16) {
   return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
@@ -313,14 +331,10 @@ cudaError_t launch(const void* q, int in_bf16, float scale, const void* kc,
                    const void* vf, void* out, int R, int S, int K, int G,
                    int page, int nb, cudaStream_t st) {
   constexpr int bytes = smem_bytes<HD>();
-  static bool configured = false;  // above 48 KB needs an opt-in, once
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_attention_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  static bool opted[kMaxDevices] = {};  // above 48 KB needs an opt-in
+  const cudaError_t e = smem_opt_in(paged_prefill_attention_kernel<HD>,
+                                    bytes, opted);
+  if (e != cudaSuccess) return e;
   const dim3 grid((S * G + kRows - 1) / kRows, K, R);
   paged_prefill_attention_kernel<HD><<<grid, kThreads, bytes, st>>>(
       q, in_bf16, scale, static_cast<const int8_t*>(kc),
@@ -768,14 +782,9 @@ cudaError_t launch_tc(const void* q, float scale, const void* kc,
                       const void* vf, void* out, int R, int S, int K, int G,
                       int page, int nb, cudaStream_t st) {
   constexpr int bytes = Tc<HD>::SMEM;
-  static bool configured = false;  // above 48 KB needs an opt-in, once
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        tc_prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  static bool opted[kMaxDevices] = {};  // above 48 KB needs an opt-in
+  const cudaError_t e = smem_opt_in(tc_prefill_kernel<HD>, bytes, opted);
+  if (e != cudaSuccess) return e;
   const dim3 grid((S * G + kTcRows - 1) / kTcRows, K, R);
   tc_prefill_kernel<HD><<<grid, kTcThreads, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), scale,

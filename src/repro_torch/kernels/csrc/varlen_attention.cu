@@ -28,9 +28,18 @@
 // slot -1, or with no valid key, gives exact zeros. Masking is by select: a
 // masked key takes no part in the softmax. Slot ids must be below R.
 //
-// Bound: 4*hd f32 flops per (query row, valid key) on the CUDA cores, each
-// needed history page read from device memory once; at the serving tick
-// (a 256-token chunk beside eight decode rows) it is bound by operations.
+// Bound: 4*hd flops per (query row, valid key), each needed history page
+// read from device memory once. At the serving tick (a 256-token chunk
+// beside eight decode rows) f32 on the CUDA cores is bound by operations,
+// bf16 on the tensor cores by the history's bytes.
+//
+// Two routes, chosen in the wrapper by q's dtype (and hd, T, alignment):
+//  * bf16 q (the main path): tc_varlen_kernel and varlen_combine_kernel,
+//    below: prefill segments on the tensor cores (K3's arithmetic, tiles
+//    of 64 query rows of one segment), decode segments on the CUDA cores
+//    with a long history split over several blocks and merged in a fixed
+//    order. Bound by the history bytes at the serving tick.
+//  * f32 q: varlen_attention_kernel, f32 on the CUDA cores:
 //
 // Design: the TPU grid sets all T rows against every page of every slot;
 // here a row needs only its own slot's keys, so the work splits by slot
@@ -52,9 +61,8 @@
 // the warp reduces max and sum with shuffles, and each lane accumulates
 // hd/32 output dims of p.v. The block of slot 0 (z = 0) also writes the
 // tile's pad rows as zeros. A tile's decode segments thus walk their
-// histories in parallel blocks; a long history is still one block's serial
-// walk. Tensor cores (wgmma), TMA and a lane-group walk for length-1
-// segments are later work.
+// histories in parallel blocks; a long history is one block's serial walk
+// here (the bf16 route splits it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,6 +77,24 @@ constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKeys = 32;                     // keys per tile (one per lane)
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
+
+// the opt-in to ``bytes`` of dynamic shared memory for ``fn``, made once on
+// each device: cudaFuncSetAttribute acts on the current device only
+template <typename Fn>
+cudaError_t smem_opt_in(Fn fn, int bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return e;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
 
 __device__ __forceinline__ float load_f(const void* p, long long i, int bf16) {
   return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
@@ -379,14 +405,10 @@ cudaError_t launch(const void* q, int in_bf16, float scale, long long q_sk,
                    long long o_sk, long long o_st, int T, int K, int G,
                    int page, int nb, int R, cudaStream_t st) {
   constexpr int bytes = smem_bytes<HD>();
-  static bool configured = false;  // above 48 KB needs an opt-in, once
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        varlen_attention_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  static bool opted[kMaxDevices] = {};  // above 48 KB needs an opt-in
+  const cudaError_t e = smem_opt_in(varlen_attention_kernel<HD>, bytes,
+                                    opted);
+  if (e != cudaSuccess) return e;
   // z: the distinct slots a tile of kRows rows can hold
   const dim3 grid((T * G + kRows - 1) / kRows, K, min(kRows, R));
   varlen_attention_kernel<HD><<<grid, kThreads, bytes, st>>>(
@@ -398,6 +420,722 @@ cudaError_t launch(const void* q, int in_bf16, float scale, long long q_sk,
       static_cast<const int32_t*>(tok_slot),
       static_cast<const int32_t*>(start), kf, vf, f_sk, f_st,
       static_cast<float*>(out), o_sk, o_st, T, K, G, page, nb, R);
+  return cudaGetLastError();
+}
+
+// ---- the bf16 route: tc_varlen_kernel and varlen_combine_kernel
+//
+// The wrapper builds a work list on the device (``segment_rows``): the
+// buffer's rows ordered by slot, each segment's rows in buffer order, pads
+// (slot outside [0, R)) last as slot R, then each slot's first index into
+// that order and its row count. Segments need not be contiguous in the
+// buffer; every tile and split below is counted from the start of its
+// segment or its slot's history, never from an offset in the buffer, so a
+// row's bits do not depend on where its segment sits.
+//
+// tc_varlen_kernel's grid is (prefill units + decode units, K), shapes
+// only: ceil(T*G / 64) + R units for the prefill segments (more than one
+// row), which are enough for any partition of T rows among R slots, then
+// R * splits * G units for decode segments (one row). A unit that finds no
+// work exits at once.
+//  * A prefill unit is a tile of 64 query rows of one segment (rows
+//    f = i*G + g of its segment, in order) and one kv-head, K3's
+//    tensor-core arithmetic: the slot's history tiles below start, then
+//    the segment's fresh keys in tiles (a tile with no key at or before
+//    the tile's last query position is skipped), each tile by cp.async
+//    into a two-stage ring; int8 history widened exactly to bf16 in shared
+//    memory; S = Q.K^T by mma.sync.m16n8k16 with f32 accumulators; each
+//    score column times k_scale * log2(e) / sqrt(hd) after the product; a
+//    base-2 online softmax in f32; P.V with P * v_scale split into hi + lo
+//    bf16. The history is read once a tile of 64 query rows.
+//  * A decode unit is one query head of a one-row segment and one split of
+//    the slot's history, ``kSplit`` keys (K2's walk, spread over blocks):
+//    the split's codes, scales and positions come into shared memory by
+//    cp.async all at once, then lane groups of hd/16 lanes walk the keys
+//    with their own online softmax in f32 (the query pre-scaled by
+//    1/sqrt(hd), each score times k_scale), merged by shuffles across the
+//    warp and through shared memory across warps. Split 0 also folds the
+//    row's own fresh key. Each split writes its (max, sum, weighted values)
+//    to a workspace.
+// varlen_combine_kernel, one block a (slot, kv-head), then merges a decode
+// row's splits in split order (a run repeats its bits) and writes the row,
+// and the block of slot R writes the pads' exact zeros.
+
+constexpr int kTcRows = 64;  // query rows a prefill unit, 16 a warp
+constexpr int kTcThreads = 128;
+constexpr int kTcMaxT = 32768;  // fresh tiles tracked in a 1024-bit mask
+constexpr int kTcMaskWords = 32;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Tc {
+  static constexpr int KT = HD == 256 ? 32 : 64;  // keys a tile
+  static constexpr int CPR = HD / 8;              // 16-byte chunks a bf16 row
+  static constexpr int TILE = KT * HD * 2;        // a bf16 K (or V) tile
+  // a ring stage: K, V (int8 codes or bf16 rows), k/v scales, positions
+  static constexpr int STAGE = 2 * TILE + 3 * KT * 4;
+  // two stages, the widened history K and V (q's staging before the first
+  // tile), each key's position and scales, the fresh-tile mask
+  static constexpr int PREFILL = 2 * STAGE + 2 * TILE + 3 * KT * 4 +
+                                 kTcMaskWords * 4;
+  static constexpr int SPLIT = HD == 256 ? 128 : 256;  // keys a decode unit
+  // a split's k and v codes, scales and positions
+  static constexpr int DECODE = SPLIT * (2 * HD + 12);
+  static constexpr int SMEM = PREFILL > DECODE ? PREFILL : DECODE;
+  static_assert(2 * TILE >= kTcRows * HD * 2, "q staging fits");
+  static_assert(4 * (HD + 2) * 4 <= DECODE, "the warps' merge fits");
+};
+
+// 16-byte chunk c of row r of a bf16 tile [rows][HD] sits at chunk
+// swz(r, c): the 8 rows an ldmatrix reads at one logical chunk fall in 8
+// different bank groups
+template <int HD>
+__device__ __forceinline__ int swz(int r, int c) {
+  return HD >= 64 ? c ^ (r & 7) : c ^ ((r >> 1) & 3);
+}
+
+template <int HD>
+__device__ __forceinline__ int tile_offset(int r, int c) {
+  return r * HD * 2 + swz<HD>(r, c) * 16;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared, or zeros when !valid (the source is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 4 int8 codes -> 2 bf16 pairs (exact): each code as 2^23 + (code + 128)
+// in an f32 mantissa, minus 2^23 + 128; the f32's upper half is its bf16
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) -
+           8388736.f;
+  return make_uint2(
+      __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632),
+      __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
+}
+
+// 16 codes of row r (its 16-code chunk c) -> bf16 chunks 2c, 2c + 1
+template <int HD>
+__device__ __forceinline__ void widen16(const uint8_t* src, uint8_t* dst,
+                                        int r, int c) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const uint2 a = widen4(raw.x), b = widen4(raw.y), e = widen4(raw.z),
+              f = widen4(raw.w);
+  *reinterpret_cast<uint4*>(dst + tile_offset<HD>(r, 2 * c)) =
+      make_uint4(a.x, a.y, b.x, b.y);
+  *reinterpret_cast<uint4*>(dst + tile_offset<HD>(r, 2 * c + 1)) =
+      make_uint4(e.x, e.y, f.x, f.y);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+struct VarlenArgs {
+  const __nv_bfloat16* q;
+  float sm_scale;
+  long long q_sk, q_st;
+  const int8_t* k_codes;
+  const float* k_scale;
+  const int8_t* v_codes;
+  const float* v_scale;
+  const int32_t* pool_pos;
+  const int32_t* block_table;
+  const int32_t* q_pos;
+  const int32_t* start;
+  const int32_t* rows;  // the work list: order (T), first (R+1), count (R+1)
+  const __nv_bfloat16* k_fresh;
+  const __nv_bfloat16* v_fresh;
+  long long f_sk, f_st;
+  float* out;
+  long long o_sk, o_st;
+  float* part;  // decode splits: (R, splits, K, G) x hd values, then 2 each
+  int T, K, G, page, nb, R, prefill_units, splits;
+};
+
+template <int HD>
+__device__ __forceinline__ void prefill_unit(const VarlenArgs& a, int u,
+                                             int kh, uint8_t* smem) {
+  using C = Tc<HD>;
+  constexpr int KT = C::KT, CPR = C::CPR, CH = HD / 16;
+  __shared__ int rowpos[kTcRows], rowt[kTcRows];
+  const int* order = a.rows;
+  const int* first = a.rows + a.T;
+  const int* count = first + a.R + 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  // the u-th tile among the prefill segments' tiles, in slot order
+  int slot = -1, tile = 0;
+  for (int s = 0, acc = 0; s < a.R; ++s) {
+    const int c = count[s];
+    if (c < 2) continue;
+    const int nt = (c * a.G + kTcRows - 1) / kTcRows;
+    if (u < acc + nt) {
+      slot = s;
+      tile = u - acc;
+      break;
+    }
+    acc += nt;
+  }
+  if (slot < 0) return;  // fewer tiles than the grid allows for
+  const int seg0 = first[slot], n_seg = count[slot];
+  const int n_q = n_seg * a.G, f0 = tile * kTcRows;
+
+  uint8_t* kb = smem + 2 * C::STAGE;  // widened history K [KT][HD] bf16
+  uint8_t* vb = kb + C::TILE;         // widened history V
+  int* kpos = reinterpret_cast<int*>(vb + C::TILE);  // [KT], -1: no key
+  float* csc = reinterpret_cast<float*>(kpos + KT);  // score scale, base 2
+  float* vsc = csc + KT;                             // value scale
+  unsigned* fmask = reinterpret_cast<unsigned*>(vsc + KT);
+
+  if (tid < kTcRows) {
+    const int f = f0 + tid;
+    const int row = f < n_q ? order[seg0 + f / a.G] : -1;
+    rowt[tid] = row;
+    rowpos[tid] = row >= 0 ? a.q_pos[row] : -1;
+  }
+  if (tid < kTcMaskWords) fmask[tid] = 0u;
+  __syncthreads();
+  int maxq = -1;
+#pragma unroll 8
+  for (int i = 0; i < kTcRows; ++i) maxq = max(maxq, rowpos[i]);
+  // the segment's fresh tiles holding a key at or before the last query
+  for (int j = tid; j < n_seg; j += kTcThreads) {
+    const int p = a.q_pos[order[seg0 + j]];
+    if (p >= 0 && p <= maxq)
+      atomicOr(&fmask[(j / KT) >> 5], 1u << ((j / KT) & 31));
+  }
+  __syncthreads();  // every thread walks the same tiles
+
+  // the walk: history tiles below min(start, the table's slots), then
+  // those fresh tiles; tile code c < n_ht is history tile c, else fresh
+  // tile c - n_ht
+  const int st = a.start[slot];
+  const int n_hist = min(st, a.nb * a.page);
+  const int n_ht = n_hist > 0 ? (n_hist + KT - 1) / KT : 0;
+  const int n_ft = (n_seg + KT - 1) / KT;
+  const int end = n_ht + n_ft;
+  const int32_t* bt = a.block_table + (size_t)slot * a.nb;
+  auto advance = [&](int code) {
+    const int nxt = code + 1;
+    if (nxt < n_ht) return nxt;
+    for (int b = max(nxt - n_ht, 0); b < n_ft;) {
+      const unsigned w = fmask[b >> 5] >> (b & 31);
+      if (w) return n_ht + min(n_ft, b + __ffs(w) - 1);
+      b = (b | 31) + 1;
+    }
+    return end;
+  };
+
+  auto load_tile = [&](int code, int s) {
+    uint8_t* sk = smem + s * C::STAGE;
+    uint8_t* sv = sk + C::TILE;
+    float* sks = reinterpret_cast<float*>(sv + C::TILE);
+    float* svs = sks + KT;
+    int* spos = reinterpret_cast<int*>(svs + KT);
+    if (code < n_ht) {  // int8 codes, rows of HD bytes as they are
+      const int t0 = code * KT;
+      for (int e = tid; e < KT * CH; e += kTcThreads) {
+        const int j = e / CH, c = e % CH, tt = t0 + j;
+        const bool ok = tt < n_hist;
+        size_t sl = 0;
+        if (ok) {
+          const int b = tt / a.page;
+          sl = ((size_t)bt[b] * a.K + kh) * a.page + (tt - b * a.page);
+        }
+        cp_async16(smem_u32(sk + j * HD + c * 16),
+                   a.k_codes + sl * HD + c * 16, ok);
+        cp_async16(smem_u32(sv + j * HD + c * 16),
+                   a.v_codes + sl * HD + c * 16, ok);
+      }
+      for (int j = tid; j < KT; j += kTcThreads) {
+        const int tt = t0 + j;
+        const bool ok = tt < n_hist;
+        size_t sl = 0, ps = 0;
+        if (ok) {
+          const int b = tt / a.page, off = tt - b * a.page;
+          const size_t phys = (size_t)bt[b];
+          sl = (phys * a.K + kh) * a.page + off;
+          ps = phys * a.page + off;
+        }
+        cp_async4(smem_u32(sks + j), a.k_scale + sl, ok);
+        cp_async4(smem_u32(svs + j), a.v_scale + sl, ok);
+        cp_async4(smem_u32(spos + j), a.pool_pos + ps, ok);
+      }
+    } else {  // the segment's bf16 rows, swizzled as the tensor cores read
+      const int j0 = (code - n_ht) * KT;
+      for (int e = tid; e < KT * CPR; e += kTcThreads) {
+        const int j = e / CPR, c = e % CPR, jj = j0 + j;
+        const bool ok = jj < n_seg;
+        const size_t at =
+            ok ? kh * a.f_sk + order[seg0 + jj] * a.f_st + c * 8 : 0;
+        const int o = tile_offset<HD>(j, c);
+        cp_async16(smem_u32(sk + o), a.k_fresh + at, ok);
+        cp_async16(smem_u32(sv + o), a.v_fresh + at, ok);
+      }
+      for (int j = tid; j < KT; j += kTcThreads)  // read with the stage
+        spos[j] = j0 + j < n_seg ? a.q_pos[order[seg0 + j0 + j]] : -1;
+    }
+  };
+
+  // q: 64 rows staged in kb (zeros past the last row), then each warp's
+  // 16 rows as A fragments, in registers for the whole walk
+  int code = advance(-1);
+  if (code < end) load_tile(code, 0);
+  cp_async_commit();
+  for (int e = tid; e < kTcRows * CPR; e += kTcThreads) {
+    const int i = e / CPR, c = e % CPR, row = rowt[i];
+    const size_t at =
+        row >= 0 ? kh * a.q_sk + row * a.q_st +
+                       (long long)((f0 + i) % a.G) * HD + c * 8
+                 : 0;
+    cp_async16(smem_u32(kb + tile_offset<HD>(i, c)), a.q + at, row >= 0);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int i = warp * 16 + (lane % 16);
+    ldmatrix_x4(qa[kk], smem_u32(kb + tile_offset<HD>(i, kk * 2 + lane / 16)));
+  }
+  const int myq[2] = {rowpos[warp * 16 + g], rowpos[warp * 16 + g + 8]};
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+
+  int s = 0;
+  while (code < end) {
+    const int next = advance(code);
+    cp_async_wait_all();  // this tile's stage has landed
+    __syncthreads();      // for every thread; the last tile is done with
+    if (next < end) load_tile(next, s ^ 1);
+    cp_async_commit();
+
+    uint8_t* sk = smem + s * C::STAGE;
+    uint8_t* sv = sk + C::TILE;
+    const float* sks = reinterpret_cast<const float*>(sv + C::TILE);
+    const float* svs = sks + KT;
+    const int* spos = reinterpret_cast<const int*>(svs + KT);
+    const uint8_t* ktile = sk;
+    const uint8_t* vtile = sv;
+    const bool hist = code < n_ht;
+    if (hist) {
+      for (int e = tid; e < KT * CH; e += kTcThreads) {
+        const int j = e / CH, c = e % CH;
+        widen16<HD>(sk + j * HD + c * 16, kb, j, c);
+        widen16<HD>(sv + j * HD + c * 16, vb, j, c);
+      }
+      for (int j = tid; j < KT; j += kTcThreads) {
+        const int p = spos[j];
+        // this call's own tokens (pos >= start) are fresh keys, not history
+        const bool ok = code * KT + j < n_hist && p >= 0 && p < st;
+        kpos[j] = ok ? p : -1;
+        csc[j] = ok ? sks[j] * a.sm_scale * kLog2e : 0.f;
+        vsc[j] = ok ? svs[j] : 0.f;
+      }
+      ktile = kb;
+      vtile = vb;
+    } else {
+      for (int j = tid; j < KT; j += kTcThreads) {
+        kpos[j] = spos[j] >= 0 ? spos[j] : -1;
+        csc[j] = a.sm_scale * kLog2e;
+        vsc[j] = 1.f;
+      }
+    }
+    __syncthreads();
+
+    // S = Q.K^T for the warp's 16 rows and the tile's KT keys
+    float sc[KT / 8][4];
+#pragma unroll
+    for (int i = 0; i < KT / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < KT / 16; ++np) {
+        const int key = np * 16 + (lane / 16) * 8 + (lane % 8);
+        uint32_t b[4];
+        ldmatrix_x4(b, smem_u32(ktile + tile_offset<HD>(
+                                            key, kk * 2 + ((lane / 8) & 1))));
+        mma_bf16(sc[2 * np], qa[kk], b[0], b[1]);
+        mma_bf16(sc[2 * np + 1], qa[kk], b[2], b[3]);
+      }
+    }
+
+    // scale, mask, online softmax (rows g and g + 8 of the warp's 16; a
+    // row's 4 lanes share its max). A history key counts for every row of
+    // the slot, a fresh key for rows at or after its position.
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = nt * 8 + 2 * t + (e & 1);
+        const int kp = kpos[key];
+        const bool ok = kp >= 0 && (hist || kp <= myq[e >> 1]);
+        sc[nt][e] = ok ? sc[nt][e] * csc[key] : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][e] *= corr[e >> 1];
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = sc[nt][e] > 0.5f * kNegInf
+                            ? exp2f(sc[nt][e] - m[e >> 1])
+                            : 0.f;
+        l[e >> 1] += p;
+        sc[nt][e] = p * vsc[nt * 8 + 2 * t + (e & 1)];
+      }
+
+    // O += P.V, P as hi + lo bf16
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // a0: tile 2kk rows g; a1: rows g + 8; a2, a3: tile 2kk + 1
+        const float p0 = sc[2 * kk + (i >> 1)][2 * (i & 1)];
+        const float p1 = sc[2 * kk + (i >> 1)][2 * (i & 1) + 1];
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
+        hi[i] = *reinterpret_cast<const uint32_t*>(&h2);
+        lo[i] = pack_bf16(p0 - __low2float(h2), p1 - __high2float(h2));
+      }
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        const int key = kk * 16 + ((lane / 8) & 1) * 8 + (lane % 8);
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, smem_u32(vtile + tile_offset<HD>(key, 2 * dp + lane / 16)));
+        mma_bf16(o[2 * dp], hi, b[0], b[1]);
+        mma_bf16(o[2 * dp], lo, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], hi, b[2], b[3]);
+        mma_bf16(o[2 * dp + 1], lo, b[2], b[3]);
+      }
+    }
+    code = next;
+    s ^= 1;
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+    const int i = warp * 16 + g + 8 * h, row = rowt[i];
+    if (row < 0) continue;
+    float* orow = a.out + kh * a.o_sk + row * a.o_st +
+                  (long long)((f0 + i) % a.G) * HD;
+    const bool seen = m[h] > 0.5f * kNegInf;
+    const float inv = seen ? 1.f / fmaxf(l[h], 1e-30f) : 0.f;
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt)
+      *reinterpret_cast<float2*>(orow + dt * 8 + 2 * t) =
+          seen ? make_float2(o[dt][2 * h] * inv, o[dt][2 * h + 1] * inv)
+               : make_float2(0.f, 0.f);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void decode_unit(const VarlenArgs& a, int u,
+                                            int kh, uint8_t* smem) {
+  using C = Tc<HD>;
+  constexpr int CH = HD / 16;     // 16-code chunks a key: its lanes
+  constexpr int SPW = 32 / CH;    // keys a warp a step
+  constexpr int SPB = 4 * SPW;    // keys a block a step
+  const int* order = a.rows;
+  const int* first = a.rows + a.T;
+  const int* count = first + a.R + 1;
+  const int g = u % a.G, split = (u / a.G) % a.splits;
+  const int slot = u / (a.G * a.splits);
+  if (count[slot] != 1) return;  // not a decode segment
+  const int row = order[first[slot]];
+  const int st = a.start[slot];
+  const int n_hist = min(st, a.nb * a.page);
+  const int k0 = split * C::SPLIT;
+  if (split > 0 && k0 >= n_hist) return;  // the combine reads no more
+  const int n = max(0, min(n_hist, k0 + C::SPLIT) - k0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int sub = lane / CH, j = lane % CH;
+
+  int8_t* kc = reinterpret_cast<int8_t*>(smem);  // [SPLIT][HD]
+  int8_t* vc = kc + C::SPLIT * HD;
+  float* ksc = reinterpret_cast<float*>(vc + C::SPLIT * HD);  // [SPLIT]
+  float* vsc = ksc + C::SPLIT;
+  int* kps = reinterpret_cast<int*>(vsc + C::SPLIT);
+
+  // the split's codes, scales and positions, all in flight at once
+  const int32_t* bt = a.block_table + (size_t)slot * a.nb;
+  for (int e = tid; e < n * CH; e += kTcThreads) {
+    const int jj = e / CH, c = e % CH, tt = k0 + jj, b = tt / a.page;
+    const size_t sl = ((size_t)bt[b] * a.K + kh) * a.page + (tt - b * a.page);
+    cp_async16(smem_u32(kc + jj * HD + c * 16), a.k_codes + sl * HD + c * 16,
+               true);
+    cp_async16(smem_u32(vc + jj * HD + c * 16), a.v_codes + sl * HD + c * 16,
+               true);
+  }
+  for (int jj = tid; jj < n; jj += kTcThreads) {
+    const int tt = k0 + jj, b = tt / a.page, off = tt - b * a.page;
+    const size_t phys = (size_t)bt[b];
+    const size_t sl = (phys * a.K + kh) * a.page + off;
+    cp_async4(smem_u32(ksc + jj), a.k_scale + sl, true);
+    cp_async4(smem_u32(vsc + jj), a.v_scale + sl, true);
+    cp_async4(smem_u32(kps + jj), a.pool_pos + phys * a.page + off, true);
+  }
+  cp_async_commit();
+
+  // this lane's 16-dim slice of the query, pre-scaled by 1/sqrt(hd)
+  const long long qrow = kh * a.q_sk + row * a.q_st + (long long)g * HD;
+  float qv[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    qv[i] = __bfloat162float(a.q[qrow + j * 16 + i]) * a.sm_scale;
+  float m = kNegInf, l = 0.f, acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  // every lane runs every step, so the shuffles see the full warp; a lane
+  // group whose key is absent or masked skips the softmax update
+  auto fold = [&](const int8_t* kr, const int8_t* vr, float ks, float vs,
+                  bool valid) {
+    float dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dot = fmaf(qv[i], (float)kr[i], dot);
+#pragma unroll
+    for (int off = CH / 2; off > 0; off >>= 1)
+      dot += __shfl_xor_sync(kFull, dot, off);
+    if (valid) {
+      const float s = dot * ks;
+      const float m_new = fmaxf(m, s);
+      const float corr = expf(m - m_new);
+      const float pr = expf(s - m_new);
+      l = l * corr + pr;
+      const float pv = pr * vs;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        acc[i] = fmaf(pv, (float)vr[i], acc[i] * corr);
+      m = m_new;
+    }
+  };
+  for (int base = 0; base < n; base += SPB) {
+    const int key = base + warp * SPW + sub;
+    const int kk = key < n ? key : 0;
+    int4 kraw = *reinterpret_cast<const int4*>(kc + kk * HD + j * 16);
+    int4 vraw = *reinterpret_cast<const int4*>(vc + kk * HD + j * 16);
+    const int p = key < n ? kps[kk] : -1;
+    fold(reinterpret_cast<const int8_t*>(&kraw),
+         reinterpret_cast<const int8_t*>(&vraw), ksc[kk], vsc[kk],
+         p >= 0 && p < st);
+  }
+  float* red = reinterpret_cast<float*>(smem);  // after the walk: reused
+  if (split == 0 && warp == 0) {  // the row's own fresh key, widened to f32
+    const long long at = kh * a.f_sk + row * a.f_st + j * 16;
+    float kf[16], vf[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      kf[i] = __bfloat162float(a.k_fresh[at + i]);
+      vf[i] = __bfloat162float(a.v_fresh[at + i]);
+    }
+    float dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dot = fmaf(qv[i], kf[i], dot);
+#pragma unroll
+    for (int off = CH / 2; off > 0; off >>= 1)
+      dot += __shfl_xor_sync(kFull, dot, off);
+    if (sub == 0 && a.q_pos[row] >= 0) {
+      const float m_new = fmaxf(m, dot);
+      const float corr = expf(m - m_new);
+      const float pr = expf(dot - m_new);
+      l = l * corr + pr;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] = fmaf(pr, vf[i], acc[i] * corr);
+      m = m_new;
+    }
+  }
+
+  // merge the lane groups of this warp (same j, different keys); a group
+  // that saw no valid key has m = -1e30, l = 0, acc = 0 and weighs nothing
+#pragma unroll
+  for (int off = CH; off < 32; off <<= 1) {
+    const float mo = __shfl_xor_sync(kFull, m, off);
+    const float lo = __shfl_xor_sync(kFull, l, off);
+    const float mx = fmaxf(m, mo);
+    const float x = expf(m - mx), y = expf(mo - mx);
+    l = l * x + lo * y;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float ao = __shfl_xor_sync(kFull, acc[i], off);
+      acc[i] = acc[i] * x + ao * y;
+    }
+    m = mx;
+  }
+  // then the warps, through shared memory: [warp][HD + 2]
+  __syncthreads();  // every warp is done with the staged codes
+  if (sub == 0) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) red[warp * (HD + 2) + j * 16 + i] = acc[i];
+    if (j == 0) {
+      red[warp * (HD + 2) + HD] = m;
+      red[warp * (HD + 2) + HD + 1] = l;
+    }
+  }
+  __syncthreads();
+  const size_t at = (((size_t)slot * a.splits + split) * a.K + kh) * a.G + g;
+  const size_t units = (size_t)a.R * a.splits * a.K * a.G;
+  float mx = kNegInf;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) mx = fmaxf(mx, red[w * (HD + 2) + HD]);
+  for (int d = tid; d < HD; d += kTcThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      v += red[w * (HD + 2) + d] * expf(red[w * (HD + 2) + HD] - mx);
+    a.part[at * HD + d] = v;
+  }
+  if (tid == 0) {
+    float lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      lsum += red[w * (HD + 2) + HD + 1] * expf(red[w * (HD + 2) + HD] - mx);
+    a.part[units * HD + 2 * at] = mx;
+    a.part[units * HD + 2 * at + 1] = lsum;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+tc_varlen_kernel(const __grid_constant__ VarlenArgs a) {
+  extern __shared__ __align__(128) uint8_t tc_smem[];
+  if ((int)blockIdx.x < a.prefill_units)
+    prefill_unit<HD>(a, blockIdx.x, blockIdx.y, tc_smem);
+  else
+    decode_unit<HD>(a, blockIdx.x - a.prefill_units, blockIdx.y, tc_smem);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+varlen_combine_kernel(const __grid_constant__ VarlenArgs a) {
+  const int slot = blockIdx.x, kh = blockIdx.y, tid = threadIdx.x;
+  const int* order = a.rows;
+  const int* first = a.rows + a.T;
+  const int* count = first + a.R + 1;
+  if (slot == a.R) {  // the pads: exact zeros
+    const int n = count[slot] * a.G * HD;
+    for (int e = tid; e < n; e += kTcThreads) {
+      const int row = order[first[slot] + e / (a.G * HD)];
+      a.out[kh * a.o_sk + row * a.o_st + e % (a.G * HD)] = 0.f;
+    }
+    return;
+  }
+  if (count[slot] != 1) return;
+  const int row = order[first[slot]];
+  const int n_hist = min(a.start[slot], a.nb * a.page);
+  const int n_split = max(1, (n_hist + Tc<HD>::SPLIT - 1) / Tc<HD>::SPLIT);
+  const size_t units = (size_t)a.R * a.splits * a.K * a.G;
+  for (int e = tid; e < a.G * HD; e += kTcThreads) {
+    const int g = e / HD, d = e % HD;
+    float mx = kNegInf;
+    for (int sp = 0; sp < n_split; ++sp) {
+      const size_t at = (((size_t)slot * a.splits + sp) * a.K + kh) * a.G + g;
+      mx = fmaxf(mx, a.part[units * HD + 2 * at]);
+    }
+    float lsum = 0.f, v = 0.f;
+    for (int sp = 0; sp < n_split; ++sp) {
+      const size_t at = (((size_t)slot * a.splits + sp) * a.K + kh) * a.G + g;
+      const float w = expf(a.part[units * HD + 2 * at] - mx);
+      lsum += a.part[units * HD + 2 * at + 1] * w;
+      v += a.part[at * HD + d] * w;
+    }
+    // no valid key in the whole row: exact zeros
+    a.out[kh * a.o_sk + row * a.o_st + e] =
+        mx > 0.5f * kNegInf ? v / fmaxf(lsum, 1e-30f) : 0.f;
+  }
+}
+
+template <int HD>
+cudaError_t launch_tc(const VarlenArgs& a, cudaStream_t st) {
+  constexpr int bytes = Tc<HD>::SMEM;
+  static bool opted[kMaxDevices] = {};
+  cudaError_t e = smem_opt_in(tc_varlen_kernel<HD>, bytes, opted);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.prefill_units + a.R * a.splits * a.G, a.K);
+  tc_varlen_kernel<HD><<<grid, kTcThreads, bytes, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  varlen_combine_kernel<HD><<<dim3(a.R + 1, a.K), kTcThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -432,4 +1170,63 @@ extern "C" int varlen_attention_launch(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef VARLEN_LAUNCH
+}
+
+// The tensor-core route: bf16 q and fresh k/v, T <= 32768, hd 32, 64, 128
+// or 256, 16-byte aligned q, codes and fresh k/v with strides of multiples
+// of 8 elements; ``rows`` the work list (T + 2 * (R + 1) int32, see
+// ``segment_rows``); ``part`` a workspace of R * splits * K * G * (hd + 2)
+// f32, splits = ceil(nb * page / the decode split of hd). Launches
+// tc_varlen_kernel and varlen_combine_kernel on `stream`.
+extern "C" int varlen_attention_tc_launch(
+    const void* q, float scale, long long q_sk, long long q_st,
+    const void* k_codes, const void* k_scale, const void* v_codes,
+    const void* v_scale, const void* pool_pos, const void* block_table,
+    const void* q_pos, const void* start, const void* rows,
+    const void* k_fresh, const void* v_fresh, long long f_sk, long long f_st,
+    void* out, long long o_sk, long long o_st, void* part, int T, int K,
+    int G, int HD, int page, int nb, int R, int splits, void* stream) {
+  if (T < 1 || K < 1 || G < 1 || nb < 1 || R < 1 || page < 1 ||
+      page > 64 || K > 65535 || T > kTcMaxT || splits < 1 ||
+      (long long)T * G / kTcRows + R + (long long)R * splits * G >
+          2147483647LL ||
+      ((uintptr_t)q | (uintptr_t)k_codes | (uintptr_t)v_codes |
+       (uintptr_t)k_fresh | (uintptr_t)v_fresh) % 16 ||
+      (q_sk | q_st | f_sk | f_st) % 8 || (o_sk | o_st) % 2)
+    return (int)cudaErrorInvalidValue;
+  const VarlenArgs a{static_cast<const __nv_bfloat16*>(q), scale, q_sk, q_st,
+                     static_cast<const int8_t*>(k_codes),
+                     static_cast<const float*>(k_scale),
+                     static_cast<const int8_t*>(v_codes),
+                     static_cast<const float*>(v_scale),
+                     static_cast<const int32_t*>(pool_pos),
+                     static_cast<const int32_t*>(block_table),
+                     static_cast<const int32_t*>(q_pos),
+                     static_cast<const int32_t*>(start),
+                     static_cast<const int32_t*>(rows),
+                     static_cast<const __nv_bfloat16*>(k_fresh),
+                     static_cast<const __nv_bfloat16*>(v_fresh), f_sk, f_st,
+                     static_cast<float*>(out), o_sk, o_st,
+                     static_cast<float*>(part), T, K, G, page, nb, R,
+                     (T * G + kTcRows - 1) / kTcRows + R, splits};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto fits = [&](int split) {  // the splits cover every history slot
+    return (long long)splits * split >= (long long)nb * page;
+  };
+  switch (HD) {
+    case 32:
+      return fits(Tc<32>::SPLIT) ? (int)launch_tc<32>(a, st)
+                                 : (int)cudaErrorInvalidValue;
+    case 64:
+      return fits(Tc<64>::SPLIT) ? (int)launch_tc<64>(a, st)
+                                 : (int)cudaErrorInvalidValue;
+    case 128:
+      return fits(Tc<128>::SPLIT) ? (int)launch_tc<128>(a, st)
+                                  : (int)cudaErrorInvalidValue;
+    case 256:
+      return fits(Tc<256>::SPLIT) ? (int)launch_tc<256>(a, st)
+                                  : (int)cudaErrorInvalidValue;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -23,9 +23,16 @@ alignment before the launch:
 
   * ``"gemv"`` (M ≤ 4): a split-K GEMV; :func:`gemv_plan` picks the K
     split so that about two blocks run on each SM;
-  * ``"tensor_cores"`` (M > 4, bf16 x, N % 16 == 0, K % 8 == 0, 16-byte
-    aligned bases, as TMA's copies need): a split-K product on the bf16
-    tensor cores (``wgmma``); :func:`tc_plan` picks the K split;
+  * ``"tensor_cores_large_m"`` (bf16 x with M ≥ ``LARGE_M_MIN``, the same
+    alignment as the next): a persistent, warp-specialised product on the
+    bf16 tensor cores (``wgmma``; a producer warp feeds the shared-memory
+    ring by TMA, two consumer warpgroups widen codes and multiply);
+    :func:`large_plan` sizes the tiles to M and picks the K split, so
+    that the units of work fill the SMs evenly;
+  * ``"tensor_cores"`` (4 < M < ``LARGE_M_MIN``, bf16 x, N % 16 == 0,
+    K % 8 == 0, 16-byte aligned bases, as TMA's copies need): a split-K
+    product on the bf16 tensor cores (``wgmma``); :func:`tc_plan` picks
+    the K split;
   * ``"cuda_cores"`` (any other M > 4: f32 x, a ragged N or K): the tiled
     product on the CUDA cores.
 
@@ -50,7 +57,22 @@ MIN_SPLIT_ROWS = 128  # rows of codes a GEMV K range holds at least
 # shared memory, at most 128 registers a thread)
 TC_TILE_M, TC_TILE_N, TC_STEP_K, TC_BLOCKS_PER_SM = 128, 128, 64, 2
 TC_MIN_SPLIT_STEPS = 4  # K steps a tensor-core K range holds at least
-ROUTES = ("gemv", "tensor_cores", "cuda_cores")
+# bf16 x with at least this many rows takes the large-M kernel
+# (``tc_large_kernel``), whose tiles are 128·jn columns of out by one of
+# its compiled row counts for that jn; one CTA an SM. From the sweep
+# (``python -m repro_torch.kernels.sweep``, H100 SXM): at 192 rows it is
+# as fast as ``tc_gemm_kernel`` or faster on each of llama2-7b's three
+# product shapes; at 128 the two tie
+LARGE_M_MIN = 192
+LARGE_TILE_ROWS = {2: (96, 104, 128), 1: (96, 104, 128, 200, 256)}
+# large_plan's cost model, fitted to ``python -m repro_torch.kernels.sweep``
+# on an H100 SXM (700 W): a K step of a unit takes a + b·(rows of x) µs for
+# its tile's 128-column boxes jn (the fixed part is mostly the widening of
+# the codes); a split product adds its partial sums' write and read at
+# about 2.5 bytes a ps and one more launch
+LARGE_STEP_US = {1: (0.314, 0.00209), 2: (0.674, 0.00253)}
+REDUCE_BYTES_PER_US, REDUCE_LAUNCH_US = 2.5e6, 3.0
+ROUTES = ("gemv", "tensor_cores_large_m", "tensor_cores", "cuda_cores")
 
 
 def dequant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
@@ -74,6 +96,15 @@ def _tc_launcher():
     fn = build.load("dequant_matmul").dequant_matmul_tc_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _large_launcher():
+    fn = build.load("dequant_matmul").dequant_matmul_large_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -108,6 +139,36 @@ def tc_plan(m: int, n: int, k: int, sms: int) -> tuple:
     return tiles_m, tiles_n, -(-steps // chunk), chunk * TC_STEP_K
 
 
+def large_plan(m: int, n: int, k: int, sms: int) -> tuple:
+    """(rows of x a tile, 128-column boxes a tile, row tiles, column
+    tiles, K ranges, rows of codes a range, CTAs) of the large-M product.
+    A unit of work is a tile and a K range; ``sms`` CTAs (fewer if there
+    are fewer units) walk the units in turn, so a product takes
+    ``ceil(units / sms)`` rounds of a unit's K steps. The plan minimises
+    the rounds times a unit's steps times the step's time
+    (``LARGE_STEP_US``), plus a split product's partial sums; ties go to
+    the wider tile, which reads x from L2 fewer times."""
+    steps = -(-k // TC_STEP_K)
+    best = None
+    for jn in (2, 1):
+        tiles_n = -(-n // (128 * jn))
+        a, b = LARGE_STEP_US[jn]
+        for bm in LARGE_TILE_ROWS[jn]:
+            tiles_m = -(-m // bm)
+            for want in range(1, max(1, steps // TC_MIN_SPLIT_STEPS) + 1):
+                chunk = -(-steps // want)
+                splits = -(-steps // chunk)
+                units = tiles_m * tiles_n * splits
+                cost = -(-units // sms) * chunk * (a + b * bm)
+                if splits > 1:
+                    cost += (2 * splits + 1) * m * n * 4 \
+                        / REDUCE_BYTES_PER_US + REDUCE_LAUNCH_US
+                if best is None or cost < best[0]:
+                    best = (cost, (bm, jn, tiles_m, tiles_n, splits,
+                                   chunk * TC_STEP_K, min(units, sms)))
+    return best[1]
+
+
 def route(m: int, n: int, k: int, x_dtype: torch.dtype,
           *addresses: int) -> str:
     """The kernel an (m, k) x (k, n) product takes (one of ``ROUTES``),
@@ -117,7 +178,7 @@ def route(m: int, n: int, k: int, x_dtype: torch.dtype,
         return "gemv"
     if x_dtype == torch.bfloat16 and n % 16 == 0 and k % 8 == 0 \
             and all(a % 16 == 0 for a in addresses):
-        return "tensor_cores"
+        return "tensor_cores_large_m" if m >= LARGE_M_MIN else "tensor_cores"
     return "cuda_cores"
 
 
@@ -156,7 +217,17 @@ def dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
     sms = _sm_count(x.device.index or 0)
     splits, partial = 1, None
     with torch.cuda.device(x.device):
-        if way == "tensor_cores":
+        if way == "tensor_cores_large_m":
+            bm, jn, _, _, splits, chunk, ctas = large_plan(m, n, k, sms)
+            if splits > 1:
+                partial = torch.empty((splits, m, n), dtype=torch.float32,
+                                      device=x.device)
+            err = _large_launcher()(
+                x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                out.data_ptr(),
+                None if partial is None else partial.data_ptr(), m, n, k,
+                bm, jn, splits, chunk, ctas, stream)
+        elif way == "tensor_cores":
             _, _, splits, chunk = tc_plan(m, n, k, sms)
             if splits > 1:
                 partial = torch.empty((splits, m, n), dtype=torch.float32,

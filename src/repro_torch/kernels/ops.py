@@ -47,18 +47,22 @@ def paged_prefill_attention(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
 
 
 def varlen_attention(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
-                     block_table, q_pos, tok_slot, start, k_fresh, v_fresh):
+                     block_table, q_pos, tok_slot, start, k_fresh, v_fresh,
+                     rows=None):
     """Token-packed varlen attention through the paged pool, one flat batch
     q (K, T, G, hd) → (K, T, G, hd) f32; see :mod:`repro_torch.kernels.
-    varlen_attention`. ``start`` is :func:`segment_start`'s, which the
-    packed step computes once per tick for all of its layers."""
-    fn = _va.varlen_attention_ref if q.device.type == "cpu" \
-        else _va.varlen_attention
-    return fn(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
-              q_pos, tok_slot, start, k_fresh, v_fresh)
+    varlen_attention`. ``start`` is :func:`segment_start`'s and ``rows``
+    :func:`segment_rows`', which the packed step computes once per tick for
+    all of its layers (the kernel builds ``rows`` itself when not given)."""
+    args = (q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
+            q_pos, tok_slot, start, k_fresh, v_fresh)
+    if q.device.type == "cpu":
+        return _va.varlen_attention_ref(*args)
+    return _va.varlen_attention(*args, rows)
 
 
 segment_start = _va.segment_start
+segment_rows = _va.segment_rows
 
 
 def tabq_quantize(x, bits: int):

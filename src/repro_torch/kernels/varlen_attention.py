@@ -31,15 +31,29 @@ Operands keep the reference's layout:
   k/v_fresh    (K, T, hd)        q's dtype; strides over (K, T) free
   out          (K, T, G, hd)     f32, laid out as q is
 
-A row with slot -1, or with no valid key, gives EXACT zeros.
+A row with slot -1, or with no valid key, gives EXACT zeros. Slot ids
+must be below R.
 
-What bounds it on an H100: at the serving tick (a 256-token chunk beside
-eight decode rows) the work is ``4·hd`` flops per (query row, valid key) in
-f32 on the CUDA cores, against history pages read once; it is bound by
-operations. A row needs only its own slot's keys, so one block takes 32
-query rows of one kv-head and ONE slot among them, and walks that slot's
-history and only the fresh-key tiles holding that slot's keys (the TPU
-kernel sets every row against every page of every slot).
+What bounds it on an H100: ``4·hd`` flops per (query row, valid key)
+against each needed history page read once. A row needs only its own
+slot's keys (the TPU kernel sets every row against every page of every
+slot). :func:`route` picks the kernel from q's dtype, hd, T and alignment
+before the launch:
+
+  * ``"tensor_cores"`` (bf16 q, the main path): a work list built on the
+    device (:func:`segment_rows`; the packed step builds it once per tick
+    in ``layers.packed_layout``) orders the buffer's rows by slot. A
+    segment of several rows (a prefill chunk) runs K3's tensor-core
+    arithmetic in tiles of 64 of its query rows, reading its history once
+    a tile; a one-row segment (a decode row) walks its history on the CUDA
+    cores in splits of ``DECODE_SPLIT`` keys over several blocks, merged
+    in a fixed order by a second kernel. Bound by the history's bytes at
+    the serving tick. The grid depends on shapes only, and nothing is read
+    back to the host;
+  * ``"cuda_cores"`` (f32 q, and any shape the first does not take): one
+    block takes 32 query rows of one kv-head and ONE slot among them and
+    walks that slot's history and the fresh-key tiles holding its keys,
+    f32 on the CUDA cores; bound by operations.
 """
 
 from __future__ import annotations
@@ -54,7 +68,13 @@ from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.kernels.paged_decode_attention import (check_on_card,
                                                         check_pool,
                                                         gather_pages)
-from repro_torch.kernels.paged_prefill_attention import NO_CALL_POSITION
+from repro_torch.kernels.paged_prefill_attention import (NO_CALL_POSITION,
+                                                         TC_HEAD_DIMS)
+
+TC_MAX_T = 32768  # the tensor-core kernel's fresh-tile mask covers T rows
+# history keys of a decode split, by head dim (the tensor-core route)
+DECODE_SPLIT = {32: 256, 64: 256, 128: 256, 256: 128}
+ROUTES = ("tensor_cores", "cuda_cores")
 
 
 def segment_start(q_pos: torch.Tensor, tok_slot: torch.Tensor,
@@ -71,6 +91,37 @@ def segment_start(q_pos: torch.Tensor, tok_slot: torch.Tensor,
     out = torch.full((num_slots,), NO_CALL_POSITION, dtype=torch.int32,
                      device=q_pos.device)
     return out.scatter_reduce(0, torch.where(ok, sl, 0), vals, "amin")
+
+
+def segment_rows(tok_slot: torch.Tensor, num_slots: int) -> torch.Tensor:
+    """The tensor-core route's work list, (T + 2·(R + 1),) int32 on
+    ``tok_slot``'s device (no host sync): the buffer's rows ordered by slot,
+    each segment's rows in buffer order (a segment need not be
+    contiguous), pads and slot ids outside [0, R) last as slot R; then
+    each slot's first index into that order, then its row count."""
+    sl = tok_slot.reshape(-1).to(torch.int64)
+    t = sl.numel()
+    key = torch.where((sl >= 0) & (sl < num_slots), sl, num_slots)
+    # one key a row, unique (slot, then place in the buffer), so any sort
+    # keeps a segment's rows in buffer order
+    order = torch.sort(key * t + torch.arange(t, device=sl.device)).values % t
+    count = torch.zeros(num_slots + 1, dtype=torch.int64,
+                        device=sl.device).scatter_add_(
+        0, key, torch.ones_like(key))
+    first = torch.cumsum(count, 0) - count
+    return torch.cat([order, first, count]).to(torch.int32)
+
+
+def route(dtype: torch.dtype, hd: int, t: int, *alignments: int) -> str:
+    """The kernel a call takes (one of ``ROUTES``) from q's dtype, the head
+    dim, the buffer's T rows, and the byte addresses and strides the
+    tensor-core kernel reads 16 bytes at a time (q's and the codes' and
+    fresh k/v's bases, q's and the fresh k/v's (K, T) strides): by shape,
+    not a fallback (a launch that fails raises)."""
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS and t <= TC_MAX_T \
+            and all(a % 16 == 0 for a in alignments):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def varlen_attention_ref(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
@@ -120,6 +171,16 @@ def _launcher():
     return fn
 
 
+@functools.cache
+def _tc_launcher():
+    fn = build.load("varlen_attention").varlen_attention_tc_launch
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, ctypes.c_float, ll, ll, p, p, p, p, p, p, p, p, p, p,
+                   p, ll, ll, p, ll, ll, p, i, i, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _check(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
            q_pos, tok_slot, start, k_fresh, v_fresh):
     if q.dim() != 4 or q.dtype not in (torch.float32, torch.bfloat16) \
@@ -154,16 +215,51 @@ def _check(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
 
 
 def varlen_attention(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
-                     block_table, q_pos, tok_slot, start, k_fresh, v_fresh):
+                     block_table, q_pos, tok_slot, start, k_fresh, v_fresh,
+                     rows=None):
     """Launch the CUDA kernel on the current stream (see the module
-    docstring for shapes). Raises on any input the kernel does not take;
-    there is no fallback. Adds one to ``varlen_attention.launches`` per
-    launch."""
+    docstring for shapes). ``rows`` is :func:`segment_rows`'s work list,
+    built here on the device when not given. Raises on any input the kernel
+    does not take; there is no fallback. Adds one to
+    ``varlen_attention.launches`` per call and to the route's count in
+    ``varlen_attention.route_launches``."""
     _check(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
            q_pos, tok_slot, start, k_fresh, v_fresh)
     kh, t, g, hd = q.shape
+    r = block_table.shape[0]
     # laid out as q is (preserve_format keeps a dense view's strides)
     out = torch.empty_like(q, dtype=torch.float32)
+    el = q.element_size()
+    way = route(q.dtype, hd, t, q.data_ptr(), k_codes.data_ptr(),
+                v_codes.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr(),
+                q.stride(0) * el, q.stride(1) * el, k_fresh.stride(0) * el,
+                k_fresh.stride(1) * el)
+    if way == "tensor_cores":
+        if rows is None:
+            rows = segment_rows(tok_slot, r)
+        elif not isinstance(rows, torch.Tensor) or rows.device != q.device \
+                or rows.dtype != torch.int32 \
+                or tuple(rows.shape) != (t + 2 * (r + 1),) \
+                or not rows.is_contiguous():
+            raise ValueError(f"rows must be segment_rows' contiguous int32 "
+                             f"({t + 2 * (r + 1)},) work list on q's device")
+        splits = -(-block_table.shape[1] * k_codes.shape[2]
+                   // DECODE_SPLIT[hd])
+        part = torch.empty((r * splits * kh * g * (hd + 2),),
+                           dtype=torch.float32, device=q.device)
+        with torch.cuda.device(q.device):
+            err = _tc_launcher()(
+                q.data_ptr(), 1.0 / hd ** 0.5, q.stride(0), q.stride(1),
+                k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
+                v_scale.data_ptr(), pool_pos.data_ptr(),
+                block_table.data_ptr(), q_pos.data_ptr(), start.data_ptr(),
+                rows.data_ptr(), k_fresh.data_ptr(), v_fresh.data_ptr(),
+                k_fresh.stride(0), k_fresh.stride(1), out.data_ptr(),
+                out.stride(0), out.stride(1), part.data_ptr(), t, kh, g, hd,
+                k_codes.shape[2], block_table.shape[1], r, splits,
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _count(way, err)
+        return out
     with torch.cuda.device(q.device):
         err = _launcher()(
             q.data_ptr(), int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5,
@@ -175,11 +271,17 @@ def varlen_attention(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
             out.stride(0), out.stride(1), t, kh, g, hd, k_codes.shape[2],
             block_table.shape[1], block_table.shape[0],
             torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"varlen_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    varlen_attention.launches += 1
+    _count(way, err)
     return out
 
 
+def _count(way: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"varlen_attention kernel launch failed ({way}): "
+                           f"CUDA error {err}")
+    varlen_attention.launches += 1
+    varlen_attention.route_launches[way] += 1
+
+
 varlen_attention.launches = 0
+varlen_attention.route_launches = dict.fromkeys(ROUTES, 0)

@@ -355,6 +355,8 @@ class PackedLayout(NamedTuple):
     start: torch.Tensor  # (R,) int32: each slot's first in-call position
     quant_rows: torch.Tensor | None  # (D,) int: rows whose fresh k/v
     #                                  take the int8 round trip
+    rows: torch.Tensor  # (T + 2(R + 1),) int32: the varlen kernel's work
+    #                     list (kernels.ops.segment_rows)
 
 
 def packed_layout(positions: torch.Tensor, slots: torch.Tensor,
@@ -366,7 +368,8 @@ def packed_layout(positions: torch.Tensor, slots: torch.Tensor,
     none)."""
     slots = slots.to(torch.int32)
     return PackedLayout(slots, ops.segment_start(positions, slots,
-                                                 num_slots), quant_rows)
+                                                 num_slots), quant_rows,
+                        ops.segment_rows(slots, num_slots))
 
 
 def varlen_attention_layer(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
@@ -395,7 +398,7 @@ def varlen_attention_layer(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
     out = ops.varlen_attention(
         qk, cache.k, cache.k_scale, cache.v, cache.v_scale, cache.pos,
         cache.block_table, q_positions.reshape(-1).to(torch.int32),
-        packed.slots.reshape(-1), packed.start, kf, vf)
+        packed.slots.reshape(-1), packed.start, kf, vf, packed.rows)
     return out.transpose(0, 1).reshape(b, t, h, hd).to(q.dtype)
 
 

@@ -247,9 +247,9 @@ def packed_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     attended through the int8 round trip (the reference's ``quant_fresh``
     mask, as indices): the scheduler's decode rows, so they read their own
     key as a sequential decode step reads it back from the pool. The
-    buffer's layout (each slot's first position, :func:`layers.
-    packed_layout`) is computed once here for every layer. Returns
-    (logits (R, V) f32, caches)."""
+    buffer's layout (each slot's first position and the varlen kernel's
+    work list, :func:`layers.packed_layout`) is computed once here for
+    every layer. Returns (logits (R, V) f32, caches)."""
     positions = positions.to(torch.int32)
     x = embed_inputs(cfg, params, tokens)
     packed = L.packed_layout(positions, slots, caches[0].block_table.shape[0],

@@ -233,11 +233,12 @@ def test_paged_scheduler_on_card_matches_cpu(cuda_device):
         == cfg.num_layers * stats.shared_prefill_calls > 0
 
 
-def _varlen(rng, device, segs, pad, dtype, kh=2, g=2, hd=64, page=16):
+def _varlen(rng, device, segs, pad, dtype, kh=2, g=2, hd=64, page=16,
+            p=40):
     """K4's operands: slot i holds ``segs[i] = (history, fresh)`` tokens in
-    its pages and contributes ``fresh`` rows of the flat batch from
-    position ``history``; ``pad`` pad rows close it."""
-    pool = _pool(rng, device, p=40, kh=kh, page=page, hd=hd,
+    its pages (of ``p``) and contributes ``fresh`` rows of the flat batch
+    from position ``history``; ``pad`` pad rows close it."""
+    pool = _pool(rng, device, p=p, kh=kh, page=page, hd=hd,
                  lens=[h + n for h, n in segs])
     t = sum(n for _, n in segs) + pad
     q_pos = np.full((t,), -1, np.int32)
@@ -277,6 +278,110 @@ def test_varlen_kernel_matches_plain_version(cuda_device, dtype, segs, pad):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=0, atol=1e-4)
     assert (got[:, args[8] < 0] == 0).all()
+
+
+@pytest.mark.parametrize("hd", [32, 256])
+def test_varlen_tensor_core_route_at_the_edge_head_dims(cuda_device, hd):
+    """K4's bf16 route at hd 32 (history splits of 256 keys) and 256 (key
+    tiles of 32, splits of 128): a decode row over several splits,
+    a continuation chunk and a first chunk agree with the plain version;
+    pads are exact zeros."""
+    rng = np.random.default_rng(19)
+    segs = [(300, 1), (40, 33), (0, 20)]
+    args = _varlen(rng, cuda_device, segs, 2, torch.bfloat16, hd=hd)
+    start = va.segment_start(args[7], args[8], len(segs))
+    routes = dict(va.varlen_attention.route_launches)
+    got = va.varlen_attention(*args[:9], start, *args[9:])
+    routes["tensor_cores"] += 1
+    want = va.varlen_attention_ref(*args[:9], start, *args[9:])
+    torch.cuda.synchronize()
+    assert va.varlen_attention.route_launches == routes
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    assert (got[:, args[8] < 0] == 0).all()
+
+
+def test_varlen_kernel_takes_the_routes_and_reads_a_given_work_list(
+        cuda_device):
+    """bf16 q takes the tensor-core route, f32 the CUDA cores; a work list
+    built once (as ``layers.packed_layout`` does) gives the bits of one
+    built in the call, and segments split into several runs of the buffer
+    agree with the plain version."""
+    rng = np.random.default_rng(18)
+    segs = [(300, 1), (57, 40), (0, 70), (600, 1)]
+    args = list(_varlen(rng, cuda_device, segs, 3, torch.bfloat16, hd=128,
+                        page=16, p=80))
+    sl = args[8]
+    # interleave the 40-row and 70-row segments' rows two at a time
+    idx = torch.arange(sl.numel(), device=cuda_device)
+    a, b = idx[sl == 1], idx[sl == 2]
+    mixed = torch.cat([torch.stack([a[:40:2], a[1:40:2], b[:40:2],
+                                    b[1:40:2]], 1).reshape(-1), b[40:]])
+    perm = torch.cat([idx[sl == 0], mixed, idx[sl == 3], idx[sl < 0]])
+    for i in (0, 9, 10):
+        args[i] = args[i][:, perm].contiguous()
+    args[7], args[8] = args[7][perm], args[8][perm]
+    start = va.segment_start(args[7], args[8], len(segs))
+    rows = va.segment_rows(args[8], len(segs))
+    routes = dict(va.varlen_attention.route_launches)
+    got = va.varlen_attention(*args[:9], start, *args[9:])
+    got_rows = va.varlen_attention(*args[:9], start, *args[9:], rows)
+    routes["tensor_cores"] += 2
+    want = va.varlen_attention_ref(*args[:9], start, *args[9:])
+    f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    va.varlen_attention(*f32[:9], start, *f32[9:])
+    routes["cuda_cores"] += 1
+    torch.cuda.synchronize()
+    assert va.varlen_attention.route_launches == routes
+    assert torch.equal(got, got_rows)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    assert (got[:, args[8] < 0] == 0).all()
+
+
+def test_kernels_launch_on_two_cards_in_one_process(cuda_device):
+    """K3, K4 and K7 on each of two cards in one process, every route
+    that opts in to more than 48 KB of shared memory: the opt-in is made
+    on each device (it acts on the current one), so the second card's
+    launches run and agree with the plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the opt-in to more shared "
+                    "memory is made per device")
+    for index in (0, 1):
+        dev = torch.device("cuda", index)
+        rng = np.random.default_rng(30 + index)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _varlen(rng, dev, [(90, 1), (57, 40), (0, 70)], 3, dtype,
+                           hd=128)
+            start = va.segment_start(args[7], args[8], 3)
+            got = va.varlen_attention(*args[:9], start, *args[9:])
+            want = va.varlen_attention_ref(*args[:9], start, *args[9:])
+            torch.cuda.synchronize(dev)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=0, atol=1e-4)
+            pool = _pool(rng, dev, p=40, hd=128, lens=[190, 40])
+            q_pos = torch.full((2, 64), -1, dtype=torch.int32, device=dev)
+            q_pos[0, :40] = torch.arange(150, 190)
+            q_pos[1] = torch.arange(-24, 40).clamp_min(-1)
+            q = torch.randn((2, 64, 2, 1, 128), device=dev).to(dtype)
+            kf = torch.randn((2, 64, 2, 128), device=dev).to(dtype)
+            vf = torch.randn((2, 64, 2, 128), device=dev).to(dtype)
+            got = ops.paged_prefill_attention(q, *pool, q_pos, kf, vf)
+            want = ppa.paged_prefill_attention_ref(
+                q, *pool, q_pos, ppa.first_call_position(q_pos), kf, vf)
+            torch.cuda.synchronize(dev)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=0, atol=1e-4)
+        codes = torch.randint(-127, 128, (4096, 4096), dtype=torch.int8,
+                              device=dev)
+        scale = torch.rand((4096,), device=dev) * 0.01 + 1e-4
+        for m in (128, 384):  # tc_gemm_kernel and the large-M kernel
+            x = torch.randn((m, 4096), device=dev).to(torch.bfloat16)
+            got = dm.dequant_matmul(x, codes, scale)
+            want = dm.dequant_matmul_ref(x, codes, scale)
+            bound = (x.float().abs() @ codes.float().abs() * scale).max()
+            torch.cuda.synchronize(dev)
+            assert float((got - want).abs().max()) <= 1e-5 * float(bound)
 
 
 def test_varlen_kernel_reads_transposed_views(cuda_device):
@@ -400,13 +505,15 @@ def test_payload_on_card_equals_cpu(cuda_device):
                                    (4, 4096, 11008), (3, 100, 17),
                                    (128, 11008, 4096), (70, 130, 50),
                                    (128, 4096, 11008), (96, 4096, 4096),
-                                   (70, 200, 80)])
+                                   (70, 200, 80), (384, 4096, 11008),
+                                   (600, 11008, 4096), (300, 1000, 48)])
 def test_dequant_matmul_kernel_matches_plain_version(cuda_device, dtype, m,
                                                      k, n):
     """K7 (split-K GEMV for M <= 4; above, the tensor cores for bf16 x
-    with N % 16 == 0 and K % 8 == 0, the CUDA cores otherwise) against its
-    plain version: f32 sums in another order, so within 1e-5 of the
-    largest possible term sum |x| @ |codes| * scale."""
+    with N % 16 == 0 and K % 8 == 0, from ``LARGE_M_MIN`` rows the large-M
+    kernel, the CUDA cores otherwise) against its plain version: f32 sums
+    in another order, so within 1e-5 of the largest possible term sum
+    |x| @ |codes| * scale."""
     rng = np.random.default_rng(m + k + n)
     x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
         cuda_device, getattr(torch, dtype))
@@ -418,8 +525,9 @@ def test_dequant_matmul_kernel_matches_plain_version(cuda_device, dtype, m,
     routes = dict(dm.dequant_matmul.route_launches)
     got = ops.dequant_matmul(x, codes, scale)
     assert dm.dequant_matmul.launches == before + 1
-    way = "gemv" if m <= 4 else "tensor_cores" if (
-        dtype == "bfloat16" and n % 16 == 0 and k % 8 == 0) else "cuda_cores"
+    way = "gemv" if m <= 4 else "cuda_cores" if (
+        dtype == "float32" or n % 16 or k % 8) else "tensor_cores_large_m" \
+        if m >= dm.LARGE_M_MIN else "tensor_cores"
     routes[way] += 1
     assert dm.dequant_matmul.route_launches == routes
     want = dm.dequant_matmul_ref(x, codes, scale)
