@@ -305,9 +305,11 @@ def _paged_pool(torch, rng, kh, hd, page, nb, tokens, device):
 
 def _kernel_k2(ctx) -> dict:
     """K2 against its plain version on the serve phase's shape and on edge
-    shapes, q in f32 and bf16; rows with no valid key must be exact zeros.
-    Then its time at the serve shape beside its bound, the plain version's
-    and SDPA's over the gathered, dequantized bf16 K/V."""
+    shapes, among them rows over several splits (a row filling its table,
+    128-key splits at hd 256, G 6, a row whose first split holds only
+    masked keys), q in f32 and bf16; rows with no valid key must be exact
+    zeros. Then its time at the serve shape beside its bound, the plain
+    version's and SDPA's over the gathered, dequantized bf16 K/V."""
     import numpy as np
     import torch
     from repro_torch.kernels import paged_decode_attention as pda
@@ -323,10 +325,17 @@ def _kernel_k2(ctx) -> dict:
         (2, 4, 3, 256, 8, 12, [90, 5]),  # hd 256, ragged G
         (2, 2, 1, 128, 64, 4, [200, 64]),  # largest page
         (2, 1, 4, 64, 1, 40, [40, 13]),  # page of one slot
+        (2, 4, 1, 128, 16, 64, [1024, 3]),  # a row filling its whole table
+        (2, 4, 2, 256, 16, 40, [640, 130]),  # hd 256: five 128-key splits
+        (2, 2, 6, 128, 16, 48, [700, 20]),  # G = 6 over three splits
     ]
+    # and a row whose first split (256 slots) holds only masked keys
+    masked = (2, 2, 1, 128, 16, 48, [700, 300])
     checks, worst = [], 0.0
-    for (r, kh, g, hd, page, nb, toks) in shapes:
+    for (r, kh, g, hd, page, nb, toks) in shapes + [masked]:
         pool = _paged_pool(torch, rng, kh, hd, page, nb, toks, device)
+        if (r, kh, g, hd, page, nb, toks) == masked:
+            pool[4][pool[5][0, :300 // page]] = -1  # row 0's first pages
         q_pos = torch.tensor([n - 1 for n in toks], dtype=torch.int32,
                              device=device)
         for qdtype in (torch.float32, torch.bfloat16):
@@ -340,6 +349,8 @@ def _kernel_k2(ctx) -> dict:
             zeros = all(bool((got[i] == 0).all()) for i in empty)
             ok = bool(torch.isfinite(got).all()) and err <= ATOL and zeros
             checks.append({"shape": [r, kh, g, hd, page, nb], "tokens": toks,
+                           "route": pda.route(hd, page, nb),
+                           "splits": pda.splits(nb, page, pda.SPLIT[hd]),
                            "q_dtype": str(qdtype)[6:], "max_abs_err": err,
                            "atol": ATOL, "free_rows_exact_zero": zeros,
                            "ok": ok})
@@ -348,6 +359,11 @@ def _kernel_k2(ctx) -> dict:
                 emit({"phase": "kernels", "paged_decode_attention": checks})
                 raise SystemExit(f"paged_decode_attention disagrees: "
                                  f"{checks[-1]}")
+
+    if {c["route"] for c in checks} != set(pda.ROUTES):
+        raise SystemExit(f"paged_decode_attention: the checks do not take "
+                         f"both routes {pda.ROUTES}")
+    tick = _k2_tick_routes(ctx, rng)
 
     r, kh, g, hd, page, nb, toks = serve
     pool = _paged_pool(torch, rng, kh, hd, page, nb, toks, device)
@@ -384,10 +400,56 @@ def _kernel_k2(ctx) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": ms["library"]}
     return {"checks": checks, "main_shape": [r, kh, g, hd, page, nb],
-            "tokens": toks, "bytes": nbytes, "flops": flops,
+            "tokens": toks, "route": pda.route(hd, page, nb),
+            "grid": pda.grid(r, kh, g, hd, page, nb),
+            "device_launches_a_call": 1, "bytes": nbytes, "flops": flops,
             "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
             "library_ms": ms["library"], "bound_ms": max(bytes_ms, ops_ms),
-            "achieved_GBps": nbytes / ms["kernel"] / 1e6}
+            "achieved_GBps": nbytes / ms["kernel"] / 1e6,
+            "decode_tick_routes": tick}
+
+
+# the paged phase's decode tick as K2 sees it: 8 rows of 129 tokens
+# (128-token prompts and one decoded token) of llama2-7b through the pool's
+# 64-page table; every row fits one split of the split route
+K2_TICK = (8, 32, 1, 128, 16, 64, [129] * 8)
+
+
+def _k2_tick_routes(ctx, rng) -> dict:
+    """K2 at the paged decode tick's shape (``K2_TICK``) by both routes on
+    the same inputs: the single-pass kernel (which the route takes for a
+    table that fits one split) and the split kernel (which the route takes
+    for the tick's 64-page table; it walks each one-split row in one pass).
+    Each within ``ATOL`` of the plain version, then their times in turns
+    beside the bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    r, kh, g, hd, page, nb, toks = K2_TICK
+    pool = _paged_pool(torch, rng, kh, hd, page, nb, toks, ctx["device"])
+    q_pos = torch.tensor([n - 1 for n in toks], dtype=torch.int32,
+                         device=ctx["device"])
+    q = torch.from_numpy(rng.normal(size=(r, kh, g, hd)).astype(
+        np.float32)).to(ctx["device"], torch.bfloat16)
+    want = pda.paged_decode_attention_ref(q, *pool, q_pos)
+    err = {}
+    for way in pda.ROUTES:
+        got = pda.launch_route(way, q, *pool, q_pos)
+        torch.cuda.synchronize()
+        err[way] = float((got - want).abs().max())
+        if not (bool(torch.isfinite(got).all()) and err[way] <= ATOL):
+            raise SystemExit(f"paged_decode_attention ({way}) disagrees at "
+                             f"the decode tick's shape: {err[way]}")
+    ms = ctx["timer"]({way: (lambda way=way: pda.launch_route(
+        way, q, *pool, q_pos)) for way in pda.ROUTES})
+    bw, _ = peak_rates(ctx["device_name"])
+    pages = sum(-(-n // page) for n in toks)
+    nbytes = (q.numel() * 2 + pages * (kh * page * (2 * hd + 8) + page * 4)
+              + r * nb * 4 + r * 4 + r * kh * g * hd * 4)
+    return {"shape": [r, kh, g, hd, page, nb], "tokens": toks,
+            "route_taken": pda.route(hd, page, nb), "max_abs_err": err,
+            "ms": ms, "bound_ms": nbytes / bw * 1e3}
 
 
 def _prefill_inputs(torch, rng, r, s, kh, g, hd, page, nb, rows, dtype,
@@ -770,11 +832,23 @@ K7_CHECKS = [(m, k, n) for m in (1, 4, 96, 128, 384, 600)
 # the tensor cores, from dequant_matmul.LARGE_M_MIN rows the large-M kernel
 K7_TC_M = (96, 128, 384, 600)
 K7_MAIN = (1, 4096, 11008)
+# the decode products the GEMV is timed at beside x @ W (M, K, N): w_q's
+# shape (also w_k, w_v, w_o), w_up's (also w_gate), w_down's, and w_up at
+# four rows; and the GEMV's launches a split decode step at each shape (8
+# edge layers: 4 w_q-shaped, 2 w_up-shaped, 1 w_down-shaped a layer)
+K7_GEMV_TIMED = ((1, 4096, 4096), (1, 4096, 11008), (1, 11008, 4096),
+                 (4, 4096, 11008))
+K7_GEMV_PER_LAYER = {(4096, 4096): 4, (4096, 11008): 2, (11008, 4096): 1}
 # the prefill M K7 is timed at beside x @ W (w_up's K and N)
 K7_TIMED_M = (128, 384, 600)
 # K7's device functions (csrc/dequant_matmul.cu), as a profile names them
-K7_DEVICE_NAMES = ("gemm_kernel", "gemv_kernel", "splitk_reduce_kernel",
-                   "tc_gemm_kernel", "tc_large_kernel")
+K7_DEVICE_NAMES = ("gemm_kernel", "gemv_kernel", "gemv16_kernel",
+                   "splitk_reduce_kernel", "tc_gemm_kernel",
+                   "tc_large_kernel")
+# the decode GEMV's (M <= 4), and K1's and K2's device functions
+GEMV_DEVICE_NAMES = ("gemv16_kernel", "gemv_kernel", "splitk_reduce_kernel")
+K1_DEVICE_NAMES = ("decode_attention_kernel",)
+K2_DEVICE_NAMES = ("paged_split_kernel", "paged_decode_attention_kernel")
 
 
 def _activations(torch, gen, t, d, dtype, device, outliers=0):
@@ -887,9 +961,10 @@ def _kernel_k7(ctx) -> dict:
     edge products at decode (M = 1, 4) and prefill (M = 96, 128, 384, 600)
     sizes and on ragged ones, f32 and bf16 x (the prefill sizes in bf16
     must take the tensor cores, from ``LARGE_M_MIN`` rows the large-M
-    kernel); at the decode product of w_up, and at ``K7_TIMED_M`` prefill
-    rows, its time beside the bf16 product over the dequantized weights,
-    the reference's fake-quant product."""
+    kernel); the decode GEMV at the three projection shapes (M 1) and at
+    w_up with M 4 (``K7_GEMV_TIMED``), and the product at ``K7_TIMED_M``
+    prefill rows, timed beside the bf16 product over the dequantized
+    weights (the reference's fake-quant product) and the byte bound."""
     import torch
     from repro_torch.kernels import dequant_matmul as dm
 
@@ -924,23 +999,49 @@ def _kernel_k7(ctx) -> dict:
                 emit({"phase": "kernels", "dequant_matmul": checks})
                 raise SystemExit(f"dequant_matmul disagrees: {checks[-1]}")
 
-    # time at the decode product of w_up, bf16 x as the edge's hidden state
-    m, k, n = K7_MAIN
-    codes = torch.randint(-7, 8, (k, n), generator=gen, device=device,
-                          dtype=torch.int8)
-    scale = torch.rand((n,), generator=gen, device=device) * 0.01 + 1e-4
-    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
-    w = (codes.float() * scale).to(torch.bfloat16)  # the reference's weight
-    ms = ctx["timer"]({"kernel": lambda: dm.dequant_matmul(x, codes, scale),
-                       "plain": lambda: dm.dequant_matmul_ref(x, codes, scale),
-                       "library": lambda: x @ w})
     bw, _ = peak_rates(ctx["device_name"])
 
-    def bound(m):
+    def bound(m, k=K7_MAIN[1], n=K7_MAIN[2]):
         nbytes = m * k * 2 + k * n + n * 4 + m * n * 4
         b_ms, o_ms = nbytes / bw * 1e3, 2 * m * n * k / BF16_PEAK * 1e3
         return nbytes, max(b_ms, o_ms), "bytes" if b_ms >= o_ms \
             else "operations"
+
+    # the decode GEMV at each projection shape, bf16 x as the edge's hidden
+    # state, beside x @ W over the reference's weight and its byte bound
+    gemv = {}
+    for mg, kg, ng in K7_GEMV_TIMED:
+        codes = torch.randint(-7, 8, (kg, ng), generator=gen, device=device,
+                              dtype=torch.int8)
+        scale = torch.rand((ng,), generator=gen, device=device) * 0.01 + 1e-4
+        x = torch.randn((mg, kg), generator=gen, device=device).to(
+            torch.bfloat16)
+        w = (codes.float() * scale).to(torch.bfloat16)
+        fns = {"kernel": lambda: dm.dequant_matmul(x, codes, scale),
+               "library": lambda: x @ w}
+        if (mg, kg, ng) == K7_MAIN:
+            fns["plain"] = lambda: dm.dequant_matmul_ref(x, codes, scale)
+        ms_g = ctx["timer"](fns)
+        nbytes, bound_ms, bound_by = bound(mg, kg, ng)
+        gemv[f"{mg}x{kg}x{ng}"] = {
+            "route": dm.route(mg, ng, kg, x.dtype, x.data_ptr(),
+                              codes.data_ptr(), scale.data_ptr()),
+            "vec": dm.gemv_vec(ng, codes.data_ptr(), scale.data_ptr()),
+            "splits": dm.gemv_plan(mg, ng, kg, 16, dm._sm_count(0))[1],
+            "launches_a_split_decode_step": SPLIT_LAYER
+            * K7_GEMV_PER_LAYER[(kg, ng)] if mg == 1 else None,
+            "kernel_ms": ms_g["kernel"], "library_ms": ms_g["library"],
+            "plain_ms": ms_g.get("plain"), "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes,
+            "achieved_GBps": nbytes / ms_g["kernel"] / 1e6,
+            "share_of_bound": bound_ms / ms_g["kernel"]}
+        if (mg, kg, ng) == K7_MAIN:
+            ms = ms_g
+    m, k, n = K7_MAIN
+    codes = torch.randint(-7, 8, (k, n), generator=gen, device=device,
+                          dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen, device=device) * 0.01 + 1e-4
+    w = (codes.float() * scale).to(torch.bfloat16)  # the reference's weight
 
     # and the prefill products: the main path's 128-token prompt, the four
     # 96-token rows of a shared prefix (384) and a 600-token prompt
@@ -967,6 +1068,9 @@ def _kernel_k7(ctx) -> dict:
         "launches": None, "max_abs_err": worst, "ms": ms["kernel"],
         "plain_ms": ms["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": ms["library"],
+        "gemv": {shape: {key: r[key] for key in (
+            "kernel_ms", "library_ms", "bound_ms", "bound_by")}
+            for shape, r in gemv.items()},
         "prefill": {str(mp): {key: r[key] for key in (
             "route", "kernel_ms", "library_ms", "bound_ms", "bound_by")}
             for mp, r in prefill.items()}}
@@ -975,17 +1079,21 @@ def _kernel_k7(ctx) -> dict:
             "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
             "library_ms": ms["library"],
             "achieved_GBps": nbytes / ms["kernel"] / 1e6,
-            "prefill": prefill}
+            "gemv": gemv, "prefill": prefill}
 
 
 def _graph_replay(ctx) -> dict:
     """One bf16 K4 call at ``VARLEN_MAIN`` (its work list built inside the
-    call) and one K7 call at M 600 captured in a ``torch.cuda.CUDAGraph``
-    and replayed: the replay must equal the eager result bit for bit (no
-    host read-back, a grid from shapes alone)."""
+    call), one K7 call at M 600, one K2 call at the serve shape and one by
+    each route at the decode tick's (``K2_TICK``), and one GEMV at w_up
+    (``K7_MAIN``) captured in a ``torch.cuda.CUDAGraph`` and
+    replayed: two eager calls must be bit-identical, and the replay must
+    equal the eager result bit for bit (no host read-back, a grid from
+    shapes alone, the GEMV's tickets reset by the kernel)."""
     import numpy as np
     import torch
     from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import varlen_attention as va
 
     device = ctx["device"]
@@ -1000,12 +1108,36 @@ def _graph_replay(ctx) -> dict:
     codes = torch.randint(-7, 8, (4096, 11008), generator=gen, device=device,
                           dtype=torch.int8)
     scale = torch.rand((11008,), generator=gen, device=device) * 0.01 + 1e-4
+    x1 = x[:K7_MAIN[0]].contiguous()
+    toks = [1024, 700, 301, 64, 17, 1, 0, 500]
+    pool = _paged_pool(torch, np.random.default_rng(9), 32, 128, 16, 64,
+                       toks, device)
+    q_pos = torch.tensor([n - 1 for n in toks], dtype=torch.int32,
+                         device=device)
+    q = torch.randn((8, 32, 1, 128), generator=gen, device=device).to(
+        torch.bfloat16)
+    r, kh, g, hd, page, nb, tick_toks = K2_TICK
+    tick_pool = _paged_pool(torch, np.random.default_rng(10), kh, hd, page,
+                            nb, tick_toks, device)
+    tick_pos = torch.tensor([n - 1 for n in tick_toks], dtype=torch.int32,
+                            device=device)
+    tick_q = torch.randn((r, kh, g, hd), generator=gen, device=device).to(
+        torch.bfloat16)
     calls = {"varlen_attention": lambda: va.varlen_attention(
         *args[:9], start, *args[9:]),
-        "dequant_matmul": lambda: dm.dequant_matmul(x, codes, scale)}
-    res = {}
+        "dequant_matmul": lambda: dm.dequant_matmul(x, codes, scale),
+        "paged_decode_attention": lambda: pda.paged_decode_attention(
+            q, *pool, q_pos),
+        # the decode tick's rows of one split, by both routes
+        "paged_decode_attention_tick_split": lambda: pda.launch_route(
+            "split", tick_q, *tick_pool, tick_pos),
+        "paged_decode_attention_tick_single_pass": lambda: pda.launch_route(
+            "single_pass", tick_q, *tick_pool, tick_pos),
+        "dequant_matmul_gemv": lambda: dm.dequant_matmul(x1, codes, scale)}
+    res, repeat = {}, {}
     for name, fn in calls.items():
         eager = fn()
+        repeat[name] = bool(torch.equal(fn(), eager))
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):  # warm up off the default stream
@@ -1014,12 +1146,16 @@ def _graph_replay(ctx) -> dict:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        res[name] = bool(torch.equal(out, eager))
-    if not all(res.values()):
-        raise SystemExit(f"a graph replay differs from the eager call: {res}")
-    return {"replay_bit_identical": res}
+        same = True
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            same = same and bool(torch.equal(out, eager))
+        res[name] = same
+    if not all(res.values()) or not all(repeat.values()):
+        raise SystemExit(f"a graph replay or a second eager call differs: "
+                         f"replay {res}, eager twice {repeat}")
+    return {"replay_bit_identical": res, "eager_twice_bit_identical": repeat}
 
 
 def phase_kernels(ctx) -> None:
@@ -1191,6 +1327,15 @@ def _device_profile(torch, fn, n: int) -> tuple:
     return sum(row["ms"] for row in rows), rows
 
 
+def _kernel_share(rows, names) -> dict:
+    """Device ms and launches a call of the profile ``rows`` whose kernel
+    name holds one of ``names``."""
+    hit = [row for row in rows if any(n in row["kernel"] for n in names)]
+    return {"ms": sum(row["ms"] for row in hit),
+            "launches": sum(row["calls"] for row in hit),
+            "kernels": sorted({row["kernel"] for row in hit})}
+
+
 def _llama7b_params(ctx) -> tuple:
     """llama2-7b's random bf16 weights from seed 0, drawn on the card once
     and shared by the serve and paged phases; (params, seconds to draw)."""
@@ -1316,6 +1461,7 @@ def phase_serve(ctx) -> None:
           "decode_step_ms": step_ms, "decode_step_batch": b,
           "decode_step_bound_ms": (weight_bytes + cache_bytes) / bw * 1e3,
           "profile_device_ms_per_step": device_ms,
+          "k1_in_step": _kernel_share(rows, K1_DEVICE_NAMES),
           "profile_top": rows[:8],
           "max_memory_allocated": peak, "checks": checks,
           "ok": all(checks.values())})
@@ -1537,6 +1683,8 @@ def phase_paged(ctx) -> None:
     for fn in (da.decode_attention, pda.paged_decode_attention,
                ppa.paged_prefill_attention):
         fn.launches = 0
+    k2_routes = pda.paged_decode_attention.route_launches
+    k2_routes.update(dict.fromkeys(k2_routes, 0))
     k3_routes = ppa.paged_prefill_attention.route_launches
     k3_routes.update(dict.fromkeys(k3_routes, 0))
     torch.cuda.reset_peak_memory_stats()
@@ -1548,7 +1696,7 @@ def phase_paged(ctx) -> None:
                 "paged_decode_attention": pda.paged_decode_attention.launches,
                 "paged_prefill_attention":
                     ppa.paged_prefill_attention.launches}
-    k3_routes = dict(k3_routes)
+    k2_routes, k3_routes = dict(k2_routes), dict(k3_routes)
     peak = torch.cuda.max_memory_allocated()
     ctx["launches"].update({k: v for k, v in launches.items()
                             if k != "decode_attention"})
@@ -1593,6 +1741,18 @@ def phase_paged(ctx) -> None:
     tick_ms = ctx["timer"]({"tick": tick._decode_tick}, iters=20,
                            device_only=False)["tick"]
     device_ms, top = _device_profile(torch, tick._decode_tick, 5)
+    # K2 in the tick by each route, in turns (split, single pass, split):
+    # the tick's 64-page table takes the split route; the single-pass one is
+    # forced by standing in for route() (every row fits one split)
+    k2_routes_in_tick = {way: [] for way in pda.ROUTES}
+    taken = pda.route
+    for way in ("split", "single_pass", "split"):
+        pda.route = lambda hd, page, nb, way=way: way
+        try:
+            k2_routes_in_tick[way].append(_kernel_share(_device_profile(
+                torch, tick._decode_tick, 5)[1], K2_DEVICE_NAMES)["ms"])
+        finally:
+            pda.route = taken
     for rid in range(8):
         tick.abort(rid)
 
@@ -1610,7 +1770,7 @@ def phase_paged(ctx) -> None:
           "compiled_shapes": st.compiled_shapes, "tick_kinds": sorted(kinds),
           "peak_occupancy": st.peak_occupancy,
           "peak_shared_pages": st.peak_shared_pages, "launches": launches,
-          "k3_routes": k3_routes,
+          "k2_routes": k2_routes, "k3_routes": k3_routes,
           "wall_s": wall_s, "tokens_per_s": delivered / wall_s,
           "computed_tokens_per_s": computed / wall_s,
           "ttft_ticks": [st.ttft_ticks[o.rid] for o in outs],
@@ -1624,6 +1784,8 @@ def phase_paged(ctx) -> None:
                   "first_token_rel_err_vs_fused": rel32_first},
           "decode_tick_ms": tick_ms, "decode_tick_batch": 8,
           "profile_device_ms_per_tick": device_ms,
+          "k2_in_tick": _kernel_share(top, K2_DEVICE_NAMES),
+          "k2_in_tick_ms_by_route": k2_routes_in_tick,
           "profile_top": top[:8], "max_memory_allocated": peak,
           "checks": checks, "ok": all(checks.values())})
     if not all(checks.values()):
@@ -2348,6 +2510,10 @@ def phase_split(ctx) -> None:
                              "idle_share": {k: 1 - device_ms[k] / stage_ms[k]
                                             for k in stage_ms},
                              "bound_ms": step_bound_ms,
+                             "gemv_in_step": _kernel_share(
+                                 top, GEMV_DEVICE_NAMES),
+                             "k1_in_step": _kernel_share(
+                                 top, K1_DEVICE_NAMES),
                              "profile_top": top[:10]},
           "edge_prefill_128": {
               "device_busy_ms": prefill_ms,

@@ -21,15 +21,31 @@
 // byte; on the bf16 tensor cores (about 295 flops a byte at the ridge) the
 // code bytes still bound it up to M of about 150, the operations above.
 //
-// Four kernels, chosen by the wrapper from shapes and dtypes:
-//  * M <= 4 (decode): a split-K GEMV. A block of 8 warps covers 256
-//    columns (each lane one 8-byte load of 8 codes, so a warp reads 256
-//    contiguous bytes of a row; one code a lane when N or the base is not
-//    8-byte aligned) and one K range; each warp walks every 8th row of the
-//    range for up to 4 rows of x at once. The warps' sums meet in shared
-//    memory. With more than one K range, each range writes its partial sums
-//    to a workspace and a second kernel adds the ranges in a fixed order,
-//    so a result does not depend on timing (no atomics).
+// Five kernels, chosen by the wrapper from shapes and dtypes:
+//  * M <= 4 (decode), N % 16 == 0 and a 16-byte aligned code base (every
+//    projection of llama2-7b): gemv16_kernel, a split-K GEMV built to keep
+//    the code bytes in flight. A block of 8 warps covers 512 columns and
+//    one K range: each lane reads 16 codes of a row with one 16-byte
+//    read-only load, so a warp reads 512 contiguous bytes, and each warp
+//    issues the loads of U code rows (and of its next U; U = 4 at one row
+//    of x, 8 at four) before the first FMA on them. The block stages its
+//    K range of x once in shared memory, widened to f32, so the FMA loop
+//    reads no x from device memory. Codes widen to f32 exactly by a byte
+//    permute and one FADD (I2F runs at a quarter of that rate). The warps'
+//    sums meet in shared memory in warp order; with more than one K range
+//    each block writes its sums to a workspace and takes a ticket per
+//    column tile, and the block that takes the last adds the ranges in
+//    range order, scales, writes out and resets the ticket (no float
+//    atomics, one launch, graph-safe).
+//  * M <= 4 with a ragged N or an unaligned base: gemv_kernel, the older
+//    GEMV. A block of 8 warps covers 256 columns (each lane one 8-byte load
+//    of 8 codes, so a warp reads 256 contiguous bytes of a row; one code a
+//    lane when N or the base is not 8-byte aligned) and one K range; each
+//    warp walks every 8th row of the range for up to 4 rows of x at once.
+//    The warps' sums meet in shared memory. With more than one K range,
+//    each range writes its partial sums to a workspace and a second kernel
+//    adds the ranges in a fixed order, so a result does not depend on
+//    timing (no atomics).
 //  * bf16 x with M at or above the wrapper's threshold (a long prefill,
 //    rows of several prompts), the same alignment: tc_large_kernel, the
 //    same arithmetic in a persistent, warp-specialised kernel (see its
@@ -142,6 +158,207 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
     for (int sp = 0; sp < splits; ++sp) s += partial[sp * mn + i];
     out[i] = s * scale[i % N];
   }
+}
+
+// ---- the decode GEMV on 16-byte aligned codes (see the note at the top)
+
+constexpr int kGemvCols = 512;  // columns a block: 16 a lane
+// code rows a warp loads before using them: 4 at one row of x, 8 at four
+// (where the FMAs on a row take four times as long)
+template <int MT>
+constexpr int gemv_unroll() { return MT == 1 ? 4 : 8; }
+// the staged x rows and the warps' sums stay within the static limit
+constexpr int kGemvSmemMax = 48 * 1024;
+
+// 16 codes by one read-only load that does not allocate in L1: each code
+// byte is read once
+__device__ __forceinline__ uint4 ld_codes16(const int8_t* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// four int8 codes to f32, exactly: b ^ 0x80 = b + 128 as a byte, put as
+// the low mantissa bits of 2^23, gives the float 2^23 + b + 128; less
+// 2^23 + 128 that is b
+__device__ __forceinline__ void widen4(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) = (512-column tile, K range
+// of k_chunk rows, tile of MT rows of x). Warp w takes rows pass * PASS +
+// w * U + u of its range (u = 0 .. U - 1) for every pass, summed in that
+// order with fmaf. ``tickets`` holds one zeroed int a (column tile, row
+// tile) when gridDim.y > 1.
+template <int MT, int U>
+__global__ void __launch_bounds__(kGemvThreads, MT == 1 ? 2 : 1)
+gemv16_kernel(const void* __restrict__ x, int x_bf16,
+              const int8_t* __restrict__ codes,
+              const float* __restrict__ scale, float* __restrict__ out,
+              float* __restrict__ partial, int* __restrict__ tickets, int M,
+              int N, int K, int k_chunk) {
+  constexpr int PASS = kGemvWarps * U;
+  extern __shared__ __align__(16) float gemv_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_base = blockIdx.x * kGemvCols, n0 = n_base + lane * 16;
+  const int m0 = blockIdx.z * MT;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int k_begin = split * k_chunk;
+  const int n_rows = min(K, k_begin + k_chunk) - k_begin;
+  const int passes = (k_chunk + PASS - 1) / PASS;
+  float* xs = gemv_smem;                 // [passes * PASS][MT]
+  float* red = xs + passes * PASS * MT;  // [MT][16][32]: column lane*16+j
+
+  // N % 16 == 0: a lane's 16 columns are all in or all out
+  const bool col_ok = n0 < N;
+  const int8_t* crow = codes + (size_t)k_begin * N + n0;
+  auto fetch = [&](uint4 (&v)[U], int pass) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = pass * PASS + warp * U + u;
+      v[u] = col_ok && r < n_rows ? ld_codes16(crow + (size_t)r * N)
+                                  : make_uint4(0, 0, 0, 0);
+    }
+  };
+  uint4 cur[U];
+  fetch(cur, 0);  // the first rows are in flight while x is staged
+
+  for (int e = threadIdx.x; e < passes * PASS * MT; e += kGemvThreads) {
+    const int r = e / MT, m = e % MT;
+    xs[e] = r < n_rows && m0 + m < M
+                ? load(x, x_bf16, (size_t)(m0 + m) * K + k_begin + r)
+                : 0.f;
+  }
+  __syncthreads();
+
+  float acc[MT][16];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[m][j] = 0.f;
+
+  for (int p = 0; p < passes; ++p) {
+    uint4 nxt[U];
+    fetch(nxt, p + 1);  // zeros past the range: no load
+    const float* xp = xs + (p * PASS + warp * U) * MT;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float w[16];
+      widen4(cur[u].x, w);
+      widen4(cur[u].y, w + 4);
+      widen4(cur[u].z, w + 8);
+      widen4(cur[u].w, w + 12);
+      float xv[MT];
+      if constexpr (MT == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(xp + u * MT);
+        xv[0] = t.x;
+        xv[1] = t.y;
+        xv[2] = t.z;
+        xv[3] = t.w;
+      } else {
+#pragma unroll
+        for (int m = 0; m < MT; ++m) xv[m] = xp[u * MT + m];
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) acc[m][j] = fmaf(xv[m], w[j], acc[m][j]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) cur[u] = nxt[u];
+  }
+
+  // the warps' sums in warp order: all but the last through shared
+  // memory, the last adds its own in registers
+  for (int w = 0; w < kGemvWarps - 1; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          float& r = red[(m * 16 + j) * 32 + lane];
+          r = w == 0 ? acc[m][j] : r + acc[m][j];
+        }
+    }
+    __syncthreads();
+  }
+  if (warp == kGemvWarps - 1 && col_ok) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m0 + m >= M) continue;
+      float s[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        s[j] = red[(m * 16 + j) * 32 + lane] + acc[m][j];
+      float* dst = splits == 1
+                       ? out + (size_t)(m0 + m) * N + n0
+                       : partial + ((size_t)split * M + m0 + m) * N + n0;
+#pragma unroll
+      for (int j = 0; j < 16; j += 4) {
+        float4 v = make_float4(s[j], s[j + 1], s[j + 2], s[j + 3]);
+        if (splits == 1) {
+          const float4 sc = *reinterpret_cast<const float4*>(scale + n0 + j);
+          v.x *= sc.x;
+          v.y *= sc.y;
+          v.z *= sc.z;
+          v.w *= sc.w;
+        }
+        *reinterpret_cast<float4*>(dst + j) = v;
+      }
+    }
+    __threadfence();  // the sums are visible before the ticket is taken
+  }
+  if (splits == 1) return;
+
+  // the block that takes a tile's last ticket adds its K ranges in order
+  __shared__ int last;
+  __syncthreads();
+  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0) last = atomicAdd(tickets + tile, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // each thread's outputs, the loads of RANGES ranges in flight at a time
+  // (within the registers that keep two blocks an SM at one row of x)
+  constexpr int PER = MT * kGemvCols / kGemvThreads;
+  constexpr int RANGES = 32 / PER;
+  size_t at[PER];
+  bool ok[PER];
+  float s[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = threadIdx.x + i * kGemvThreads;
+    const int m = e / kGemvCols, n = n_base + e % kGemvCols;
+    ok[i] = m0 + m < M && n < N;
+    at[i] = (size_t)(m0 + m) * N + n;
+    s[i] = 0.f;
+  }
+  const size_t stride = (size_t)M * N;
+  for (int sp0 = 0; sp0 < splits; sp0 += RANGES) {
+    float v[RANGES][PER];
+#pragma unroll
+    for (int u = 0; u < RANGES; ++u)
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+        v[u][i] = ok[i] && sp0 + u < splits
+                      ? __ldcg(partial + (sp0 + u) * stride + at[i])
+                      : 0.f;
+#pragma unroll
+    for (int u = 0; u < RANGES; ++u)
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+        if (sp0 + u < splits) s[i] += v[u][i];
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    if (ok[i]) out[at[i]] = s[i] * scale[at[i] % N];
+  if (threadIdx.x == 0) tickets[tile] = 0;  // ready for the next call
 }
 
 __global__ void __launch_bounds__(kGemmThreads)
@@ -870,6 +1087,23 @@ cudaError_t launch_gemv(const void* x, int x_bf16, const int8_t* codes,
   return launch_reduce(partial, scale, out, splits, M, N, st);
 }
 
+template <int MT>
+cudaError_t launch_gemv16(const void* x, int x_bf16, const int8_t* codes,
+                          const float* scale, float* out, float* partial,
+                          int* tickets, int M, int N, int K, int splits,
+                          cudaStream_t st) {
+  constexpr int U = gemv_unroll<MT>(), PASS = kGemvWarps * U;
+  const int k_chunk = (K + splits - 1) / splits;
+  const int rows = (k_chunk + PASS - 1) / PASS * PASS;
+  const size_t bytes = ((size_t)rows * MT + MT * kGemvCols) * sizeof(float);
+  if (bytes > kGemvSmemMax) return cudaErrorInvalidValue;
+  const dim3 grid((N + kGemvCols - 1) / kGemvCols, splits, (M + MT - 1) / MT);
+  gemv16_kernel<MT, U><<<grid, kGemvThreads, bytes, st>>>(
+      x, x_bf16, codes, scale, out, splits > 1 ? partial : nullptr,
+      splits > 1 ? tickets : nullptr, M, N, K, k_chunk);
+  return cudaGetLastError();
+}
+
 constexpr int kMaxDevices = 64;
 
 // the opt-in to ``bytes`` of dynamic shared memory for ``fn``, made once on
@@ -951,23 +1185,28 @@ cudaError_t launch_large(const CUtensorMap (&maps)[2], const LargeArgs& a) {
 
 }  // namespace
 
-// ``vec`` is 8 (N and the codes' address 8-byte aligned) or 1; ``mt`` 1 or
-// 4 rows of x a GEMV block (M <= 4), 0 for the tiled kernel; ``splits`` K
-// ranges of the GEMV, with ``partial`` a (splits, M, N) f32 workspace when
-// splits > 1.
+// ``vec`` is 16 (N and the codes' address 16-byte aligned), 8 (8-byte) or
+// 1; ``mt`` 1 or 4 rows of x a GEMV block (M <= 4), 0 for the tiled kernel;
+// ``splits`` K ranges of the GEMV, with ``partial`` a (splits, M, N) f32
+// workspace when splits > 1, and for vec 16 also ``tickets``: one int a
+// (512-column tile, tile of mt rows), zero before the call and after it.
 extern "C" int dequant_matmul_launch(const void* x, int x_bf16,
                                      const void* codes, const void* scale,
-                                     void* out, void* partial, int M, int N,
-                                     int K, int vec, int mt, int splits,
-                                     void* stream) {
+                                     void* out, void* partial, void* tickets,
+                                     int M, int N, int K, int vec, int mt,
+                                     int splits, void* stream) {
   if (M < 1 || N < 1 || K < 1 || splits < 1 || splits > K ||
-      (splits > 1 && partial == nullptr) || (vec != 8 && vec != 1))
+      (splits > 1 && partial == nullptr) ||
+      (vec != 16 && vec != 8 && vec != 1) ||
+      (vec == 16 && (N % 16 || (uintptr_t)codes % 16 || (uintptr_t)scale % 16 ||
+                     (splits > 1 && tickets == nullptr))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* c = static_cast<const int8_t*>(codes);
   const float* s = static_cast<const float*>(scale);
   float* o = static_cast<float*>(out);
   float* p = static_cast<float*>(partial);
+  int* t = static_cast<int*>(tickets);
   if (mt == 0) {
     if ((M + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
     const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
@@ -975,6 +1214,15 @@ extern "C" int dequant_matmul_launch(const void* x, int x_bf16,
     return (int)cudaGetLastError();
   }
   if (splits > 65535) return (int)cudaErrorInvalidValue;
+  if (vec == 16) {
+    if (mt == 1 && M == 1)
+      return (int)launch_gemv16<1>(x, x_bf16, c, s, o, p, t, M, N, K, splits,
+                                   st);
+    if (mt == 4 && M <= 4)
+      return (int)launch_gemv16<4>(x, x_bf16, c, s, o, p, t, M, N, K, splits,
+                                   st);
+    return (int)cudaErrorInvalidValue;
+  }
   if (mt == 1 && M == 1)
     return vec == 8 ? (int)launch_gemv<8, 1>(x, x_bf16, c, s, o, p, M, N, K,
                                              splits, st)

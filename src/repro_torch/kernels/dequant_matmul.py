@@ -21,8 +21,13 @@ byte, under the bf16 tensor cores' ridge of about 295), the operations
 above. :func:`route` picks one of three kernels from shapes, dtypes and
 alignment before the launch:
 
-  * ``"gemv"`` (M ≤ 4): a split-K GEMV; :func:`gemv_plan` picks the K
-    split so that about two blocks run on each SM;
+  * ``"gemv"`` (M ≤ 4): a split-K GEMV (``gemv16_kernel`` where N % 16
+    == 0 and the codes and scale are 16-byte aligned, which keeps the code
+    bytes in flight with 16-byte loads, x staged in shared memory and the
+    K ranges added by the last block of each column tile; else the older
+    ``gemv_kernel`` with its reduction launch); :func:`gemv_plan` picks
+    the K split so that the blocks fill the SMs (two an SM at one row of
+    x, one at four);
   * ``"tensor_cores_large_m"`` (bf16 x with M ≥ ``LARGE_M_MIN``, the same
     alignment as the next): a persistent, warp-specialised product on the
     bf16 tensor cores (``wgmma``; a producer warp feeds the shared-memory
@@ -37,8 +42,11 @@ alignment before the launch:
     product on the CUDA cores.
 
 A split product writes its K ranges' partial sums to a (splits, M, N) f32
-workspace the wrapper allocates, and a second kernel adds them in a fixed
-order, so a run repeats its bits.
+workspace the wrapper allocates, and they are added in a fixed order (by a
+second kernel, or in ``gemv16_kernel`` by the block that takes a column
+tile's last ticket), so a run repeats its bits. The tickets are one int32
+a tile, zeroed once per (device, stream) and reset by the kernel itself,
+so a call captured in a CUDA graph replays as it ran.
 """
 
 from __future__ import annotations
@@ -49,9 +57,20 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.tickets import tickets as _tickets
 
 GEMV_MAX_M = 4  # at most this many rows of x take the split-K GEMV
 MIN_SPLIT_ROWS = 128  # rows of codes a GEMV K range holds at least
+# GEMV blocks the K split aims for on each SM, by rows of x a block: 2
+# resident blocks at one row, one at four (``gemv16_kernel`` holds 64
+# accumulators a lane there); from ``python -m
+# repro_torch.kernels.decode_probe`` on an H100 SXM
+GEMV_BLOCKS_PER_SM = {1: 2, GEMV_MAX_M: 1}
+# bytes of x (f32) a GEMV block stages in shared memory at most; its K
+# range is cut to fit (``gemv16_kernel``: with the warps' sums, under the
+# 48 KB a block has without an opt-in)
+GEMV_STAGED_X = 32 * 1024
+GEMV16_COLS = 512  # columns a ``gemv16_kernel`` block covers
 # the tensor-core kernel's rows of x and columns of out a block, its K
 # step, and the blocks that fit on an SM (``tc_gemm_kernel``: 97 KB of
 # shared memory, at most 128 registers a thread)
@@ -86,7 +105,7 @@ def dequant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
 def _launcher():
     fn = build.load("dequant_matmul").dequant_matmul_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
+    fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -114,13 +133,27 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def gemv_vec(n: int, codes_address: int, scale_address: int) -> int:
+    """Codes a GEMV lane loads at once: 16 where N and the bases of the
+    codes and the scale allow 16-byte loads (``gemv16_kernel``), else 8
+    where N and the codes allow 8-byte loads, else 1 (``gemv_kernel``)."""
+    if n % 16 == 0 and codes_address % 16 == 0 and scale_address % 16 == 0:
+        return 16
+    return 8 if n % 8 == 0 and codes_address % 8 == 0 else 1
+
+
 def gemv_plan(m: int, n: int, k: int, vec: int, sms: int) -> tuple:
     """(rows of x a block, K ranges) of the GEMV for an (m, k) x (k, n)
-    product: enough K ranges for about two blocks an SM, each at least
-    ``MIN_SPLIT_ROWS`` rows of codes."""
+    product: enough K ranges for about ``GEMV_BLOCKS_PER_SM`` blocks an
+    SM (two for the older 8-byte and 1-byte kernel), each at least
+    ``MIN_SPLIT_ROWS`` rows of codes, and each short enough that its rows
+    of x fit in ``GEMV_STAGED_X`` bytes."""
     mt = 1 if m == 1 else GEMV_MAX_M
-    blocks = -(-n // (32 * vec)) * -(-m // mt)
-    splits = max(1, min(-(-2 * sms // blocks), k // MIN_SPLIT_ROWS))
+    cols = GEMV16_COLS if vec == 16 else 32 * vec
+    per_sm = GEMV_BLOCKS_PER_SM[mt] if vec == 16 else 2
+    blocks = -(-n // cols) * -(-m // mt)
+    splits = max(1, min(-(-per_sm * sms // blocks), k // MIN_SPLIT_ROWS),
+                 -(-k // (GEMV_STAGED_X // (4 * mt))))
     chunk = -(-k // splits)
     return mt, -(-k // chunk)
 
@@ -238,18 +271,22 @@ def dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
                 None if partial is None else partial.data_ptr(), m, n, k,
                 splits, chunk, stream)
         else:
-            vec = 8 if n % 8 == 0 and codes.data_ptr() % 8 == 0 else 1
-            mt = 0
+            vec = gemv_vec(n, codes.data_ptr(), scale.data_ptr())
+            mt, tickets = 0, None
             if way == "gemv":
                 mt, splits = gemv_plan(m, n, k, vec, sms)
                 if splits > 1:
                     partial = torch.empty((splits, m, n),
                                           dtype=torch.float32,
                                           device=x.device)
+                    if vec == 16:
+                        tiles = -(-n // GEMV16_COLS) * -(-m // mt)
+                        tickets = _tickets(x.device, stream, tiles)
             err = _launcher()(
                 x.data_ptr(), int(x.dtype == torch.bfloat16),
                 codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                None if partial is None else partial.data_ptr(), m, n, k,
+                None if partial is None else partial.data_ptr(),
+                None if tickets is None else tickets.data_ptr(), m, n, k,
                 vec, mt, splits, stream)
     if err != 0:
         raise RuntimeError(f"dequant_matmul kernel launch failed ({way}): "

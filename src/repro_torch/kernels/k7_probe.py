@@ -25,13 +25,11 @@ from __future__ import annotations
 
 import ctypes
 import json
-import os
-import subprocess
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.sweep import _timer
+from repro_torch.kernels.probe import build_variants, edit, timer
 
 _STEP_HEAD = """  auto step_once = [&](int step, int steps, uint32_t (&a)[4][JN][4],
                        uint32_t (&a_next)[4][JN][4]) {
@@ -66,27 +64,21 @@ _END = """            *reinterpret_cast<float2*>(out + (size_t)m * N + n) = v;
 """
 
 
-def _edit(src: str, old: str, new: str) -> str:
-    if src.count(old) != 1:
-        raise RuntimeError(f"the kernel source changed: cannot find {old!r}")
-    return src.replace(old, new)
-
-
 def _variants(src: str) -> dict:
-    clocks = _edit(src, "namespace {\n", "namespace {\n"
+    clocks = edit(src, "namespace {\n", "namespace {\n"
                    "__device__ unsigned long long g_clocks[16];\n")
-    clocks = _edit(clocks, _STEP_HEAD, """  unsigned long long acc[5] = {0, 0, 0, 0, 0};
+    clocks = edit(clocks, _STEP_HEAD, """  unsigned long long acc[5] = {0, 0, 0, 0, 0};
   const bool rec = blockIdx.x == 0 && lane == 0 && warp % 4 == 0;
 """ + _STEP_HEAD.replace("wgmma_fence();", "const long long c0 = clock64();\n"
                          "    wgmma_fence();"))
-    clocks = _edit(clocks, _WAIT, _WAIT.replace(
+    clocks = edit(clocks, _WAIT, _WAIT.replace(
         "    wgmma_wait<1>();",
         "    const long long c1 = clock64();\n    wgmma_wait<1>();"))
-    clocks = _edit(clocks, _KEEP + _ARRIVE, _KEEP + """    const long long c2 = clock64();
+    clocks = edit(clocks, _KEEP + _ARRIVE, _KEEP + """    const long long c2 = clock64();
     long long c3 = c2, c4 = c2;
 """ + _ARRIVE + "      c3 = clock64();\n")
     # the widened registers are in place before the clock is read
-    clocks = _edit(clocks, _WIDEN_NEXT + "    }\n  };", _WIDEN_NEXT + _KEEP
+    clocks = edit(clocks, _WIDEN_NEXT + "    }\n  };", _WIDEN_NEXT + _KEEP
                    + """      c4 = clock64();
     }
     acc[0] += c1 - c0;
@@ -95,7 +87,7 @@ def _variants(src: str) -> dict:
     acc[3] += c4 - c3;
     acc[4] += 1;
   };""")
-    clocks = _edit(clocks, _END, _END[:-2] + """  if (rec)
+    clocks = edit(clocks, _END, _END[:-2] + """  if (rec)
     for (int i = 0; i < 5; ++i) g_clocks[(warp / 4) * 8 + i] = acc[i];
 }
 """)
@@ -107,35 +99,20 @@ extern "C" int probe_clocks(void* dst, int reset) {
 }
 """
     return {"as_is": src,
-            "no_widen": _edit(src, _WIDEN_NEXT, ""),
-            "no_fence": _edit(src, _STEP_HEAD, _STEP_HEAD.replace(
+            "no_widen": edit(src, _WIDEN_NEXT, ""),
+            "no_fence": edit(src, _STEP_HEAD, _STEP_HEAD.replace(
                 "    wgmma_fence();", "")),
-            "wait_all": _edit(src, _WAIT, _WAIT.replace("<1>", "<0>")),
+            "wait_all": edit(src, _WAIT, _WAIT.replace("<1>", "<0>")),
             "clocks": clocks}
 
 
 def _build(variants: dict) -> dict:
-    out = build.BUILD_DIR.parent / "k7_probe"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in variants.items():
-        cu = out / f"{name}.cu"
-        cu.write_text(text)
-        so = out / f"{name}-{os.getpid()}.so"
-        procs[name] = (so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
-        lib = ctypes.CDLL(str(so))
-        p, i = ctypes.c_void_p, ctypes.c_int
+    libs = build_variants("k7_probe", variants)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
         lib.dequant_matmul_large_launch.argtypes = [p, p, p, p, p] + [i] * 8 \
             + [p]
         lib.dequant_matmul_large_launch.restype = i
-        libs[name] = lib
     return libs
 
 
@@ -167,7 +144,7 @@ def main() -> int:
             if err:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
 
-        us = _timer({name: (lambda lib=lib: call(lib))
+        us = timer({name: (lambda lib=lib: call(lib))
                      for name, lib in libs.items() if name != "clocks"})
         clocks.probe_clocks(None, 1)
         call(clocks)

@@ -26,22 +26,73 @@ the extra ones hold only masked slots.
 What bounds it on an H100: one call reads the codes and scales of the pages
 its rows need, ``Σ_r pages_r · K · page · (2·hd + 8)`` bytes plus their
 positions, against ``4·K·G·hd`` flops per key, so at small G it is bound by
-device-memory bytes. It streams the codes once with 16-byte loads and
-dequantizes them in registers; no dequantized copy of the pool is written.
+device-memory bytes. Two kernels; :func:`route` picks one from shapes
+alone and ``paged_decode_attention.route_launches`` counts it:
+
+* ``"single_pass"``, a table that fits one split (``nb · page <=
+  SPLIT[hd]``): one block a (kv-head, row, head group) walks the row's
+  pages in one pass straight from the pool, with nothing to stage.
+* ``"split"``, a longer table: a long row is split over blocks
+  (flash-decoding). A unit of work is one row, one split of ``SPLIT[hd]``
+  logical slots and one kv-head with up to four of its query heads; it
+  stages its split's codes in shared memory by ``cp.async`` at once and
+  dequantizes them in registers. A row that needs one split is walked by
+  its first unit in one pass, as by the single-pass kernel (decided on the
+  card from ``q_pos``). A row of several splits has each unit write its
+  softmax state to a workspace (``torch.empty``) and take a ticket
+  (``kernels.tickets``); the unit that takes the row's last merges the
+  splits in split order. So a call is one device launch, and a run repeats
+  its bits. :func:`grid` and :func:`unit_slots` are that plan in Python:
+  the grid depends on shapes only, so a call replays from a CUDA graph.
+
+No dequantized copy of the pool is written. ``paged_decode_attention.
+launches`` counts calls.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import HEAD_DIMS, NEG_INF
+from repro_torch.kernels.tickets import tickets
 
 TRASH_PAGE = 0  # page id the pool reserves for masked and pad entries
 MAX_PAGE = 64
+# logical slots a unit of the kernel walks, by head dim (``Split<HD>::KEYS``
+# in the source: a split's codes, scales and positions, 68 KB at hd 128,
+# sit in shared memory at once)
+SPLIT = {32: 256, 64: 256, 128: 256, 256: 128}
+GROUP = 4  # query heads of one kv-head a unit carries at most
+ROUTES = ("single_pass", "split")
+
+
+def splits(nb: int, page: int, keys: int) -> int:
+    """Splits of ``keys`` logical slots (``SPLIT[hd]``) that cover a row's
+    ``nb · page``."""
+    return -(-nb * page // keys)
+
+
+def grid(r: int, kh: int, g: int, hd: int, page: int, nb: int) -> tuple:
+    """The split kernel's grid: (kv-heads × head groups, rows, splits),
+    from shapes alone. Groups are 1 or 2 heads when G is, else 4."""
+    gc = g if g <= 2 else GROUP
+    return kh * -(-g // gc), r, splits(nb, page, SPLIT[hd])
+
+
+def unit_slots(q_pos: int, index: int, keys: int, page: int,
+               nb: int) -> range:
+    """The logical slots the unit of split ``index`` (of ``keys`` slots
+    each) walks for a row with causal bound ``q_pos``: the row's whole
+    pages ``0 .. q_pos // page`` (within the table) cut into splits; empty
+    past them."""
+    n = 0 if q_pos < 0 else min(q_pos // page + 1, nb) * page
+    k0 = index * keys
+    return range(k0, max(k0, min(n, k0 + keys)))
 
 
 def gather_pages(pool_leaf: torch.Tensor, block_table: torch.Tensor):
@@ -79,10 +130,17 @@ def paged_decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale,
 def _launcher():
     fn = build.load("paged_decode_attention").paged_decode_attention_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, ctypes.c_float, p, p, p, p, p, p, p, p,
-                   i, i, i, i, i, i, p]
+    fn.argtypes = [p, i, ctypes.c_float, p, p, p, p, p, p, p, p, p, p,
+                   i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def route(hd: int, page: int, nb: int) -> str:
+    """The kernel a call takes (one of ``ROUTES``) from the head dim and the
+    table's width in slots: by shape, not a fallback (a launch that fails
+    raises). A table that fits one split takes the single-pass kernel."""
+    return "single_pass" if nb * page <= SPLIT[hd] else "split"
 
 
 def check_pool(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
@@ -146,27 +204,55 @@ def _check(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
 
 def paged_decode_attention(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
                            block_table, q_pos):
-    """Launch the CUDA kernel on the current stream (see the module
-    docstring for shapes). Raises on any input the kernel does not take;
-    there is no fallback. Adds one to ``paged_decode_attention.launches``
-    per launch."""
+    """Launch the CUDA kernel :func:`route` picks on the current stream (see
+    the module docstring for shapes). Raises on any input the kernels do not
+    take; there is no fallback. Adds one to ``paged_decode_attention.
+    launches`` and to the route's count in ``paged_decode_attention.
+    route_launches`` per call."""
     _check(q, k_codes, k_scale, v_codes, v_scale, pool_pos, block_table,
            q_pos)
+    way = route(q.shape[-1], k_codes.shape[2], block_table.shape[1])
+    out = launch_route(way, q, k_codes, k_scale, v_codes, v_scale, pool_pos,
+                       block_table, q_pos)
+    paged_decode_attention.launches += 1
+    paged_decode_attention.route_launches[way] += 1
+    return out
+
+
+def launch_route(way: str, q, k_codes, k_scale, v_codes, v_scale, pool_pos,
+                 block_table, q_pos):
+    """Launch the kernel of route ``way`` (one of ``ROUTES``; each takes
+    every shape) on checked inputs and return its (R, K, G, hd) f32 output,
+    counting nothing: :func:`paged_decode_attention` is the entry point;
+    this lets a caller time one route against the other."""
+    if way not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {way!r}")
     r, kh, g, hd = q.shape
+    page, nb = k_codes.shape[2], block_table.shape[1]
+    heads, _, n_split = grid(r, kh, g, hd, page, nb)
     out = torch.empty((r, kh, g, hd), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part = ticket = None
+    if way == "split" and n_split > 1:
+        # each unit's (hd values), then its (max, sum), for the merge
+        part = torch.empty((r * n_split * kh * g * (hd + 2),),
+                           dtype=torch.float32, device=q.device)
+        ticket = tickets(q.device, stream, r * heads)
     with torch.cuda.device(q.device):
         err = _launcher()(
-            q.data_ptr(), int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5,
+            q.data_ptr(), int(q.dtype == torch.bfloat16),
+            math.log2(math.e) / hd ** 0.5,
             k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
             v_scale.data_ptr(), pool_pos.data_ptr(), block_table.data_ptr(),
-            q_pos.data_ptr(), out.data_ptr(), r, kh, g, hd,
-            k_codes.shape[2], block_table.shape[1],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            q_pos.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if ticket is None else ticket.data_ptr(), r, kh, g, hd,
+            page, nb, n_split, int(way == "single_pass"), stream)
     if err != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
-                           f"CUDA error {err}")
-    paged_decode_attention.launches += 1
+        raise RuntimeError(f"paged_decode_attention kernel launch failed "
+                           f"({way}): CUDA error {err}")
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.route_launches = dict.fromkeys(ROUTES, 0)

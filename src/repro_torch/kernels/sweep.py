@@ -18,35 +18,15 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import dequant_matmul as dm
+from repro_torch.kernels.probe import timer
 from repro_torch.kernels import varlen_attention as va
 from repro_torch.kernels.paged_decode_attention import TRASH_PAGE
-
-
-def _timer(fns: dict, iters: int = 10) -> dict:
-    """{name: median µs} of each call, timed in turns."""
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
-    for fn in fns.values():
-        fn()
-    times = {name: [] for name in fns}
-    for _ in range(iters):
-        for name, fn in fns.items():
-            flush.zero_()
-            torch.cuda._sleep(20_000_000)
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            e1.synchronize()
-            times[name].append(e0.elapsed_time(e1) * 1e3)
-    return {name: round(statistics.median(t), 2) for name, t in times.items()}
 
 
 def _large(x, codes, scale, bm, jn):
@@ -101,7 +81,7 @@ def sweep_k7(ms) -> None:
                 "route": dm.route(m, n, k, x.dtype, x.data_ptr(),
                                   codes.data_ptr(), scale.data_ptr()),
                 "plan": dm.large_plan(m, n, k, dm._sm_count(0)),
-                "us": _timer(fns)}), flush=True)
+                "us": timer(fns)}), flush=True)
 
 
 def sweep_k4() -> None:
@@ -156,7 +136,7 @@ def sweep_k4() -> None:
         finally:
             va.route = route
 
-    print(json.dumps({"k4": "packed tick, bf16", "us": _timer({
+    print(json.dumps({"k4": "packed tick, bf16", "us": timer({
         "tensor_cores": lambda: va.varlen_attention(*full, rows),
         "tensor_cores_work_list_inside": lambda: va.varlen_attention(*full),
         "work_list": lambda: va.segment_rows(args[8], len(segs)),

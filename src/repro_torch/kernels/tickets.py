@@ -1,0 +1,44 @@
+"""Zeroed int32 tickets for the kernels whose last block of a group adds
+the group's partial results in a fixed order (K7's decode GEMV, K2).
+
+A kernel takes a ticket per block with an atomic add; the block that takes
+a group's last one merges the group and sets its ticket back to zero. So a
+buffer is zero between calls and is zeroed once. Calls on one stream run
+one after another; calls on two streams must not share tickets, so each
+(device, stream) keeps its own buffer, replaced by a larger one when a
+call needs more.
+
+A call captured in a CUDA graph gets a buffer of its own instead, which is
+never freed: the graph holds its address for every replay, so it must not
+be handed to another tensor when an eager call outgrows the stream's
+buffer, and two graphs replayed on different streams must not share it.
+It is allocated (and zeroed) inside the capture; the kernel leaves it at
+zero for the next replay.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# (device index, stream handle) -> int32 tickets, all zero between calls
+_BUFFERS: dict = {}
+# the buffers of captured calls, held for the life of the process
+_CAPTURED: list = []
+
+
+def tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed tickets for a call on ``stream`` of
+    ``device``: the stream's buffer, or a buffer of the call's own while
+    the stream is captured into a CUDA graph."""
+    with torch.cuda.device(device):
+        capturing = torch.cuda.is_current_stream_capturing()
+    if capturing:
+        t = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+        _CAPTURED.append(t)
+        return t
+    key = (device.index, stream)
+    t = _BUFFERS.get(key)
+    if t is None or t.numel() < n:
+        t = _BUFFERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                        device=device)
+    return t

@@ -580,3 +580,215 @@ def test_split_engine_on_card_matches_cpu(cuda_device):
     assert after[0] - before[0] == 6 * 6  # six TAB-Q levels, six payloads
     assert after[1] - before[1] == 6
     assert after[2] - before[2] == 7 * 6  # seven products, six edge calls
+
+
+# ------------------------------------------- K2 split over blocks, GEMV
+
+
+# K2's shapes that reach several splits (chip_smoke.py's): the serve tick,
+# a row filling its whole table, hd 256 (128-key splits), G 6, and a row
+# whose first split holds only masked keys
+K2_SPLIT_SHAPES = {
+    # name: (K, G, hd, page, nb, tokens per row, masked positions of row 0)
+    "serve": (32, 1, 128, 16, 64, [1024, 700, 301, 64, 17, 1, 0, 500], 0),
+    "full_table": (4, 1, 128, 16, 64, [1024, 3], 0),
+    "hd256": (4, 2, 256, 16, 40, [640, 130], 0),
+    "g6": (2, 6, 128, 16, 48, [700, 20], 0),
+    "first_split_masked": (2, 1, 128, 16, 48, [700, 300], 300),
+}
+
+
+def _split_pool(rng, device, kh, hd, page, nb, tokens, masked=0):
+    """A pool holding ``tokens[r]`` tokens for row r in pages taken in
+    random order (page 0 is trash), row 0's positions below ``masked``
+    left empty; and its (R, nb) block table."""
+    need = [-(-n // page) for n in tokens]
+    p = 1 + sum(need) + 3
+    order = rng.permutation(np.arange(1, p))
+    bt = np.zeros((len(tokens), nb), np.int32)
+    pool_pos = np.full((p, page), -1, np.int32)
+    nxt = 0
+    for r, n in enumerate(tokens):
+        for b in range(need[r]):
+            bt[r, b] = order[nxt]
+            nxt += 1
+        for t in range(masked if r == 0 else 0, n):
+            pool_pos[bt[r, t // page], t % page] = t
+    arrays = (rng.integers(-127, 128, (p, kh, page, hd)).astype(np.int8),
+              rng.uniform(1e-3, 2e-2, (p, kh, page)).astype(np.float32),
+              rng.integers(-127, 128, (p, kh, page, hd)).astype(np.int8),
+              rng.uniform(1e-3, 2e-2, (p, kh, page)).astype(np.float32),
+              pool_pos, bt)
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _k2_split_case(device, name, qdtype, seed=17):
+    kh, g, hd, page, nb, toks, masked = K2_SPLIT_SHAPES[name]
+    rng = np.random.default_rng(seed)
+    pool = _split_pool(rng, device, kh, hd, page, nb, toks, masked)
+    q = torch.from_numpy(rng.normal(size=(len(toks), kh, g, hd)).astype(
+        np.float32)).to(device, qdtype)
+    q_pos = torch.tensor([n - 1 for n in toks], dtype=torch.int32,
+                         device=device)
+    return q, pool, q_pos, toks
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(K2_SPLIT_SHAPES))
+def test_paged_decode_split_kernel_matches_plain_version_and_repeats(
+        cuda_device, qdtype, name):
+    """K2 with rows over several splits: within 1e-4 of its plain version
+    (f32 math in another order), free rows exact zeros, one call counted,
+    and two calls bit-identical (the splits merge in a fixed order)."""
+    q, pool, q_pos, toks = _k2_split_case(cuda_device, name,
+                                          getattr(torch, qdtype))
+    before = pda.paged_decode_attention.launches
+    got = pda.paged_decode_attention(q, *pool, q_pos)
+    again = pda.paged_decode_attention(q, *pool, q_pos)
+    assert pda.paged_decode_attention.launches == before + 2
+    want = pda.paged_decode_attention_ref(q, *pool, q_pos)
+    torch.cuda.synchronize()
+    assert pda.splits(pool[5].shape[1], pool[0].shape[2],
+                      pda.SPLIT[q.shape[-1]]) > 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    assert torch.equal(got, again)
+    for i, n in enumerate(toks):
+        if n == 0:
+            assert (got[i] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (1, 4096, 11008),
+                                   (1, 11008, 4096), (4, 4096, 11008),
+                                   (2, 4096, 528), (3, 200, 80)])
+def test_gemv_kernel_matches_plain_version_and_repeats(cuda_device, dtype,
+                                                       m, k, n):
+    """The 16-byte GEMV (N % 16 == 0, aligned bases) at llama2-7b's decode
+    products and ragged column tiles: within 1e-5 of |x| @ |codes| * scale
+    of its plain version, and two calls bit-identical (the K ranges are
+    added in a fixed order; the tickets are back at zero after a call)."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        cuda_device, getattr(torch, dtype))
+    codes = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(
+        np.int8)).to(cuda_device)
+    scale = torch.from_numpy(rng.uniform(1e-3, 1e-1, (n,)).astype(
+        np.float32)).to(cuda_device)
+    assert dm.gemv_vec(n, codes.data_ptr(), scale.data_ptr()) == 16
+    got = dm.dequant_matmul(x, codes, scale)
+    again = dm.dequant_matmul(x, codes, scale)
+    want = dm.dequant_matmul_ref(x, codes, scale)
+    bound = (x.float().abs() @ codes.float().abs() * scale).max()
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(bound)
+    assert torch.equal(got, again)
+
+
+def test_paged_decode_and_gemv_replay_from_a_cuda_graph(cuda_device):
+    """One K2 call at the serve shape and one GEMV at w_up, captured in a
+    CUDA graph: each replay equals the eager call bit for bit (grids from
+    shapes alone, no host read-back, the GEMV's tickets reset in the
+    kernel)."""
+    q, pool, q_pos, _ = _k2_split_case(cuda_device, "serve", torch.bfloat16)
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(rng.normal(size=(1, 4096)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    codes = torch.from_numpy(rng.integers(-7, 8, (4096, 11008)).astype(
+        np.int8)).to(cuda_device)
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, (11008,)).astype(
+        np.float32)).to(cuda_device)
+    for fn in (lambda: pda.paged_decode_attention(q, *pool, q_pos),
+               lambda: dm.dequant_matmul(x, codes, scale)):
+        eager = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+def test_paged_decode_routes_agree_at_the_decode_tick(cuda_device, qdtype):
+    """At the paged decode tick's shape (8 rows of 129 tokens through a
+    64-page table: one split a row) the route takes the split kernel, which
+    walks each row in one pass, and the single-pass kernel takes the same
+    call: each within 1e-4 of the plain version, each repeating its bits,
+    and the wrapper counts the call on its route."""
+    rng = np.random.default_rng(19)
+    toks = [129] * 8
+    pool = _split_pool(rng, cuda_device, 32, 128, 16, 64, toks)
+    q = torch.from_numpy(rng.normal(size=(8, 32, 1, 128)).astype(
+        np.float32)).to(cuda_device, getattr(torch, qdtype))
+    q_pos = torch.full((8,), 128, dtype=torch.int32, device=cuda_device)
+    assert pda.route(128, 16, 64) == "split"
+    want = pda.paged_decode_attention_ref(q, *pool, q_pos)
+    for way in pda.ROUTES:
+        got = pda.launch_route(way, q, *pool, q_pos)
+        again = pda.launch_route(way, q, *pool, q_pos)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=1e-4)
+        assert torch.equal(got, again)
+    before = dict(pda.paged_decode_attention.route_launches)
+    pda.paged_decode_attention(q, *pool, q_pos)
+    after = pda.paged_decode_attention.route_launches
+    assert after["split"] == before["split"] + 1
+    assert after["single_pass"] == before["single_pass"]
+
+
+def test_captured_calls_keep_their_tickets_when_an_eager_call_grows(
+        cuda_device):
+    """Two K2 calls over several splits, captured in CUDA graphs, each get
+    ticket buffers of their own: an eager call that outgrows the stream's
+    buffer (40 rows x 32 kv-heads = 1,280 tickets) leaves both graphs'
+    replays bit-identical to their eager calls, also replayed side by side
+    on two streams."""
+    calls = []
+    for name in ("full_table", "g6"):
+        q, pool, q_pos, _ = _k2_split_case(cuda_device, name,
+                                           torch.bfloat16)
+        calls.append(lambda q=q, pool=pool, q_pos=q_pos:
+                     pda.paged_decode_attention(q, *pool, q_pos))
+    eager = [fn() for fn in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, outs = [], []
+    for fn in calls:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(fn())
+        graphs.append(graph)
+    # an eager call with more (row, kv-head) tickets than the buffer holds
+    rng = np.random.default_rng(20)
+    toks = [300] * 40
+    pool = _split_pool(rng, cuda_device, 32, 32, 16, 20, toks)
+    q = torch.from_numpy(rng.normal(size=(40, 32, 1, 32)).astype(
+        np.float32)).to(cuda_device)
+    q_pos = torch.full((40,), 299, dtype=torch.int32, device=cuda_device)
+    big = pda.paged_decode_attention(q, *pool, q_pos)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(
+        big.cpu().numpy(),
+        pda.paged_decode_attention_ref(q, *pool, q_pos).cpu().numpy(),
+        rtol=0, atol=1e-4)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(3):
+        for graph, st in zip(graphs, streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, eager):
+            assert torch.equal(out, want)

@@ -210,7 +210,12 @@ def test_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("m,n,k,vec", [(1, 4096, 4096, 8), (1, 11008, 4096, 8),
                                        (1, 4096, 11008, 8), (4, 4096, 4096, 8),
-                                       (3, 17, 100, 1), (1, 64, 64, 8)])
+                                       (3, 17, 100, 1), (1, 64, 64, 8),
+                                       (1, 4096, 4096, 16),
+                                       (1, 11008, 4096, 16),
+                                       (1, 4096, 11008, 16),
+                                       (4, 4096, 11008, 16),
+                                       (2, 528, 200, 16)])
 def test_gemv_plan_covers_k(m, n, k, vec):
     """The GEMV's K ranges cover K with none empty, each of at least
     ``MIN_SPLIT_ROWS`` rows when there is more than one."""
