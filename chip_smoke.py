@@ -199,7 +199,33 @@ def _decode_inputs(torch, b, kh, g, hd, s, fill, qdtype, gen, device,
     return q, kc, ks, vc, vs, pos, q_pos
 
 
+# K1's timed shapes beside the kernels phase's main one (B, K, G, hd, S,
+# live slots a row): the serve run's last decode step (rows at positions up
+# to 191) and the split run's longest row (160 live slots)
+K1_STEPS = {"serve_step": (2, 32, 1, 128, 1024, 192),
+            "split_step": (1, 32, 1, 128, 1024, 160)}
+
+
+def _k1_bound(ctx, q, b, kh, g, hd, live) -> dict:
+    """K1's least time on ``b`` rows of ``live`` slots: the codes, scales
+    and positions of the slots the rows need (the slot contract: 0 ..
+    q_pos), q and the output, against 4 flops a slot, a dim and a query
+    head, f32 on the CUDA cores."""
+    bw, f32_peak = peak_rates(ctx["device_name"])
+    nbytes = (q.numel() * q.element_size() + b * live * (kh * (2 * hd + 8) + 4)
+              + 4 + b * kh * g * hd * 4)
+    flops = 4 * b * kh * g * live * hd
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / f32_peak * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def _kernel_k1(ctx) -> dict:
+    """K1 against its plain version on the main path's shapes and edge
+    shapes, q in f32 and bf16; then at the main shape (every slot live) its
+    time beside the plain version's and SDPA's, and the same at the serve
+    and split steps' shapes (``K1_STEPS``), each beside a bound that counts
+    the live slots."""
     import torch
     from repro_torch.kernels import decode_attention as da
 
@@ -208,6 +234,7 @@ def _kernel_k1(ctx) -> dict:
     shapes = [  # (B, K, G, hd, S, fill, per-row q_pos or None)
         (4, 32, 1, 128, 1024, 1024, None),  # main path
         (1, 32, 1, 128, 1024, 160, None),  # split: one request (96-160)
+        (2, 32, 1, 128, 1024, 192, None),  # serve: the last decode step
         (4, 32, 1, 128, 1024, 111, None),  # split: four 96-token rows
         (4, 32, 1, 128, 4096, 200, None),  # long cache, 200 slots filled
         (2, 2, 2, 32, 96, 50, None),  # llama2-7b tiny
@@ -215,6 +242,8 @@ def _kernel_k1(ctx) -> dict:
         (2, 2, 2, 32, 96, 96, [40, -1]),  # row 1 fully masked, per-row q_pos
         (1, 1, 48, 128, 700, 700, None),  # MQA group of 48
         (2, 4, 3, 256, 130, 100, None),  # hd 256, ragged G
+        # row 0's slots all empty up to its q_pos, over several units
+        (2, 4, 1, 128, 512, 512, [300, 511]),
     ]
     checks, worst = [], 0.0
     for (b, kh, g, hd, s, fill, qp) in shapes:
@@ -223,14 +252,17 @@ def _kernel_k1(ctx) -> dict:
                 qp, dtype=torch.int32, device=device)
             args = _decode_inputs(torch, b, kh, g, hd, s, fill, qdtype, gen,
                                   device, q_pos)
+            if qp == [300, 511]:
+                args[5][0] = -1
             got = da.decode_attention(*args)
             want = da.decode_attention_ref(*args)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             ok = bool(torch.isfinite(got).all()) and err <= ATOL
             checks.append({"shape": [b, kh, g, hd, s, fill], "q_pos": qp,
-                           "q_dtype": str(qdtype)[6:], "max_abs_err": err,
-                           "atol": ATOL, "ok": ok})
+                           "q_dtype": str(qdtype)[6:],
+                           "units": da.grid(b, kh, g, s, da.unit_keys(hd))[2],
+                           "max_abs_err": err, "atol": ATOL, "ok": ok})
             worst = max(worst, err)
             if not ok:
                 emit({"phase": "kernels", "decode_attention": checks})
@@ -249,29 +281,55 @@ def _kernel_k1(ctx) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     clocks_query = "clocks.sm,clocks.max.sm,power.draw"
     clocks_before = nvidia_smi(clocks_query)
-    ms = ctx["timer"]({"kernel": lambda: da.decode_attention(*args),
-                       "plain": lambda: da.decode_attention_ref(*args),
-                       "library": lambda: sdpa(q, kd, vd, attn_mask=mask)})
+    ms = ctx["timer"]({
+        "kernel": lambda: da.decode_attention(*args),
+        "plain": lambda: da.decode_attention_ref(*args),
+        "library": lambda: sdpa(q, kd, vd, attn_mask=mask)})
     clocks_after = nvidia_smi(clocks_query)
-    kernel_ms, plain_ms, library_ms = ms["kernel"], ms["plain"], ms["library"]
-    bw, f32_peak = peak_rates(ctx["device_name"])
-    nbytes = (q.numel() * q.element_size() + 2 * kc.numel() + 2 * ks.numel() * 4
-              + pos.numel() * 4 + q_pos.numel() * 4 + b * kh * g * hd * 4)
-    flops = 4 * b * kh * g * s * hd
-    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / f32_peak * 1e3
+    bound = _k1_bound(ctx, q, b, kh, g, hd, s)
+    main = [b, kh, g, hd, s]
     ctx["kernels"]["decode_attention"] = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:113",
-        "launches": None, "max_abs_err": worst, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms}
-    return {"checks": checks,
-            "main_shape": [b, kh, g, hd, s], "bytes": nbytes, "flops": flops,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "achieved_GBps": nbytes / kernel_ms / 1e6,
+        "launches": None, "max_abs_err": worst, "ms": ms["kernel"],
+        "plain_ms": ms["plain"], "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "library_ms": ms["library"]}
+
+    # the serve and split steps' shapes: rows live up to q_pos only; and at
+    # the serve step's, the host's time a call (the wrapper's checks, its
+    # workspace and tickets, the launch), no sync between
+    steps, host_us = {}, None
+    for name, (b, kh, g, hd, s, live) in K1_STEPS.items():
+        st = _decode_inputs(torch, b, kh, g, hd, s, live, torch.bfloat16,
+                            gen, device)
+        sq, skc, sks, svc, svs, spos, sqp = st
+        skd = (skc.float() * sks[..., None]).to(torch.bfloat16)
+        svd = (svc.float() * svs[..., None]).to(torch.bfloat16)
+        smask = ((spos >= 0) & (spos <= sqp))[:, None, None, :]
+        t = ctx["timer"]({
+            "kernel": lambda st=st: da.decode_attention(*st),
+            "library": lambda sq=sq, skd=skd, svd=svd, smask=smask: sdpa(
+                sq, skd, svd, attn_mask=smask)})
+        if name == "serve_step":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                da.decode_attention(*st)
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+        steps[name] = {"shape": [b, kh, g, hd, s], "live_slots": live,
+                       **_k1_bound(ctx, sq, b, kh, g, hd, live),
+                       "kernel_ms": t["kernel"], "library_ms": t["library"]}
+    return {"checks": checks, "main_shape": main,
+            "unit_keys": da.unit_keys(hd),
+            "grid": da.grid(main[0], main[1], main[2], main[4],
+                            da.unit_keys(hd)),
+            "device_launches_a_call": 1, **bound,
+            "kernel_ms": ms["kernel"],
+            "plain_ms": ms["plain"], "library_ms": ms["library"],
+            "achieved_GBps": bound["bytes"] / ms["kernel"] / 1e6,
+            "steps": steps, "serve_step_host_us_a_call": host_us,
             "clocks_sm_max_sm_power": [clocks_before, clocks_after]}
 
 
@@ -421,7 +479,7 @@ def _k2_tick_routes(ctx, rng) -> dict:
     table that fits one split) and the split kernel (which the route takes
     for the tick's 64-page table; it walks each one-split row in one pass).
     Each within ``ATOL`` of the plain version, then their times in turns
-    beside the bound."""
+    beside the bound and SDPA's over the gathered, dequantized bf16 K/V."""
     import numpy as np
     import torch
     from repro_torch.kernels import paged_decode_attention as pda
@@ -441,15 +499,28 @@ def _k2_tick_routes(ctx, rng) -> dict:
         if not (bool(torch.isfinite(got).all()) and err[way] <= ATOL):
             raise SystemExit(f"paged_decode_attention ({way}) disagrees at "
                              f"the decode tick's shape: {err[way]}")
-    ms = ctx["timer"]({way: (lambda way=way: pda.launch_route(
-        way, q, *pool, q_pos)) for way in pda.ROUTES})
+    # the library call is a yardstick only (the port never calls it): SDPA
+    # over the rows' pages gathered and dequantized to bf16 beforehand
+    kc, ks, vc, vs, pool_pos, bt = pool
+    kd = (pda.gather_pages(kc, bt).float()
+          * pda.gather_pages(ks, bt)[..., None]).to(torch.bfloat16)
+    vd = (pda.gather_pages(vc, bt).float()
+          * pda.gather_pages(vs, bt)[..., None]).to(torch.bfloat16)
+    kv_pos = pda.gather_pages(pool_pos, bt)
+    mask = ((kv_pos >= 0) & (kv_pos <= q_pos[:, None]))[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fns = {way: (lambda way=way: pda.launch_route(way, q, *pool, q_pos))
+           for way in pda.ROUTES}
+    fns["library"] = lambda: sdpa(q, kd, vd, attn_mask=mask)
+    ms = ctx["timer"](fns)
     bw, _ = peak_rates(ctx["device_name"])
     pages = sum(-(-n // page) for n in toks)
     nbytes = (q.numel() * 2 + pages * (kh * page * (2 * hd + 8) + page * 4)
               + r * nb * 4 + r * 4 + r * kh * g * hd * 4)
     return {"shape": [r, kh, g, hd, page, nb], "tokens": toks,
             "route_taken": pda.route(hd, page, nb), "max_abs_err": err,
-            "ms": ms, "bound_ms": nbytes / bw * 1e3}
+            "ms": {k: v for k, v in ms.items() if k != "library"},
+            "library_ms": ms["library"], "bound_ms": nbytes / bw * 1e3}
 
 
 def _prefill_inputs(torch, rng, r, s, kh, g, hd, page, nb, rows, dtype,
@@ -819,6 +890,9 @@ K7_REL = 1e-5
 PAYLOAD_SHAPE = (1, 4096)
 K5_K6_CHECKS = dict(t=(1, 7, 96, 128, 600), d=(64, 4096))
 K5_K6_CODEC = (128, 4096)  # a 128-token prefill payload
+# TAB-Q's distortion tolerances Δ the adaptive K5 is checked at (0.2: the
+# OPSC default), with every max_bits from 2 to 8
+K5_DELTAS = (0.05, 0.2, 1.0)
 # K7's checks (M, K, N): llama2-7b's edge products at the split phase's
 # decode (M = 1, 4) and prefill (96, 128, and 384 = 4 x 96) sizes and at
 # 600, then ragged ones; its timed decode product (w_up's) and the prefill
@@ -847,7 +921,8 @@ K7_DEVICE_NAMES = ("gemm_kernel", "gemv_kernel", "gemv16_kernel",
                    "tc_large_kernel")
 # the decode GEMV's (M <= 4), and K1's and K2's device functions
 GEMV_DEVICE_NAMES = ("gemv16_kernel", "gemv_kernel", "splitk_reduce_kernel")
-K1_DEVICE_NAMES = ("decode_attention_kernel",)
+K1_DEVICE_NAMES = ("decode_split_kernel",)
+K5_DEVICE_NAMES = ("tabq_adaptive_kernel", "tabq_quantize_kernel")
 K2_DEVICE_NAMES = ("paged_split_kernel", "paged_decode_attention_kernel")
 
 
@@ -862,11 +937,14 @@ def _activations(torch, gen, t, d, dtype, device, outliers=0):
 
 
 def _kernel_k5_k6(ctx) -> dict:
-    """K5 (``tabq_quantize``) at every bit width and K6 (``ts_mask``)
-    against their plain versions: identical outputs at the payload shapes
-    (T = 1 decode, 96 and 128 prefill) and edge shapes, f32 and bf16;
-    the codec through both with more outliers than its carrier holds; and
-    at the decode payload's shape, their times."""
+    """K5 at every bit width (``tabq_quantize``) and as TAB-Q's whole walk
+    (``tabq_adaptive``: every max_bits, ``K5_DELTAS``) and K6 (``ts_mask``)
+    against their plain versions, and the walk against the per-level loop
+    over K5's kernel: identical outputs at the payload shapes (T = 1
+    decode, 96 and 128 prefill) and edge shapes, f32 and bf16, with tokens
+    of zeros and of equal magnitudes; the codec through them with more
+    outliers than its carrier holds; and at the decode payload's shape,
+    their times (the walk beside the per-level loop it replaces)."""
     import torch
     from repro_torch.core.payload import encode
     from repro_torch.kernels import tabq_quantize as tq
@@ -875,7 +953,8 @@ def _kernel_k5_k6(ctx) -> dict:
     device = ctx["device"]
     gen = torch.Generator(device=device).manual_seed(5)
     checks, ok = [], True
-    err = {"tabq_quantize": 0.0, "ts_mask": 0.0}  # max |kernel - plain|
+    # max |kernel - plain|
+    err = {"tabq_quantize": 0.0, "tabq_adaptive": 0.0, "ts_mask": 0.0}
 
     def same(name, got, want) -> bool:
         for a, b in zip(got, want):
@@ -889,16 +968,32 @@ def _kernel_k5_k6(ctx) -> dict:
                 x = _activations(torch, gen, t, d, dtype, device,
                                  outliers=max(1, t * d // 512))
                 x[0, :3] = 0.0
+                if t > 2:  # a token of equal magnitudes, one of zeros
+                    x[1] = torch.where(x[1] < 0, -1.5, 1.5).to(dtype)
+                    x[2] = 0.0
                 k5 = all([same("tabq_quantize", tq.tabq_quantize(x, bits),
                                tq.tabq_quantize_ref(x, bits))
                           for bits in range(1, 9)])
+                walk, widths = True, set()
+                for mb in range(2, 9):
+                    for delta in K5_DELTAS:
+                        got = tq.tabq_adaptive(x, mb, delta)
+                        walk = same("tabq_adaptive", got,
+                                    tq.tabq_adaptive_ref(x, mb, delta)) \
+                            and same("tabq_adaptive", got,
+                                     tq.tabq_adaptive_ref(
+                                         x, mb, delta,
+                                         level=tq.tabq_quantize)) and walk
+                        widths |= set(got[4].tolist())
                 k6 = all([same("ts_mask", tsm.ts_mask(x, tau),
                                tsm.ts_mask_ref(x, tau))
                           for tau in (0.5, 5.0, 1e3)])
                 checks.append({"shape": [t, d], "dtype": str(dtype)[6:],
                                "k5_identical_bits_1_to_8": k5,
+                               "k5_walk_identical_to_plain_and_loop": walk,
+                               "k5_walk_widths": sorted(widths),
                                "k6_identical": k6})
-                ok = ok and k5 and k6
+                ok = ok and k5 and walk and k6
     # the codec: K5 and K6 on the card, their plain versions on the CPU,
     # far more entries above tau than the carrier holds
     t, d = K5_K6_CODEC
@@ -917,22 +1012,41 @@ def _kernel_k5_k6(ctx) -> dict:
     if not ok:
         emit({"phase": "kernels", "tabq_ts": checks, "max_abs_err": err,
               "payload_identical": payload_ok, "overflow": overflow})
-        raise SystemExit("tabq_quantize or ts_mask differs from its plain "
-                         "version")
+        raise SystemExit("tabq_quantize, tabq_adaptive or ts_mask differs "
+                         "from its plain version")
 
-    # time at the decode payload's shape: f32 input, K5 at the top level
+    # time at the decode payload's shape: f32 input, the OPSC defaults (8
+    # bits, Δ 0.2): the walk in one launch, the per-level loop over K5's
+    # kernel it replaces (6 launches and the small ops around them), the
+    # plain walk, and K5 at the top level alone
     t, d = PAYLOAD_SHAPE
     x = _activations(torch, gen, t, d, torch.float32, device)
-    ms5 = ctx["timer"]({"kernel": lambda: tq.tabq_quantize(x, 7),
-                        "plain": lambda: tq.tabq_quantize_ref(x, 7)})
+    walk = {"kernel": lambda: tq.tabq_adaptive(x, 8, 0.2),
+            "per_level_loop": lambda: tq.tabq_adaptive_ref(
+                x, 8, 0.2, level=tq.tabq_quantize)}
+    ms5 = ctx["timer"]({
+        "kernel": walk["kernel"],
+        "plain": lambda: tq.tabq_adaptive_ref(x, 8, 0.2),
+        "level_kernel": lambda: tq.tabq_quantize(x, 7)})
+    # the walk beside the loop it replaces: device busy a call (profiler;
+    # the loop's host-to-device copy of Δ waits for the device, so the
+    # Timer's device hold cannot hide its host time) and host included
+    walk_ms = {f"{k}_device_busy": _device_profile(torch, fn, 5)[0]
+               for k, fn in walk.items()}
+    walk_ms.update({f"{k}_host_included": v for k, v in ctx["timer"](
+        walk, device_only=False).items()})
     ms6 = ctx["timer"]({"kernel": lambda: tsm.ts_mask(x, 5.0),
                         "plain": lambda: tsm.ts_mask_ref(x, 5.0)})
+    # the walk's levels on this input: the top one, each level kept, the
+    # first one refused (if any), and the chosen one written again
+    q_ref, chosen = 7, int(tq.tabq_adaptive(x, 8, 0.2)[4].max()) - 1
+    levels = 2 + (q_ref - chosen) + (chosen > tq.MIN_BITS)
     bw, f32_peak = peak_rates(ctx["device_name"])
     rows = {}
     # (name, bytes: x read once and the outputs written once, f32
     # operations a value, times)
     for name, nbytes, ops_per, ms, src, stem in (
-            ("tabq_quantize", t * d * (4 + 2) + t * 8, 10, ms5,
+            ("tabq_adaptive", t * d * (4 + 2) + t * 12, 8 * levels, ms5,
              "tabq_kernel.py:59", "tabq_quantize"),
             ("ts_mask", t * d * (4 + 4 + 1) + t * 4, 2, ms6,
              "ts_mask.py:32", "ts_mask")):
@@ -947,8 +1061,10 @@ def _kernel_k5_k6(ctx) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
         rows[name] = {"main_shape": [t, d], "bytes": nbytes,
-                      "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+                      **{f"{k}_ms": v for k, v in ms.items()},
                       "bound_ms": max(bytes_ms, ops_ms)}
+    rows["tabq_adaptive"].update(levels_walked=levels, max_bits=8, delta=0.2,
+                                 walk_and_loop_ms=walk_ms)
     return {"checks": checks, "max_abs_err": err,
             "payload_identical": payload_ok,
             "overflow_count_capacity": overflow, "timed": rows,
@@ -1085,15 +1201,19 @@ def _kernel_k7(ctx) -> dict:
 def _graph_replay(ctx) -> dict:
     """One bf16 K4 call at ``VARLEN_MAIN`` (its work list built inside the
     call), one K7 call at M 600, one K2 call at the serve shape and one by
-    each route at the decode tick's (``K2_TICK``), and one GEMV at w_up
-    (``K7_MAIN``) captured in a ``torch.cuda.CUDAGraph`` and
-    replayed: two eager calls must be bit-identical, and the replay must
-    equal the eager result bit for bit (no host read-back, a grid from
-    shapes alone, the GEMV's tickets reset by the kernel)."""
+    each route at the decode tick's (``K2_TICK``), one GEMV at w_up
+    (``K7_MAIN``), K1 at the main shape and the serve step's
+    (``K1_STEPS``), and TAB-Q's walk (``tabq_adaptive``) at the decode
+    payload's shape captured in a ``torch.cuda.CUDAGraph`` and replayed:
+    two eager calls must be bit-identical, and the replay must equal the
+    eager result bit for bit (no host read-back, a grid from shapes alone,
+    the tickets reset by the kernels)."""
     import numpy as np
     import torch
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import tabq_quantize as tq
     from repro_torch.kernels import varlen_attention as va
 
     device = ctx["device"]
@@ -1134,10 +1254,26 @@ def _graph_replay(ctx) -> dict:
         "paged_decode_attention_tick_single_pass": lambda: pda.launch_route(
             "single_pass", tick_q, *tick_pool, tick_pos),
         "dequant_matmul_gemv": lambda: dm.dequant_matmul(x1, codes, scale)}
+    k1_main = _decode_inputs(torch, 4, 32, 1, 128, 1024, 1024,
+                             torch.bfloat16, gen, device)
+    b, kh, g, hd, s, live = K1_STEPS["serve_step"]
+    k1_step = _decode_inputs(torch, b, kh, g, hd, s, live, torch.bfloat16,
+                             gen, device)
+    xp = _activations(torch, gen, *PAYLOAD_SHAPE, torch.float32, device)
+    calls.update({
+        "decode_attention": lambda: da.decode_attention(*k1_main),
+        "decode_attention_serve_step": lambda: da.decode_attention(*k1_step),
+        "tabq_adaptive": lambda: tq.tabq_adaptive(xp, 8, 0.2)})
     res, repeat = {}, {}
+
+    def equal(a, b) -> bool:  # a tensor or a tuple of them
+        if isinstance(a, torch.Tensor):
+            return bool(torch.equal(a, b))
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
     for name, fn in calls.items():
         eager = fn()
-        repeat[name] = bool(torch.equal(fn(), eager))
+        repeat[name] = equal(fn(), eager)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):  # warm up off the default stream
@@ -1150,7 +1286,7 @@ def _graph_replay(ctx) -> dict:
         for _ in range(2):
             graph.replay()
             torch.cuda.synchronize()
-            same = same and bool(torch.equal(out, eager))
+            same = same and equal(out, eager)
         res[name] = same
     if not all(res.values()) or not all(repeat.values()):
         raise SystemExit(f"a graph replay or a second eager call differs: "
@@ -1456,7 +1592,8 @@ def phase_serve(ctx) -> None:
           "init_s": init_s, "requests": len(outs), "finish_reasons": reasons,
           "generated": lengths, "stop_token": stop,
           "decode_steps": decode_steps, "launches": launches,
-          "wall_s": wall_s, "tokens_per_s": sum(lengths) / wall_s,
+          "wall_s": wall_s,
+          "tokens_per_s": sum(lengths) / wall_s,
           "computed_tokens_per_s": 2 * 64 * 2 / wall_s,
           "decode_step_ms": step_ms, "decode_step_batch": b,
           "decode_step_bound_ms": (weight_bytes + cache_bytes) / bw * 1e3,
@@ -2311,7 +2448,8 @@ def phase_split(ctx) -> None:
     stop_at = list(first[1].tokens).index(stop) + 1
 
     kernels = {"decode_attention": da.decode_attention,
-               "tabq_quantize": tq.tabq_quantize, "ts_mask": tsm.ts_mask,
+               "tabq_quantize": tq.tabq_quantize,
+               "tabq_adaptive": tq.tabq_adaptive, "ts_mask": tsm.ts_mask,
                "dequant_matmul": dm.dequant_matmul}
     for fn in kernels.values():
         fn.launches = 0
@@ -2343,7 +2481,9 @@ def phase_split(ctx) -> None:
             for o, f in zip(outs, first)),
         "tokens_in_vocab": all(int(o.tokens.min()) >= 0 and int(
             o.tokens.max()) < cfg.vocab_size for o in outs),
-        "k5_launches": launches["tabq_quantize"] == 6 * payloads_n,
+        # TAB-Q's walk: one launch a payload, no per-level launch
+        "k5_launches": launches["tabq_adaptive"] == payloads_n
+        and launches["tabq_quantize"] == 0,
         "k6_launches": launches["ts_mask"] == payloads_n,
         "k7_launches": launches["dequant_matmul"]
         == 7 * opsc.split_layer * payloads_n,
@@ -2461,8 +2601,9 @@ def phase_split(ctx) -> None:
                 nxt, edge_c, pos, decode=True))[0], cloud_c, pos,
                 decode=True)}
         stage_ms = ctx["timer"](stages, iters=20, device_only=False)
-        device_ms = {k: _device_profile(torch, fn, 5)[0]
-                     for k, fn in stages.items()}
+        device_ms, profiles = {}, {}
+        for k, fn in stages.items():
+            device_ms[k], profiles[k] = _device_profile(torch, fn, 5)
         _, top = _device_profile(torch, stages["step"], 5)
         # and the edge's 128-token prefill (it rewrites the same cache
         # entries): its device time and how much of it is K7's
@@ -2514,6 +2655,13 @@ def phase_split(ctx) -> None:
                                  top, GEMV_DEVICE_NAMES),
                              "k1_in_step": _kernel_share(
                                  top, K1_DEVICE_NAMES),
+                             "k1_in_edge": _kernel_share(
+                                 profiles["edge"], K1_DEVICE_NAMES),
+                             "k1_in_cloud": _kernel_share(
+                                 profiles["cloud"], K1_DEVICE_NAMES),
+                             "k5_in_payload": _kernel_share(
+                                 profiles["payload"], K5_DEVICE_NAMES),
+                             "payload_profile": profiles["payload"],
                              "profile_top": top[:10]},
           "edge_prefill_128": {
               "device_busy_ms": prefill_ms,

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 alone (no PyTorch headers, so a build takes seconds; :func:`build` starts
 one ``nvcc`` per source, all together) into
 ``build/repro_torch_kernels/<name>-<hash>.so`` at the root of the checkout.
-The hash covers the source and the flags, so an edited ``.cu`` rebuilds and
+The hash covers the source, the headers it may include (``HEADERS``, found
+with ``-I csrc``) and the flags, so an edited ``.cu`` or header rebuilds and
 an unchanged one is loaded as it is. Nothing here runs at import time.
 """
 
@@ -22,6 +23,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the headers under csrc/ that the sources include: hashed into every key
+HEADERS = ("common.cuh",)
+
 KERNELS = ("decode_attention", "paged_decode_attention",
            "paged_prefill_attention", "varlen_attention", "tabq_quantize",
            "ts_mask", "dequant_matmul")
@@ -34,8 +38,11 @@ BUILD_LOG: dict = {}
 
 
 def source_hash(name: str) -> str:
-    """Hash of a kernel's source and the flags it is built with."""
+    """Hash of a kernel's source, the shared headers and the flags it is
+    built with."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in HEADERS:
+        h.update((CSRC / header).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -55,6 +62,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def nvcc_command(out, src) -> list:
+    """The ``nvcc`` command that builds ``src`` (a ``.cu`` anywhere: the
+    probes build edited copies under ``build/``) into the library ``out``."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
+
+
 def build(*names: str) -> None:
     """Compile the named kernels whose libraries do not exist yet, one
     ``nvcc`` per source, all started together."""
@@ -62,12 +75,11 @@ def build(*names: str) -> None:
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for name in todo:
         tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            nvcc_command(tmp, CSRC / f"{name}.cu"),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
     for name, (tmp, proc) in procs.items():

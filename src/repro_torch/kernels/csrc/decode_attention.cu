@@ -1,8 +1,9 @@
 // Decode attention over an int8-quantized KV cache, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/decode_attention.py
-// (decode_attention, pallas_call at line 113). Python wrapper, launch count
-// and plain PyTorch version: repro_torch/kernels/decode_attention.py.
+// (decode_attention, pallas_call at line 113). Python wrapper, launch count,
+// unit plan and plain PyTorch version:
+// repro_torch/kernels/decode_attention.py.
 //
 //   q        (B, K, G, hd)  f32 or bf16
 //   k_codes  (B, K, S, hd)  int8      k_scale (B, K, S)  f32
@@ -12,29 +13,46 @@
 //   out      (B, K, G, hd)  f32
 //
 // Semantics kept from the TPU kernel: the score is q.k/sqrt(hd) in f32; a
-// slot is attended when 0 <= kv_pos <= q_pos, and a masked score is set to
-// -1e30 (not -inf), so a row with no valid slot returns the uniform average
-// of v over its S slots; the result is acc / max(l, 1e-30).
+// slot is attended when 0 <= kv_pos <= q_pos; a row with no valid slot
+// returns the uniform average of v over its S slots (the TPU kernel's
+// -1e30 mask gives every slot the same weight there).
 //
-// Bound: one decode call reads the whole cache once, B*K*S*(2*hd + 8) bytes
-// of codes and scales plus B*S*4 of positions, and does 4*B*K*G*S*hd flops,
-// so at G <= 8 it is bound by device-memory bytes. The design streams the
-// codes once with 16-byte loads (neighbouring lanes on neighbouring bytes),
-// dequantizes in registers and never writes a dequantized copy.
+// Bound: one call reads the codes and scales of the slots its rows need,
+// K*(2*hd + 8) bytes a slot plus its position, against 4*K*G*hd flops a
+// slot, so at G <= 8 it is bound by device-memory bytes.
 //
-// Design: one block of 8 warps per (b, kv-head, group of GC query rows);
-// the TPU grid's sequential S axis becomes a loop inside the block. A slot's
-// hd codes are split over LPS = hd/16 lanes; the warp covers 32/LPS slots
-// per step. Each lane group keeps its own online-softmax state (m, l) per
-// query row and acc for its 16-dim slice, the hd dot is reduced with
-// shuffles inside the group, and at the end the groups are merged with
-// shuffles across the warp and through shared memory across warps.
-// Later work: split S over more blocks (flash-decoding with a combine pass)
-// when B*K is small against 132 SMs, and skip tiles past q_pos.
+// The slot contract: the dense cache writes position p at slot p
+// (models/layers.py::cache_update), so slot t holds t or -1, and a row's
+// valid slots all lie in 0 .. q_pos. The split kernel reads only those
+// (the TPU kernel walks all S slots; the rest are masked and weigh exactly
+// 0 there).
+//
+// decode_split_kernel (flash-decoding, K2's split kernel on the dense
+// cache): a unit is one row, one run of KEYS consecutive slots (256, 128 at
+// hd 256: unit_keys) and one kv-head with a group of up to GC of its query
+// heads. The grid, (K * ceil(G / GC), B, ceil(S / KEYS)), depends on
+// shapes only (no host read of q_pos: a call is graph-capturable); a unit whose first slot is
+// past its row's q_pos exits at once. A live unit puts its slots' codes
+// (contiguous in the cache), scales and positions in shared memory by
+// cp.async, all in flight at once. Lane groups of hd/16 lanes take KEYS /
+// (keys a block step) keys each: first their scores, then one max, then
+// the values weighted by 2^(score - max), in base 2 (the query pre-scaled
+// by log2(e)/sqrt(hd)). The lane groups merge by shuffles across the warp
+// and through shared memory across warps in warp order. A row of one unit
+// writes its output there. In a longer row each unit writes its (max,
+// sum, weighted values) to a workspace and takes a ticket for its (row,
+// kv-head, group), and the unit that takes the last merges the units in
+// unit order (a run repeats its bits; no float atomics, no second launch)
+// and resets the ticket for the next call (or a graph's next replay). A
+// row where no unit saw a valid slot takes the slow branch: the merging
+// unit (or the only one) averages v over all S slots. Codes widen to f32
+// in registers; no dequantized copy is written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -44,100 +62,197 @@ constexpr int kVec = 16;  // int8 codes per lane per slot: one 16-byte load
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
+struct Args {
+  const void* q;
+  int q_bf16;
+  float scale;
+  const int8_t* k_codes;
+  const float* k_scale;
+  const int8_t* v_codes;
+  const float* v_scale;
+  const int32_t* kv_pos;
+  const int32_t* q_pos;
+  int q_pos_stride;
+  float* out;
+  float* part;   // (B, units, K, G) x (hd values), then (max, sum) pairs
+  int* tickets;  // (B, K, head groups), zero between calls
+  int B, K, G, S;
+};
+
+// the slots of a unit at HD (decode_attention.py::unit_keys): whole block
+// steps (the kernel asserts it), and a unit's stage (codes, scales,
+// positions) within 69 KB of shared memory, three units an SM (as K2's
+// split). On an H100 the fastest size at llama2-7b's decode shapes
+// (python -m repro_torch.kernels.decode_probe --only k1)
+template <int HD>
+__host__ __device__ constexpr int unit_keys() {
+  return HD == 256 ? 128 : 256;
+}
+
 template <int HD, int GC>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const void* __restrict__ q, int q_bf16, float scale,
-                        const int8_t* __restrict__ k_codes,
-                        const float* __restrict__ k_scale,
-                        const int8_t* __restrict__ v_codes,
-                        const float* __restrict__ v_scale,
-                        const int32_t* __restrict__ kv_pos,
-                        const int32_t* __restrict__ q_pos, int q_pos_stride,
-                        float* __restrict__ out, int K, int G, int S) {
-  constexpr int LPS = HD / kVec;      // lanes per slot
-  constexpr int SPW = 32 / LPS;       // slots per warp per step
-  constexpr int SPB = kWarps * SPW;   // slots per block per step
+constexpr int split_smem_bytes() {
+  // the staged unit, reused after the walk for the warps' merge
+  constexpr int stage = unit_keys<HD>() * (2 * HD + 12);
+  static_assert(stage <= 70 * 1024, "three units an SM");
+  constexpr int merge = kWarps * GC * (HD + 2) * 4;
+  return stage > merge ? stage : merge;
+}
 
-  const int kh = blockIdx.x, b = blockIdx.y, g0 = blockIdx.z * GC;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// A row's answer when no slot is valid: the uniform average of v over all
+// S slots, for the GC query rows from g0 of kv-head row bk (= b * K + kh).
+// A slow branch: the serve and split paths never produce such a row.
+template <int HD, int GC>
+__device__ void uniform_average(const Args& a, size_t bk, int g0) {
+  const int8_t* vb = a.v_codes + bk * a.S * HD;
+  const float* vsb = a.v_scale + bk * a.S;
+  for (int d = threadIdx.x; d < HD; d += kThreads) {
+    float acc = 0.f;
+#pragma unroll 4
+    for (int t = 0; t < a.S; ++t)
+      acc = fmaf(vsb[t], (float)vb[(size_t)t * HD + d], acc);
+    const float avg = acc / (float)a.S;
+#pragma unroll
+    for (int g = 0; g < GC; ++g)
+      if (g0 + g < a.G) a.out[(bk * a.G + g0 + g) * HD + d] = avg;
+  }
+}
+
+// The registers are held to what the resident units can have: three a
+// unit of one head, two of two, one of four (as K2's split kernel).
+template <int HD, int GC>
+__global__ void __launch_bounds__(kThreads, GC == 1 ? 3 : (GC == 2 ? 2 : 1))
+decode_split_kernel(const __grid_constant__ Args a) {
+  constexpr int KEYS = unit_keys<HD>();
+  constexpr int LPS = HD / kVec;       // lanes a key
+  constexpr int SPW = 32 / LPS;        // keys a warp a step
+  constexpr int SPB = kWarps * SPW;    // keys a block a step
+  constexpr int KPL = KEYS / SPB;      // keys a lane group
+  static_assert(KPL >= 1 && KPL * SPB == KEYS, "a unit is whole steps");
+  extern __shared__ __align__(128) int8_t smem[];
+
+  const int groups = (a.G + GC - 1) / GC;
+  const int kh = blockIdx.x / groups, grp = blockIdx.x % groups;
+  const int g0 = grp * GC, b = blockIdx.y;
+  const int units = gridDim.z, unit = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int sub = lane / LPS, j = lane % LPS;
-  const size_t bk = (size_t)b * K + kh;
+  const size_t bk = (size_t)b * a.K + kh;
 
-  // this lane's 16-dim slice of each query row, pre-scaled by 1/sqrt(hd)
+  // the slot contract: the row's valid slots lie in 0 .. q_pos
+  const int qp = a.q_pos[(size_t)b * a.q_pos_stride];
+  const int n_live = qp < 0 ? 0 : min(qp + 1, a.S);
+  const int n_split = (n_live + KEYS - 1) / KEYS;
+  if (n_split == 0) {  // no slot to walk: the first unit averages v
+    if (unit == 0) uniform_average<HD, GC>(a, bk, g0);
+    return;
+  }
+  if (unit >= n_split) return;  // past the row's q_pos
+  const int k0 = unit * KEYS;
+  const int n = min(n_live, k0 + KEYS) - k0;
+
+  int8_t* kc = smem;  // [KEYS][HD]
+  int8_t* vc = kc + KEYS * HD;
+  float* ksc = reinterpret_cast<float*>(vc + KEYS * HD);  // [KEYS]
+  float* vsc = ksc + KEYS;
+  int* kps = reinterpret_cast<int*>(vsc + KEYS);
+
+  // the unit's codes (n consecutive slots: one contiguous run each of k
+  // and v), scales and positions, all in flight at once
+  const size_t s0 = bk * a.S + k0;
+  const int8_t* kg = a.k_codes + s0 * HD;
+  const int8_t* vg = a.v_codes + s0 * HD;
+  for (int e = tid; e < n * LPS; e += kThreads) {
+    cp_async16(smem_u32(kc + e * kVec), kg + e * kVec);
+    cp_async16(smem_u32(vc + e * kVec), vg + e * kVec);
+  }
+  for (int jj = tid; jj < n; jj += kThreads) {
+    cp_async4(smem_u32(ksc + jj), a.k_scale + s0 + jj);
+    cp_async4(smem_u32(vsc + jj), a.v_scale + s0 + jj);
+    cp_async4(smem_u32(kps + jj), a.kv_pos + (size_t)b * a.S + k0 + jj);
+  }
+
+  // this lane's 16-dim slice of each query row, pre-scaled by
+  // log2(e)/sqrt(hd): the softmax runs in base 2
   float qv[GC][kVec];
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
-    const size_t row = (bk * G + g0 + g) * HD + j * kVec;
+    const size_t row = (bk * a.G + g0 + g) * HD + j * kVec;
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
       float x = 0.f;
-      if (g0 + g < G) {
-        x = q_bf16 ? __bfloat162float(
-                         reinterpret_cast<const __nv_bfloat16*>(q)[row + i])
-                   : reinterpret_cast<const float*>(q)[row + i];
-      }
-      qv[g][i] = x * scale;
+      if (g0 + g < a.G)
+        x = a.q_bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
+                           a.q)[row + i])
+                     : reinterpret_cast<const float*>(a.q)[row + i];
+      qv[g][i] = x * a.scale;
     }
   }
+  cp_async_commit_wait();
+  __syncthreads();
 
-  float m[GC], l[GC], acc[GC][kVec];
+  // the lane group's keys: t * SPB + warp * SPW + sub. First their scores
+  // and one max (every lane runs every key, so the shuffles see the full
+  // warp; an absent or masked key is left out by select)
+  float sc[GC][KPL], m[GC];
+  unsigned valid = 0;
 #pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
+  for (int g = 0; g < GC; ++g) m[g] = kNegInf;
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[g][i] = 0.f;
-  }
-
-  const int qp = q_pos[(size_t)b * q_pos_stride];
-  const int8_t* kb = k_codes + bk * S * HD + j * kVec;
-  const int8_t* vb = v_codes + bk * S * HD + j * kVec;
-  const float* ksb = k_scale + bk * S;
-  const float* vsb = v_scale + bk * S;
-  const int32_t* pb = kv_pos + (size_t)b * S;
-
-  // every lane runs every step, so the shuffles below always see the full
-  // warp; a slot past S contributes nothing (it is absent, not masked)
-  for (int base = 0; base < S; base += SPB) {
-    const int t = base + warp * SPW + sub;
-    const bool in = t < S;
-    int4 kraw = make_int4(0, 0, 0, 0), vraw = make_int4(0, 0, 0, 0);
-    float ks = 0.f, vs = 0.f;
-    int p = -1;
-    if (in) {
-      kraw = *reinterpret_cast<const int4*>(kb + (size_t)t * HD);
-      vraw = *reinterpret_cast<const int4*>(vb + (size_t)t * HD);
-      ks = ksb[t];
-      vs = vsb[t];
-      p = pb[t];
-    }
-    const int8_t* kc = reinterpret_cast<const int8_t*>(&kraw);
-    const int8_t* vc = reinterpret_cast<const int8_t*>(&vraw);
-    const bool valid = p >= 0 && p <= qp;
+  for (int t = 0; t < KPL; ++t) {
+    if (t * SPB >= n) break;  // the same for every lane of the block
+    const int key = t * SPB + warp * SPW + sub;
+    const int kk = key < n ? key : 0;
+    float kf[kVec];
+    widen16(*reinterpret_cast<const int4*>(kc + kk * HD + j * kVec), kf);
+    const int p = key < n ? kps[kk] : -1;
+    if (p >= 0 && p <= qp) valid |= 1u << t;
+    const float ks = ksc[kk];
 #pragma unroll
     for (int g = 0; g < GC; ++g) {
       float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) dot = fmaf(qv[g][i], (float)kc[i], dot);
+      for (int i = 0; i < kVec; ++i) dot = fmaf(qv[g][i], kf[i], dot);
 #pragma unroll
       for (int off = LPS / 2; off > 0; off >>= 1)
         dot += __shfl_xor_sync(kFull, dot, off);
-      if (in) {
-        const float s = valid ? dot * ks : kNegInf;
-        const float m_new = fmaxf(m[g], s);
-        const float corr = expf(m[g] - m_new);
-        const float pr = expf(s - m_new);
-        l[g] = l[g] * corr + pr;
-        const float pv = pr * vs;
+      sc[g][t] = dot * ks;
+      if (valid >> t & 1) m[g] = fmaxf(m[g], sc[g][t]);
+    }
+  }
+  // a row of one unit with no valid slot: the slow branch, at once
+  const int seen = __syncthreads_or(valid != 0u);
+  if (n_split == 1 && !seen) {
+    uniform_average<HD, GC>(a, bk, g0);
+    return;
+  }
+
+  // then the values, weighted by 2^(score - max)
+  float l[GC], acc[GC][kVec];
 #pragma unroll
-        for (int i = 0; i < kVec; ++i)
-          acc[g][i] = fmaf(pv, (float)vc[i], acc[g][i] * corr);
-        m[g] = m_new;
-      }
+  for (int g = 0; g < GC; ++g) {
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) acc[g][i] = 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < KPL; ++t) {
+    if (!(valid >> t & 1)) continue;
+    const int key = t * SPB + warp * SPW + sub;
+    float vf[kVec];
+    widen16(*reinterpret_cast<const int4*>(vc + key * HD + j * kVec), vf);
+    const float vs = vsc[key];
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      const float pr = exp2f(sc[g][t] - m[g]);
+      l[g] += pr;
+      const float pv = pr * vs;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[g][i] = fmaf(pv, vf[i], acc[g][i]);
     }
   }
 
-  // merge the lane groups of this warp (same j, different slots)
+  // merge the lane groups of this warp (same j, different keys); a group
+  // that saw no valid key has m = -1e30, l = 0, acc = 0 and weighs nothing
 #pragma unroll
   for (int off = LPS; off < 32; off <<= 1) {
 #pragma unroll
@@ -145,110 +260,167 @@ decode_attention_kernel(const void* __restrict__ q, int q_bf16, float scale,
       const float mo = __shfl_xor_sync(kFull, m[g], off);
       const float lo = __shfl_xor_sync(kFull, l[g], off);
       const float mx = fmaxf(m[g], mo);
-      const float a = expf(m[g] - mx), c = expf(mo - mx);
-      l[g] = l[g] * a + lo * c;
+      const float x = exp2f(m[g] - mx), y = exp2f(mo - mx);
+      l[g] = l[g] * x + lo * y;
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         const float ao = __shfl_xor_sync(kFull, acc[g][i], off);
-        acc[g][i] = acc[g][i] * a + ao * c;
+        acc[g][i] = acc[g][i] * x + ao * y;
       }
       m[g] = mx;
     }
   }
 
-  // merge the warps through shared memory
-  __shared__ float red_m[kWarps][GC], red_l[kWarps][GC];
-  __shared__ float red_acc[kWarps][GC][HD];
+  // then the warps, in warp order through shared memory: [warp][g][HD + 2]
+  float* red = reinterpret_cast<float*>(smem);
+  __syncthreads();  // every warp is done with the staged codes
   if (sub == 0) {
 #pragma unroll
     for (int g = 0; g < GC; ++g) {
+      float* w = red + (warp * GC + g) * (HD + 2);
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) red_acc[warp][g][j * kVec + i] = acc[g][i];
+      for (int i = 0; i < kVec; ++i) w[j * kVec + i] = acc[g][i];
       if (j == 0) {
-        red_m[warp][g] = m[g];
-        red_l[warp][g] = l[g];
+        w[HD] = m[g];
+        w[HD + 1] = l[g];
       }
     }
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < GC * HD; idx += kThreads) {
-    const int g = idx / HD, d = idx % HD;
-    if (g0 + g >= G) continue;
+  const size_t parts = (size_t)a.B * units * a.K * a.G;
+  for (int idx = tid; idx < GC * (HD + 1); idx += kThreads) {
+    const int g = idx / (HD + 1), d = idx % (HD + 1);  // d == HD: the sum
+    if (g0 + g >= a.G) continue;
     float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w][g]);
-    float lsum = 0.f, a = 0.f;
+    for (int w = 0; w < kWarps; ++w)
+      mx = fmaxf(mx, red[(w * GC + g) * (HD + 2) + HD]);
+    float v = 0.f, lsum = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float e = expf(red_m[w][g] - mx);
-      lsum += red_l[w][g] * e;
-      a += red_acc[w][g][d] * e;
+      const float* wr = red + (w * GC + g) * (HD + 2);
+      const float e = exp2f(wr[HD] - mx);
+      v += wr[d == HD ? HD + 1 : d] * e;
+      lsum += wr[HD + 1] * e;
     }
-    out[(bk * G + g0 + g) * HD + d] = a / fmaxf(lsum, 1e-30f);
+    if (n_split == 1) {  // the row's only unit: its output
+      if (d < HD) a.out[(bk * a.G + g0 + g) * HD + d] = v / fmaxf(lsum, 1e-30f);
+      continue;
+    }
+    const size_t at = (((size_t)b * units + unit) * a.K + kh) * a.G + g0 + g;
+    if (d < HD) {
+      a.part[at * HD + d] = v;
+    } else {
+      a.part[parts * HD + 2 * at] = mx;
+      a.part[parts * HD + 2 * at + 1] = v;
+    }
+  }
+  if (n_split == 1) return;
+
+  // the unit that takes the row's last ticket merges its units in order
+  __shared__ int last, any;
+  __threadfence();  // this unit's part is visible before its ticket
+  __syncthreads();
+  int* ticket = a.tickets + bk * groups + grp;
+  if (tid == 0) last = atomicAdd(ticket, 1) == n_split - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const size_t at0 = ((size_t)b * units * a.K + kh) * a.G + g0;
+  const size_t step = (size_t)a.K * a.G;  // from one unit to the next
+  if (tid == 0) {  // did any unit see a valid slot? (the row's answer)
+    float mx = kNegInf;
+    for (int sp = 0; sp < n_split; ++sp)
+      mx = fmaxf(mx, __ldcg(a.part + parts * HD + 2 * (at0 + sp * step)));
+    any = mx > 0.5f * kNegInf;
+    *ticket = 0;  // ready for the next call
+  }
+  __syncthreads();
+  if (!any) {
+    uniform_average<HD, GC>(a, bk, g0);
+    return;
+  }
+  for (int idx = tid; idx < GC * HD; idx += kThreads) {
+    const int g = idx / HD, d = idx % HD;
+    if (g0 + g >= a.G) continue;
+    float mx = kNegInf;
+#pragma unroll 4
+    for (int sp = 0; sp < n_split; ++sp)
+      mx = fmaxf(mx,
+                 __ldcg(a.part + parts * HD + 2 * (at0 + g + sp * step)));
+    float lsum = 0.f, v = 0.f;
+#pragma unroll 4
+    for (int sp = 0; sp < n_split; ++sp) {
+      const size_t at = at0 + g + sp * step;
+      const float w = exp2f(__ldcg(a.part + parts * HD + 2 * at) - mx);
+      lsum += __ldcg(a.part + parts * HD + 2 * at + 1) * w;
+      v += __ldcg(a.part + at * HD + d) * w;
+    }
+    a.out[(bk * a.G + g0 + g) * HD + d] = v / fmaxf(lsum, 1e-30f);
   }
 }
 
 template <int HD, int GC>
-cudaError_t launch(const void* q, int q_bf16, float scale, const void* kc,
-                   const void* ks, const void* vc, const void* vs,
-                   const void* kv_pos, const void* q_pos, int q_pos_stride,
-                   void* out, int B, int K, int G, int S, cudaStream_t st) {
-  const dim3 grid(K, B, (G + GC - 1) / GC);
-  decode_attention_kernel<HD, GC><<<grid, kThreads, 0, st>>>(
-      q, q_bf16, scale, static_cast<const int8_t*>(kc),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
-      static_cast<const float*>(vs), static_cast<const int32_t*>(kv_pos),
-      static_cast<const int32_t*>(q_pos), q_pos_stride,
-      static_cast<float*>(out), K, G, S);
+cudaError_t launch_split(const Args& a, int units, cudaStream_t st) {
+  constexpr int bytes = split_smem_bytes<HD, GC>();
+  static bool opted[kMaxDevices] = {};
+  cudaError_t e = smem_opt_in(decode_split_kernel<HD, GC>, bytes, opted);
+  if (e != cudaSuccess) return e;
+  // kv-heads vary fastest, units slowest: a step's live units (the first
+  // ones of every row) are scheduled before the ones that exit at once
+  const long long x = (long long)a.K * ((a.G + GC - 1) / GC);
+  if (x > 2147483647LL) return cudaErrorInvalidValue;
+  decode_split_kernel<HD, GC>
+      <<<dim3((unsigned)x, a.B, units), kThreads, bytes, st>>>(a);
   return cudaGetLastError();
 }
 
-// GC query rows per block: 1 and 2 fit exactly, larger groups go 4 at a time
+// ``units`` must be the plan's, ceil(S / unit_keys); GC query rows a unit:
+// 1 and 2 fit exactly, larger groups go 4 at a time
 template <int HD>
-cudaError_t launch_hd(const void* q, int q_bf16, float scale, const void* kc,
-                      const void* ks, const void* vc, const void* vs,
-                      const void* kv_pos, const void* q_pos, int q_pos_stride,
-                      void* out, int B, int K, int G, int S, cudaStream_t st) {
-  if (G == 1)
-    return launch<HD, 1>(q, q_bf16, scale, kc, ks, vc, vs, kv_pos, q_pos,
-                         q_pos_stride, out, B, K, G, S, st);
-  if (G == 2)
-    return launch<HD, 2>(q, q_bf16, scale, kc, ks, vc, vs, kv_pos, q_pos,
-                         q_pos_stride, out, B, K, G, S, st);
-  return launch<HD, 4>(q, q_bf16, scale, kc, ks, vc, vs, kv_pos, q_pos,
-                       q_pos_stride, out, B, K, G, S, st);
+cudaError_t launch_hd(const Args& a, int units, cudaStream_t st) {
+  constexpr int keys = unit_keys<HD>();
+  if (units < 1 || units > 65535 || (long long)units * keys < a.S ||
+      (long long)(units - 1) * keys >= a.S ||
+      (units > 1 && (a.part == nullptr || a.tickets == nullptr)))
+    return cudaErrorInvalidValue;
+  if (a.G == 1) return launch_split<HD, 1>(a, units, st);
+  if (a.G == 2) return launch_split<HD, 2>(a, units, st);
+  return launch_split<HD, 4>(a, units, st);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched);
-// cudaErrorInvalidValue for a shape the kernel does not take.
+// cudaErrorInvalidValue for a shape the kernel does not take. ``scale`` is
+// log2(e)/sqrt(hd); ``units`` is ceil(S / unit_keys) (256 slots, 128 at hd
+// 256); with more than one, ``part`` is a workspace of B * units * K * G *
+// (hd + 2) f32 and ``tickets`` B * K * ceil(G / group) int32, zero before
+// the call (the kernel leaves them at zero; group is G for G <= 2, else 4).
 extern "C" int decode_attention_launch(
     const void* q, int q_bf16, float scale, const void* k_codes,
     const void* k_scale, const void* v_codes, const void* v_scale,
     const void* kv_pos, const void* q_pos, int q_pos_stride, void* out,
-    int B, int K, int G, int S, int HD, void* stream) {
-  if (B < 1 || K < 1 || G < 1 || S < 1 || B > 65535 || G > 4 * 65535)
+    void* part, void* tickets, int B, int K, int G, int S, int HD, int units,
+    void* stream) {
+  if (B < 1 || K < 1 || G < 1 || S < 1 || B > 65535 || G > 4 * 65535 ||
+      ((uintptr_t)k_codes | (uintptr_t)v_codes) % 16)
     return (int)cudaErrorInvalidValue;
+  const Args a{q, q_bf16, scale,
+               static_cast<const int8_t*>(k_codes),
+               static_cast<const float*>(k_scale),
+               static_cast<const int8_t*>(v_codes),
+               static_cast<const float*>(v_scale),
+               static_cast<const int32_t*>(kv_pos),
+               static_cast<const int32_t*>(q_pos), q_pos_stride,
+               static_cast<float*>(out), static_cast<float*>(part),
+               static_cast<int*>(tickets), B, K, G, S};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (HD) {
-    case 32:
-      return (int)launch_hd<32>(q, q_bf16, scale, k_codes, k_scale, v_codes,
-                                v_scale, kv_pos, q_pos, q_pos_stride, out, B,
-                                K, G, S, st);
-    case 64:
-      return (int)launch_hd<64>(q, q_bf16, scale, k_codes, k_scale, v_codes,
-                                v_scale, kv_pos, q_pos, q_pos_stride, out, B,
-                                K, G, S, st);
-    case 128:
-      return (int)launch_hd<128>(q, q_bf16, scale, k_codes, k_scale, v_codes,
-                                 v_scale, kv_pos, q_pos, q_pos_stride, out, B,
-                                 K, G, S, st);
-    case 256:
-      return (int)launch_hd<256>(q, q_bf16, scale, k_codes, k_scale, v_codes,
-                                 v_scale, kv_pos, q_pos, q_pos_stride, out, B,
-                                 K, G, S, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 32: return (int)launch_hd<32>(a, units, st);
+    case 64: return (int)launch_hd<64>(a, units, st);
+    case 128: return (int)launch_hd<128>(a, units, st);
+    case 256: return (int)launch_hd<256>(a, units, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

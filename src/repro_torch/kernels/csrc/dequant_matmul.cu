@@ -75,6 +75,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kGemvWarps = 8;
@@ -178,17 +180,6 @@ __device__ __forceinline__ uint4 ld_codes16(const int8_t* p) {
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "l"(p));
   return v;
-}
-
-// four int8 codes to f32, exactly: b ^ 0x80 = b + 128 as a byte, put as
-// the low mantissa bits of 2^23, gives the float 2^23 + b + 128; less
-// 2^23 + 128 that is b
-__device__ __forceinline__ void widen4(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x80808080u;
-  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
-  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
-  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
-  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
 }
 
 // Block (blockIdx.x, blockIdx.y, blockIdx.z) = (512-column tile, K range
@@ -427,10 +418,6 @@ constexpr int kTcXBytes = kTcBM * kTcBK * 2;
 constexpr int kTcStage = kTcXBytes + kTcBK * kTcBN;  // 24 KB, 1 KB-aligned
 // the stages, their barriers, and slack to align the stages to 1 KB
 constexpr int kTcSmem = kTcStages * kTcStage + kTcStages * 8 + 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -1104,24 +1091,6 @@ cudaError_t launch_gemv16(const void* x, int x_bf16, const int8_t* codes,
   return cudaGetLastError();
 }
 
-constexpr int kMaxDevices = 64;
-
-// the opt-in to ``bytes`` of dynamic shared memory for ``fn``, made once on
-// each device: cudaFuncSetAttribute acts on the current device only
-template <typename Fn>
-cudaError_t smem_opt_in(Fn fn, int bytes, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-    if (e != cudaSuccess) return e;
-    done[dev] = true;
-  }
-  return cudaSuccess;
-}
 
 // x (M, K) bf16 in boxes of 64 x ``rows`` rows; codes (K, N) int8 in boxes
 // of 128 x 64 rows; both with the 128-byte swizzle. The entry point of

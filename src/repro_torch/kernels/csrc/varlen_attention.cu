@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -77,24 +79,6 @@ constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKeys = 32;                     // keys per tile (one per lane)
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDevices = 64;
-
-// the opt-in to ``bytes`` of dynamic shared memory for ``fn``, made once on
-// each device: cudaFuncSetAttribute acts on the current device only
-template <typename Fn>
-cudaError_t smem_opt_in(Fn fn, int bytes, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-    if (e != cudaSuccess) return e;
-    done[dev] = true;
-  }
-  return cudaSuccess;
-}
 
 __device__ __forceinline__ float load_f(const void* p, long long i, int bf16) {
   return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
@@ -497,10 +481,6 @@ __device__ __forceinline__ int swz(int r, int c) {
 template <int HD>
 __device__ __forceinline__ int tile_offset(int r, int c) {
   return r * HD * 2 + swz<HD>(r, c) * 16;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // global -> shared, or zeros when !valid (the source is then not read)

@@ -1,9 +1,10 @@
-"""Probe what holds K7's decode GEMV and K2 back, on the card: variants of
-``gemv16_kernel`` and ``paged_split_kernel`` built from edited copies of
-their sources into ``build/`` and timed beside the kernels as they are,
-with the L2 flushed two ways.
+"""Probe what holds K7's decode GEMV, K2 and K1 back, on the card: variants
+of ``gemv16_kernel``, ``paged_split_kernel`` and ``decode_split_kernel``
+built from edited copies of their sources into ``build/`` and timed beside
+the kernels as they are, with the L2 flushed two ways.
 
-    python -m repro_torch.kernels.decode_probe
+    python -m repro_torch.kernels.decode_probe [--only gemv,k2,k1]
+        [--k1-baseline OLD/decode_attention.cu]
 
 Needs a CUDA card and nvcc. Times are medians of 20 single calls timed in
 turns by ``probe.timer``, after each of its two flushes of the L2
@@ -46,6 +47,25 @@ the split kernel's variants
     its unit, as the longer rows' splits are (the kernel walks it in one
     pass).
 
+K1 at the kernels phase's main shape (B 4, K 32, S 1024, every slot live),
+the fused serve run's decode rows (B 2, q_pos 191: its last step) and the
+split run's (B 1, 160 live slots), bf16 q: the wrapper, SDPA over K/V
+dequantized to bf16 beforehand, an empty launch, the kernel's variants
+
+  * ``units_64`` / ``units_128``: units of 64 or 128 slots (the kernel's
+    are 256: ``decode_attention.unit_keys`` is fitted to these);
+  * ``no_walk``: staged and merged, the two passes over the keys skipped
+    (wrong results: its time is the staging's and the merge's);
+  * ``no_merge``: no ticket and no merge of a row's units (wrong results
+    where a row has several);
+  * ``two_a_sm``: 100 KB of shared memory asked for a unit, so that at
+    most two units share an SM where 256 keys' 68 KB lets three;
+
+and, with ``--k1-baseline``, an earlier K1 source with the whole-cache
+kernel's C entry (``decode_attention_launch`` with no workspace, as the
+port's first K1 had: one block a (row, kv-head, head group) streaming all
+S slots), e.g. the parent commit's, unpacked with ``git archive``.
+
 Prints one JSON line per shape.
 """
 
@@ -61,6 +81,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import dequant_matmul as dm
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels.probe import build_variants, edit, timer
@@ -289,16 +310,166 @@ def _probe_k2_shape(time_us, libs: dict, toks: list, nb: int) -> None:
           flush=True)
 
 
-def main() -> int:
+# K1's shapes (B, K, G, hd, S, live slots a row): the kernels phase's main
+# shape, the serve run's last decode step, the split run's longest row
+K1_TIMED = ((4, 32, 1, 128, 1024, 1024), (2, 32, 1, 128, 1024, 192),
+            (1, 32, 1, 128, 1024, 160))
+
+
+_K1_PASS = "  for (int t = 0; t < KPL; ++t) {"
+_K1_MERGE = ("  // the unit that takes the row's last ticket merges its units "
+             "in order\n")
+_K1_SMEM = "  return stage > merge ? stage : merge;"
+_K1_KEYS = "  return HD == 256 ? 128 : 256;"
+_K1_SEEN = "  const int seen = __syncthreads_or(valid != 0u);"
+_K1_ANY = "    any = mx > 0.5f * kNegInf;"
+
+
+def k1_variants(src: str) -> dict:
+    if src.count(_K1_PASS) != 2:
+        raise RuntimeError("the kernel source changed: cannot find its two "
+                           "passes over a lane group's keys")
+    return {
+        # (and no row taken for one without a valid slot: no slow branch)
+        "no_walk": edit(edit(src.replace(
+            _K1_PASS, _K1_PASS.replace("t < KPL", "t < 0")), _K1_SEEN,
+            _K1_SEEN.replace("valid != 0u", "1")), _K1_ANY,
+            _K1_ANY.replace("mx > 0.5f * kNegInf", "1")),
+        "no_merge": edit(src, _K1_MERGE, "  return;\n"),
+        # shared memory asked for so that at most 2 units share an SM
+        "two_a_sm": edit(src, _K1_SMEM, "  return 100 * 1024;"),
+        # (a unit is whole block steps: 128 slots at hd 32)
+        "units_64": edit(src, _K1_KEYS, "  return HD == 32 ? 128 : 64;"),
+        "units_128": edit(src, _K1_KEYS, "  return 128;"),
+    }
+
+
+# the unit size of each variant at hd 128, where it differs from the kernel's
+K1_VARIANT_KEYS = {"units_64": 64, "units_128": 128}
+
+
+def _k1_call(lib, keys, q, kc, ks, vc, vs, pos, q_pos):
+    """One K1 launch with units of ``keys`` slots through ``lib``'s C
+    entry."""
+    b, kh, g, hd = q.shape
+    s = kc.shape[2]
+    heads, _, units = da.grid(b, kh, g, s, keys)
+    out = torch.empty((b, kh, g, hd), dtype=torch.float32, device="cuda")
+    part = torch.empty((b * units * kh * g * (hd + 2),), dtype=torch.float32,
+                       device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ticket = tickets(q.device, stream, b * heads)
+    err = lib.decode_attention_launch(
+        q.data_ptr(), int(q.dtype == torch.bfloat16),
+        math.log2(math.e) / hd ** 0.5, kc.data_ptr(), ks.data_ptr(),
+        vc.data_ptr(), vs.data_ptr(), pos.data_ptr(), q_pos.data_ptr(),
+        0 if q_pos.numel() == 1 else 1, out.data_ptr(), part.data_ptr(),
+        ticket.data_ptr(), b, kh, g, s, hd, units, stream)
+    if err:
+        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    return out
+
+
+def _k1_baseline_call(lib, q, kc, ks, vc, vs, pos, q_pos):
+    """One launch of the whole-cache kernel's C entry (base e: the scale
+    is 1/sqrt(hd))."""
+    b, kh, g, hd = q.shape
+    out = torch.empty((b, kh, g, hd), dtype=torch.float32, device="cuda")
+    err = lib.decode_attention_launch(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5,
+        kc.data_ptr(), ks.data_ptr(), vc.data_ptr(), vs.data_ptr(),
+        pos.data_ptr(), q_pos.data_ptr(), 0 if q_pos.numel() == 1 else 1,
+        out.data_ptr(), b, kh, g, kc.shape[2], hd,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K1 baseline launch failed: CUDA error {err}")
+    return out
+
+
+def probe_k1(time_us, baseline: str | None = None) -> None:
+    src = (build.CSRC / "decode_attention.cu").read_text()
+    variants = k1_variants(src)
+    if baseline:
+        with open(baseline) as f:
+            variants["baseline"] = f.read()
+    libs = build_variants("decode_probe_k1", variants)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, lib in libs.items():
+        lib.decode_attention_launch.argtypes = (
+            [p, i, ctypes.c_float] + [p] * 6 + [i, p] + [i] * 5 + [p]
+            if name == "baseline" else
+            [p, i, ctypes.c_float] + [p] * 6 + [i] + [p] * 3 + [i] * 6 + [p])
+        lib.decode_attention_launch.restype = i
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for b, kh, g, hd, s, live in K1_TIMED:
+        q = torch.randn((b, kh, g, hd), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        kc, vc = (torch.randint(-127, 128, (b, kh, s, hd), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand((b, kh, s), generator=gen, device="cuda") * 0.02
+                  + 1e-3 for _ in range(2))
+        pos = torch.arange(s, dtype=torch.int32, device="cuda")
+        pos = torch.where(pos < live, pos, -1).expand(b, s).contiguous()
+        q_pos = torch.tensor(live - 1, dtype=torch.int32, device="cuda")
+        args = (q, kc, ks, vc, vs, pos, q_pos)
+        kd = (kc.float() * ks[..., None]).to(torch.bfloat16)
+        vd = (vc.float() * vs[..., None]).to(torch.bfloat16)
+        mask = ((pos >= 0) & (pos <= q_pos))[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        fns = {"kernel": lambda: da.decode_attention(*args),
+               "library": lambda: sdpa(q, kd, vd, attn_mask=mask),
+               "empty_launch": lambda: torch.cuda._sleep(1)}
+        for name, lib in libs.items():
+            keys = K1_VARIANT_KEYS.get(name, da.unit_keys(hd))
+            fns[name] = (
+                (lambda lib=lib: _k1_baseline_call(lib, *args))
+                if name == "baseline" else
+                (lambda lib=lib, keys=keys: _k1_call(lib, keys, *args)))
+        want = da.decode_attention_ref(*args)
+        errs = {name: float((fns[name]() - want).abs().max())
+                for name in ("kernel", "baseline", *K1_VARIANT_KEYS)
+                if name in fns}
+        nbytes = q.numel() * 2 + b * live * (kh * (2 * hd + 8) + 4) \
+            + 4 + b * kh * g * hd * 4
+        print(json.dumps({"k1": [b, kh, g, hd, s], "live": live,
+                          "unit_keys": da.unit_keys(hd),
+                          "bound_us": nbytes / 3.35e12 * 1e6,
+                          "max_abs_err": errs,
+                          "us": {f: time_us(fns, flush=f)
+                                 for f in ("dirty", "clean")}}),
+              flush=True)
+
+
+PROBES = ("gemv", "k2", "k1")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default=",".join(PROBES),
+                    help="comma-separated subset of " + ",".join(PROBES))
+    ap.add_argument("--k1-baseline", default=None,
+                    help="an earlier decode_attention.cu with the "
+                         "whole-cache kernel's C entry, timed beside K1")
+    args = ap.parse_args(argv)
+    only = args.only.split(",")
+    if set(only) - set(PROBES):
+        ap.error(f"unknown probes {sorted(set(only) - set(PROBES))}")
     if not torch.cuda.is_available():
         raise SystemExit("the probe needs a CUDA card")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     time_us = functools.partial(timer, iters=20)
-    probe_gemv(time_us,
-               torch.cuda.get_device_properties(0).multi_processor_count)
-    probe_k2(time_us)
+    if "gemv" in only:
+        probe_gemv(time_us,
+                   torch.cuda.get_device_properties(0).multi_processor_count)
+    if "k2" in only:
+        probe_k2(time_us)
+    if "k1" in only:
+        probe_k1(time_us, args.k1_baseline)
     return 0
 
 

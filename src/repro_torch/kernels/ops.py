@@ -15,7 +15,13 @@ from repro_torch.kernels import varlen_attention as _va
 
 def decode_attention(q, k_codes, k_scale, v_codes, v_scale, kv_pos, q_pos):
     """Int8-KV decode attention, q (B, K, G, hd) → (B, K, G, hd) f32; see
-    :mod:`repro_torch.kernels.decode_attention`."""
+    :mod:`repro_torch.kernels.decode_attention`.
+
+    The slot contract: slot t of a row holds position t or -1, as the dense
+    cache writes it. The kernel reads only slots ``0 .. q_pos``, while the
+    plain version masks all S, so a cache that puts a position elsewhere (a
+    ring, a left-padded batch) gets answers on the card that differ from
+    the CPU's. Sliding-window layers are refused before they get here."""
     if q.device.type == "cpu":
         return _da.decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale,
                                         kv_pos, q_pos)
@@ -72,6 +78,14 @@ def tabq_quantize(x, bits: int):
     fn = _tq.tabq_quantize_ref if x.device.type == "cpu" \
         else _tq.tabq_quantize
     return fn(x, bits)
+
+
+def tabq_adaptive(x, max_bits: int, delta: float):
+    """TAB-Q (Algorithm 1) of x (T, D) in one call → (codes, sign, scale,
+    zero, bits); see :mod:`repro_torch.kernels.tabq_quantize`."""
+    fn = _tq.tabq_adaptive_ref if x.device.type == "cpu" \
+        else _tq.tabq_adaptive
+    return fn(x, max_bits, delta)
 
 
 def ts_mask(x, tau: float):

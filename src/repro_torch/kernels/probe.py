@@ -39,7 +39,7 @@ def build_variants(stem: str, variants: dict) -> dict:
         cu.write_text(text)
         so = out / f"{name}-{os.getpid()}.so"
         procs[name] = (so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            build.nvcc_command(so, cu),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (so, proc) in procs.items():

@@ -485,11 +485,16 @@ def test_tabq_and_ts_kernels_equal_plain_versions(cuda_device, dtype, t, d):
 
 
 def test_payload_on_card_equals_cpu(cuda_device):
-    """The codec through K5 and K6 on the card equals the plain versions
-    on the CPU, with more entries above τ than the carrier holds."""
+    """The codec through K5 (TAB-Q's walk in one launch) and K6 on the
+    card equals the plain versions on the CPU, with more entries above τ
+    than the carrier holds."""
     rng = np.random.default_rng(3)
     x = _activations(rng, 16, 1024, torch.float32, outliers=60)
+    before = (tq.tabq_adaptive.launches, tq.tabq_quantize.launches)
     got = payload_encode(x.to(cuda_device), tau=5.0)
+    # TAB-Q's walk: one launch, no per-level launch
+    assert (tq.tabq_adaptive.launches, tq.tabq_quantize.launches) == (
+        before[0] + 1, before[1])
     want = payload_encode(x, tau=5.0)
     assert int(want.above.count) > want.above.values.shape[0]
     for name in ("codes", "sign", "scale", "zero", "bits"):
@@ -561,7 +566,7 @@ def test_split_kernels_refuse_bad_card_input(cuda_device):
 def test_split_engine_on_card_matches_cpu(cuda_device):
     """llama2-7b tiny through the split engine (int4-code front, TS +
     TAB-Q payload, int8 KV): the card's tokens equal the CPU's, and the
-    run launches K5, K6 and K7."""
+    run launches K5 (TAB-Q's walk, once a payload), K6 and K7."""
     cfg = get_config("llama2-7b-tiny")
     opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
     params = init_params(cfg, torch.Generator().manual_seed(0))
@@ -569,17 +574,18 @@ def test_split_engine_on_card_matches_cpu(cuda_device):
     opsc = OPSCConfig(split_layer=1, qw_front=4, tau=0.5)
     want, wst = SplitEngine(cfg, params, opsc, opts=opts, cache_len=32,
                             device="cpu").generate(prompts, 6)
-    before = (tq.tabq_quantize.launches, tsm.ts_mask.launches,
-              dm.dequant_matmul.launches)
+    before = (tq.tabq_adaptive.launches, tsm.ts_mask.launches,
+              dm.dequant_matmul.launches, tq.tabq_quantize.launches)
     got, gst = SplitEngine(cfg, params, opsc, opts=opts, cache_len=32,
                            device=cuda_device).generate(prompts, 6)
-    after = (tq.tabq_quantize.launches, tsm.ts_mask.launches,
-             dm.dequant_matmul.launches)
+    after = (tq.tabq_adaptive.launches, tsm.ts_mask.launches,
+             dm.dequant_matmul.launches, tq.tabq_quantize.launches)
     np.testing.assert_array_equal(got, want)
     assert gst.uplink_bits_measured == wst.uplink_bits_measured
-    assert after[0] - before[0] == 6 * 6  # six TAB-Q levels, six payloads
+    assert after[0] - before[0] == 6  # TAB-Q's walk: one launch a payload
     assert after[1] - before[1] == 6
     assert after[2] - before[2] == 7 * 6  # seven products, six edge calls
+    assert after[3] == before[3]  # no per-level launch
 
 
 # ------------------------------------------- K2 split over blocks, GEMV
@@ -792,3 +798,159 @@ def test_captured_calls_keep_their_tickets_when_an_eager_call_grows(
         torch.cuda.synchronize()
         for out, want in zip(outs, eager):
             assert torch.equal(out, want)
+
+
+# K1's check shapes (chip_smoke.py's): (B, K, G, hd, S, live slots, per-row
+# q_pos or None, a row whose slots are all empty)
+K1_SHAPES = {
+    "main": (4, 32, 1, 128, 1024, 1024, None, None),
+    "split_step": (1, 32, 1, 128, 1024, 160, None, None),
+    "serve_step": (2, 32, 1, 128, 1024, 192, None, None),
+    "long_cache": (4, 32, 1, 128, 4096, 200, None, None),
+    "tiny": (2, 2, 2, 32, 96, 50, None, None),
+    "g6": (2, 2, 6, 64, 600, 450, None, None),
+    "masked_row": (2, 2, 2, 32, 96, 96, [40, -1], None),
+    "mqa_48": (1, 1, 48, 128, 700, 700, None, None),
+    "hd256": (2, 4, 3, 256, 130, 100, None, None),
+    "empty_live_row": (2, 4, 1, 128, 512, 512, [300, 511], 0),
+}
+
+
+def _k1_case(device, name, qdtype, seed=21):
+    b, kh, g, hd, s, live, qp, empty = K1_SHAPES[name]
+    args = _inputs(device, b, kh, g, hd, s, seed)
+    args[0] = args[0].to(qdtype)
+    args[5] = torch.where(args[5] < live, args[5], -1).contiguous()
+    if empty is not None:
+        args[5][empty] = -1
+    q_pos = torch.tensor(live - 1 if qp is None else qp, dtype=torch.int32,
+                         device=device)
+    return args, q_pos
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(K1_SHAPES))
+def test_decode_attention_matches_plain_version_and_repeats(
+        cuda_device, qdtype, name):
+    """K1 within 1e-4 of the plain version (f32 math in another order; a
+    row with no valid slot the uniform average of v), each call repeated
+    bit for bit (the units merge in a fixed order; the tickets are back at
+    zero) and counted once."""
+    args, q_pos = _k1_case(cuda_device, name, getattr(torch, qdtype))
+    want = da.decode_attention_ref(*args, q_pos)
+    before = da.decode_attention.launches
+    got = da.decode_attention(*args, q_pos)
+    again = da.decode_attention(*args, q_pos)
+    assert da.decode_attention.launches == before + 2
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    assert torch.equal(got, again)
+
+
+def test_decode_attention_replays_from_a_cuda_graph(cuda_device):
+    """K1 at the serve step's shape (several units a row, tickets) and at
+    the main shape, captured in CUDA graphs: each replay equals the eager
+    call bit for bit, also after an eager call has outgrown the stream's
+    ticket buffer (40 rows x 32 kv-heads = 1,280 tickets) and with the two
+    graphs replayed side by side on two streams."""
+    calls = []
+    for name in ("serve_step", "main"):
+        args, q_pos = _k1_case(cuda_device, name, torch.bfloat16)
+        calls.append(lambda args=args, q_pos=q_pos:
+                     da.decode_attention(*args, q_pos))
+    eager = [fn() for fn in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, outs = [], []
+    for fn in calls:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(fn())
+        graphs.append(graph)
+    big = _inputs(cuda_device, b=40, kh=32, g=1, hd=32, s=300, seed=22)
+    q_pos = torch.tensor(299, dtype=torch.int32, device=cuda_device)
+    got = da.decode_attention(*big, q_pos)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        da.decode_attention_ref(*big, q_pos).cpu().numpy(), rtol=0,
+        atol=1e-4)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(3):
+        for graph, st in zip(graphs, streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, eager):
+            assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d", [(1, 4096), (7, 64), (96, 4096),
+                                 (128, 4096), (3, 100)])
+def test_tabq_adaptive_equals_plain_version_and_per_level_loop(
+        cuda_device, dtype, t, d):
+    """TAB-Q's walk in one launch is bit-identical to its plain version on
+    the card and to the per-level loop over K5's kernel (codes, sign,
+    scale, zero, bits) for every max_bits and Δ 0.05, 0.2 and 1.0, with a
+    token of zeros and one of equal magnitudes; one launch a call."""
+    rng = np.random.default_rng(t + d + 1)
+    x = _activations(rng, t, d, getattr(torch, dtype), outliers=t).to(
+        cuda_device)
+    x[0, :4] = 0.0
+    if t > 2:
+        x[1] = torch.where(x[1] < 0, -1.5, 1.5).to(x.dtype)
+        x[2] = 0.0
+    for max_bits in range(2, 9):
+        for delta in (0.05, 0.2, 1.0):
+            before = tq.tabq_adaptive.launches
+            got = ops.tabq_adaptive(x, max_bits, delta)
+            assert tq.tabq_adaptive.launches == before + 1
+            plain = tq.tabq_adaptive_ref(x, max_bits, delta)
+            loop = tq.tabq_adaptive_ref(x, max_bits, delta,
+                                        level=tq.tabq_quantize)
+            for name, g, p, lp in zip(("codes", "sign", "scale", "zero",
+                                       "bits"), got, plain, loop):
+                assert torch.equal(g, p), (name, max_bits, delta)
+                assert torch.equal(g, lp), (name, max_bits, delta)
+
+
+def test_tabq_adaptive_repeats_and_replays_from_a_cuda_graph(cuda_device):
+    """The walk at the decode payload's shape: two calls bit-identical,
+    and a replay of a captured call equal to the eager call."""
+    rng = np.random.default_rng(23)
+    x = _activations(rng, 1, 4096, torch.float32, outliers=3).to(
+        cuda_device)
+    eager = tq.tabq_adaptive(x, 8, 0.2)
+    assert all(torch.equal(a, b)
+               for a, b in zip(eager, tq.tabq_adaptive(x, 8, 0.2)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tq.tabq_adaptive(x, 8, 0.2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tq.tabq_adaptive(x, 8, 0.2)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+def test_tabq_adaptive_refuses_bad_card_input(cuda_device):
+    x = torch.zeros((2, 64), device=cuda_device)
+    before = tq.tabq_adaptive.launches
+    for bad, mb in ((x, 1), (x, 9), (x.double(), 8), (x.t(), 8),
+                    (x[None], 8),
+                    (torch.zeros((1, tq.MAX_ADAPTIVE_D + 1),
+                                 device=cuda_device), 8)):
+        with pytest.raises(ValueError):
+            tq.tabq_adaptive(bad, mb, 0.2)
+    assert tq.tabq_adaptive.launches == before

@@ -122,6 +122,28 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     assert (build.CSRC / "decode_attention.cu").is_file()
 
 
+@pytest.mark.parametrize("name", build.KERNELS)
+def test_shared_header_is_in_every_kernels_key(name, tmp_path, monkeypatch):
+    """A source that includes ``common.cuh`` is built with ``-I csrc``, and
+    an edit of the header changes every kernel's library name, so nothing
+    stale is loaded after it (no nvcc needed: only hashes and commands)."""
+    src = (build.CSRC / f"{name}.cu").read_text()
+    assert '#include "common.cuh"' in src or name == "ts_mask"
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    cmd = build.nvcc_command(tmp_path / "x.so", tmp_path / f"{name}.cu")
+    assert cmd[cmd.index("-I") + 1] == str(build.CSRC)
+    before = build.source_hash(name)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert build.source_hash(name) == before
+    (csrc / "common.cuh").write_text((csrc / "common.cuh").read_text()
+                                     + "\n// edited\n")
+    assert build.source_hash(name) != before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -1,11 +1,13 @@
 """The port's split-path kernel modules against the JAX package: the plain
-versions of K5 (``tabq_quantize``), K6 (``ts_mask``) and K7
-(``dequant_matmul``), which the port runs on the CPU and which the CUDA
-kernels are held against on the card, against the Pallas kernels in
-interpret mode and the reference oracles, on ``tests/test_kernels.py``'s
-grids plus a one-token payload, bf16-origin inputs with ties, and K tails
-that are no multiple of the TPU kernel's 512-row block; the wrappers'
-refusals of CPU tensors; the layers' quantized-weight product."""
+versions of K5 (``tabq_quantize``, and ``tabq_adaptive``: TAB-Q's whole
+level walk), K6 (``ts_mask``) and K7 (``dequant_matmul``), which the port
+runs on the CPU and which the CUDA kernels are held against on the card,
+against the Pallas kernels in interpret mode and the reference oracles, on
+``tests/test_kernels.py``'s grids plus a one-token payload, bf16-origin
+inputs with ties, and K tails that are no multiple of the TPU kernel's
+512-row block; ``tabq_adaptive``'s plain version against the reference's
+``tabq`` bit for bit at the payload shapes; the wrappers' refusals of CPU
+tensors; the layers' quantized-weight product."""
 
 import jax
 import jax.numpy as jnp
@@ -13,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.payload import encode as jax_encode
+from repro.core.tabq import tabq as jax_tabq
 from repro.kernels import ref as jref
 from repro.kernels.dequant_matmul import dequant_matmul as jax_dequant_matmul
 from repro.kernels.tabq_kernel import tabq_quantize as jax_tabq_quantize
 from repro.kernels.ts_mask import ts_mask as jax_ts_mask
+from repro_torch.core import payload as tpayload
 from repro_torch.core.quant import quantize_sym
 from repro_torch.kernels import dequant_matmul as dm
 from repro_torch.kernels import ops
@@ -92,6 +97,84 @@ def test_tabq_plain_edge_rows():
     _assert_tabq_equal(jax_tabq_quantize(jnp.asarray(x), 5, 3,
                                          interpret=True), got)
     assert float(got[1][1, 0]) == np.float32(1e-8)
+
+
+def _payload_tokens(t, d, seed):
+    """bf16-rounded activations of ``t`` tokens (ties in magnitude), token
+    r with ``r % 4`` outliers at 30x (so that the tokens take different
+    bit widths); token 0 of equal magnitudes (mixed signs) and token 1 of
+    zeros where T > 2, else exact zeros in token 0's first entries."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(t, d)).astype(np.float32) * 2.0
+    for r in range(t):
+        x[r, rng.choice(d, r % 4, replace=False)] *= 30.0
+    if t > 2:
+        x[0] = np.where(rng.random(d) < 0.5, -1.5, 1.5)
+        x[1] = 0.0
+        x[2, : d // 2] = 0.0
+    else:
+        x[0, :3] = 0.0
+    return np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("t", [1, 96, 128])
+@pytest.mark.parametrize("max_bits", [2, 3, 4, 5, 6, 7, 8])
+def test_tabq_adaptive_plain_equals_reference_tabq(t, max_bits):
+    """``tabq_adaptive_ref`` (the level walk the CUDA kernel is held to on
+    the card) equals the reference's ``tabq`` bit for bit at the payload
+    shapes (D 4096): codes, sign, scale, zero and the chosen bits, for Δ
+    0.05, 0.2 and 1.0, with a token of equal magnitudes and one of zeros.
+    Over many tokens the chosen widths differ."""
+    x = _payload_tokens(t, 4096, seed=t * 10 + max_bits)
+    chosen = set()
+    for delta in (0.05, 0.2, 1.0):
+        want = jax_tabq(jnp.asarray(x), max_bits=max_bits, delta=delta)
+        got = tq.tabq_adaptive_ref(_t(x), max_bits, delta)
+        for name, g in zip(("codes", "sign", "scale", "zero", "bits"), got):
+            np.testing.assert_array_equal(
+                g.numpy(), np.asarray(getattr(want, name)),
+                err_msg=f"{name} at delta {delta}")
+        # the CPU entry point is the plain version
+        assert all(torch.equal(a, b) for a, b in zip(
+            got, ops.tabq_adaptive(_t(x), max_bits, delta)))
+        chosen |= set(got[4].tolist())
+    if max_bits > 3 and t > 1:
+        assert len(chosen) > 1, chosen
+
+
+@pytest.mark.parametrize("rows", ["equal_magnitudes", "zeros"])
+def test_tabq_adaptive_plain_one_token_edge_rows(rows):
+    """A decode payload (T 1, D 4096) whose token has equal magnitudes
+    (the scale's 1e-8 floor: codes near 2^28, δ far above Δ, the top
+    width) or is all zeros (every level's codes 0: the lowest width):
+    bit-identical to the reference's ``tabq``."""
+    rng = np.random.default_rng(4)
+    x = np.where(rng.random((1, 4096)) < 0.5, -0.75, 0.75) \
+        if rows == "equal_magnitudes" else np.zeros((1, 4096))
+    x = x.astype(np.float32)
+    for delta in (0.05, 0.2, 1.0):
+        want = jax_tabq(jnp.asarray(x), max_bits=8, delta=delta)
+        got = tq.tabq_adaptive_ref(_t(x), 8, delta)
+        for name, g in zip(("codes", "sign", "scale", "zero", "bits"), got):
+            np.testing.assert_array_equal(g.numpy(),
+                                          np.asarray(getattr(want, name)),
+                                          err_msg=name)
+    assert int(got[4][0]) == (8 if rows == "equal_magnitudes" else 3)
+
+
+@pytest.mark.parametrize("t", [1, 96, 128])
+def test_encode_payload_bits_unchanged_by_the_one_launch_walk(t):
+    """The codec (TS, then TAB-Q through ``ops.tabq_adaptive``) at the
+    split path's OPSC defaults gives the reference's payload bits, field
+    for field, at a decode payload and the prefill payloads."""
+    x = _payload_tokens(t, 4096, seed=t) * 2.0
+    want = jax_encode(jnp.asarray(x), tau=5.0, delta=0.2, max_bits=8)
+    got = tpayload.encode(_t(x), tau=5.0, delta=0.2, max_bits=8)
+    for name in ("codes", "sign", "scale", "zero", "bits"):
+        np.testing.assert_array_equal(getattr(got.below, name).numpy(),
+                                      np.asarray(getattr(want.below, name)),
+                                      err_msg=name)
+    assert got.payload_bits() == int(want.payload_bits())
 
 
 # ------------------------------------------------------------------- K6
@@ -195,17 +278,19 @@ def test_quantized_weight_product_in_layers():
 
 def test_wrappers_refuse_cpu_tensors():
     x = torch.zeros((2, 64))
-    before = (tq.tabq_quantize.launches, tsm.ts_mask.launches,
-              dm.dequant_matmul.launches)
+    before = (tq.tabq_quantize.launches, tq.tabq_adaptive.launches,
+              tsm.ts_mask.launches, dm.dequant_matmul.launches)
     with pytest.raises(ValueError, match="CUDA"):
         tq.tabq_quantize(x, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tq.tabq_adaptive(x, 8, 0.2)
     with pytest.raises(ValueError, match="CUDA"):
         tsm.ts_mask(x, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         dm.dequant_matmul(x, torch.zeros((64, 8), dtype=torch.int8),
                           torch.ones(8))
-    assert (tq.tabq_quantize.launches, tsm.ts_mask.launches,
-            dm.dequant_matmul.launches) == before
+    assert (tq.tabq_quantize.launches, tq.tabq_adaptive.launches,
+            tsm.ts_mask.launches, dm.dequant_matmul.launches) == before
 
 
 @pytest.mark.parametrize("m,n,k,vec", [(1, 4096, 4096, 8), (1, 11008, 4096, 8),
