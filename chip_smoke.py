@@ -923,6 +923,7 @@ K7_DEVICE_NAMES = ("gemm_kernel", "gemv_kernel", "gemv16_kernel",
 GEMV_DEVICE_NAMES = ("gemv16_kernel", "gemv_kernel", "splitk_reduce_kernel")
 K1_DEVICE_NAMES = ("decode_split_kernel",)
 K5_DEVICE_NAMES = ("tabq_adaptive_kernel", "tabq_quantize_kernel")
+K6_DEVICE_NAMES = ("ts_encode_kernel",)
 K2_DEVICE_NAMES = ("paged_split_kernel", "paged_decode_attention_kernel")
 
 
@@ -936,15 +937,99 @@ def _activations(torch, gen, t, d, dtype, device, outliers=0):
     return x.to(torch.bfloat16).to(dtype)
 
 
+def _k6_cases(torch, gen, device, tsm, same_bits) -> dict:
+    """K6 (``ts_encode``) against its plain version, bit for bit and twice
+    in a row, where its selection has edges: no entry above τ; fewer and
+    exactly as many as the capacity; far more; ties at the C-th magnitude
+    in two tiles (the kept set ends inside the second); NaNs (each takes a
+    carrier slot as (-1, 0)); and captured calls replayed after an eager
+    call has outgrown the stream's state and workspace."""
+
+    def clipped(t, d):  # bf16-origin, |x| <= 4
+        return torch.randn((t, d), generator=gen, device=device).to(
+            torch.bfloat16).float().clamp(-4.0, 4.0)
+
+    def signs(m):
+        return torch.where(torch.rand(m, generator=gen, device=device) < 0.5,
+                           -1.0, 1.0)
+
+    def outliers(t, d, m):  # m entries of |x| in [6, 60)
+        x = clipped(t, d)
+        at = torch.randperm(t * d, generator=gen, device=device)[:m]
+        x.view(-1)[at] = (torch.rand(m, generator=gen, device=device) * 54
+                          + 6) * signs(m)
+        return x
+
+    ties = clipped(2, 4096)  # 20 sevens in each tile of 4096, six larger
+    at = torch.randperm(4096, generator=gen, device=device)
+    ties.view(-1)[torch.cat([at[:20], at[20:40] + 4096])] = 7.0 * signs(40)
+    ties.view(-1)[at[40:46]] = torch.tensor(
+        [9.0, -11.0, 9.0, 30.0, -9.0, 12.0], device=device)
+    nan = outliers(128, 4096, 600)
+    nan.view(-1)[torch.randperm(128 * 4096, generator=gen,
+                                device=device)[:3]] = float("nan")
+    cases = {  # name: (x, tau, capacity, the count it gives or None)
+        "count_0": (clipped(1, 4096) * 2, 1e3, 16, 0),
+        "count_below_C": (outliers(1, 4096, 5), 5.0, 16, 5),
+        "count_equals_C": (outliers(1, 4096, 16), 5.0, 16, 16),
+        "count_far_above_C": (clipped(128, 4096), 0.5, 512, None),
+        "ties_across_two_tiles": (ties, 5.0, 31, 46),
+        "nan": (nan, 5.0, 512, 600)}
+    res = {}
+    for name, (x, tau, cap, count) in cases.items():
+        want = tsm.ts_encode_ref(x, tau, cap)
+        res[name] = all([same_bits("ts_encode", tsm.ts_encode(x, tau, cap),
+                                   want) for _ in range(2)]) \
+            and (count is None or int(want[3]) == count)
+    # the kept sevens lie in both tiles; each NaN holds a slot as (-1, 0)
+    kept = tsm.ts_encode_ref(ties, 5.0, 31)[2]
+    res["ties_kept_in_both_tiles"] = bool((kept[6:] < 4096).sum() == 20
+                                          and (kept[6:] >= 4096).sum() == 5)
+    res["nan_slots"] = tsm.ts_encode_ref(nan, 5.0, 512)[2][:3].tolist() \
+        == [-1] * 3
+    # captured at the decode and a prefill payload, replayed after an eager
+    # call at 600 tokens with τ 0.5 (2 million candidates)
+    calls = [(x, 5.0, max(16, x.numel() // 1024)) for x in (
+        outliers(1, 4096, 30), outliers(128, 4096, 6000))]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in calls:
+            tsm.ts_encode(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, outs = [], []
+    for args in calls:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(tsm.ts_encode(*args))
+        graphs.append(graph)
+    big = clipped(600, 4096)
+    res["eager_outgrowing_the_stream"] = same_bits(
+        "ts_encode", tsm.ts_encode(big, 0.5, 2400),
+        tsm.ts_encode_ref(big, 0.5, 2400))
+    replay = True
+    for _ in range(2):
+        for graph in graphs:
+            graph.replay()
+        torch.cuda.synchronize()
+        replay = replay and all(same_bits("ts_encode", out,
+                                          tsm.ts_encode_ref(*args))
+                                for out, args in zip(outs, calls))
+    res["graph_replay_after_growth"] = replay
+    return res
+
+
 def _kernel_k5_k6(ctx) -> dict:
     """K5 at every bit width (``tabq_quantize``) and as TAB-Q's whole walk
-    (``tabq_adaptive``: every max_bits, ``K5_DELTAS``) and K6 (``ts_mask``)
-    against their plain versions, and the walk against the per-level loop
-    over K5's kernel: identical outputs at the payload shapes (T = 1
-    decode, 96 and 128 prefill) and edge shapes, f32 and bf16, with tokens
-    of zeros and of equal magnitudes; the codec through them with more
-    outliers than its carrier holds; and at the decode payload's shape,
-    their times (the walk beside the per-level loop it replaces)."""
+    (``tabq_adaptive``: every max_bits, ``K5_DELTAS``) and K6
+    (``ts_encode``: threshold splitting's whole encode, at the codec's
+    capacity) against their plain versions, and the walk against the
+    per-level loop over K5's kernel: identical outputs at the payload
+    shapes (T = 1 decode, 96 and 128 prefill) and edge shapes, f32 and
+    bf16, with tokens of zeros and of equal magnitudes; K6's edge cases
+    (``_k6_cases``); the codec through them with more outliers than its
+    carrier holds; and at the decode payload's shape, their times (the
+    walk beside the per-level loop it replaces; K6 also at 128 tokens)."""
     import torch
     from repro_torch.core.payload import encode
     from repro_torch.kernels import tabq_quantize as tq
@@ -954,13 +1039,23 @@ def _kernel_k5_k6(ctx) -> dict:
     gen = torch.Generator(device=device).manual_seed(5)
     checks, ok = [], True
     # max |kernel - plain|
-    err = {"tabq_quantize": 0.0, "tabq_adaptive": 0.0, "ts_mask": 0.0}
+    err = {"tabq_quantize": 0.0, "tabq_adaptive": 0.0, "ts_encode": 0.0}
 
     def same(name, got, want) -> bool:
         for a, b in zip(got, want):
             err[name] = max(err[name], float((a.float() - b.float()).abs()
                                              .max()))
         return all(torch.equal(a, b) for a, b in zip(got, want))
+
+    def same_bits(name, got, want) -> bool:
+        """``same`` bit for bit, where a NaN equals itself."""
+        got, want = list(got), list(want)
+        same(name, [a.nan_to_num() for a in got],
+             [b.nan_to_num() for b in want])
+        return all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.view(torch.int32) if a.dtype == torch.float32 else a,
+            b.view(torch.int32) if b.dtype == torch.float32 else b)
+            for a, b in zip(got, want))
 
     for t in K5_K6_CHECKS["t"]:
         for d in K5_K6_CHECKS["d"]:
@@ -985,8 +1080,10 @@ def _kernel_k5_k6(ctx) -> dict:
                                          x, mb, delta,
                                          level=tq.tabq_quantize)) and walk
                         widths |= set(got[4].tolist())
-                k6 = all([same("ts_mask", tsm.ts_mask(x, tau),
-                               tsm.ts_mask_ref(x, tau))
+                cap = max(16, t * d // 1024)  # the codec's default
+                k6 = all([same_bits("ts_encode",
+                                    tsm.ts_encode(x, tau, cap),
+                                    tsm.ts_encode_ref(x, tau, cap))
                           for tau in (0.5, 5.0, 1e3)])
                 checks.append({"shape": [t, d], "dtype": str(dtype)[6:],
                                "k5_identical_bits_1_to_8": k5,
@@ -994,6 +1091,8 @@ def _kernel_k5_k6(ctx) -> dict:
                                "k5_walk_widths": sorted(widths),
                                "k6_identical": k6})
                 ok = ok and k5 and walk and k6
+    k6_cases = _k6_cases(torch, gen, device, tsm, same_bits)
+    ok = ok and all(k6_cases.values())
     # the codec: K5 and K6 on the card, their plain versions on the CPU,
     # far more entries above tau than the carrier holds
     t, d = K5_K6_CODEC
@@ -1011,8 +1110,9 @@ def _kernel_k5_k6(ctx) -> dict:
     torch.cuda.synchronize()
     if not ok:
         emit({"phase": "kernels", "tabq_ts": checks, "max_abs_err": err,
-              "payload_identical": payload_ok, "overflow": overflow})
-        raise SystemExit("tabq_quantize, tabq_adaptive or ts_mask differs "
+              "k6_cases": k6_cases, "payload_identical": payload_ok,
+              "overflow": overflow})
+        raise SystemExit("tabq_quantize, tabq_adaptive or ts_encode differs "
                          "from its plain version")
 
     # time at the decode payload's shape: f32 input, the OPSC defaults (8
@@ -1035,8 +1135,23 @@ def _kernel_k5_k6(ctx) -> dict:
                for k, fn in walk.items()}
     walk_ms.update({f"{k}_host_included": v for k, v in ctx["timer"](
         walk, device_only=False).items()})
-    ms6 = ctx["timer"]({"kernel": lambda: tsm.ts_mask(x, 5.0),
-                        "plain": lambda: tsm.ts_mask_ref(x, 5.0)})
+    # K6 at the decode payload (T 1) and a 128-token prefill payload, τ 5
+    # and the codec's capacity; and with every entry a candidate (τ 0)
+    x128 = _activations(torch, gen, *K5_K6_CODEC, torch.float32, device)
+    k6_timed = {}
+    for name, xt, tau in (("t1", x, 5.0), ("t128", x128, 5.0),
+                          ("t128_tau0", x128, 0.0)):
+        cap = max(16, xt.numel() // 1024)
+        k6_timed[name] = ctx["timer"]({
+            "kernel": lambda: tsm.ts_encode(xt, tau, cap),
+            "plain": lambda: tsm.ts_encode_ref(xt, tau, cap)})
+        k6_timed[name].update(
+            shape=list(xt.shape), tau=tau, capacity=cap,
+            count=int(tsm.ts_encode(xt, tau, cap)[3]),
+            bytes=xt.numel() * (4 + 4) + cap * (4 + 8) + 4)
+        k6_timed[name]["bound_ms"] = k6_timed[name]["bytes"] / peak_rates(
+            ctx["device_name"])[0] * 1e3
+    ms6 = k6_timed["t1"]
     # the walk's levels on this input: the top one, each level kept, the
     # first one refused (if any), and the chosen one written again
     q_ref, chosen = 7, int(tq.tabq_adaptive(x, 8, 0.2)[4].max()) - 1
@@ -1048,8 +1163,8 @@ def _kernel_k5_k6(ctx) -> dict:
     for name, nbytes, ops_per, ms, src, stem in (
             ("tabq_adaptive", t * d * (4 + 2) + t * 12, 8 * levels, ms5,
              "tabq_kernel.py:59", "tabq_quantize"),
-            ("ts_mask", t * d * (4 + 4 + 1) + t * 4, 2, ms6,
-             "ts_mask.py:32", "ts_mask")):
+            ("ts_encode", ms6["bytes"], 2, ms6, "ts_mask.py:32",
+             "ts_mask")):
         bytes_ms, ops_ms = nbytes / bw * 1e3, t * d * ops_per / f32_peak * 1e3
         ctx["kernels"][name] = {
             "name": name, "route": "cuda",
@@ -1061,11 +1176,13 @@ def _kernel_k5_k6(ctx) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
         rows[name] = {"main_shape": [t, d], "bytes": nbytes,
-                      **{f"{k}_ms": v for k, v in ms.items()},
+                      **{f"{k}_ms": ms[k] for k in ("kernel", "plain")},
                       "bound_ms": max(bytes_ms, ops_ms)}
     rows["tabq_adaptive"].update(levels_walked=levels, max_bits=8, delta=0.2,
-                                 walk_and_loop_ms=walk_ms)
-    return {"checks": checks, "max_abs_err": err,
+                                 walk_and_loop_ms=walk_ms,
+                                 level_kernel_ms=ms5["level_kernel"])
+    rows["ts_encode"]["by_shape"] = k6_timed
+    return {"checks": checks, "max_abs_err": err, "k6_cases": k6_cases,
             "payload_identical": payload_ok,
             "overflow_count_capacity": overflow, "timed": rows,
             "library": "none: no one PyTorch call computes per-token AIQ "
@@ -1203,8 +1320,9 @@ def _graph_replay(ctx) -> dict:
     call), one K7 call at M 600, one K2 call at the serve shape and one by
     each route at the decode tick's (``K2_TICK``), one GEMV at w_up
     (``K7_MAIN``), K1 at the main shape and the serve step's
-    (``K1_STEPS``), and TAB-Q's walk (``tabq_adaptive``) at the decode
-    payload's shape captured in a ``torch.cuda.CUDAGraph`` and replayed:
+    (``K1_STEPS``), and TAB-Q's walk (``tabq_adaptive``) and K6
+    (``ts_encode``) at the decode payload's shape captured in a
+    ``torch.cuda.CUDAGraph`` and replayed:
     two eager calls must be bit-identical, and the replay must equal the
     eager result bit for bit (no host read-back, a grid from shapes alone,
     the tickets reset by the kernels)."""
@@ -1214,6 +1332,7 @@ def _graph_replay(ctx) -> dict:
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import tabq_quantize as tq
+    from repro_torch.kernels import ts_mask as tsm
     from repro_torch.kernels import varlen_attention as va
 
     device = ctx["device"]
@@ -1263,7 +1382,8 @@ def _graph_replay(ctx) -> dict:
     calls.update({
         "decode_attention": lambda: da.decode_attention(*k1_main),
         "decode_attention_serve_step": lambda: da.decode_attention(*k1_step),
-        "tabq_adaptive": lambda: tq.tabq_adaptive(xp, 8, 0.2)})
+        "tabq_adaptive": lambda: tq.tabq_adaptive(xp, 8, 0.2),
+        "ts_encode": lambda: tsm.ts_encode(xp, 5.0, 16)})
     res, repeat = {}, {}
 
     def equal(a, b) -> bool:  # a tensor or a tuple of them
@@ -1299,7 +1419,7 @@ def phase_kernels(ctx) -> None:
           "paged_decode_attention": _kernel_k2(ctx),
           "paged_prefill_attention": _kernel_k3(ctx),
           "varlen_attention": _kernel_k4(ctx),
-          "tabq_quantize_ts_mask": _kernel_k5_k6(ctx),
+          "tabq_ts_encode": _kernel_k5_k6(ctx),
           "dequant_matmul": _kernel_k7(ctx),
           "cuda_graph": _graph_replay(ctx)})
 
@@ -2449,7 +2569,7 @@ def phase_split(ctx) -> None:
 
     kernels = {"decode_attention": da.decode_attention,
                "tabq_quantize": tq.tabq_quantize,
-               "tabq_adaptive": tq.tabq_adaptive, "ts_mask": tsm.ts_mask,
+               "tabq_adaptive": tq.tabq_adaptive, "ts_encode": tsm.ts_encode,
                "dequant_matmul": dm.dequant_matmul}
     for fn in kernels.values():
         fn.launches = 0
@@ -2484,7 +2604,8 @@ def phase_split(ctx) -> None:
         # TAB-Q's walk: one launch a payload, no per-level launch
         "k5_launches": launches["tabq_adaptive"] == payloads_n
         and launches["tabq_quantize"] == 0,
-        "k6_launches": launches["ts_mask"] == payloads_n,
+        # threshold splitting's encode: one launch a payload
+        "k6_launches": launches["ts_encode"] == payloads_n,
         "k7_launches": launches["dequant_matmul"]
         == 7 * opsc.split_layer * payloads_n,
         # each prompt's edge prefill on the tensor cores (the route its
@@ -2605,6 +2726,9 @@ def phase_split(ctx) -> None:
         for k, fn in stages.items():
             device_ms[k], profiles[k] = _device_profile(torch, fn, 5)
         _, top = _device_profile(torch, stages["step"], 5)
+        # K6 does threshold splitting's selection: no sort on the card
+        checks["no_sort_in_payload"] = not any(
+            "sort" in row["kernel"].lower() for row in profiles["payload"])
         # and the edge's 128-token prefill (it rewrites the same cache
         # entries): its device time and how much of it is K7's
         prefill_ms, prefill_top = _device_profile(
@@ -2661,6 +2785,8 @@ def phase_split(ctx) -> None:
                                  profiles["cloud"], K1_DEVICE_NAMES),
                              "k5_in_payload": _kernel_share(
                                  profiles["payload"], K5_DEVICE_NAMES),
+                             "k6_in_payload": _kernel_share(
+                                 profiles["payload"], K6_DEVICE_NAMES),
                              "payload_profile": profiles["payload"],
                              "profile_top": top[:10]},
           "edge_prefill_128": {

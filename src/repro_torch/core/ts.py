@@ -8,12 +8,12 @@ TS partitions the split-layer activation T into
 
 The carrier of T_above is a fixed-capacity (values, indices, count)
 triple, as in the reference; the byte accounting uses the paper's CSR
-formula. The dense scan (mask, ``below``, outlier counts) is kernel K6
-(``kernels.ops.ts_mask``); the top-``capacity`` selection runs in plain
-PyTorch. When more than ``capacity`` entries exceed τ, only the
-``capacity`` largest stay in the carrier and the rest stay in ``below``,
-exactly as in the reference, with ties broken toward the lower index as
-``jax.lax.top_k`` breaks them.
+formula. The whole encode (``below``, the carrier's top-``capacity``
+selection and the outlier count) is kernel K6 (``kernels.ops.ts_encode``),
+one launch a payload. When more than ``capacity`` entries exceed τ, only
+the ``capacity`` largest stay in the carrier and the rest stay in
+``below``, exactly as in the reference, with ties broken toward the lower
+index as ``jax.lax.top_k`` breaks them.
 """
 
 from __future__ import annotations
@@ -54,25 +54,11 @@ def ts_encode(t: torch.Tensor, tau: float, capacity: int):
     """Threshold-split ``t`` (f32, any shape; the last axis is a row):
     returns (t_below f32, :class:`SparseAbove`). Keeps the ``capacity``
     largest-magnitude entries with |x| ≥ τ; on ties the lower flat index
-    comes first. Makes no host sync."""
-    d = t.shape[-1]
-    below, mask, counts = ops.ts_mask(t.reshape(-1, d), tau)
-    flat = t.reshape(-1)
-    mask = mask.reshape(-1).bool()
-    # a stable descending sort orders equal magnitudes by index, as
-    # jax.lax.top_k does (torch.topk does not), which decides both the
-    # carrier's order and, past capacity, which entries it keeps
-    top_mag, top_idx = torch.sort(flat.abs(), descending=True, stable=True)
-    top_mag, top_idx = top_mag[:capacity], top_idx[:capacity]
-    valid = top_mag >= torch.tensor(tau, dtype=top_mag.dtype,
-                                    device=top_mag.device)
-    idx = torch.where(valid, top_idx, -1)
-    vals = torch.where(valid, flat[top_idx], 0.0)
-    kept = torch.zeros_like(mask).scatter_(0, top_idx, valid)
-    # K6 zeroed every entry above τ; those past capacity go back
-    below = torch.where(mask & ~kept, flat, below.reshape(-1))
-    return below.reshape(t.shape), SparseAbove(
-        vals, idx, counts.sum().to(torch.int32), tuple(t.shape))
+    comes first. One launch of K6 on the card; makes no host sync."""
+    below, values, indices, count = ops.ts_encode(
+        t.reshape(-1, t.shape[-1]), tau, capacity)
+    return below.reshape(t.shape), SparseAbove(values, indices, count,
+                                               tuple(t.shape))
 
 
 def ts_decode(above: SparseAbove) -> torch.Tensor:

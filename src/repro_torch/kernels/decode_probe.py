@@ -1,9 +1,10 @@
-"""Probe what holds K7's decode GEMV, K2 and K1 back, on the card: variants
-of ``gemv16_kernel``, ``paged_split_kernel`` and ``decode_split_kernel``
-built from edited copies of their sources into ``build/`` and timed beside
-the kernels as they are, with the L2 flushed two ways.
+"""Probe what holds K7's decode GEMV, K2, K1 and K6 back, on the card:
+variants of ``gemv16_kernel``, ``paged_split_kernel``,
+``decode_split_kernel`` and ``ts_encode_kernel`` built from edited copies of
+their sources into ``build/`` and timed beside the kernels as they are,
+with the L2 flushed two ways.
 
-    python -m repro_torch.kernels.decode_probe [--only gemv,k2,k1]
+    python -m repro_torch.kernels.decode_probe [--only gemv,k2,k1,k6]
         [--k1-baseline OLD/decode_attention.cu]
 
 Needs a CUDA card and nvcc. Times are medians of 20 single calls timed in
@@ -65,6 +66,15 @@ and, with ``--k1-baseline``, an earlier K1 source with the whole-cache
 kernel's C entry (``decode_attention_launch`` with no workspace, as the
 port's first K1 had: one block a (row, kv-head, head group) streaming all
 S slots), e.g. the parent commit's, unpacked with ``git archive``.
+
+K6 (``ts_mask.ts_encode``) at a decode payload (T 1) and a 128-token one,
+D 4096, f32, τ 5, the codec's capacity: the wrapper, its plain version and
+an empty launch, timed; and ``stamps``, a copy that records ``clock64`` in
+the last block at the end of each step (the tile, its place in the
+workspace, the ticket, the candidates' copy with the first radix pass's
+histogram, the select's bin searches and later passes, S placed, the
+sort, the carrier), as cycles from the block's start, medians of 5 calls
+after a dirty flush; with the select's passes.
 
 Prints one JSON line per shape.
 """
@@ -441,7 +451,99 @@ def probe_k1(time_us, baseline: str | None = None) -> None:
               flush=True)
 
 
-PROBES = ("gemv", "k2", "k1")
+# K6's steps, as ``k6_variants``' stamps mark their ends
+K6_STEPS = ("tile", "place", "ticket", "copy", "select", "collect", "sort",
+            "carrier")
+
+
+def k6_variants(src: str) -> dict:
+    """``stamps``: K6 with ``clock64`` read by thread 0 at the end of each
+    of ``K6_STEPS``; the last block keeps them, and the select's passes,
+    for ``ts_stamps`` to read."""
+    marks = ("  const int incl = warp_scan(mine);",
+             "  int p = s_base + s_scan[warp] + incl - mine;",
+             "  if (!s_last) return;\n",
+             "  // S, the keys in play:",
+             "  // ---- 3. S placed",
+             "  // sort S a chunk",
+             "  // the top k of S at",
+             "  if (tid == 0) {\n    count[0] = n_cand - (int)nans;")
+    st = edit(src, "namespace {\n\n// the keys' type",
+              "__device__ long long g_st[12];\nnamespace {\n\n"
+              "// the keys' type")
+    st = edit(st, "  const int tid = threadIdx.x, lane = tid & 31, "
+                  "warp = tid >> 5;\n",
+              "  const int tid = threadIdx.x, lane = tid & 31, "
+              "warp = tid >> 5;\n  long long st[9] = {0};\n  int passes = 0;\n"
+              "  if (tid == 0) st[0] = clock64();\n")
+    for i, mark in enumerate(marks):
+        st = edit(st, mark, f"  if (tid == 0) st[{i + 1}] = clock64();\n"
+                  + mark)
+    st = edit(st, "    n_s = k - need + s_sel[pass & 1][2];",
+              "    passes = pass + 1;\n    n_s = k - need + s_sel[pass & 1][2];")
+    st = edit(st, "    count[0] = n_cand - (int)nans;",
+              "    for (int i = 0; i < 9; ++i) g_st[i] = st[i] - st[0];\n"
+              "    g_st[9] = passes;\n    count[0] = n_cand - (int)nans;")
+    return {"stamps": st + """
+extern "C" int ts_stamps(long long* out) {
+  cudaMemcpyFromSymbol(out, g_st, 10 * sizeof(long long));
+  return (int)cudaGetLastError();
+}
+"""}
+
+
+def probe_k6(time_us) -> None:
+    from repro_torch.kernels import ts_mask as tsm
+    from repro_torch.kernels.tickets import scratch
+
+    src = (build.CSRC / "ts_mask.cu").read_text()
+    lib = build_variants("decode_probe_k6", k6_variants(src))["stamps"]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ts_encode_launch.argtypes = [p, i, ctypes.c_float, ctypes.c_longlong,
+                                     i] + [p] * 7
+    lib.ts_encode_launch.restype = i
+    lib.ts_stamps.argtypes = [p]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dirty = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    for t in (1, 128):
+        x = (torch.randn((t, 4096), generator=gen, device="cuda") * 2).to(
+            torch.bfloat16).float()  # bf16-origin, as the split payload
+        cap = max(16, x.numel() // 1024)
+        n = x.numel()
+        outs = (torch.empty_like(x), torch.empty(cap, device="cuda"),
+                torch.empty(cap, dtype=torch.int64, device="cuda"),
+                torch.empty((), dtype=torch.int32, device="cuda"))
+        stream = torch.cuda.current_stream().cuda_stream
+        state, work = scratch(x.device, stream, tsm.STATE_WORDS,
+                              tsm.workspace_floats(n, cap))
+        runs = []
+        for _ in range(5):
+            dirty.zero_()
+            torch.cuda._sleep(20_000_000)
+            if lib.ts_encode_launch(x.data_ptr(), 0, 5.0, n, cap,
+                                    *[o.data_ptr() for o in outs],
+                                    state.data_ptr(), work.data_ptr(),
+                                    stream):
+                raise RuntimeError("the stamps variant failed to launch")
+            torch.cuda.synchronize()
+            out = (ctypes.c_longlong * 10)()
+            lib.ts_stamps(out)
+            runs.append(list(out))
+        med = [sorted(r[j] for r in runs)[2] for j in range(10)]
+        want = tsm.ts_encode_ref(x, 5.0, cap)
+        same = all(torch.equal(a, b) for a, b in zip(outs, want))
+        fns = {"kernel": lambda: tsm.ts_encode(x, 5.0, cap),
+               "plain": lambda: tsm.ts_encode_ref(x, 5.0, cap),
+               "empty_launch": lambda: torch.cuda._sleep(1)}
+        print(json.dumps({"k6": [t, 4096], "capacity": cap,
+                          "count": int(want[3]), "stamps_equal_plain": same,
+                          "passes": med[9],
+                          "cycles_at_end_of": dict(zip(K6_STEPS, med[1:9])),
+                          "us": {f: time_us(fns, flush=f)
+                                 for f in ("dirty", "clean")}}), flush=True)
+
+
+PROBES = ("gemv", "k2", "k1", "k6")
 
 
 def main(argv=None) -> int:
@@ -468,6 +570,8 @@ def main(argv=None) -> int:
                    torch.cuda.get_device_properties(0).multi_processor_count)
     if "k2" in only:
         probe_k2(time_us)
+    if "k6" in only:
+        probe_k6(time_us)
     if "k1" in only:
         probe_k1(time_us, args.k1_baseline)
     return 0

@@ -88,11 +88,12 @@ def tabq_adaptive(x, max_bits: int, delta: float):
     return fn(x, max_bits, delta)
 
 
-def ts_mask(x, tau: float):
-    """Threshold split of x (T, D) → (below, mask, per-row counts); see
-    :mod:`repro_torch.kernels.ts_mask`."""
-    fn = _ts.ts_mask_ref if x.device.type == "cpu" else _ts.ts_mask
-    return fn(x, tau)
+def ts_encode(x, tau: float, capacity: int):
+    """Threshold split of x (T, D) with a ``capacity``-slot carrier →
+    (below, values, indices, count); see :mod:`repro_torch.kernels.
+    ts_mask`."""
+    fn = _ts.ts_encode_ref if x.device.type == "cpu" else _ts.ts_encode
+    return fn(x, tau, capacity)
 
 
 def dequant_matmul(x, codes, scale):

@@ -1,6 +1,7 @@
 """Zeroed int32 tickets for the kernels whose last block of a group adds
-the group's partial results in a fixed order (K7's decode GEMV, K2, K1),
-and K1's f32 workspace for those partial results.
+the group's partial results in a fixed order (K7's decode GEMV, K2, K1) or
+finishes the call (K6), and the workspace for those partial results (K1's,
+and K6's candidates).
 
 A kernel takes a ticket per block with an atomic add; the block that takes
 a group's last one merges the group and sets its ticket back to zero. So a

@@ -465,7 +465,8 @@ def _activations(rng, t, d, dtype, outliers=0):
 @pytest.mark.parametrize("t,d", [(1, 4096), (7, 64), (128, 4096), (3, 100)])
 def test_tabq_and_ts_kernels_equal_plain_versions(cuda_device, dtype, t, d):
     """K5 at every bit width and K6 are bit-identical to their plain
-    versions: codes, scales, zeros, signs; below, mask and counts."""
+    versions: codes, scales, zeros, signs; below, the carrier and the
+    count, at the codec's default capacity; one K6 launch a call."""
     rng = np.random.default_rng(t + d)
     x = _activations(rng, t, d, getattr(torch, dtype), outliers=t).to(
         cuda_device)
@@ -477,11 +478,20 @@ def test_tabq_and_ts_kernels_equal_plain_versions(cuda_device, dtype, t, d):
         want = tq.tabq_quantize_ref(x, bits)
         for g, w in zip(got, want):
             assert torch.equal(g, w), bits
+    cap = max(16, t * d // 1024)
     for tau in (0.5, 5.0, 1e3):
-        got = ops.ts_mask(x, tau)
-        want = tsm.ts_mask_ref(x, tau)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w), tau
+        before = tsm.ts_encode.launches
+        got = ops.ts_encode(x, tau, cap)
+        assert tsm.ts_encode.launches == before + 1
+        assert _same_bits(got, tsm.ts_encode_ref(x, tau, cap)), tau
+
+
+def _same_bits(got, want) -> bool:
+    """Equal dtypes, shapes and bits (a NaN equals itself)."""
+    def bits(a):
+        return a.view(torch.int32) if a.dtype == torch.float32 else a
+    return all(g.dtype == w.dtype and g.shape == w.shape
+               and torch.equal(bits(g), bits(w)) for g, w in zip(got, want))
 
 
 def test_payload_on_card_equals_cpu(cuda_device):
@@ -545,13 +555,13 @@ def test_split_kernels_refuse_bad_card_input(cuda_device):
     x = torch.zeros((2, 64), device=cuda_device)
     codes = torch.zeros((64, 8), dtype=torch.int8, device=cuda_device)
     scale = torch.ones(8, device=cuda_device)
-    counts = (tq.tabq_quantize.launches, tsm.ts_mask.launches,
+    counts = (tq.tabq_quantize.launches, tsm.ts_encode.launches,
               dm.dequant_matmul.launches)
     for bad in (x.double(), x.t(), x[None]):
         with pytest.raises(ValueError):
             tq.tabq_quantize(bad, 4)
         with pytest.raises(ValueError):
-            tsm.ts_mask(bad, 1.0)
+            tsm.ts_encode(bad, 1.0, 16)
     with pytest.raises(ValueError):
         tq.tabq_quantize(x, 9)
     for args in ((x, codes.float(), scale), (x, codes[:32], scale),
@@ -559,7 +569,7 @@ def test_split_kernels_refuse_bad_card_input(cuda_device):
                                          scale), (x, codes, scale.cpu())):
         with pytest.raises(ValueError):
             dm.dequant_matmul(*args)
-    assert (tq.tabq_quantize.launches, tsm.ts_mask.launches,
+    assert (tq.tabq_quantize.launches, tsm.ts_encode.launches,
             dm.dequant_matmul.launches) == counts
 
 
@@ -574,11 +584,11 @@ def test_split_engine_on_card_matches_cpu(cuda_device):
     opsc = OPSCConfig(split_layer=1, qw_front=4, tau=0.5)
     want, wst = SplitEngine(cfg, params, opsc, opts=opts, cache_len=32,
                             device="cpu").generate(prompts, 6)
-    before = (tq.tabq_adaptive.launches, tsm.ts_mask.launches,
+    before = (tq.tabq_adaptive.launches, tsm.ts_encode.launches,
               dm.dequant_matmul.launches, tq.tabq_quantize.launches)
     got, gst = SplitEngine(cfg, params, opsc, opts=opts, cache_len=32,
                            device=cuda_device).generate(prompts, 6)
-    after = (tq.tabq_adaptive.launches, tsm.ts_mask.launches,
+    after = (tq.tabq_adaptive.launches, tsm.ts_encode.launches,
              dm.dequant_matmul.launches, tq.tabq_quantize.launches)
     np.testing.assert_array_equal(got, want)
     assert gst.uplink_bits_measured == wst.uplink_bits_measured
@@ -954,3 +964,128 @@ def test_tabq_adaptive_refuses_bad_card_input(cuda_device):
         with pytest.raises(ValueError):
             tq.tabq_adaptive(bad, mb, 0.2)
     assert tq.tabq_adaptive.launches == before
+
+
+# ------------------------------------------- K6: threshold split's encode
+
+
+def _bf16(a):
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _ts_input(name):
+    """(x (T, D) f32, tau, capacity): the grid of
+    ``tests/test_torch_ts_select.py``, bf16-origin as the split engine's
+    payload, built without JAX."""
+    rng = np.random.default_rng(len(name))
+
+    def clipped(shape):
+        return np.clip(_bf16(rng.normal(size=shape).astype(np.float32)),
+                       -4.0, 4.0)
+
+    def outliers(shape, m, nans=0):
+        x = clipped(shape)
+        flat = x.reshape(-1)
+        at = rng.choice(flat.size, m + nans, replace=False)
+        flat[at[:m]] = rng.uniform(6.0, 60.0, m) * rng.choice([-1, 1], m)
+        flat[at[m:]] = np.nan
+        return x
+
+    def ties(shape):  # 40 of |x| = 7 over every tile; the C-th is a 7
+        x = clipped(shape)
+        flat = x.reshape(-1)
+        at = rng.choice(flat.size, 46, replace=False)
+        flat[at[:40]] = 7.0 * rng.choice([-1, 1], 40)
+        flat[at[40:]] = [9.0, -11.0, 9.0, 30.0, -9.0, 12.0]
+        return x
+
+    normal = {"count_0": ((1, 4096), 1e3, 16), "count_far_above_C":
+              ((7, 100), 0.5, 16), "everything_above": ((7, 100), 0.0, 100),
+              "t1_payload": ((1, 4096), 5.0, 16),
+              "t128_payload": ((128, 4096), 5.0, 512),
+              "t600_overflow": ((600, 4096), 0.5, 2400)}
+    if name in normal:
+        shape, tau, cap = normal[name]
+        return _bf16((rng.normal(size=shape) * 2.0).astype(np.float32)), \
+            tau, cap
+    return {"count_below_C": lambda: (outliers((1, 4096), 5), 5.0, 16),
+            "count_equals_C": lambda: (outliers((1, 4096), 16), 5.0, 16),
+            "ties_across_tiles": lambda: (ties((3, 4096)), 5.0, 16),
+            "ragged_d": lambda: (clipped((7, 100)) * 1.5, 2.0, 16),
+            "t7_overflow": lambda: (outliers((7, 4096), 200), 5.0, 72),
+            "nan": lambda: (outliers((2, 1000), 30, nans=3), 5.0, 16)}[
+                name]()
+
+
+TS_CASES = ("count_0", "count_below_C", "count_equals_C",
+            "count_far_above_C", "ties_across_tiles", "everything_above",
+            "ragged_d", "t1_payload", "t7_overflow", "nan", "t128_payload",
+            "t600_overflow")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", TS_CASES)
+def test_ts_encode_kernel_equals_plain_version_and_repeats(cuda_device,
+                                                           name, dtype):
+    """K6 is bit-identical to ``ts_encode_ref`` on the card (below, values,
+    indices, count), twice in a row: its state is back at zero after a
+    call. One launch a call."""
+    x, tau, cap = _ts_input(name)
+    x = torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+    want = tsm.ts_encode_ref(x, tau, cap)
+    for _ in range(2):
+        before = tsm.ts_encode.launches
+        got = ops.ts_encode(x, tau, cap)
+        assert tsm.ts_encode.launches == before + 1
+        torch.cuda.synchronize()
+        assert _same_bits(got, want)
+
+
+def test_ts_encode_replays_from_a_cuda_graph(cuda_device):
+    """Captured K6 calls (a decode and a 128-token payload) replay equal to
+    their plain versions, also after an eager call has outgrown the
+    stream's state and workspace, and on two streams side by side."""
+    calls = []
+    for name in ("t1_payload", "t128_payload"):
+        x, tau, cap = _ts_input(name)
+        x = torch.from_numpy(x).to(cuda_device)
+        calls.append((lambda x=x, tau=tau, cap=cap: ops.ts_encode(x, tau,
+                                                                  cap),
+                      tsm.ts_encode_ref(x, tau, cap)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn, _ in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, outs = [], []
+    for fn, _ in calls:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(fn())
+        graphs.append(graph)
+    x, tau, cap = _ts_input("t600_overflow")
+    x = torch.from_numpy(x).to(cuda_device)
+    assert _same_bits(ops.ts_encode(x, tau, cap),
+                      tsm.ts_encode_ref(x, tau, cap))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(3):
+        for graph, st in zip(graphs, streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                graph.replay()
+        torch.cuda.synchronize()
+        for out, (_, want) in zip(outs, calls):
+            assert _same_bits(out, want)
+
+
+def test_ts_encode_refuses_bad_card_input(cuda_device):
+    """A CPU tensor, a wrong dtype, a non-contiguous or a non-2-D x, and a
+    negative capacity are refused without a launch."""
+    x = torch.zeros((2, 64), device=cuda_device)
+    before = tsm.ts_encode.launches
+    for bad, cap in ((x.cpu(), 16), (x.double(), 16), (x.half(), 16),
+                     (x.t(), 16), (x[None], 16), (x[0], 16), (x, -1)):
+        with pytest.raises(ValueError):
+            tsm.ts_encode(bad, 1.0, cap)
+    assert tsm.ts_encode.launches == before

@@ -295,6 +295,7 @@ def test_gemv_vec_needs_16_byte_rows_and_bases(n, codes_at, scale_at, want):
 @pytest.mark.parametrize("source,variants", [
     ("paged_decode_attention", "decode_probe.k2_variants"),
     ("decode_attention", "decode_probe.k1_variants"),
+    ("ts_mask", "decode_probe.k6_variants"),
     ("dequant_matmul", "decode_probe.gemv_variants"),
     ("dequant_matmul", "k7_probe._variants")])
 def test_probe_variants_still_edit_the_kernel_sources(source, variants):

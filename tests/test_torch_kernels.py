@@ -128,7 +128,7 @@ def test_shared_header_is_in_every_kernels_key(name, tmp_path, monkeypatch):
     an edit of the header changes every kernel's library name, so nothing
     stale is loaded after it (no nvcc needed: only hashes and commands)."""
     src = (build.CSRC / f"{name}.cu").read_text()
-    assert '#include "common.cuh"' in src or name == "ts_mask"
+    assert '#include "common.cuh"' in src
     monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
     cmd = build.nvcc_command(tmp_path / "x.so", tmp_path / f"{name}.cu")
     assert cmd[cmd.index("-I") + 1] == str(build.CSRC)

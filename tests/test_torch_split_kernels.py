@@ -1,6 +1,7 @@
 """The port's split-path kernel modules against the JAX package: the plain
 versions of K5 (``tabq_quantize``, and ``tabq_adaptive``: TAB-Q's whole
-level walk), K6 (``ts_mask``) and K7 (``dequant_matmul``), which the port
+level walk), K6 (``ts_mask_ref``, the dense pass ``ts_encode_ref`` starts
+from) and K7 (``dequant_matmul``), which the port
 runs on the CPU and which the CUDA kernels are held against on the card,
 against the Pallas kernels in interpret mode and the reference oracles, on
 ``tests/test_kernels.py``'s grids plus a one-token payload, bf16-origin
@@ -279,18 +280,18 @@ def test_quantized_weight_product_in_layers():
 def test_wrappers_refuse_cpu_tensors():
     x = torch.zeros((2, 64))
     before = (tq.tabq_quantize.launches, tq.tabq_adaptive.launches,
-              tsm.ts_mask.launches, dm.dequant_matmul.launches)
+              tsm.ts_encode.launches, dm.dequant_matmul.launches)
     with pytest.raises(ValueError, match="CUDA"):
         tq.tabq_quantize(x, 4)
     with pytest.raises(ValueError, match="CUDA"):
         tq.tabq_adaptive(x, 8, 0.2)
     with pytest.raises(ValueError, match="CUDA"):
-        tsm.ts_mask(x, 1.0)
+        tsm.ts_encode(x, 1.0, 16)
     with pytest.raises(ValueError, match="CUDA"):
         dm.dequant_matmul(x, torch.zeros((64, 8), dtype=torch.int8),
                           torch.ones(8))
     assert (tq.tabq_quantize.launches, tq.tabq_adaptive.launches,
-            tsm.ts_mask.launches, dm.dequant_matmul.launches) == before
+            tsm.ts_encode.launches, dm.dequant_matmul.launches) == before
 
 
 @pytest.mark.parametrize("m,n,k,vec", [(1, 4096, 4096, 8), (1, 11008, 4096, 8),
