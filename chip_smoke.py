@@ -48,7 +48,17 @@ Phases, each printing one JSON line:
            its payloads held to the plain versions'; a full-precision,
            uncompressed split held to the Engine bit for bit; a paged cloud
            with a shared prefix and the stateless I_kv = 0 cloud held to the
-           dense cloud; one decode step timed by stage.
+           dense cloud; one decode step timed by stage;
+  spec     speculative decoding: llama2-7b at full width through the paged
+           Scheduler (the paged phase's pool) at speculate_k 3 in chunked
+           and packed ticks, against the same requests at speculate_k 0
+           (streams, decode ticks, K2 at the verify call's 32 rows, the
+           pool drained), and one verify tick timed beside one decode
+           tick; the split phase's ℓ = 8 engine drafting on the
+           edge and verifying on the dense and the paged cloud against its
+           per-token loop (tokens, round trips, uplink bits); and the
+           induction vehicle, where drafts are accepted, through both: fewer
+           decode ticks and round trips than speculate_k 0, equal streams.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -69,7 +79,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed",
-          "split")
+          "split", "spec")
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -521,6 +531,106 @@ def _k2_tick_routes(ctx, rng) -> dict:
             "route_taken": pda.route(hd, page, nb), "max_abs_err": err,
             "ms": {k: v for k, v in ms.items() if k != "library"},
             "library_ms": ms["library"], "bound_ms": nbytes / bw * 1e3}
+
+
+# the spec phase's verify call as K2 sees it: 8 slots, each with its last
+# token and a 3-token draft burst (speculate_k 3) = 4 columns, 32 query
+# rows over the pool's 64-page table; each slot's 128-token prompt and the
+# burst written at positions 128 .. 131 (llama2-7b, page 16)
+K2_VERIFY = dict(slots=8, columns=4, kh=32, g=1, hd=128, page=16, nb=64,
+                 first=128)
+
+
+def _k2_verify_inputs(torch, rng, device):
+    """K2's operands at ``K2_VERIFY``: the pool, the slots' block table,
+    the verify rows' table (each slot's row repeated once a column), their
+    causal bounds (row (s, j) at ``first + j``) and bf16 q (R·S, K, G,
+    hd)."""
+    import numpy as np
+
+    v = K2_VERIFY
+    slots, cols = v["slots"], v["columns"]
+    pool = _paged_pool(torch, rng, v["kh"], v["hd"], v["page"], v["nb"],
+                       [v["first"] + cols] * slots, device)
+    rows_bt = pool[5].repeat_interleave(cols, dim=0)
+    q_pos = torch.tensor(np.tile(v["first"] + np.arange(cols), slots),
+                         dtype=torch.int32, device=device)
+    q = torch.from_numpy(rng.normal(size=(
+        slots * cols, v["kh"], v["g"], v["hd"])).astype(np.float32)).to(
+            device, torch.bfloat16)
+    return pool, rows_bt, q_pos, q
+
+
+def _k2_verify(ctx) -> dict:
+    """K2 at the speculative verify's shape (``K2_VERIFY``): within
+    ``ATOL`` of its plain version, and each column bit for bit the K2 call
+    of the sequential decode step it stands for (the same rows' table and
+    bounds, one column at a time). Then its time beside its bound (each
+    slot's live pages read ONCE, though K2 reads them once a column), the
+    plain version's, and SDPA's over each slot's K/V gathered and
+    dequantized to bf16 beforehand (one causal call over the columns)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_decode_attention as pda
+
+    device = ctx["device"]
+    v = K2_VERIFY
+    slots, cols, kh, g, hd = (v["slots"], v["columns"], v["kh"], v["g"],
+                              v["hd"])
+    pool, rows_bt, q_pos, q = _k2_verify_inputs(
+        torch, np.random.default_rng(23), device)
+    kc, ks, vc, vs, pool_pos, bt = pool
+    got = pda.paged_decode_attention(q, kc, ks, vc, vs, pool_pos, rows_bt,
+                                     q_pos)
+    want = pda.paged_decode_attention_ref(q, kc, ks, vc, vs, pool_pos,
+                                          rows_bt, q_pos)
+    per_column = []
+    for j in range(cols):  # the sequential decode step of column j
+        one = pda.paged_decode_attention(
+            q[j::cols].contiguous(), kc, ks, vc, vs, pool_pos, bt,
+            q_pos[j::cols].contiguous())
+        per_column.append(bool(torch.equal(one, got[j::cols])))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not (bool(torch.isfinite(got).all()) and err <= ATOL
+            and all(per_column)):
+        raise SystemExit(f"paged_decode_attention at the verify shape: err "
+                         f"{err}, columns equal to sequential calls "
+                         f"{per_column}")
+    # the library call is a yardstick only (the port never calls it)
+    kd = (pda.gather_pages(kc, bt).float()
+          * pda.gather_pages(ks, bt)[..., None]).to(torch.bfloat16)
+    vd = (pda.gather_pages(vc, bt).float()
+          * pda.gather_pages(vs, bt)[..., None]).to(torch.bfloat16)
+    kv_pos = pda.gather_pages(pool_pos, bt)  # (slots, nb·page)
+    sq = q.reshape(slots, cols, kh, hd).transpose(1, 2)  # (slots, K, S, hd)
+    spos = q_pos.reshape(slots, cols)
+    mask = ((kv_pos[:, None, :] >= 0)
+            & (kv_pos[:, None, :] <= spos[:, :, None]))[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = ctx["timer"]({
+        "kernel": lambda: pda.paged_decode_attention(
+            q, kc, ks, vc, vs, pool_pos, rows_bt, q_pos),
+        "plain": lambda: pda.paged_decode_attention_ref(
+            q, kc, ks, vc, vs, pool_pos, rows_bt, q_pos),
+        "library": lambda: sdpa(sq, kd, vd, attn_mask=mask)})
+    bw, f32_peak = peak_rates(ctx["device_name"])
+    page = v["page"]
+    pages = slots * -(-(v["first"] + cols) // page)  # live pages, once
+    r = slots * cols
+    nbytes = (q.numel() * 2 + pages * (kh * page * (2 * hd + 8) + page * 4)
+              + rows_bt.numel() * 4 + r * 4 + r * kh * g * hd * 4)
+    keys = slots * sum(v["first"] + j + 1 for j in range(cols))
+    flops = 4 * kh * g * hd * keys
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / f32_peak * 1e3
+    return {"shape": {**v, "rows": r}, "route": pda.route(hd, page, v["nb"]),
+            "grid": pda.grid(r, kh, g, hd, page, v["nb"]),
+            "max_abs_err": err, "atol": ATOL,
+            "columns_equal_sequential_calls": per_column,
+            "bytes": nbytes, "flops": flops, "kernel_ms": ms["kernel"],
+            "plain_ms": ms["plain"], "library_ms": ms["library"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def _prefill_inputs(torch, rng, r, s, kh, g, hd, page, nb, rows, dtype,
@@ -1317,8 +1427,9 @@ def _kernel_k7(ctx) -> dict:
 
 def _graph_replay(ctx) -> dict:
     """One bf16 K4 call at ``VARLEN_MAIN`` (its work list built inside the
-    call), one K7 call at M 600, one K2 call at the serve shape and one by
-    each route at the decode tick's (``K2_TICK``), one GEMV at w_up
+    call), one K7 call at M 600, one K2 call at the serve shape, one by
+    each route at the decode tick's (``K2_TICK``) and one at the verify's
+    (``K2_VERIFY``), one GEMV at w_up
     (``K7_MAIN``), K1 at the main shape and the serve step's
     (``K1_STEPS``), and TAB-Q's walk (``tabq_adaptive``) and K6
     (``ts_encode``) at the decode payload's shape captured in a
@@ -1362,6 +1473,8 @@ def _graph_replay(ctx) -> dict:
                             device=device)
     tick_q = torch.randn((r, kh, g, hd), generator=gen, device=device).to(
         torch.bfloat16)
+    ver_pool, ver_bt, ver_pos, ver_q = _k2_verify_inputs(
+        torch, np.random.default_rng(11), device)
     calls = {"varlen_attention": lambda: va.varlen_attention(
         *args[:9], start, *args[9:]),
         "dequant_matmul": lambda: dm.dequant_matmul(x, codes, scale),
@@ -1372,6 +1485,9 @@ def _graph_replay(ctx) -> dict:
             "split", tick_q, *tick_pool, tick_pos),
         "paged_decode_attention_tick_single_pass": lambda: pda.launch_route(
             "single_pass", tick_q, *tick_pool, tick_pos),
+        # the speculative verify's 32 rows (K2_VERIFY)
+        "paged_decode_attention_verify": lambda: pda.paged_decode_attention(
+            ver_q, *ver_pool[:5], ver_bt, ver_pos),
         "dequant_matmul_gemv": lambda: dm.dequant_matmul(x1, codes, scale)}
     k1_main = _decode_inputs(torch, 4, 32, 1, 128, 1024, 1024,
                              torch.bfloat16, gen, device)
@@ -1417,6 +1533,7 @@ def _graph_replay(ctx) -> dict:
 def phase_kernels(ctx) -> None:
     emit({"phase": "kernels", "decode_attention": _kernel_k1(ctx),
           "paged_decode_attention": _kernel_k2(ctx),
+          "paged_decode_attention_verify": _k2_verify(ctx),
           "paged_prefill_attention": _kernel_k3(ctx),
           "varlen_attention": _kernel_k4(ctx),
           "tabq_ts_encode": _kernel_k5_k6(ctx),
@@ -2800,6 +2917,363 @@ def phase_split(ctx) -> None:
         raise SystemExit(f"split: failed checks {checks}")
 
 
+# ------------------------------------------------------------- speculation
+
+SPEC_K = 3  # speculate_k: the verify call is (max_slots, 1 + SPEC_K)
+SPEC_REQUESTS = 6
+SPEC_MAX_TOKENS = 32
+SPEC_SPLIT_ROWS = 2  # edge devices of the split runs
+SPEC_SPLIT_LEN = 96
+SPEC_SPLIT_TOKENS = 16
+VEHICLE_SPLIT_LAYER = 2  # of the vehicle's 4 blocks
+
+
+def _spec_prompts(vocab, rng, n, lo, hi):
+    """``n`` prompts that each tile a random 3- to 16-token pattern to
+    ``lo`` .. ``hi`` tokens (the reference tests' repetitive prompts), so
+    prompt lookup finds earlier occurrences and proposes drafts."""
+    import numpy as np
+
+    out = []
+    for _ in range(n):
+        pat = rng.integers(0, vocab, (int(rng.integers(3, 17)),))
+        length = int(rng.integers(lo, hi + 1))
+        out.append(np.tile(pat, -(-length // pat.size))[:length])
+    return out
+
+
+def _first_flips(got, want, want_lg, tol) -> tuple:
+    """Per stream, the first index where ``got`` differs from ``want``, and
+    that step's top-1/top-2 margin in ``want_lg`` relative to its largest
+    logit. A flip is allowed only where the margin is within ``tol``.
+    Returns (all flips allowed, [{row, index, margin}])."""
+    import numpy as np
+
+    flips, ok = [], True
+    for r, (g, w) in enumerate(zip(got, want)):
+        n = min(len(g), len(w))
+        diff = np.nonzero(np.asarray(g[:n]) != np.asarray(w[:n]))[0]
+        if not diff.size:
+            continue
+        i = int(diff[0])
+        lg = np.asarray(want_lg[r][i], np.float64)
+        top2 = np.sort(lg)[-2:]
+        margin = float((top2[1] - top2[0]) / np.abs(lg).max())
+        flips.append({"row": r, "index": i, "margin": margin,
+                      "allowed": margin <= tol})
+        ok = ok and margin <= tol
+    return ok, flips
+
+
+def _spec_scheduler(ctx, cfg, params, opts, prompts, max_new, pool_kw,
+                    rel_tol) -> dict:
+    """``prompts`` through the paged Scheduler in chunked and then packed
+    ticks, each mode as three runs in turns: speculate_k 0 (warm-up; every
+    emitted token's logits kept), SPEC_K (the counters set to 0 just before
+    it and read just after), speculate_k 0 again (timed like the SPEC_K
+    run). Per mode: the spec counts, decode ticks against k = 0, the
+    streams against the k = 0 streams (a greedy flip allowed only where
+    its margin is within ``rel_tol``), the pages left in use, and K2 (and
+    in packed ticks K4) launches."""
+    import torch
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import varlen_attention as va
+    from repro_torch.serving.scheduler import Scheduler
+
+    kernels = {"paged_decode_attention": pda.paged_decode_attention,
+               "paged_prefill_attention": ppa.paged_prefill_attention,
+               "varlen_attention": va.varlen_attention}
+    out = {}
+    for mode in ("chunked", "packed"):
+        def serve(k, record=False):
+            sched = Scheduler(cfg, params, opts, tick_mode=mode,
+                              speculate_k=k, **pool_kw)
+            rec = _record_logits(sched) if record else None
+            rids = [sched.submit(p, max_new) for p in prompts]
+            if not record:
+                for fn in kernels.values():
+                    fn.launches = 0
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sched.run()
+            wall = time.perf_counter() - t0
+            launches = {n: fn.launches for n, fn in kernels.items()}
+            streams = [res[r][len(p):] for r, p in zip(rids, prompts)]
+            return streams, sched, wall, launches, rec and [
+                rec[r] for r in rids]
+
+        base, _, _, _, base_lg = serve(0, record=True)
+        spec, sched, spec_wall, launches, _ = serve(SPEC_K)
+        base2, sched0, base_wall, _, _ = serve(0)
+        st, st0 = sched.stats, sched0.stats
+        ok, flips = _first_flips(spec, base, base_lg, rel_tol)
+        layers = cfg.num_layers
+        verify = {sh for sh in sched._shapes if sh[0] == "verify"}
+        checks = {
+            "flips_within_margin": ok,
+            "k0_runs_equal": all((a == b).all() for a, b in zip(base, base2)),
+            "lengths": all(len(t) == max_new for t in spec),
+            "tokens_in_vocab": all(int(t.min()) >= 0
+                                   and int(t.max()) < cfg.vocab_size
+                                   for t in spec),
+            "pool_drained": sched.pool.pages_in_use == 0
+            and not sched.pool.refcount.any(),
+            "spec_rounds": st.spec_rounds > 0 and st.spec_drafted > 0,
+            "one_verify_shape": verify == {
+                ("verify", pool_kw["max_slots"], 1 + SPEC_K)},
+            # every decode tick is one verify call: K2 once a layer
+            "k2_launches": launches["paged_decode_attention"]
+            == layers * st.steps}
+        if mode == "packed":
+            checks["k4_launches"] = launches["varlen_attention"] \
+                == layers * st.packed_ticks
+        out[mode] = {
+            "spec_rounds": st.spec_rounds, "spec_drafted": st.spec_drafted,
+            "spec_accepted": st.spec_accepted,
+            "acceptance_rate": st.acceptance_rate,
+            "decode_ticks": st.steps, "decode_ticks_k0": st0.steps,
+            "ticks": sched._tick, "ticks_k0": sched0._tick,
+            "tokens_equal_k0": [bool((a == b).all())
+                                for a, b in zip(spec, base)],
+            "first_flips": flips, "flip_tol": rel_tol,
+            "pages_in_use_after": sched.pool.pages_in_use,
+            "launches": launches,
+            "k2_rows_a_launch": pool_kw["max_slots"] * (1 + SPEC_K),
+            "wall_s": spec_wall, "wall_s_k0": base_wall,
+            "checks": checks}
+    return out
+
+
+def _verify_tick_profile(ctx, cfg, params, opts, pool_kw, rng) -> dict:
+    """One verify tick (8 slots decoding after 128-token prompts that tile
+    a pattern, speculate_k SPEC_K) beside one plain decode tick of the same
+    slots, in turns: host-included time (CUDA events, L2 flushed), then
+    device-busy time and K2's share by ``torch.profiler``. Each verify tick
+    drafts, appends, verifies and rolls back, so the slots advance by their
+    accepted runs as it is timed."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.scheduler import Scheduler
+
+    prompts = _spec_prompts(cfg.vocab_size, rng, pool_kw["max_slots"], 128,
+                            128)
+    ticks = {}
+    for name, k in (("verify", SPEC_K), ("decode", 0)):
+        sched = Scheduler(cfg, params, opts, speculate_k=k, **pool_kw)
+        for p in prompts:
+            sched.submit(p, 400)
+        sched.step()  # every prompt in one chunk, first tokens sampled
+        ticks[name] = sched
+    before = {n: sum(len(st.generated) for st in t.slots)
+              for n, t in ticks.items()}
+    calls = dict.fromkeys(ticks, 0)
+
+    def counted(n):
+        def tick():
+            calls[n] += 1
+            ticks[n]._decode_tick()
+        return tick
+
+    ms = ctx["timer"]({n: counted(n) for n in ticks}, iters=20,
+                      device_only=False)
+    emitted = {n: (sum(len(st.generated) for st in t.slots) - before[n])
+               / calls[n] for n, t in ticks.items()}
+    out = {}
+    for n, t in ticks.items():
+        device_ms, top = _device_profile(torch, t._decode_tick, 5)
+        out[n] = {"host_included_ms": ms[n], "device_busy_ms": device_ms,
+                  "idle_share": 1 - device_ms / ms[n],
+                  "tokens_a_tick": emitted[n],
+                  "k2_in_tick": _kernel_share(top, K2_DEVICE_NAMES),
+                  "profile_top": top[:6]}
+        for rid in range(len(prompts)):
+            t.abort(rid)
+    return out
+
+
+def _spec_split(cfg, params, opts, opsc, prompts, n_new, device,
+                pool_pages) -> dict:
+    """``prompts`` (B, S) through a SplitEngine on the dense and on the
+    paged cloud, per token and at speculate_k SPEC_K (compressed): tokens,
+    round trips, uplink bits and spec counts of both, and the first token
+    where the streams differ with the per-token logits' margin there. The
+    counters are set to 0 just before each speculative run and read just
+    after: K5 and K6 once a payload (the prefill's and one a round), K2 on
+    the paged cloud once a layer and round."""
+    import numpy as np
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import tabq_quantize as tq
+    from repro_torch.kernels import ts_mask as tsm
+    from repro_torch.serving.split_engine import SplitEngine
+
+    kernels = {"paged_decode_attention": pda.paged_decode_attention,
+               "tabq_adaptive": tq.tabq_adaptive, "ts_encode": tsm.ts_encode}
+    res = {}
+    back = cfg.num_layers - opsc.split_layer
+    plen = prompts.shape[1]
+    for cloud, kw in (("dense", {}), ("paged", dict(
+            paged_cloud_kv=True, cloud_pool_pages=pool_pages,
+            cloud_page_size=16))):
+        eng = SplitEngine(cfg, params, opsc, opts=opts, cache_len=1024,
+                          device=device, **kw)
+        rec = _record_cloud_logits(eng)
+        t0, st0 = eng.generate(prompts, n_new)
+        del eng._cloud_back
+        base_lg = np.stack(rec, 1)  # (B, n_new, V): each token's logits
+        for fn in kernels.values():
+            fn.launches = 0
+        t1, st1 = eng.generate(prompts, n_new, speculate_k=SPEC_K)
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        _, flips = _first_flips(t1[:, plen:], t0[:, plen:], base_lg, 1.0)
+        checks = {
+            "tokens_in_vocab": bool((t1 >= 0).all()
+                                    and (t1 < cfg.vocab_size).all()),
+            "lengths": t1.shape == t0.shape,
+            "spec_rounds": st1.spec_rounds > 0,
+            "round_trips_at_most_per_token":
+                st1.uplink_round_trips <= st0.uplink_round_trips,
+            "payload_kernels_once_a_payload":
+                launches["tabq_adaptive"] == launches["ts_encode"]
+                == 1 + st1.spec_rounds}
+        if cloud == "paged":
+            checks["k2_launches"] = launches["paged_decode_attention"] \
+                == back * st1.spec_rounds
+        res[cloud] = {
+            "tokens_equal_per_token": bool(np.array_equal(t1, t0)),
+            "first_flips": [{k: v for k, v in f.items() if k != "allowed"}
+                            for f in flips],
+            "uplink_round_trips": [st1.uplink_round_trips,
+                                   st0.uplink_round_trips],
+            "uplink_bits_measured": [st1.uplink_bits_measured,
+                                     st0.uplink_bits_measured],
+            "uplink_bits_eq3": [st1.uplink_bits_eq3, st0.uplink_bits_eq3],
+            "spec_rounds": st1.spec_rounds, "spec_drafted": st1.spec_drafted,
+            "spec_accepted": st1.spec_accepted,
+            "acceptance_rate": st1.acceptance_rate,
+            "launches": launches, "checks": checks}
+        del eng
+    return res
+
+
+def _spec_vehicle(ctx) -> dict:
+    """The vehicle phase's induction model (trained on a copy task, so
+    prompt lookup and the edge's draft head propose the copy) through the
+    same scheduler and split runs: with speculation, fewer decode ticks and
+    fewer uplink round trips than speculate_k 0, and equal streams."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.opsc import OPSCConfig
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.params import load_npz_checkpoint
+    from repro_torch.serving.scheduler import Scheduler
+    from repro_torch.serving.split_engine import SplitEngine
+
+    device = ctx["device"]
+    cfg = dataclasses.replace(get_config("llama2-7b-tiny"), vocab_size=64,
+                              num_blocks=4)
+    opts = RuntimeOpts(q_chunk=64, kv_chunk=64, quantized_kv=True)
+    params = load_npz_checkpoint(
+        os.path.join(ROOT, "experiments", "vehicles", "induction"))
+    half, vocab = 16, 64
+    rng = np.random.default_rng(0)  # the vehicle phase's prompts
+    prefix = rng.integers(0, vocab - 1, (16, half))
+    prompts = np.concatenate([prefix, np.full((16, 1), vocab - 1)], axis=1)
+    out, checks = {}, {}
+    for mode in ("chunked", "packed"):
+        runs = {}
+        for k in (0, SPEC_K):
+            sched = Scheduler(cfg, params, opts, num_pages=64, page_size=16,
+                              max_slots=8, tick_mode=mode, speculate_k=k,
+                              device=device)
+            rids = [sched.submit(p, half) for p in prompts[:SPEC_REQUESTS]]
+            res = sched.run()
+            runs[k] = ([res[r] for r in rids], sched)
+        (base, s0), (spec, s3) = runs[0], runs[SPEC_K]
+        equal = all(np.array_equal(a, b) for a, b in zip(spec, base))
+        copy = float(np.mean([np.mean(o[half + 1:] == p) for o, p in
+                              zip(spec, prefix)]))
+        checks[f"{mode}_equal_streams"] = equal
+        checks[f"{mode}_fewer_decode_ticks"] = s3.stats.steps < s0.stats.steps
+        checks[f"{mode}_pool_drained"] = s3.pool.pages_in_use == 0
+        out[mode] = {"decode_ticks": [s3.stats.steps, s0.stats.steps],
+                     "spec_rounds": s3.stats.spec_rounds,
+                     "spec_drafted": s3.stats.spec_drafted,
+                     "spec_accepted": s3.stats.spec_accepted,
+                     "copy_accuracy": copy}
+    opsc = OPSCConfig(split_layer=VEHICLE_SPLIT_LAYER)
+    for cloud, kw in (("dense", {}), ("paged", dict(
+            paged_cloud_kv=True, cloud_pool_pages=16, cloud_page_size=16))):
+        eng = SplitEngine(cfg, params, opsc, opts=opts, cache_len=64,
+                          device=device, **kw)
+        t0, st0 = eng.generate(prompts[:SPEC_SPLIT_ROWS], half)
+        t1, st1 = eng.generate(prompts[:SPEC_SPLIT_ROWS], half,
+                               speculate_k=SPEC_K)
+        checks[f"split_{cloud}_equal_streams"] = bool(np.array_equal(t1, t0))
+        checks[f"split_{cloud}_fewer_round_trips"] = \
+            st1.uplink_round_trips < st0.uplink_round_trips
+        out[f"split_{cloud}"] = {
+            "uplink_round_trips": [st1.uplink_round_trips,
+                                   st0.uplink_round_trips],
+            "uplink_bits_measured": [st1.uplink_bits_measured,
+                                     st0.uplink_bits_measured],
+            "spec_rounds": st1.spec_rounds, "spec_drafted": st1.spec_drafted,
+            "spec_accepted": st1.spec_accepted}
+    return {"split_layer": VEHICLE_SPLIT_LAYER, **out, "checks": checks}
+
+
+def phase_spec(ctx) -> None:
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.opsc import OPSCConfig
+    from repro_torch.models.transformer import RuntimeOpts
+
+    device = ctx["device"]
+    vehicle = _spec_vehicle(ctx)
+    cfg = get_config("llama2-7b")  # full width and depth
+    opts = RuntimeOpts(quantized_kv=True)
+    params, _ = _llama7b_params(ctx)
+    rng = np.random.default_rng(21)
+    prompts = _spec_prompts(cfg.vocab_size, rng, SPEC_REQUESTS, 100, 300)
+    pool_kw = dict(num_pages=513, page_size=16, max_slots=8,
+                   max_seq_len=1024, device=device)
+    sched = _spec_scheduler(ctx, cfg, params, opts, prompts, SPEC_MAX_TOKENS,
+                            pool_kw, PAGED_REL)
+    gc.collect()
+    tick = _verify_tick_profile(ctx, cfg, params, opts, pool_kw, rng)
+    gc.collect()
+    split_prompts = np.stack(_spec_prompts(
+        cfg.vocab_size, rng, SPEC_SPLIT_ROWS, SPEC_SPLIT_LEN,
+        SPEC_SPLIT_LEN))
+    split = _spec_split(cfg, params, opts, OPSCConfig(
+        split_layer=SPLIT_LAYER, qw_front=4), split_prompts,
+        SPEC_SPLIT_TOKENS, device, pool_pages=32)
+    gc.collect()
+    torch.cuda.synchronize()
+    checks = {f"vehicle_{k}": v for k, v in vehicle["checks"].items()}
+    for name, part in (("scheduler", sched), ("split", split)):
+        for sub, row in part.items():
+            checks.update({f"{name}_{sub}_{k}": v
+                           for k, v in row["checks"].items()})
+    emit({"phase": "spec", "config": cfg.name, "speculate_k": SPEC_K,
+          "prompt_lens": [len(p) for p in prompts],
+          "max_tokens": SPEC_MAX_TOKENS,
+          "pool": {k: v for k, v in pool_kw.items() if k != "device"},
+          "scheduler": sched, "verify_tick_b8": tick,
+          "split": {"split_layer": SPLIT_LAYER, "rows": SPEC_SPLIT_ROWS,
+                    "prompt_len": SPEC_SPLIT_LEN,
+                    "max_tokens": SPEC_SPLIT_TOKENS, **split},
+          "vehicle": vehicle, "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise SystemExit(f"spec: failed checks "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -2832,7 +3306,8 @@ def main(argv=None) -> int:
     runners = {"env": phase_env, "kernels": phase_kernels,
                "model": phase_model, "vehicle": phase_vehicle,
                "serve": phase_serve, "paged": phase_paged,
-               "packed": phase_packed, "split": phase_split}
+               "packed": phase_packed, "split": phase_split,
+               "spec": phase_spec}
     for name in PHASES:
         if name in phases:
             runners[name](ctx)

@@ -6,7 +6,7 @@ per-token adaptive bits plus a per-token scale, zero and bit-width
 sideband. ``entropy_bound_bits`` gives the Shannon bound of an rANS pass
 over the codes (the analytical stand-in for the paper's DietGPU stage).
 The straight-through ``encode_decode_ste`` belongs to training and is not
-ported yet (ROADMAP queue 1, item 11).
+ported yet (ROADMAP queue 1, item 11, training and data).
 """
 
 from __future__ import annotations

@@ -10,9 +10,9 @@ bit-identical to the JAX package's on the same input. A divisor is always
 a tensor: PyTorch's CUDA division by a Python scalar multiplies by its
 reciprocal, which rounds differently.
 
-Not ported yet (ROADMAP queue 1, item 8): the group-wise quantizer, int4
-packing and the Table 3 baselines (SmoothQuant-, OmniQuant- and
-Atom-lite).
+Not ported yet (ROADMAP queue 1, item 10, what the split path left out):
+the group-wise quantizer, int4 packing and the Table 3 baselines
+(SmoothQuant-, OmniQuant- and Atom-lite).
 """
 
 from __future__ import annotations

@@ -14,6 +14,9 @@ generation index) only:
     draw;
   * the greedy lane is exact: rows with ``temperature <= 0`` or
     ``top_k == 1`` take ``argmax``.
+
+:func:`speculative_verify` is the sampler half of speculative decoding:
+it accepts a draft burst against one multi-token verify call's logits.
 """
 
 from __future__ import annotations
@@ -40,9 +43,10 @@ class SamplingParams:
     ``logit_bias`` maps token ids to additive biases applied before the
     argmax and the filters; reported logprobs stay raw.
     ``prefix_key``/``prefix_len`` and ``latency_hint`` are read by the
-    paged scheduler; ``priority`` orders its preemption and
-    ``speculate_k`` its speculation, neither ported yet. The fused backend
-    ignores all five, as the reference's does."""
+    paged scheduler; ``priority`` orders its preemption; ``speculate_k``
+    (0 disables) caps the request's draft burst on the paged and split
+    backends. The fused backend ignores all five, as the reference's
+    does."""
 
     max_tokens: int = 16
     temperature: float = 0.0
@@ -191,13 +195,25 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def uniform_noise(seeds: torch.Tensor, t: torch.Tensor, vocab: int):
+def uniform_noise(seeds: torch.Tensor, t: torch.Tensor, vocab: int,
+                  tag: int = 0):
     """Counter-based uniform noise in (0, 1), (R, V) f32: entry (r, i) is a
-    hash of (seeds[r], t[r], i) alone."""
+    hash of (seeds[r], t[r], i) alone. A nonzero ``tag`` hashes in a
+    further constant, giving a stream of its own at the same (seed, t);
+    tag 0 is the token draw's stream."""
     row = _mix32(_mix32(seeds & _M32) ^ (t.to(torch.int64) & _M32))
+    if tag:
+        row = _mix32(row ^ (tag & _M32))
     ids = torch.arange(vocab, dtype=torch.int64, device=seeds.device)
     h = _mix32(_mix32(row[:, None] ^ ids[None, :]))
     return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def _gumbel_argmax(masked, seeds, t, tag: int = 0):
+    """Gumbel-max over ``masked`` (N, V) with :func:`uniform_noise` of
+    (seeds, t, tag): the draw :func:`sample_tokens` makes at tag 0."""
+    u = uniform_noise(seeds, t, masked.shape[-1], tag)
+    return torch.argmax(masked - torch.log(-torch.log(u)), dim=-1)
 
 
 def sample_tokens(logits, seeds, t, temperature, top_k, top_p, bias=None):
@@ -212,8 +228,7 @@ def sample_tokens(logits, seeds, t, temperature, top_k, top_p, bias=None):
     greedy_tok = torch.argmax(logits, dim=-1)
     use_greedy = (temperature <= 0.0) | (top_k == 1)
     masked = filtered_logits(logits, temperature, top_k, top_p)
-    u = uniform_noise(seeds, torch.clamp(t, min=0), logits.shape[-1])
-    sampled = torch.argmax(masked - torch.log(-torch.log(u)), dim=-1)
+    sampled = _gumbel_argmax(masked, seeds, torch.clamp(t, min=0))
     return torch.where(use_greedy, greedy_tok, sampled)
 
 
@@ -232,3 +247,87 @@ def sample_tokens_with_logprobs(logits, seeds, t, temperature, top_k, top_p,
     ((R,) int64 tokens, (R,) f32 logprobs)."""
     toks = sample_tokens(logits, seeds, t, temperature, top_k, top_p, bias)
     return toks, token_logprobs(logits, toks)
+
+
+# the speculative accept and residual draws' stream tags (uniform_noise):
+# the token draw at generation index t has tag 0, so the three streams at
+# one (seed, t) never coincide; reusing the token stream for acceptance
+# would tie "was the draft accepted" to "which token would be drawn"
+_ACCEPT_TAG = 0x5EC00001
+_RESIDUAL_TAG = 0x5EC00002
+
+
+def _leading(accept: torch.Tensor) -> torch.Tensor:
+    """Per row, how many leading entries of ``accept`` (R, K) are True."""
+    return torch.cumprod(accept.long(), dim=-1).sum(dim=-1)
+
+
+def speculative_verify(draft, draft_len, logits, seeds, t0, temperature,
+                       top_k, top_p, bias=None):
+    """Accept a draft burst per row against one multi-token verify call.
+
+    ``draft`` (R, K) int, each row's proposed tokens (anything past
+    ``draft_len``); ``draft_len`` (R,) int in [0, K]; ``logits``
+    (R, K + 1, V): column j is the target distribution of generation index
+    ``t0 + j`` given the drafts before j; ``seeds``, ``temperature``,
+    ``top_k``, ``top_p`` as :func:`sample_tokens` takes them; ``t0`` (R,)
+    the generation index of the round's first token; ``bias`` optional
+    (R, V), added at every column before everything.
+
+    Greedy rows (``temperature <= 0`` or ``top_k == 1``) accept draft j
+    iff it equals column j's argmax and emit the argmaxes: the stream of
+    non-speculative greedy decoding, whatever was drafted. Other rows take
+    rejection sampling against the point-mass draft: draft j is accepted
+    with its probability under :func:`filtered_logits` (the distribution
+    :func:`sample_tokens` draws from), the first rejection draws from the
+    rest of that distribution, and after a fully accepted burst the bonus
+    token at column ``draft_len`` is drawn with the very bits
+    :func:`sample_tokens` uses at that generation index, so a round with
+    ``draft_len == 0`` is exactly a non-speculative draw. The accept and
+    residual draws hash in their own tags. Plain torch on the logits'
+    device, no host sync.
+
+    Returns (out (R, K + 1) int64, n_out (R,) int64, logprobs (R, K + 1)
+    f32): row r emits ``out[r, :n_out[r]]`` (1 <= n_out <= draft_len + 1),
+    and ``logprobs`` are :func:`token_logprobs` under the raw verify
+    logits (bias left out)."""
+    raw = logits.float()
+    lg = raw if bias is None else raw + bias[:, None, :]
+    r, k1, v = lg.shape
+    kd = k1 - 1
+    dev = lg.device
+    draft = draft.long().reshape(r, kd)
+    draft_len = draft_len.long()
+    t0 = torch.clamp(t0.long(), min=0)
+    tgt = torch.argmax(lg, dim=-1)  # (R, K + 1)
+    in_draft = torch.arange(kd, device=dev)[None, :] < draft_len[:, None]
+    use_greedy = (temperature <= 0.0) | (top_k == 1)
+    g_m = _leading((draft == tgt[:, :kd]) & in_draft)
+
+    # non-greedy lanes: every column's filtered distribution, its fresh
+    # draw at t0 + j (sample_tokens' bits), the accept and residual draws
+    rep = lambda x: x.repeat_interleave(k1)  # noqa: E731
+    tj = t0[:, None] + torch.arange(k1, device=dev)[None, :]  # (R, K + 1)
+    masked = filtered_logits(lg.reshape(r * k1, v), rep(temperature),
+                             rep(top_k), rep(top_p))
+    fresh = _gumbel_argmax(masked, rep(seeds), tj.reshape(-1)).reshape(r, k1)
+    masked = masked.reshape(r, k1, v)[:, :kd]  # the drafted columns
+    ds = seeds.repeat_interleave(kd)
+    dt = tj[:, :kd].reshape(-1)
+    p_draft = torch.gather(torch.softmax(masked, dim=-1), -1,
+                           draft[..., None])[..., 0]  # (R, K)
+    u = uniform_noise(ds, dt, 1, _ACCEPT_TAG).reshape(r, kd)
+    m = _leading((u < p_draft) & in_draft)
+    # the residual at a rejection: the target without the drafted token
+    no_draft = masked.scatter(-1, draft[..., None], NEG_INF)
+    resid = _gumbel_argmax(no_draft.reshape(r * kd, v), ds, dt,
+                           _RESIDUAL_TAG).reshape(r, kd)
+    jj = torch.arange(k1, device=dev)[None, :]
+    pad = torch.zeros((r, 1), dtype=torch.long, device=dev)
+    rejected = (jj == m[:, None]) & (m < draft_len)[:, None]
+    ng_out = torch.where(jj < m[:, None], torch.cat([draft, pad], 1),
+                         torch.where(rejected, torch.cat([resid, pad], 1),
+                                     fresh))
+    out = torch.where(use_greedy[:, None], tgt, ng_out)
+    n_out = torch.where(use_greedy, g_m, m) + 1
+    return out, n_out, token_logprobs(raw, out)

@@ -329,22 +329,29 @@ def paged_prefill_attention(q, cache: PagedKVCache, k_fresh, v_fresh,
 
 
 def paged_decode_attention_layer(q, cache: PagedKVCache, q_positions):
-    """Decode-time attention through the paged pool: a single-token query
-    per row walks its block-table pages (``kernels.ops.
-    paged_decode_attention``). ``q_positions`` (R, 1) holds each row's
-    causal bound (-1 = a free slot, which gives zeros). A multi-token
-    decode is the speculative verify, not ported yet."""
+    """Decode-time attention through the paged pool, ``cache`` being the
+    post-update pool: every key, the call's own included, is read back
+    from the pool's int8 codes (``kernels.ops.paged_decode_attention``,
+    kernel K2 on the card, its plain version on the CPU).
+
+    ``q`` (R, S, H, hd) and ``q_positions`` (R, S): each (row, column) is
+    one K2 query row with causal bound ``q_positions[r, j]`` over row r's
+    block-table row. With S = 1 that is the decode step; with S > 1 it is
+    the speculative verify, whose column j reads exactly what the j-th of
+    S sequential decode steps reads (the burst was written first, and
+    quantization is per token). A bound of -1 (a free slot, a left pad)
+    gives zeros. The reference gathers the pool dense for S > 1 and runs
+    ``chunked_attention``; K2 reads each row's pages once per column."""
     b, s, h, hd = q.shape
-    if s != 1:
-        raise NotImplementedError("a paged decode of several tokens is the "
-                                  "speculative verify, not ported yet "
-                                  "(ROADMAP queue 1, item 6.3)")
     kh = cache.k.shape[1]
+    bt = cache.block_table
+    if s > 1:
+        bt = bt.repeat_interleave(s, dim=0)
     out = ops.paged_decode_attention(
-        q[:, 0].reshape(b, kh, h // kh, hd), cache.k, cache.k_scale, cache.v,
-        cache.v_scale, cache.pos, cache.block_table,
-        q_positions[:, -1].contiguous())
-    return out.reshape(b, 1, h, hd).to(q.dtype)
+        q.reshape(b * s, kh, h // kh, hd).contiguous(), cache.k,
+        cache.k_scale, cache.v, cache.v_scale, cache.pos, bt,
+        q_positions.reshape(-1).to(torch.int32).contiguous())
+    return out.reshape(b, s, h, hd).to(q.dtype)
 
 
 class PackedLayout(NamedTuple):
@@ -421,8 +428,10 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
                     packed: PackedLayout | None = None):
     """One attention layer (the reference's dense and paged branches).
     During prefill the cache is written and attention runs over the fresh
-    k/v; with ``decode=True`` attention reads the cache. A paged cache is
-    written at the per-token ``q_positions``; with ``attend_cache=True`` a
+    k/v; with ``decode=True`` attention reads the cache (for S > 1, the
+    speculative verify, every column reads it back, the call's own keys
+    included). A paged cache is written at the per-token ``q_positions``;
+    with ``attend_cache=True`` a
     paged prefill also attends the pool's history
     (:func:`paged_prefill_attention`); with a ``packed`` layout the call
     is one flat token-packed batch (B = 1), written through the
@@ -441,7 +450,8 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
     if spec.sliding_window is not None or spec.attn_softcap is not None \
             or spec.qk_norm:
         raise NotImplementedError("sliding windows, softcap and qk_norm are "
-                                  "not ported yet (ROADMAP queue 1, item 10)")
+                                  "not ported yet (ROADMAP queue 1, item 9, "
+                                  "the rest of configs/)")
     q = matmul(x, params["wq"]).reshape(b, s, h, hd)
     k = matmul(x, params["wk"]).reshape(b, s, kh, hd)
     v = matmul(x, params["wv"]).reshape(b, s, kh, hd)

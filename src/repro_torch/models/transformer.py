@@ -10,6 +10,7 @@ and, over the paged pool (``serving.kv_pool.PagedKVPool.device_caches``):
   paged_prefill(params, cfg, tokens, caches, positions, opts)
   paged_prefill_shared(params, cfg, tokens, caches, positions, opts)
   paged_decode_step(params, cfg, tokens, caches, pos, opts)
+  paged_verify_step(params, cfg, tokens, caches, positions, opts)
   packed_step(params, cfg, tokens, caches, positions, slots, logit_rows,
               opts, quant_rows)
 
@@ -80,8 +81,9 @@ def init_caches(cfg: ArchConfig, batch: int, cache_len: int,
         for ls in cfg.pattern:
             m = ls.mixer
             if not isinstance(m, AttnSpec) or m.sliding_window:
-                raise NotImplementedError("only full attention layers are "
-                                          "ported (ROADMAP queue 1, item 10)")
+                raise NotImplementedError(
+                    "only full attention layers are ported (ROADMAP queue "
+                    "1, item 9, the rest of configs/)")
             size = padded_cache_len(cache_len) if opts.quantized_kv \
                 else cache_len
             caches.append(L.init_cache(batch, size, m.num_kv_heads,
@@ -181,11 +183,14 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def _paged_forward(params, cfg, tokens, caches, positions, opts, *,
-                   decode: bool, attend_cache: bool = False):
+                   decode: bool, attend_cache: bool = False,
+                   every_column: bool = False):
     positions = positions.to(torch.int32)
     x = embed_inputs(cfg, params, tokens)
     x = _apply_layers(cfg, params, x, caches, q_positions=positions, pos=0,
                       opts=opts, decode=decode, attend_cache=attend_cache)
+    if every_column:
+        return apply_head(cfg, params, x), caches
     return apply_head(cfg, params, x[:, -1:])[:, 0], caches
 
 
@@ -223,6 +228,25 @@ def paged_decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     f32, caches)."""
     return _paged_forward(params, cfg, tokens, caches, pos[:, None], opts,
                           decode=True)
+
+
+def paged_verify_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                      caches: list, positions: torch.Tensor,
+                      opts: RuntimeOpts = RuntimeOpts()):
+    """The speculative verify over the paged pool, :func:`paged_decode_step`
+    for S tokens a row: each row carries its last emitted token and its
+    draft burst, ``tokens``/``positions`` (R, S) RIGHT-ALIGNED (left pads
+    at position -1 go to the trash page). Every layer writes the burst to
+    the pool first; attention then reads every key, the burst included,
+    back from the pool's int8 codes (kernel K2, one query row per
+    column), as S sequential decode steps would: quantization is per
+    token, so writing the burst at once stores the same codes. Fresh f32
+    keys, as a prefill attends them, would differ from the sequential path
+    at quantization scale and flip argmaxes. Returns (logits (R, S, V) f32,
+    caches): column j is the target distribution after the row's tokens up
+    to j (pad columns are garbage)."""
+    return _paged_forward(params, cfg, tokens, caches, positions, opts,
+                          decode=True, every_column=True)
 
 
 def packed_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,

@@ -33,7 +33,8 @@ def param_specs(cfg: ArchConfig) -> dict:
             or cfg.final_softcap is not None or cfg.rope != "rope":
         raise NotImplementedError(f"{cfg.name}: only the llama family's "
                                   f"token embedding, RoPE and plain head are "
-                                  f"ported (ROADMAP queue 1, item 10)")
+                                  f"ported (ROADMAP queue 1, item 9, the "
+                                  f"rest of configs/)")
     d, v, nb = cfg.d_model, cfg.vocab_size, cfg.num_blocks
     specs = {"embed": ((v, d), 0.02), "final_norm": ((d,), None)}
     if not cfg.tie_embeddings:
@@ -43,7 +44,7 @@ def param_specs(cfg: ArchConfig) -> dict:
         if not isinstance(m, AttnSpec) or not isinstance(f, MLPSpec):
             raise NotImplementedError(f"{cfg.name}: only attention + MLP "
                                       f"layers are ported (ROADMAP queue 1, "
-                                      f"item 10)")
+                                      f"item 9, the rest of configs/)")
         p = f"blocks/p{i}/"
         hq, hk = m.num_heads * m.head_dim, m.num_kv_heads * m.head_dim
         specs[p + "ln1"] = ((nb, d), None)

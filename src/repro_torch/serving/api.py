@@ -267,8 +267,10 @@ class SplitBackend(_ReplayBackend):
     the deadline ladder cut short finishes with reason ``"deadline"``.
     ``opsc=`` is required; other keyword arguments (``cache_len=``,
     ``deadline_s=``, ``paged_cloud_kv=``, ``device=``, ...) reach the
-    ``SplitEngine``. ``SamplingParams(speculate_k=)`` above 0 raises: the
-    speculative split is not ported yet (ROADMAP queue 1, item 6.3)."""
+    ``SplitEngine``. ``SamplingParams(speculate_k=)`` above 0 makes the
+    request's call speculative (``SplitEngine.generate(speculate_k=)``:
+    the edge drafts that many tokens a round, one payload a round); the
+    carried ``SplitStats`` count the rounds and the accepted drafts."""
 
     def __init__(self, cfg, params, opts: RuntimeOpts = RuntimeOpts(), *,
                  opsc=None, compress: bool = True, **split_kwargs):
@@ -305,16 +307,25 @@ class PagedBackend(_RequestBook):
     ``Scheduler`` (``num_pages=``, ``page_size=``, ``max_slots=``,
     ``max_seq_len=``, ``prefill_chunk=``, ``tick_mode=`` with
     ``"packed"``, ``"chunked"`` or ``"wave"``, ``token_budget=``,
-    ``lazy_growth=``, ``resume=``, ``preempt_cooldown=``, ``device=``).
-    Of the reference's deployments only ``"fused"`` (one scheduler on one
-    card) is ported."""
+    ``lazy_growth=``, ``resume=``, ``preempt_cooldown=``, ``speculate_k=``,
+    ``device=``). With ``speculate_k=`` k > 0 every decode tick verifies a
+    prompt-lookup draft burst of up to k tokens a request in one call, and
+    a tick's several tokens a request stream as events in index order,
+    each with its own logprob; ``SamplingParams(speculate_k=)`` lowers a
+    request's burst below k. The fused backend ignores ``speculate_k``: it
+    has no incremental tick to amortize. Of the reference's deployments
+    only ``"fused"`` (one scheduler on one card) is ported."""
 
     def __init__(self, cfg, params, opts: RuntimeOpts = RuntimeOpts(), *,
                  deployment: str = "fused", **scheduler_kwargs):
         super().__init__()
         if deployment in ("sharded", "disaggregated"):
+            item = "7, the disaggregated deployment" \
+                if deployment == "disaggregated" \
+                else "8, the sharded deployment"
             raise NotImplementedError(f"deployment={deployment!r} is not "
-                                      f"ported yet (ROADMAP queue 1, item 9)")
+                                      f"ported yet (ROADMAP queue 1, item "
+                                      f"{item})")
         if deployment != "fused":
             raise ValueError(f"unknown deployment {deployment!r}: expected "
                              f"'fused', 'sharded' or 'disaggregated'")
@@ -384,7 +395,8 @@ class LLMServer:
     """The facade over a serving backend. ``backend`` is ``"paged"`` (the
     default; extra keyword arguments, e.g. ``num_pages=``, ``max_slots=``,
     ``tick_mode="packed"``, ``lazy_growth=True`` and ``device=``, reach
-    :class:`PagedBackend`'s ``Scheduler``),
+    :class:`PagedBackend`'s ``Scheduler``; ``speculate_k=`` makes its
+    decode ticks speculative),
     ``"fused"`` (``cache_len=`` and ``device=`` reach :class:`FusedBackend`),
     ``"split"`` (``opsc=``, ``compress=`` and the ``SplitEngine``'s keyword
     arguments reach :class:`SplitBackend`) or an already-built backend.
@@ -395,7 +407,7 @@ class LLMServer:
                  backend="paged", telemetry=None, **backend_kwargs):
         if telemetry is not None:
             raise NotImplementedError("telemetry is not ported yet "
-                                      "(ROADMAP queue 1, item 7)")
+                                      "(ROADMAP queue 1, item 5, telemetry)")
         if isinstance(backend, str):
             if backend not in _BACKENDS:
                 raise ValueError(f"backend must be one of ['fused', 'paged', "

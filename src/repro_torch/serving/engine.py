@@ -93,7 +93,7 @@ class Engine:
                  cache_len: int = 4096, telemetry=None, device=None):
         if telemetry is not None:
             raise NotImplementedError("telemetry is not ported yet "
-                                      "(ROADMAP queue 1, item 7)")
+                                      "(ROADMAP queue 1, item 5, telemetry)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = {k: v.to(self.device) for k, v in params.items()}

@@ -39,7 +39,10 @@ pages to host memory and :meth:`PagedKVPool.restore_slot` writes them back
 into fresh pages, bit-identically; ``swap_bytes`` counts the host bytes
 the snapshots hold.
 
-Not ported yet: ``truncate`` (speculation) and ``mesh=`` (sharded pools).
+Speculation's rollback: :meth:`PagedKVPool.truncate` scrubs a rejected
+draft tail's positions and keeps its pages.
+
+Not ported yet: ``mesh=`` (sharded pools) and ``adopt_snapshot``.
 """
 
 from __future__ import annotations
@@ -99,7 +102,8 @@ class PagedKVPool:
                  mesh=None, device=None):
         if mesh is not None:
             raise NotImplementedError("sharded pools (mesh=) are not ported "
-                                      "yet (ROADMAP queue 1, item 9)")
+                                      "yet (ROADMAP queue 1, item 8, the "
+                                      "sharded deployment)")
         if page_size <= 0:
             raise ValueError(f"page_size must be positive, got {page_size}")
         if num_pages < 2:
@@ -373,6 +377,41 @@ class PagedKVPool:
         assert self.active[slot], f"slot {slot} is not active"
         self.reserve_write(slot, n_tokens)
         self.lengths[slot] = int(self.lengths[slot]) + n_tokens
+
+    def truncate(self, slot: int, new_len: int) -> None:
+        """Roll ``slot`` back to ``new_len`` TOKENS, speculation's rejection
+        step: a verify round appends its draft burst, then truncates the
+        rejected tail away. Stored positions ``>= new_len`` in the pages
+        that cover them are scrubbed to -1 on the device (one op over all
+        layers), so no later step, history walk or swap export sees a
+        rejected token. The pages stay allocated: they lie inside the
+        slot's reservation and the next append rewrites them.
+
+        Only a page this slot owns alone is scrubbed. Drafts are written
+        past any shared prefix, into exclusively owned (possibly CoW
+        copied) pages, so a rollback into a page of refcount > 1 is a
+        caller's fault: it raises ``ValueError`` and changes nothing."""
+        assert self.active[slot], f"slot {slot} is not active"
+        length = int(self.lengths[slot])
+        if not 0 < new_len <= length:
+            raise ValueError(f"truncate to {new_len} outside (0, {length}]")
+        if new_len == length:
+            return
+        first = new_len // self.page_size  # the boundary page keeps a head
+        pages = [int(p) for p in
+                 self.block_tables[slot][first:self.pages_for(length)]
+                 if p != TRASH_PAGE]
+        shared = [p for p in pages if self.refcount[p] > 1]
+        if shared:
+            raise ValueError(
+                f"truncate({slot}, {new_len}) would scrub shared page(s) "
+                f"{shared} (refcount > 1): CoW-shared prefixes are "
+                f"immutable")
+        if pages:
+            idx = to_device(np.asarray(pages, np.int64), self.device)
+            held = self.pos[:, idx]
+            self.pos[:, idx] = torch.where(held >= new_len, -1, held)
+        self.lengths[slot] = new_len
 
     def free(self, slot: int) -> None:
         """Return a finished request's page references: pages it owned

@@ -11,8 +11,8 @@ pages → host snapshot → device pages on one pool
 :class:`TabqUplinkTransport` is the split engine's edge→cloud mover.
 
 Not ported yet: the page-stream mover and the disaggregated scheduler
-(ROADMAP queue 1, item 9), and the telemetry spans and events the
-reference records per transfer (item 7).
+(ROADMAP queue 1, item 7, the disaggregated deployment), and the telemetry
+spans and events the reference records per transfer (item 5, telemetry).
 """
 
 from __future__ import annotations

@@ -51,6 +51,17 @@ without draining the batch. Per request:
   evict   — at ``max_tokens`` or a stop token the slot's page references go
             back to the pool.
 
+Speculation (``speculate_k=k`` > 0) makes every decode tick a verify tick,
+in every tick mode: each decoding slot drafts up to k tokens by prompt
+lookup (:func:`_prompt_lookup_draft`, no second model), appends them with
+its last token, and all slots are scored by ONE fixed ``(max_slots, 1 + k)``
+``transformer.paged_verify_step`` call that reads every key back from the
+pool (kernel K2, one query row per column). ``core.sampling.
+speculative_verify`` accepts per slot and the pool truncates each rejected
+tail, so a greedy stream is the ``speculate_k=0`` stream. In packed mode
+the decoding slots leave the packed buffer and ride the verify tick.
+``SamplingParams.speculate_k`` lowers a request's burst below k.
+
 Sampling runs on the device with per-slot operands (seed, temperature,
 top-k, top-p, logit bias), uploaded only when a slot's row changes; a row's
 draw depends on its seed, its own generation index and its logits alone,
@@ -59,9 +70,8 @@ wherever the two paths give it bit-identical logits (in f32 on the CPU; in
 bf16 on the card their logits differ and so may the draws). Each tick reads
 back only the sampled tokens and their logprobs, in one copy.
 
-Not ported yet, and refused with ``NotImplementedError``: speculation,
-``auto_prefix``, ``mesh=`` and telemetry (ROADMAP queue 1, items 6.3, 6.4,
-9 and 7).
+Not ported yet, and refused with ``NotImplementedError``: ``auto_prefix``,
+telemetry and ``mesh=`` (ROADMAP queue 1, items 4, 5 and 8).
 """
 
 from __future__ import annotations
@@ -75,11 +85,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sampling import (SamplingParams, bias_rows,
                                        sample_tokens_with_logprobs,
-                                       truncate_at_stop)
+                                       speculative_verify, truncate_at_stop)
 from repro_torch.device import resolve_device, to_device
 from repro_torch.models.transformer import (RuntimeOpts, packed_step,
                                             paged_decode_step, paged_prefill,
-                                            paged_prefill_shared)
+                                            paged_prefill_shared,
+                                            paged_verify_step)
 from repro_torch.serving.kv_pool import (DEFAULT_PAGE_SIZE, PagedKVPool,
                                          PoolExhaustedError)
 from repro_torch.serving.page_transport import HostSwapTransport
@@ -92,10 +103,9 @@ AUTO_CHUNK_LADDER = (64, 128, 256)
 _GREEDY = SamplingParams()
 
 _NOT_PORTED = {
-    "speculate_k": "speculative decoding (ROADMAP queue 1, item 6.3)",
-    "auto_prefix": "auto_prefix (ROADMAP queue 1, item 6.4)",
-    "mesh": "mesh= (ROADMAP queue 1, item 9)",
-    "telemetry": "telemetry (ROADMAP queue 1, item 7)",
+    "auto_prefix": "auto_prefix (ROADMAP queue 1, item 4, auto_prefix)",
+    "mesh": "mesh= (ROADMAP queue 1, item 8, the sharded deployment)",
+    "telemetry": "telemetry (ROADMAP queue 1, item 5, telemetry)",
 }
 
 
@@ -189,15 +199,50 @@ class SchedulerStats:
     packed_tokens: int = 0  # live tokens those calls carried
     packed_pad_tokens: int = 0  # tail-pad rows they carried
     prefill_tokens: int = 0  # prompt/resume TOKENS written by prefill calls
+    spec_rounds: int = 0  # verify rounds that carried >= 1 draft token
+    spec_drafted: int = 0  # draft tokens proposed in those rounds
+    spec_accepted: int = 0  # draft tokens EMITTED (accepted, not cut by a
+    #                         stop token)
     # rid → ticks from submit to the first sampled token
     ttft_ticks: dict = dataclasses.field(default_factory=dict)
     # chunk size → ticks it was picked (adaptive prefill_chunk)
     auto_chunks: dict = dataclasses.field(default_factory=dict)
 
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens that were emitted."""
+        return (self.spec_accepted / self.spec_drafted
+                if self.spec_drafted else 0.0)
+
 
 def _bucket(n: int) -> int:
     """Next power of two: bounds the distinct wave-prefill shapes."""
     return 1 << max(0, (n - 1).bit_length())
+
+
+def _prompt_lookup_draft(context: np.ndarray, k: int,
+                         max_ngram: int = 3) -> np.ndarray:
+    """Draft by PROMPT LOOKUP: find the most recent earlier occurrence of
+    the context's trailing n-gram (the longest of ``max_ngram`` .. 1 that
+    occurs) and propose the up to ``k`` tokens that followed it. No model
+    and no weights: host-side token matching. A bad guess costs acceptance
+    length, never correctness, since the verify accepts only what the
+    target model agrees with. Returns (<= k,) int32, possibly empty."""
+    context = np.asarray(context, np.int32).reshape(-1)
+    length = context.size
+    if k <= 0 or length < 2:
+        return np.zeros((0,), np.int32)
+    for n in range(min(max_ngram, length - 1), 0, -1):
+        pat = context[length - n:]
+        # windows over context[:-1]: each start leaves >= 1 follower, and
+        # the trailing n-gram itself never matches
+        windows = np.lib.stride_tricks.sliding_window_view(
+            context[:length - 1], n)
+        hits = np.flatnonzero((windows == pat).all(axis=1))
+        if hits.size:
+            start = int(hits[-1])  # the most recent occurrence
+            return context[start + n:start + n + k].copy()
+    return np.zeros((0,), np.int32)
 
 
 class Scheduler:
@@ -217,7 +262,9 @@ class Scheduler:
     ``lazy_growth=True`` admits on current need and preempts on an
     exhausted pool; ``resume`` ("swap" or "refill") says how a preempted
     request comes back, and ``preempt_cooldown`` (ticks) how long it waits
-    while others run (0: re-admit at once).
+    while others run (0: re-admit at once). ``speculate_k`` > 0 is the
+    verify call's draft width (see the module docstring); 0 leaves every
+    tick as it is without speculation.
 
     Not thread-safe: ``submit``, ``abort`` and ``step`` must run on one
     thread."""
@@ -238,8 +285,9 @@ class Scheduler:
         if resume not in ("swap", "refill"):
             raise ValueError(f"resume must be 'swap' or 'refill', got "
                              f"{resume}")
-        refused = {"speculate_k": speculate_k > 0, "auto_prefix": auto_prefix,
-                   "mesh": mesh is not None,
+        if speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        refused = {"auto_prefix": auto_prefix, "mesh": mesh is not None,
                    "telemetry": telemetry is not None}
         for name, on in refused.items():
             if on:
@@ -265,6 +313,7 @@ class Scheduler:
         self.lazy_growth = lazy_growth
         self.resume = resume
         self.preempt_cooldown = preempt_cooldown
+        self.speculate_k = int(speculate_k)
         # no prompt exceeds the block table's reach, so no chunk need either
         reach = self.pool.max_blocks * page_size
         self._chunk_ladder = tuple(sorted({min(c, reach) for c in ladder}))
@@ -735,20 +784,51 @@ class Scheduler:
         self.stats.preemptions += 1
         return True
 
-    def _grow_decode_slots(self) -> None:
-        """Account one token per decoding slot. Reserve admission reserved
+    def _draft_plan(self) -> dict:
+        """This tick's draft burst per decoding slot, ``{slot: (kd,)
+        int32}`` (empty without speculation). A slot's cap is
+        ``speculate_k`` (the verify call's width), lowered by its request's
+        own ``SamplingParams.speculate_k`` when that is set, and bounded so
+        that the round emits at most the tokens the request may still emit
+        (``kd + 1``): the bound that keeps a reserve admission unbreached.
+        Drafts come from :func:`_prompt_lookup_draft` over prompt +
+        generated."""
+        k = self.speculate_k
+        if not k:
+            return {}
+        plan = {}
+        for i, st in enumerate(self.slots):
+            if st is None or st.prefilling:
+                continue
+            sp = st.req.sampling
+            cap = min(k, sp.speculate_k) if sp.speculate_k > 0 else k
+            kd = min(cap, st.req.max_new_tokens - len(st.generated) - 1)
+            plan[i] = _prompt_lookup_draft(
+                np.concatenate([st.req.prompt,
+                                np.asarray(st.generated, np.int32)]), kd)
+        return plan
+
+    def _grow_decode_slots(self, plan: dict | None = None) -> None:
+        """Account the tokens each decoding slot writes this tick: one, plus
+        its planned draft burst when speculating. Reserve admission reserved
         every request's worst case, so that never exhausts the pool; under
-        lazy growth a page-boundary growth that does is resolved by
-        preemption before the step runs (a victim's untaken step is simply
-        not taken: it resumes from the tokens it emitted)."""
+        lazy growth a growth that does first sheds the slot's OWN drafts (a
+        burst is optional work), then preempts before the step runs (a
+        victim's untaken step is simply not taken: it resumes from the
+        tokens it emitted)."""
         for i in range(self.max_slots):
             if self.slots[i] is None or self.slots[i].prefilling:
                 continue
+            want = 1 + (plan[i].size if plan else 0)
             while True:
                 try:
-                    self.pool.append(i, 1)
+                    self.pool.append(i, want)
                     break
                 except PoolExhaustedError:
+                    if want > 1:
+                        plan[i] = plan[i][:0]
+                        want = 1
+                        continue
                     if not self._preempt_one(requester=i):
                         raise PoolExhaustedError(
                             f"request {self.slots[i].req.rid} cannot grow: "
@@ -759,11 +839,17 @@ class Scheduler:
 
     def _decode_tick(self) -> None:
         """One ragged decode step over EVERY slot row (one call shape);
-        free and mid-prefill rows carry position -1 and are masked."""
-        self._grow_decode_slots()
+        free and mid-prefill rows carry position -1 and are masked. With
+        ``speculate_k`` set the tick is one verify call instead
+        (:meth:`_verify_tick`)."""
+        plan = self._draft_plan()
+        self._grow_decode_slots(plan)
         active = [i for i, st in enumerate(self.slots)
                   if st is not None and not st.prefilling]
         if not active:
+            return
+        if self.speculate_k:
+            self._verify_tick(active, plan)
             return
         self._register_shape("decode", self.max_slots, 1)
         tokens = np.zeros((self.max_slots, 1), np.int32)
@@ -786,6 +872,80 @@ class Scheduler:
         self.stats.steps += 1
         self.stats.slot_ticks += len(active)
 
+    def _verify_tick(self, active: list, plan: dict) -> None:
+        """The speculative decode tick: each decoding slot's last token and
+        its draft burst, right-aligned in one fixed ``(max_slots, 1 + k)``
+        ``paged_verify_step`` call (every key read back from the pool: the
+        sequential decode steps' attention inputs), then
+        ``speculative_verify`` per slot on the device, one readback, and a
+        rollback of each rejected tail. Free and mid-prefill rows ride
+        fully padded."""
+        k = self.speculate_k
+        s = 1 + k
+        r = self.max_slots
+        self._register_shape("verify", r, s)
+        # one upload: tokens, positions, the logits' realignment, drafts,
+        # draft lengths and each row's first generation index
+        host = np.zeros((r, 3 * s + k + 2), np.int32)
+        tokens, posn = host[:, :s], host[:, s:2 * s]
+        gather, draft = host[:, 2 * s:3 * s], host[:, 3 * s:3 * s + k]
+        posn[:] = -1
+        for i in active:
+            st, d = self.slots[i], plan[i]
+            kd = d.size
+            base = int(self.pool.lengths[i]) - 1 - kd  # first position
+            tokens[i, s - 1 - kd:] = np.concatenate([[st.generated[-1]], d])
+            posn[i, s - 1 - kd:] = np.arange(base, base + 1 + kd)
+            # verify column j (generation index t0 + j) is call column
+            # s - 1 - kd + j; past the drafts the sampler ignores it
+            gather[i] = s - 1 - kd + np.minimum(np.arange(s), kd)
+            draft[i, :kd] = d
+            host[i, -2] = kd
+            host[i, -1] = len(st.generated)
+        seeds, temp, tk, tp, bias = self._device_ops()
+        dev = to_device(host, self.device)
+        with torch.inference_mode():
+            logits, _ = paged_verify_step(
+                self.params, self.cfg, dev[:, :s], self.pool.device_caches(),
+                dev[:, s:2 * s], self.opts)
+            idx = dev[:, 2 * s:3 * s].long()[:, :, None]
+            logits = torch.gather(logits, 1, idx.expand(-1, -1,
+                                                        logits.shape[-1]))
+            out, n, lps = speculative_verify(
+                dev[:, 3 * s:3 * s + k], dev[:, -2], logits, seeds,
+                dev[:, -1], temp, tk, tp, bias)
+            res = torch.cat([out.double(), n[:, None].double(),
+                             lps.double()], 1).cpu().numpy()
+        for i in active:
+            self._emit_burst(i, res[i, :s].astype(np.int64), int(res[i, s]),
+                             res[i, s + 1:].astype(np.float32), plan[i].size)
+        self.stats.steps += 1
+        self.stats.slot_ticks += len(active)
+
+    def _emit_burst(self, slot: int, toks, n: int, lps, kd: int) -> None:
+        """Land one verify round on ``slot``: ``toks[:n]`` are emitted in
+        index order, each with its logprob under the verify logits, cut at
+        the first stop token (a sequential decode would have finished
+        there); then the pool rolls the slot back to the tokens actually
+        fed whenever part of the appended burst went unemitted
+        (``PagedKVPool.truncate``)."""
+        st = self.slots[slot]
+        stop = st.req.sampling.stop_set
+        emit = 0
+        for j in range(n):
+            tok = int(toks[j])
+            self._emit(st, tok, float(lps[j]))
+            emit += 1
+            if tok in stop:
+                break
+        if kd:
+            self.stats.spec_rounds += 1
+            self.stats.spec_drafted += kd
+            self.stats.spec_accepted += emit - 1
+        if emit < 1 + kd:
+            self.pool.truncate(slot, int(self.pool.lengths[slot])
+                               - (1 + kd) + emit)
+
     def _packed_tick(self) -> bool:
         """ONE token-packed call for the whole tick: every decoding slot's
         next-token row and, up to the remaining budget, every mid-prefill
@@ -793,25 +953,31 @@ class Scheduler:
         fixed ``(1, token_budget)`` buffer (tail rows carry position and
         slot -1). Decode rows are never cut and are named in ``quant_rows``
         (the reference's ``quant_fresh``), so they attend their own key as
-        a sequential decode step reads it from the pool. The call gathers each slot's LAST row into (R, V) logits,
-        sampled with the per-slot operands in one readback. Returns whether
-        anything was dispatched."""
-        self._grow_decode_slots()
+        a sequential decode step reads it from the pool. The call gathers
+        each slot's LAST row into (R, V) logits, sampled with the per-slot
+        operands in one readback. With ``speculate_k`` set the decoding
+        slots stay out of the buffer: their bursts must be attended through
+        the pool's int8 codes, by the verify tick that follows. Returns
+        whether anything was dispatched."""
+        speculating = bool(self.speculate_k)
+        if not speculating:
+            self._grow_decode_slots()
         t_budget = self.token_budget
         tokens = np.zeros((1, t_budget), np.int32)
         posn = np.full((1, t_budget), -1, np.int32)
         slot_ids = np.full((1, t_budget), -1, np.int32)
         logit_rows = np.zeros((self.max_slots,), np.int32)
         t_idx = np.zeros((self.max_slots,), np.int32)
-        decode_rows = [i for i, st in enumerate(self.slots)
-                       if st is not None and not st.prefilling]
+        decode_rows = [] if speculating else [
+            i for i, st in enumerate(self.slots)
+            if st is not None and not st.prefilling]
         budget = t_budget - len(decode_rows)
         cap = self._pick_chunk() if any(
             st is not None and st.prefilling for st in self.slots) else 0
         cur = 0
         pieces = {}  # slot → (lo, hi, total) prefill piece taken this tick
         for i, st in enumerate(self.slots):
-            if st is None:
+            if st is None or (speculating and not st.prefilling):
                 continue
             if not st.prefilling:
                 tokens[0, cur] = st.generated[-1]
@@ -909,10 +1075,11 @@ class Scheduler:
     def step(self) -> bool:
         """One tick. Packed: admit, then ONE token-packed call carrying
         every decode token and up to a budget of prefill tokens, then
-        evict. Chunked and wave: admit, advance prefill (one chunk per
-        mid-prefill slot, or the whole wave), evict what finished on its
-        first token, decode the ragged batch, evict. Returns whether work
-        remains."""
+        evict (speculating: the packed call carries prefill only, and the
+        decoding slots then take one verify call). Chunked and wave: admit,
+        advance prefill (one chunk per mid-prefill slot, or the whole
+        wave), evict what finished on its first token, decode the ragged
+        batch, evict. Returns whether work remains."""
         self._tick += 1
         admitted, restored = self._admit_wave()
         self.stats.admitted += len(restored)
@@ -922,8 +1089,14 @@ class Scheduler:
             if did or restored:
                 self._track_occupancy()
                 self._evict_finished()
-            elif (not admitted and self.queue
-                  and all(st is None for st in self.slots)):
+            if self.speculate_k and any(
+                    st is not None and not st.prefilling
+                    for st in self.slots):
+                self._decode_tick()
+                self._track_occupancy()
+                self._evict_finished()
+            elif not (did or restored or admitted) and self.queue \
+                    and all(st is None for st in self.slots):
                 self._fail_stuck_queue()
             return self.pending
         if self.tick_mode == "wave":

@@ -17,15 +17,19 @@ caches (dense, or a paged pool with ``paged_cloud_kv=True``); with I_kv = 0
 only hidden states cross, and the cloud re-runs its segment over the whole
 received history every step.
 
+Split-boundary speculation (``generate(speculate_k=k)``): the edge drafts
+with the model's own head over the split-layer state, ships the burst as
+ONE payload, and the cloud verifies it in one multi-token call; a round
+costs one uplink round trip in place of one a token.
+
 Unlike the reference, whose front segment is fake-quantized (quantized and
 dequantized back to the weights' dtype), the port multiplies by the codes
 themselves: in f32 the products agree up to summation order and the
 rounding of code × scale, in bf16 also up to the weights' bf16 rounding,
 which the reference applies and K7 does not.
 
-Not ported yet: split-boundary speculation (``speculate_k``, ROADMAP queue
-1, item 6.3) and ``telemetry=`` (item 7). Only the llama family's configs
-are ported (item 10).
+Not ported yet: ``telemetry=`` (ROADMAP queue 1, item 5, telemetry). Only
+the llama family's configs are ported (item 9, the rest of configs/).
 """
 
 from __future__ import annotations
@@ -41,8 +45,9 @@ from repro_torch.core.opsc import OPSCConfig, payload_bytes
 from repro_torch.core.payload import decode as payload_decode
 from repro_torch.core.payload import encode as payload_encode
 from repro_torch.core.quant import QuantizedTensor, quantize_sym
-from repro_torch.core.sampling import (SamplingParams, broadcast_params,
-                                       token_logprobs)
+from repro_torch.core.sampling import (SamplingParams, bias_rows,
+                                       broadcast_params, sampling_operands,
+                                       speculative_verify, token_logprobs)
 from repro_torch.device import resolve_device, to_device
 from repro_torch.models.transformer import (RuntimeOpts, _apply_layers,
                                             apply_head, embed_inputs,
@@ -70,8 +75,9 @@ def quantize_front_blocks(params: dict, bits: int) -> dict:
         return params
     if bits > 8:
         raise NotImplementedError(
-            f"qw_front={bits}: codes wider than int8 need an int32-weight "
-            f"product, which the port does not have (K7 takes int8)")
+            f"qw_front={bits}: codes wider than int8 need an int16-code "
+            f"route for K7, which takes int8 (ROADMAP queue 1, item 10, "
+            f"what the split path left out)")
     out = dict(params)
     for key, x in params.items():
         if key.startswith("blocks/") and x.dim() >= 3:
@@ -96,7 +102,18 @@ class SplitStats:
     uplink_bits_paged: float = 0.0
     cloud_pool_bytes_peak: int = 0
     shared_prefix_pages: int = 0  # pool pages pinned by the shared prefix
-    uplink_round_trips: int = 0  # decode-phase payloads (prefill excluded)
+    # decode-phase payloads (prefill excluded), in both modes: the
+    # per-token loop pays one a token, speculation one a verify round
+    uplink_round_trips: int = 0
+    spec_rounds: int = 0  # speculative verify rounds
+    spec_drafted: int = 0  # draft tokens proposed, summed over rows
+    spec_accepted: int = 0  # draft tokens the verifier accepted, summed
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens the cloud accepted."""
+        return (self.spec_accepted / self.spec_drafted
+                if self.spec_drafted else 0.0)
 
 
 class SplitEngine:
@@ -125,7 +142,7 @@ class SplitEngine:
         ``cache_len`` (tokens) bounds every per-request history buffer."""
         if telemetry is not None:
             raise NotImplementedError("telemetry is not ported yet "
-                                      "(ROADMAP queue 1, item 7)")
+                                      "(ROADMAP queue 1, item 5, telemetry)")
         if opsc.split_layer % len(cfg.pattern):
             raise ValueError("the split point must fall on a pattern "
                              "boundary")
@@ -181,12 +198,17 @@ class SplitEngine:
                              blocks=(0, self.split_block))
 
     def _cloud_back(self, h, caches, pos, decode: bool, positions=None,
-                    attend_cache: bool = False):
+                    attend_cache: bool = False, tail: int | None = None):
         """Blocks [split, L) and the head over ``h`` (B, S, D): last
-        position logits (B, V) f32. ``positions`` (B, S) overrides
+        position logits (B, V) f32, or with ``tail`` the logits of the
+        last ``tail`` columns (B, tail, V): the verify of a k-token burst
+        (``decode=True``, S = k: every column reads the cache back, the
+        burst included, as k decode steps would) and the stateless I_kv = 0
+        re-run over the whole history. ``positions`` (B, S) overrides
         ``pos`` (the shared-prefix prefill, whose rows 1+ mask their
         prefix columns with -1 and, with ``attend_cache``, read the prefix
-        that row 0 writes into the shared pool pages in this call)."""
+        that row 0 writes into the shared pool pages in this call; the
+        paged verify's positions)."""
         b, s = h.shape[:2]
         if positions is None:
             positions = self._positions(b, s, pos)
@@ -194,7 +216,17 @@ class SplitEngine:
                           q_positions=positions, pos=pos, opts=self.opts,
                           decode=decode, attend_cache=attend_cache,
                           blocks=(self.split_block, self.cfg.num_blocks))
+        if tail is not None:
+            return apply_head(self.cfg, self.params, x[:, -tail:])
         return apply_head(self.cfg, self.params, x[:, -1:])[:, 0]
+
+    def _draft_next(self, h):
+        """The edge's draft token (B, 1): the argmax of the model's head
+        over the split-layer state ``h`` (B, 1, D), from the edge's own
+        parameters (the front segment is the draft model; no extra
+        weights)."""
+        return torch.argmax(apply_head(self.cfg, self.edge_params, h),
+                            dim=-1)
 
     # ------------------------------------------------------------ payload
 
@@ -208,6 +240,28 @@ class SplitEngine:
                            max_bits=self.opsc.max_act_bits)
         rec = payload_decode(p).reshape(b, s, d).to(h.dtype)
         return rec, float(p.payload_bits())
+
+    def _send(self, w: int, bits: float, i_kv: int, stats: SplitStats):
+        """One decode-phase payload of ``bits`` at history ``w``: Algorithm
+        2's ladder on the modelled total latency (drop the KV cache from
+        the uplink, then stop), then the uplink accounting. Returns the
+        I_kv in force, or None when the ladder stops the generation."""
+        if self.deadline_s is not None:
+            lat = self.latency.total_latency(w, self.opsc.split_layer, bits)
+            if lat > self.deadline_s and i_kv == 1:
+                i_kv = 0  # drop the KV cache from the uplink
+                stats.kv_dropped_steps += 1
+                lat = self.latency.total_latency(
+                    w, self.opsc.split_layer, self._eq3_bits(w, 0))
+            stats.latency_s += lat
+            if lat > self.deadline_s:
+                stats.early_exits += 1
+                return None
+        stats.uplink_bits_measured += bits
+        stats.uplink_bits_eq3 += self._eq3_bits(w, i_kv)
+        stats.uplink_round_trips += 1
+        self._uplink.uplink(bits)
+        return i_kv
 
     def _eq3_bits(self, w: int, i_kv: int) -> float:
         c = self.cfg
@@ -237,13 +291,24 @@ class SplitEngine:
         I_kv = 1) declares that every row begins with the same prefix: the
         cloud holds it once (rows 1+ fork row 0's pool pages, rounded down
         to whole pages), and rows 1+ neither compress nor ship their prefix
-        columns."""
+        columns.
+
+        ``speculate_k`` > 0: split-boundary speculation. Each round the
+        edge steps its front segment over the pending token and up to k
+        drafts (each the argmax of the head over the split-layer state),
+        ships the burst as ONE payload (the ladder weighs
+        ``w = pos + k_eff``), and the cloud verifies every column in one
+        call (dense cache, paged pool, or the I_kv = 0 re-run).
+        ``speculative_verify`` accepts a prefix per row (exact match for
+        greedy rows, so the stream is the ``speculate_k=0`` stream;
+        rejection sampling for the others); the batch advances by its
+        SHORTEST accepted run, and a paged cloud truncates the rest. Dense
+        caches need no scrub: the next round overwrites the same slots
+        before the causal mask could expose them. ``SplitStats`` counts
+        ``spec_rounds``, ``spec_drafted``, ``spec_accepted`` and the
+        round trips."""
         if speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
-        if speculate_k:
-            raise NotImplementedError("split-boundary speculation is not "
-                                      "ported yet (ROADMAP queue 1, item "
-                                      "6.3)")
         cfg, opts, dev = self.cfg, self.opts, self.device
         prompts = np.asarray(prompts)
         if prompts.ndim != 2:
@@ -255,9 +320,9 @@ class SplitEngine:
                              f"exceeds cache_len {self.cache_len}")
         tokens = torch.as_tensor(prompts, device=dev)
         stats = SplitStats()
-        sample = make_sampler(broadcast_params(
-            SamplingParams() if sampling is None else sampling, b),
-            cfg.vocab_size, dev)
+        splist = broadcast_params(
+            SamplingParams() if sampling is None else sampling, b)
+        sample = make_sampler(splist, cfg.vocab_size, dev)
 
         nfront = self.split_block
         nback = cfg.num_blocks - nfront
@@ -356,63 +421,147 @@ class SplitEngine:
                              device=dev)
         t = torch.zeros((), dtype=torch.int32, device=dev)
         n_hist, n_out, i_kv, pos = s, 0, self.opsc.i_kv, s
-        for step in range(max_new_tokens):
-            nxt = sample(logits, t)
-            tok_buf[:, step] = nxt
-            if with_logprobs:
-                lp_buf[:, step] = token_logprobs(logits, nxt)
-            n_out = step + 1
-            if step + 1 == max_new_tokens:
-                break
-            pos_t = t + s  # the position the token is written at
-            h = self._edge_front(tok_buf[:, step:step + 1], edge_caches,
-                                 pos_t, decode=True)
-            if compress:
-                h_c, bits = self._compress(h)
-            else:
-                h_c, bits = h, float(h.numel() * 16)
-            # Algorithm 2's ladder on the modelled total latency
-            w = pos + 1
-            if self.deadline_s is not None:
-                lat = self.latency.total_latency(w, self.opsc.split_layer,
-                                                 bits)
-                if lat > self.deadline_s and i_kv == 1:
-                    i_kv = 0  # drop the KV cache from the uplink
-                    stats.kv_dropped_steps += 1
-                    lat = self.latency.total_latency(
-                        w, self.opsc.split_layer, self._eq3_bits(w, 0))
-                if lat > self.deadline_s:
-                    stats.early_exits += 1
-                    stats.latency_s += lat
+        if speculate_k:
+            n_out = self._speculate(
+                speculate_k, max_new_tokens, splist, sample, logits, tokens,
+                edge_caches, cloud_caches, pool, h_buf, tok_buf, lp_buf,
+                stats, account_pages, compress)
+        else:
+            for step in range(max_new_tokens):
+                nxt = sample(logits, t)
+                tok_buf[:, step] = nxt
+                if with_logprobs:
+                    lp_buf[:, step] = token_logprobs(logits, nxt)
+                n_out = step + 1
+                if step + 1 == max_new_tokens:
                     break
-                stats.latency_s += lat
-            stats.uplink_bits_measured += bits
-            stats.uplink_bits_eq3 += self._eq3_bits(w, i_kv)
-            stats.uplink_round_trips += 1
-            self._uplink.uplink(bits)
-
-            h_buf[:, n_hist] = h_c[:, 0]
-            n_hist += 1
-            if i_kv:
-                if pool is not None:  # grow each request by one token
-                    for r in range(b):
-                        pool.append(r, 1)
-                    cloud_caches = pool.device_caches()
-                logits = self._cloud_back(h_c, cloud_caches, pos_t,
-                                          decode=True)
-                account_pages()
-            else:
-                # stateless cloud: its segment over the whole history,
-                # "losing the benefits of the cache"
-                fresh = init_caches(cfg, b, n_hist, opts, dev, nback)
-                logits = self._cloud_back(h_buf[:, :n_hist], fresh, 0,
-                                          decode=False)
-            pos += 1
-            t += 1
-            stats.tokens_generated += 1
+                pos_t = t + s  # the position the token is written at
+                h = self._edge_front(tok_buf[:, step:step + 1], edge_caches,
+                                     pos_t, decode=True)
+                if compress:
+                    h_c, bits = self._compress(h)
+                else:
+                    h_c, bits = h, float(h.numel() * 16)
+                i_kv = self._send(pos + 1, bits, i_kv, stats)
+                if i_kv is None:
+                    break
+                h_buf[:, n_hist] = h_c[:, 0]
+                n_hist += 1
+                if i_kv:
+                    if pool is not None:  # grow each request by one token
+                        for r in range(b):
+                            pool.append(r, 1)
+                        cloud_caches = pool.device_caches()
+                    logits = self._cloud_back(h_c, cloud_caches, pos_t,
+                                              decode=True)
+                    account_pages()
+                else:
+                    # stateless cloud: its segment over the whole history,
+                    # "losing the benefits of the cache"
+                    fresh = init_caches(cfg, b, n_hist, opts, dev, nback)
+                    logits = self._cloud_back(h_buf[:, :n_hist], fresh, 0,
+                                              decode=False)
+                pos += 1
+                t += 1
+                stats.tokens_generated += 1
 
         out = tok_buf[:, :n_out].cpu().numpy()
         toks = np.concatenate([prompts, out.astype(prompts.dtype)], axis=1)
         if with_logprobs:
             return toks, stats, lp_buf[:, :n_out].cpu().numpy()
         return toks, stats
+
+    def _speculate(self, k: int, max_new: int, splist: list, sample, logits,
+                   tokens, edge_caches, cloud_caches, pool, h_buf, tok_buf,
+                   lp_buf, stats: SplitStats, account_pages,
+                   compress: bool) -> int:
+        """:meth:`generate`'s speculative rounds after the prefill (see its
+        docstring): fills ``tok_buf``/``lp_buf`` and ``stats``; returns the
+        tokens emitted."""
+        cfg, opts, dev = self.cfg, self.opts, self.device
+        b, s = tokens.shape
+        nback = cfg.num_blocks - self.split_block
+        seeds, temp, top_k, top_p = sampling_operands(splist, dev)
+        bias = torch.as_tensor(bias_rows(splist, cfg.vocab_size), device=dev) \
+            if any(p.logit_bias for p in splist) else None
+        # the first token comes from the prefill logits, drawn as the
+        # per-token loop draws it
+        t = torch.zeros((), dtype=torch.int32, device=dev)
+        cur = sample(logits, t)[:, None]
+        tok_buf[:, :1] = cur
+        lp_buf[:, 0] = token_logprobs(logits, cur[:, 0])
+        n_out, n_hist, pos, i_kv = 1, s, s, self.opsc.i_kv
+        while n_out < max_new:
+            # the pending token and kd drafts make one k_eff-token payload;
+            # a round emits 1 .. k_eff tokens, so never draft past the
+            # generation budget
+            kd = min(k, max_new - n_out - 1)
+            k_eff = kd + 1
+            hs, drafts = [], []
+            for j in range(k_eff):
+                h = self._edge_front(cur, edge_caches, torch.full(
+                    (), pos + j, dtype=torch.int32, device=dev), decode=True)
+                hs.append(h)
+                if j < kd:
+                    cur = self._draft_next(h).to(tokens.dtype)
+                    drafts.append(cur)
+            h = torch.cat(hs, dim=1)
+            draft = torch.cat(drafts, dim=1) if drafts else torch.zeros(
+                (b, 0), dtype=tokens.dtype, device=dev)
+            if compress:
+                # one payload for the burst; TAB-Q sets bits a row, so it
+                # is k_eff one-token payloads' codes in one call
+                h_c, bits = self._compress(h)
+            else:
+                h_c, bits = h, float(h.numel() * 16)
+            # the ladder weighs the burst at w = pos + k_eff
+            i_kv = self._send(pos + k_eff, bits, i_kv, stats)
+            if i_kv is None:
+                break
+            h_buf[:, n_hist:n_hist + k_eff] = h_c
+            if i_kv:
+                if pool is not None:
+                    for r in range(b):
+                        pool.append(r, k_eff)
+                    posn = pos + np.tile(np.arange(k_eff, dtype=np.int32),
+                                         (b, 1))
+                    vlogits = self._cloud_back(
+                        h_c, pool.device_caches(), 0, decode=True,
+                        positions=to_device(posn, dev), tail=k_eff)
+                    account_pages()
+                else:
+                    vlogits = self._cloud_back(
+                        h_c, cloud_caches, torch.full(
+                            (), pos, dtype=torch.int32, device=dev),
+                        decode=True, tail=k_eff)
+            else:
+                # stateless cloud: its segment over the whole history,
+                # the head over the verify columns only
+                fresh = init_caches(cfg, b, n_hist + k_eff, opts, dev, nback)
+                vlogits = self._cloud_back(h_buf[:, :n_hist + k_eff], fresh,
+                                           0, decode=False, tail=k_eff)
+            t0 = torch.full((b,), n_out, dtype=torch.int64, device=dev)
+            out, n_acc, lps = speculative_verify(
+                draft, torch.full((b,), kd, device=dev), vlogits, seeds, t0,
+                temp, top_k, top_p, bias)
+            # the rows march in lockstep: advance by the SHORTEST accepted
+            # run (every row's accepted prefix is exact, so a longer run's
+            # tail is derived again by the next round)
+            n_acc = n_acc.cpu()
+            n = int(n_acc.min())
+            stats.spec_rounds += 1
+            stats.spec_drafted += b * kd
+            stats.spec_accepted += int(n_acc.sum()) - b
+            tok_buf[:, n_out:n_out + n] = out[:, :n]
+            lp_buf[:, n_out:n_out + n] = lps[:, :n]
+            if pool is not None and i_kv and n < k_eff:
+                # scrub the rejected tail: no later round's history mask or
+                # page accounting may see it
+                for r in range(b):
+                    pool.truncate(r, pos + n)
+            cur = out[:, n - 1:n].to(tokens.dtype)
+            pos += n
+            n_hist += n
+            n_out += n
+            stats.tokens_generated += n
+        return n_out

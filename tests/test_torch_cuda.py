@@ -1089,3 +1089,145 @@ def test_ts_encode_refuses_bad_card_input(cuda_device):
         with pytest.raises(ValueError):
             tsm.ts_encode(bad, 1.0, cap)
     assert tsm.ts_encode.launches == before
+
+
+# ------------------------------------------------------------ speculation
+
+
+def test_paged_decode_kernel_at_verify_rows_equals_sequential_calls(
+        cuda_device):
+    """K2 at the speculative verify's rows: 8 slots of 132 tokens (a
+    128-token prompt and a 4-token burst), 4 columns each, 32 query rows
+    over the slots' table rows repeated a column each. Within 1e-4 of its
+    plain version; each column bit for bit the call the sequential decode
+    step at that position makes (same table width, same route); replayed
+    from a CUDA graph bit for bit."""
+    rng = np.random.default_rng(29)
+    slots, cols, first = 8, 4, 128
+    pool = _split_pool(rng, cuda_device, 32, 128, 16, 64,
+                       [first + cols] * slots)
+    kc, ks, vc, vs, pool_pos, bt = pool
+    rows_bt = bt.repeat_interleave(cols, dim=0)
+    q_pos = torch.tensor(np.tile(first + np.arange(cols), slots),
+                         dtype=torch.int32, device=cuda_device)
+    q = torch.from_numpy(rng.normal(size=(slots * cols, 32, 1, 128)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    args = (kc, ks, vc, vs, pool_pos, rows_bt, q_pos)
+    before = pda.paged_decode_attention.launches
+    got = pda.paged_decode_attention(q, *args)
+    assert pda.paged_decode_attention.launches == before + 1
+    want = pda.paged_decode_attention_ref(q, *args)
+    for j in range(cols):
+        one = pda.paged_decode_attention(
+            q[j::cols].contiguous(), kc, ks, vc, vs, pool_pos, bt,
+            q_pos[j::cols].contiguous())
+        assert torch.equal(one, got[j::cols])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pda.paged_decode_attention(q, *args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pda.paged_decode_attention(q, *args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+
+
+def test_paged_verify_step_on_card_matches_sequential_decode(cuda_device):
+    """llama2-7b tiny (f32) on the card: a right-aligned (3, 4) verify over
+    prefilled pool rows against 4 sequential paged decode steps on an equal
+    pool. K2 gives each column the sequential call's bits; the projections
+    differ only in their products' M, so the logits agree within 1e-4 of
+    the largest and the argmax is equal wherever the top-1/top-2 margin
+    exceeds that."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.kv_pool import PagedKVPool
+
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = {k: v.to(cuda_device) for k, v in init_params(
+        cfg, torch.Generator().manual_seed(0)).items()}
+    rng = np.random.default_rng(31)
+    lens, burst, s = (6, 9, 3), (4, 2, 1), 4
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    tokens = np.zeros((3, s), np.int64)
+    posn = np.full((3, s), -1, np.int32)
+    for r, (n, k) in enumerate(zip(lens, burst)):
+        tokens[r, s - k:] = rng.integers(0, cfg.vocab_size, (k,))
+        posn[r, s - k:] = np.arange(n, n + k)
+
+    def prefilled():
+        pool = PagedKVPool(cfg, num_pages=24, page_size=4, max_requests=3,
+                           device=cuda_device)
+        ptoks = np.zeros((3, 9), np.int64)
+        ppos = np.full((3, 9), -1, np.int32)
+        for r, p in enumerate(prompts):
+            pool.admit(len(p), reserve_tokens=len(p) + s)
+            ptoks[r, 9 - len(p):] = p
+            ppos[r, 9 - len(p):] = np.arange(len(p))
+        T.paged_prefill(params, cfg,
+                        torch.as_tensor(ptoks, device=cuda_device),
+                        pool.device_caches(),
+                        torch.as_tensor(ppos, device=cuda_device), opts)
+        return pool
+
+    dev = lambda a: torch.as_tensor(a, device=cuda_device)  # noqa: E731
+    with torch.inference_mode():
+        pool = prefilled()
+        before = pda.paged_decode_attention.launches
+        got, _ = T.paged_verify_step(params, cfg, dev(tokens),
+                                     pool.device_caches(), dev(posn), opts)
+        assert pda.paged_decode_attention.launches - before \
+            == cfg.num_layers
+        got = got.cpu().numpy()
+        seq = prefilled()
+        for j in range(s):
+            step, _ = T.paged_decode_step(params, cfg, dev(tokens[:, j:j + 1]),
+                                          seq.device_caches(),
+                                          dev(posn[:, j]), opts)
+            step = step.cpu().numpy()
+            for r in range(3):
+                if posn[r, j] < 0:
+                    continue
+                scale = np.abs(step[r]).max()
+                assert np.abs(got[r, j] - step[r]).max() <= 1e-4 * scale
+                top2 = np.sort(step[r])[-2:]
+                if top2[1] - top2[0] > 1e-4 * scale:
+                    assert got[r, j].argmax() == step[r].argmax()
+
+
+@pytest.mark.parametrize("mode", ["chunked", "packed"])
+def test_speculative_scheduler_on_card_drains(cuda_device, mode):
+    """llama2-7b tiny (f32) through the speculative Scheduler on the card:
+    the k = 0 run's greedy streams, K2 once a layer and verify tick (each
+    decode tick one verify call), and every page back in the pool."""
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(33)
+    prompts = [np.tile(rng.integers(0, cfg.vocab_size, (3,)), 4)[:n]
+               for n in (9, 12, 7)]
+
+    def serve(k):
+        sched = Scheduler(cfg, params, opts, num_pages=32, page_size=4,
+                          max_slots=3, tick_mode=mode, speculate_k=k,
+                          device=cuda_device)
+        rids = [sched.submit(p, 8) for p in prompts]
+        before = pda.paged_decode_attention.launches
+        res = sched.run()
+        return ([res[r] for r in rids], sched,
+                pda.paged_decode_attention.launches - before)
+
+    base, _, _ = serve(0)
+    got, sched, k2 = serve(3)
+    for g, w in zip(got, base):
+        np.testing.assert_array_equal(g, w)
+    assert sched.stats.spec_rounds > 0
+    assert k2 == cfg.num_layers * sched.stats.steps
+    assert sched.pool.pages_in_use == 0 and not sched.pool.refcount.any()

@@ -226,8 +226,9 @@ def test_paged_cache_update_bit_identical_to_jax(positions, table):
 
 def test_paged_attention_layers_match_jax():
     """The model's paged routes on the same post-update pool: a forked
-    prefill through ``paged_prefill_attention`` and a ragged decode through
-    ``paged_decode_attention_layer`` against the reference's."""
+    prefill through ``paged_prefill_attention``, a ragged decode and a
+    two-column verify through ``paged_decode_attention_layer``, against
+    the reference's."""
     rng = np.random.default_rng(13)
     h, kh, hd = 4, 2, 32
     spec = AttnSpec(num_heads=h, num_kv_heads=kh, head_dim=hd)
@@ -248,9 +249,14 @@ def test_paged_attention_layers_match_jax():
                                            jnp.asarray(dec_pos))
     got = TL.paged_decode_attention_layer(_t(q[:, -1:]), tc, _t(dec_pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError, match="6.3"):
-        TL.paged_decode_attention_layer(_t(q[:, -2:]), tc,
-                                        _t(np.asarray(q_pos[:, -2:])))
+    # S = 2, the speculative verify: each column one K2 query row (the
+    # plain version here) against the reference's dense gather and
+    # chunked attention
+    ver_pos = np.ascontiguousarray(q_pos[:, -2:])
+    want = JL.paged_decode_attention_layer(jnp.asarray(q[:, -2:]), jc, spec,
+                                           jnp.asarray(ver_pos))
+    got = TL.paged_decode_attention_layer(_t(q[:, -2:]), tc, _t(ver_pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 # ----------------------------------------------------- wrapper refusals

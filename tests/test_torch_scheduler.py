@@ -448,22 +448,43 @@ def test_streaming_order_and_release_paged(tiny_model):
 
 
 # the packed tick, token_budget and lazy growth are ported now (their
-# tests are in tests/test_torch_packed.py); the cases left keep their ids
+# tests are in tests/test_torch_packed.py), and so is speculation (its
+# case now checks that the keyword serves; tests/test_torch_speculation.py
+# holds it to the reference); the cases keep their ids, and the messages
+# name the current ROADMAP queue-1 items
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(speculate_k=2), "6.3", id="kw3-6.3"),
-    pytest.param(dict(auto_prefix=True), "6.4", id="kw4-6.4"),
-    pytest.param(dict(mesh=object()), "item 9", id="kw5-item 9"),
-    pytest.param(dict(telemetry=object()), "item 7", id="kw6-item 7")])
+    pytest.param(dict(speculate_k=2), None, id="kw3-6.3"),
+    pytest.param(dict(auto_prefix=True), "item 4, auto_prefix",
+                 id="kw4-6.4"),
+    pytest.param(dict(mesh=object()), "item 8, the sharded deployment",
+                 id="kw5-item 9"),
+    pytest.param(dict(telemetry=object()), "item 5, telemetry",
+                 id="kw6-item 7")])
 def test_scheduler_refuses_what_is_not_ported(tiny_model, kw, item):
     cfg, _, params = tiny_model
+    if item is None:  # ported: it serves, with the Engine's tokens
+        p = np.tile(np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                                      (3,)), 3)
+        sched = _sched(cfg, params, num_pages=16, page_size=4, max_slots=2,
+                       **kw)
+        rid = sched.submit(p, 5)
+        np.testing.assert_array_equal(sched.run()[rid],
+                                      _engine_tokens(cfg, params, p, 5))
+        assert sched.stats.spec_rounds > 0
+        assert sched.pool.pages_in_use == 0
+        with pytest.raises(ValueError, match="speculate_k"):
+            _sched(cfg, params, speculate_k=-1)
+        return
     with pytest.raises(NotImplementedError, match=item):
         _sched(cfg, params, **kw)
 
 
 def test_paged_backend_refuses_unported_deployments(tiny_model):
     cfg, _, params = tiny_model
-    for dep in ("sharded", "disaggregated"):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    for dep, item in (("sharded", "item 8, the sharded deployment"),
+                      ("disaggregated", "item 7, the disaggregated "
+                                        "deployment")):
+        with pytest.raises(NotImplementedError, match=item):
             LLMServer(cfg, params, OPTS_Q, deployment=dep, device="cpu")
     with pytest.raises(ValueError, match="deployment"):
         LLMServer(cfg, params, OPTS_Q, deployment="mesh", device="cpu")

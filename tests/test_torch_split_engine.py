@@ -274,13 +274,16 @@ def test_split_refusals(tiny_model):
     eng = SplitEngine(cfg, params, OPSCConfig(split_layer=1), opts=OPTS,
                       cache_len=16, device="cpu")
     p = np.zeros((1, 8), np.int64)
-    with pytest.raises(NotImplementedError, match="6.3"):
-        eng.generate(p, 2, speculate_k=2)
+    # speculation is ported: it runs, and gives the per-token loop's tokens
+    # (tests/test_torch_speculation.py holds it to the reference)
+    toks, st = eng.generate(p, 4, speculate_k=2)
+    np.testing.assert_array_equal(toks, eng.generate(p, 4)[0])
+    assert st.spec_rounds > 0
     with pytest.raises(ValueError):
         eng.generate(p, 2, speculate_k=-1)
     with pytest.raises(ValueError, match="cache_len"):
         eng.generate(p, 9)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 5, telemetry"):
         SplitEngine(cfg, params, OPSCConfig(split_layer=1), device="cpu",
                     telemetry=object())
 
@@ -354,7 +357,10 @@ def test_split_backend_stop_deadline_abort_release(tiny_model):
     assert out.split_stats.early_exits == 1
     with pytest.raises(ValueError, match="opsc"):
         LLMServer(cfg, params, OPTS, backend="split", device="cpu")
+    # a speculative request (ported): the per-token request's tokens, and
+    # its SplitStats count the verify rounds
     srv = server()
-    srv.submit(prompts[0], SamplingParams(max_tokens=3, speculate_k=2))
-    with pytest.raises(NotImplementedError, match="6.3"):
-        srv.run()
+    rid = srv.submit(prompts[0], SamplingParams(max_tokens=3, speculate_k=2))
+    out = srv.run()[rid]
+    np.testing.assert_array_equal(out.tokens, base[rids[0]].tokens[:3])
+    assert out.split_stats.spec_rounds > 0
