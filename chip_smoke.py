@@ -58,7 +58,21 @@ Phases, each printing one JSON line:
            edge and verifying on the dense and the paged cloud against its
            per-token loop (tokens, round trips, uplink bits); and the
            induction vehicle, where drafts are accepted, through both: fewer
-           decode ticks and round trips than speculate_k 0, equal streams.
+           decode ticks and round trips than speculate_k 0, equal streams;
+  service  the paged phase's ten requests as ten concurrent HTTP clients
+           (eight SSE streams, two non-streaming completions) of
+           ServingHTTPServer over AsyncLLMServer over
+           LLMServer(backend="paged", auto_prefix=True, telemetry=Tracer())
+           at full width, with no prefix key (detection must find the
+           shared 200-token head), then a stream that hangs up after 4
+           tokens: the streams held to the same requests in process (equal,
+           or the first flip at a margin within PAGED_REL), a detected and
+           forked prefix, K2 and K3 launched (counters set to 0 just before
+           the traffic and read just after), no page left, /healthz 200
+           then 503, the trace validated by tools/trace_report.py, TTFT and
+           e2e percentiles from /v1/metrics; a decode tick with a tracer
+           and without, in turns; the serve phase's four requests through
+           the fused backend with a tracer and without: equal streams.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -79,7 +93,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed",
-          "split", "spec")
+          "split", "spec", "service")
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -3274,6 +3288,326 @@ def phase_spec(ctx) -> None:
                          f"{[k for k, v in checks.items() if not v]}")
 
 
+# the service phase: the paged phase's ten requests over HTTP (requests 1
+# and 2, which share a 200-token head, go as the two non-streaming
+# completions), then one stream that hangs up after this many tokens
+SERVICE_NONSTREAM = (1, 2)
+SERVICE_DISCONNECT_AFTER = 4
+SERVICE_DISCONNECT_LEN = 300  # its prompt; it asks for 64 tokens
+SERVICE_TRACE_PHASES = "queued,prefill,first_token,decode,finish"
+
+
+async def _http_open(host, port, method, path, body=None):
+    """A raw HTTP/1.1 request; (reader, writer, status code)."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection(host, port)
+    payload = b"" if body is None else json.dumps(body).encode()
+    writer.write((f"{method} {path} HTTP/1.1\r\nHost: {host}\r\n"
+                  f"Content-Type: application/json\r\n"
+                  f"Content-Length: {len(payload)}\r\n\r\n").encode()
+                 + payload)
+    await writer.drain()
+    code = int((await reader.readline()).split()[1])
+    while await reader.readline() not in (b"\r\n", b"\n", b""):
+        pass  # headers
+    return reader, writer, code
+
+
+async def _http_json(host, port, method, path, body=None) -> tuple:
+    reader, writer, code = await _http_open(host, port, method, path, body)
+    raw = await reader.read()  # Connection: close: the body ends at EOF
+    writer.close()
+    return code, json.loads(raw) if raw else None
+
+
+async def _http_stream(host, port, body, first=None, stop_after=None):
+    """A streaming completion: (code, the SSE payloads). ``first``, an
+    asyncio.Event, is set at the first token; with ``stop_after`` the
+    client hangs up after that many tokens."""
+    from repro_torch.serving.http import SSEParser
+
+    reader, writer, code = await _http_open(
+        host, port, "POST", "/v1/completions", dict(body, stream=True))
+    msgs, parser = [], SSEParser()
+    while code == 200:
+        chunk = await reader.read(65536)
+        if not chunk:
+            break
+        msgs += parser.feed(chunk)
+        tokens = [m for m in msgs if m != "[DONE]" and not m.get("finished")]
+        if first is not None and tokens:
+            first.set()
+        if stop_after is not None and len(tokens) >= stop_after:
+            break
+        if msgs and msgs[-1] == "[DONE]":
+            break
+    writer.close()
+    return code, msgs
+
+
+def _request_body(prompt, sp) -> dict:
+    """The /v1/completions body of ``prompt`` under ``sp``: no prefix key
+    (detection must find shared heads)."""
+    body = {"prompt": [int(t) for t in prompt], "max_tokens": sp.max_tokens}
+    if not sp.greedy:
+        body.update(temperature=sp.temperature, top_p=sp.top_p, seed=sp.seed)
+    if sp.stop_token_ids:
+        body["stop_token_ids"] = list(sp.stop_token_ids)
+    return body
+
+
+def _service_traffic(engine, http, prompts, sampling, rng,
+                     vocab: int) -> dict:
+    """The ten requests as ten concurrent HTTP clients: eight SSE streams,
+    and once each has its first token (every slot busy), the two requests
+    of :data:`SERVICE_NONSTREAM` as non-streaming completions, which then
+    queue together: detection attaches both to one shared prefix, the
+    first in FIFO order writes it and the other forks it. Then a stream
+    that hangs up after :data:`SERVICE_DISCONNECT_AFTER` tokens,
+    /v1/metrics, the shutdown, and /healthz before and after it."""
+    import asyncio
+
+    async def go():
+        await http.start()  # binds port 0 on this loop, which serves it
+        host, port = http.host, http.port
+        streamed = [i for i in range(len(prompts))
+                    if i not in SERVICE_NONSTREAM]
+        firsts = {i: asyncio.Event() for i in streamed}
+        tasks = {i: asyncio.ensure_future(_http_stream(
+            host, port, _request_body(prompts[i], sampling(i, ())),
+            first=firsts[i])) for i in streamed}
+        await asyncio.gather(*(e.wait() for e in firsts.values()))
+        for i in SERVICE_NONSTREAM:
+            tasks[i] = asyncio.ensure_future(_http_json(
+                host, port, "POST", "/v1/completions",
+                _request_body(prompts[i], sampling(i, ()))))
+        results = {i: await t for i, t in tasks.items()}
+        drop = rng.integers(0, vocab, (SERVICE_DISCONNECT_LEN,))
+        drop_code, drop_msgs = await _http_stream(
+            host, port, {"prompt": drop.tolist(), "max_tokens": 64},
+            stop_after=SERVICE_DISCONNECT_AFTER)
+        for _ in range(3000):  # the abort lands on the next tick
+            if not engine.server.pending:
+                break
+            await asyncio.sleep(0.01)
+        metrics_code, metrics = await _http_json(host, port, "GET",
+                                                 "/v1/metrics")
+        health = await _http_json(host, port, "GET", "/healthz")
+        await engine.shutdown()
+        closed = await _http_json(host, port, "GET", "/healthz")
+        await http.stop(shutdown_engine=False)
+        return {"results": results, "drop": (drop_code, drop_msgs),
+                "metrics": (metrics_code, metrics), "health": health,
+                "closed": closed}
+
+    return asyncio.run(asyncio.wait_for(go(), 900))
+
+
+def _traced_tick(ctx, cfg, params, opts, pool_kw, rng) -> dict:
+    """A decode tick (``Scheduler.step`` with every slot decoding after
+    128-token prompts) with a Tracer attached and without, in turns (A, B,
+    B, A), host included, and the traced ticks' own records."""
+    from repro_torch.serving.scheduler import Scheduler
+    from repro_torch.serving.telemetry import Tracer
+
+    prompts = rng.integers(0, cfg.vocab_size, (8, 128))
+    scheds = {}
+    for name, tel in (("untraced", None), ("traced", Tracer())):
+        sched = Scheduler(cfg, params, opts, telemetry=tel, **pool_kw)
+        for p in prompts:
+            sched.submit(p, 200)
+        sched.step()  # every prompt in one chunk, first tokens sampled
+        scheds[name] = sched
+    a, b = scheds["untraced"].step, scheds["traced"].step
+    ms = ctx["timer"]({"untraced": a, "traced": b, "traced_again": b,
+                       "untraced_again": a}, iters=30, device_only=False)
+    records = scheds["traced"].telemetry.ticks[1:]
+    for sched in scheds.values():
+        for rid in range(8):
+            sched.abort(rid)
+    return {"step_ms": ms, "batch": 8,
+            "traced_record_wall_ms_median": statistics.median(
+                r.wall_s * 1e3 for r in records),
+            "traced_records": len(records),
+            "tokens_a_record": sorted({r.tokens for r in records})}
+
+
+def _fused_traced(cfg, params, opts, device) -> dict:
+    """The serve phase's four requests (no stop token) through
+    LLMServer(backend="fused") without a tracer and with one: the same
+    streams bit for bit, and the tracer's counters."""
+    import numpy as np
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.serving.api import LLMServer
+    from repro_torch.serving.telemetry import Tracer
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,))
+               for n in (128, 128, 96, 96)]
+    sps = [SamplingParams(max_tokens=64), SamplingParams(max_tokens=48),
+           SamplingParams(max_tokens=64, temperature=0.8, top_p=0.9, seed=7),
+           SamplingParams(max_tokens=32)]
+    runs = {}
+    for name, tel in (("off", None), ("on", Tracer())):
+        srv = LLMServer(cfg, params, opts, backend="fused", cache_len=1024,
+                        telemetry=tel, device=device)
+        rids = [srv.submit(p, sp) for p, sp in zip(prompts, sps)]
+        outs = srv.run()
+        runs[name] = ([outs[r].tokens for r in rids], srv.metrics())
+    m = runs["on"][1]
+    return {"bit_identical": all(np.array_equal(a, b) for a, b in zip(
+        runs["off"][0], runs["on"][0])), "fused_calls": m["fused.calls"],
+        "fused_tokens": m["fused.tokens"],
+        "fused_batch_s_p50": m["fused.batch_s.p50"]}
+
+
+def phase_service(ctx) -> None:
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.serving.api import LLMServer
+    from repro_torch.serving.async_engine import AsyncLLMServer
+    from repro_torch.serving.http import (ServingHTTPServer,
+                                          build_serving_kernels)
+    from repro_torch.serving.telemetry import Tracer
+
+    device = ctx["device"]
+    cfg = get_config("llama2-7b")  # full width and depth
+    opts = RuntimeOpts(quantized_kv=True)
+    params, _ = _llama7b_params(ctx)
+    pool_kw = dict(num_pages=513, page_size=16, max_slots=8,
+                   max_seq_len=1024, device=device)
+    prompts, sampling, rng = _ten_requests(cfg)
+    greedy = [i for i in range(len(prompts)) if i != 4]
+
+    # the same requests in process, without a tracer and with the explicit
+    # prefix key; every emitted token's logits kept (the streams' yardstick)
+    ref = LLMServer(cfg, params, opts, backend="paged", **pool_kw)
+    rec = _record_logits(ref.backend.scheduler)
+    ref_pieces = _record_pieces(ref.backend.scheduler)
+    ref_rids = [ref.submit(p, sampling(i, ())) for i, p in enumerate(prompts)]
+    ref_all = ref.run()
+    ref_outs = [ref_all[r] for r in ref_rids]
+    del ref
+    gc.collect()
+
+    # the service: AsyncLLMServer over LLMServer(backend="paged",
+    # auto_prefix=True, telemetry=Tracer()) behind ServingHTTPServer
+    tracer = Tracer()
+    srv = LLMServer(cfg, params, opts, backend="paged", auto_prefix=True,
+                    telemetry=tracer, **pool_kw)
+    sched = srv.backend.scheduler
+    pieces = _record_pieces(sched)
+    build_serving_kernels(device)  # no first token waits on nvcc
+    engine = AsyncLLMServer(srv)
+    http = ServingHTTPServer(engine, "127.0.0.1", 0)
+    for fn in (pda.paged_decode_attention, ppa.paged_prefill_attention):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    traffic = _service_traffic(engine, http, prompts, sampling, rng,
+                               cfg.vocab_size)
+    wall_s = time.perf_counter() - t0
+    launches = {"paged_decode_attention": pda.paged_decode_attention.launches,
+                "paged_prefill_attention":
+                    ppa.paged_prefill_attention.launches}
+    for name, n in launches.items():
+        ctx["launches"][name] = ctx["launches"].get(name, 0) + n
+
+    # what came over HTTP, against the outputs the server kept
+    outputs = srv.outputs()
+    http_tokens, rids = {}, {}
+    for i, res in traffic["results"].items():
+        if i in SERVICE_NONSTREAM:
+            code, body = res
+            rids[i], http_tokens[i] = body["rid"], body["tokens"]
+            ok_code = code == 200
+        else:
+            code, msgs = res
+            toks = [m for m in msgs if m != "[DONE]" and not m.get("finished")]
+            rids[i], http_tokens[i] = toks[0]["rid"], [m["token"]
+                                                        for m in toks]
+            ok_code = code == 200 and msgs[-1] == "[DONE]"
+        if not ok_code:
+            raise SystemExit(f"service: request {i} answered {code}")
+    outs = [outputs[rids[i]] for i in range(len(prompts))]
+    held = _hold_streams((outs, None, pieces), (ref_outs, rec, ref_pieces),
+                         greedy, PAGED_REL)
+    drop_code, drop_msgs = traffic["drop"]
+    drop_rid = drop_msgs[0]["rid"] if drop_msgs else None
+    drop_out = outputs.get(drop_rid)
+    metrics_code, metrics = traffic["metrics"]
+    latency = {f"{name}.{q}": metrics[f"requests.{name}.{q}"]
+               for name in ("ttft_s", "e2e_s") for q in ("p50", "p95")}
+
+    trace_path = os.path.join(ROOT, "build", "service_trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    tracer.export_chrome_trace(trace_path)
+    report = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "trace_report.py"),
+         trace_path, "--require-ticks", "5", "--require-phases",
+         SERVICE_TRACE_PHASES], capture_output=True, text=True)
+    st = sched.stats
+    checks = {
+        "http_equals_outputs": all(
+            list(outs[i].tokens) == http_tokens[i]
+            for i in range(len(prompts))),
+        "lengths": [len(o.tokens) for o in outs] == list(TEN_MAX_TOKENS),
+        "streams_held_margin_rule": held["agree"],
+        "auto_prefix_hits": st.auto_prefix_hits >= 1,
+        "prefix_forks": st.prefix_forks >= 1,
+        "k2_launched": launches["paged_decode_attention"] > 0,
+        "k3_launched": launches["paged_prefill_attention"] > 0,
+        "disconnect_aborted": drop_code == 200 and drop_out is not None
+        and drop_out.finish_reason == "abort"
+        and len(drop_out.tokens) >= SERVICE_DISCONNECT_AFTER,
+        "no_page_leaked": sched.pool.pages_in_use == 0
+        and not sched.pool.refcount.any(),
+        "healthz_200_then_503": traffic["health"][0] == 200
+        and traffic["closed"][0] == 503,
+        "metrics_endpoint": metrics_code == 200
+        and metrics["requests.retained"] == len(prompts) + 1,
+        "trace_report_validates": report.returncode == 0,
+        "tokens_in_vocab": all(int(o.tokens.min()) >= 0 and int(
+            o.tokens.max()) < cfg.vocab_size for o in outs)}
+    del engine, http, srv, sched, outputs
+    gc.collect()
+
+    tick = _traced_tick(ctx, cfg, params, opts, pool_kw, rng)
+    gc.collect()
+    fused = _fused_traced(cfg, params, opts, device)
+    checks["fused_bit_identical_tracer_on_off"] = fused["bit_identical"]
+    gc.collect()
+    emit({"phase": "service", "config": cfg.name, "nvidia_smi": ctx["smi"],
+          "pool": {k: v for k, v in pool_kw.items() if k != "device"},
+          "clients": len(prompts) + 1,
+          "nonstreaming": list(SERVICE_NONSTREAM),
+          "latency_s": latency, "wall_s": wall_s,
+          "tokens": sum(len(o.tokens) for o in outs),
+          "ticks": len(tracer.ticks), "auto_prefix_hits": st.auto_prefix_hits,
+          "prefix_forks": st.prefix_forks, "launches": launches,
+          "streams": {"bit_identical": sum(held["bit_identical"].values()),
+                      "greedy": len(greedy),
+                      "first_difference": held["first_difference"],
+                      "tokens_compared": held["tokens_compared"],
+                      "same_pieces": held["same_pieces"], "tol": PAGED_REL},
+          "disconnect": {"tokens": None if drop_out is None
+                         else len(drop_out.tokens),
+                         "reason": None if drop_out is None
+                         else drop_out.finish_reason},
+          "trace_report": report.stdout.splitlines()[:3]
+          + report.stderr.splitlines()[-3:],
+          "tick_with_tracer": tick, "fused_tracer": fused,
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise SystemExit(f"service: failed checks "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -3307,7 +3641,7 @@ def main(argv=None) -> int:
                "model": phase_model, "vehicle": phase_vehicle,
                "serve": phase_serve, "paged": phase_paged,
                "packed": phase_packed, "split": phase_split,
-               "spec": phase_spec}
+               "spec": phase_spec, "service": phase_service}
     for name in PHASES:
         if name in phases:
             runners[name](ctx)

@@ -26,9 +26,10 @@ class Payload:
     below: TabQResult
     above: SparseAbove
 
-    def payload_bits(self) -> int:
-        """Measured payload bits (reads counts back to the host)."""
-        return self.below.payload_bits() + self.above.csr_bytes() * 8
+    def payload_bits(self, widths: torch.Tensor | None = None) -> int:
+        """Measured payload bits (reads counts back to the host; ``widths``,
+        a host copy of the per-token bit widths, spares their readback)."""
+        return self.below.payload_bits(widths) + self.above.csr_bytes() * 8
 
 
 def encode(t: torch.Tensor, *, tau: float = 5.0, delta: float = 0.2,

@@ -46,12 +46,15 @@ class TabQResult:
     def dequantize(self) -> torch.Tensor:
         return aiq_dequant(self.codes, self.scale, self.zero) * self.sign
 
-    def payload_bits(self) -> int:
+    def payload_bits(self, widths: torch.Tensor | None = None) -> int:
         """Exact payload accounting: D·Q_token bits per token (sign bit
         included) + 64 bits a token for (scale, zero) + 8 for the bit-width
-        byte. Reads the bit widths back to the host."""
+        byte. ``widths``: a host copy of ``bits`` the caller already holds;
+        without it the widths are read back to the host."""
+        if widths is None:
+            widths = self.bits.cpu()
         d = self.codes.shape[-1]
-        return int(self.bits.sum()) * d + self.bits.shape[0] * (64 + 8)
+        return int(widths.sum()) * d + widths.shape[0] * (64 + 8)
 
 
 def tabq(t: torch.Tensor, max_bits: int = 8, delta: float = 0.2) -> TabQResult:

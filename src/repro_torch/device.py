@@ -35,3 +35,12 @@ def to_device(array, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.clone()
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def stream_sync(device: torch.device) -> None:
+    """Wait for the work queued on ``device``'s current stream (nothing on
+    the CPU, whose work is done when a call returns). A traced span calls
+    this before stamping its end, so that the span covers the device work
+    it launched; an untraced path never calls it."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()

@@ -19,6 +19,14 @@ token events arrive strictly in position order; finish events carry
 ``token = -1``, ``index = len(generated)`` and the finish reason
 (``"stop"`` | ``"length"`` | ``"abort"`` | ``"deadline"``).
 
+``telemetry=`` threads one :class:`~repro_torch.serving.telemetry.Tracer`
+through the chosen backend (``True`` builds one, ``server.tracer``):
+request-lifecycle spans, tick records and the backend's counters land in
+it, and :meth:`LLMServer.metrics` merges its registry.
+:class:`~repro_torch.serving.async_engine.AsyncLLMServer` drives a server
+from one tick thread for asyncio clients, and
+:mod:`repro_torch.serving.http` serves it over HTTP/SSE.
+
 Quickstart::
 
     from repro_torch.serving.api import LLMServer
@@ -43,6 +51,7 @@ from repro_torch.models.transformer import RuntimeOpts
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.split_engine import SplitEngine
+from repro_torch.serving.telemetry import Histogram, Tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,8 +151,9 @@ class _ReplayBackend(_RequestBook):
     streams: queueing, abort, and the round-robin emitter (one token per
     request per step)."""
 
-    def __init__(self):
+    def __init__(self, telemetry=None):
         super().__init__()
+        self.telemetry = telemetry
         self._next_rid = 0
         self._queued: list = []
         # rid → [tokens, cursor, finish_reason, logprobs | None]
@@ -157,6 +167,8 @@ class _ReplayBackend(_RequestBook):
         self._next_rid += 1
         self._queued.append(req)
         self._submit_step[rid] = self._steps
+        if self.telemetry is not None:
+            self.telemetry.request_submitted(rid)
         return rid
 
     @property
@@ -196,6 +208,9 @@ class _ReplayBackend(_RequestBook):
             rid, self._reqs[rid].prompt, np.asarray(gen, np.int32),
             finished=True, finish_reason=reason, metrics=m,
             split_stats=self._split_stats.get(rid))
+        if self.telemetry is not None:
+            self.telemetry.request_finished(rid, "requests", reason,
+                                            len(self._outputs[rid].tokens))
 
     def _emit_round(self) -> list:
         events, self._pending_events = self._pending_events, []
@@ -208,6 +223,9 @@ class _ReplayBackend(_RequestBook):
                 if m.ttft_s is None:
                     m.ttft_s = now - m.submit_s
                     m.ttft_ticks = self._steps - self._submit_step[rid]
+                    if self.telemetry is not None:
+                        self.telemetry.first_token(
+                            rid, "requests", ttft_ticks=m.ttft_ticks)
                 lp = None if lps is None else float(lps[cur])
                 events.append(TokenEvent(rid, cur, int(toks[cur]),
                                          logprob=lp))
@@ -230,10 +248,11 @@ class FusedBackend(_ReplayBackend):
     truncate the replay."""
 
     def __init__(self, cfg, params, opts: RuntimeOpts = RuntimeOpts(), *,
-                 cache_len: int = 4096, device=None):
-        super().__init__()
+                 cache_len: int = 4096, telemetry=None, device=None):
+        super().__init__(telemetry=telemetry)
         self.engine = Engine(cfg, params, opts, cache_len=cache_len,
-                             device=device)
+                             telemetry=telemetry, device=device)
+        self.device = self.engine.device
 
     def step(self) -> list:
         if self._queued:
@@ -273,13 +292,15 @@ class SplitBackend(_ReplayBackend):
     carried ``SplitStats`` count the rounds and the accepted drafts."""
 
     def __init__(self, cfg, params, opts: RuntimeOpts = RuntimeOpts(), *,
-                 opsc=None, compress: bool = True, **split_kwargs):
+                 opsc=None, compress: bool = True, telemetry=None,
+                 **split_kwargs):
         if opsc is None:
             raise ValueError("the split backend needs opsc=OPSCConfig(...)")
-        super().__init__()
+        super().__init__(telemetry=telemetry)
         self.compress = compress
         self.engine = SplitEngine(cfg, params, opsc, opts=opts,
-                                  **split_kwargs)
+                                  telemetry=telemetry, **split_kwargs)
+        self.device = self.engine.device
 
     def step(self) -> list:
         if self._queued and not self._streams:
@@ -308,17 +329,20 @@ class PagedBackend(_RequestBook):
     ``max_seq_len=``, ``prefill_chunk=``, ``tick_mode=`` with
     ``"packed"``, ``"chunked"`` or ``"wave"``, ``token_budget=``,
     ``lazy_growth=``, ``resume=``, ``preempt_cooldown=``, ``speculate_k=``,
-    ``device=``). With ``speculate_k=`` k > 0 every decode tick verifies a
-    prompt-lookup draft burst of up to k tokens a request in one call, and
-    a tick's several tokens a request stream as events in index order,
-    each with its own logprob; ``SamplingParams(speculate_k=)`` lowers a
-    request's burst below k. The fused backend ignores ``speculate_k``: it
-    has no incremental tick to amortize. Of the reference's deployments
-    only ``"fused"`` (one scheduler on one card) is ported."""
+    ``auto_prefix=``, ``device=``). With ``speculate_k=`` k > 0 every
+    decode tick verifies a prompt-lookup draft burst of up to k tokens a
+    request in one call, and a tick's several tokens a request stream as
+    events in index order, each with its own logprob;
+    ``SamplingParams(speculate_k=)`` lowers a request's burst below k.
+    The fused backend ignores ``speculate_k``: it has no incremental tick
+    to amortize. Of the reference's deployments only ``"fused"`` (one
+    scheduler on one card) is ported."""
 
     def __init__(self, cfg, params, opts: RuntimeOpts = RuntimeOpts(), *,
-                 deployment: str = "fused", **scheduler_kwargs):
+                 telemetry=None, deployment: str = "fused",
+                 **scheduler_kwargs):
         super().__init__()
+        self.telemetry = telemetry
         if deployment in ("sharded", "disaggregated"):
             item = "7, the disaggregated deployment" \
                 if deployment == "disaggregated" \
@@ -330,7 +354,9 @@ class PagedBackend(_RequestBook):
             raise ValueError(f"unknown deployment {deployment!r}: expected "
                              f"'fused', 'sharded' or 'disaggregated'")
         self.deployment = deployment
-        self.scheduler = Scheduler(cfg, params, opts, **scheduler_kwargs)
+        self.scheduler = Scheduler(cfg, params, opts, telemetry=telemetry,
+                                   **scheduler_kwargs)
+        self.device = self.scheduler.device
 
     def submit(self, req: GenerationRequest) -> int:
         return self._track(req, self.scheduler.submit(
@@ -378,7 +404,11 @@ class PagedBackend(_RequestBook):
                              np.int32)
             m = self._metrics[rid]
             m.latency_s = m.e2e_s = now - m.submit_s
+            # the tracer's copy when tracing (the same value; it survives a
+            # reset of the stats)
             m.ttft_ticks = sched.stats.ttft_ticks.get(rid)
+            if self.telemetry is not None:
+                m.ttft_ticks = self.telemetry.ttft_ticks.get(rid, m.ttft_ticks)
             self._outputs[rid] = RequestOutput(
                 rid, req.prompt, gen, finished=True, finish_reason=reason,
                 metrics=m)
@@ -400,20 +430,35 @@ class LLMServer:
     ``"fused"`` (``cache_len=`` and ``device=`` reach :class:`FusedBackend`),
     ``"split"`` (``opsc=``, ``compress=`` and the ``SplitEngine``'s keyword
     arguments reach :class:`SplitBackend`) or an already-built backend.
-    ``telemetry`` accepts only None for now."""
+    Every backend runs on the ``device`` it names (``cuda`` unless the
+    caller names another).
+
+    ``telemetry`` threads one :class:`~repro_torch.serving.telemetry.Tracer`
+    through the backend (``True`` builds one); it is ``server.tracer``, and
+    :meth:`metrics` merges its registry. None keeps every instrumented
+    path a strict no-op."""
 
     def __init__(self, cfg=None, params=None,
                  opts: RuntimeOpts = RuntimeOpts(), *,
                  backend="paged", telemetry=None, **backend_kwargs):
-        if telemetry is not None:
-            raise NotImplementedError("telemetry is not ported yet "
-                                      "(ROADMAP queue 1, item 5, telemetry)")
+        if telemetry is True:
+            telemetry = Tracer()
+        self.tracer = telemetry
         if isinstance(backend, str):
             if backend not in _BACKENDS:
                 raise ValueError(f"backend must be one of ['fused', 'paged', "
                                  f"'split'], got {backend!r}")
-            backend = _BACKENDS[backend](cfg, params, opts, **backend_kwargs)
+            backend = _BACKENDS[backend](cfg, params, opts,
+                                         telemetry=telemetry,
+                                         **backend_kwargs)
+        elif telemetry is not None and getattr(
+                backend, "telemetry", None) is None:
+            raise ValueError(
+                "pass telemetry= to the backend's constructor when handing "
+                "LLMServer an already-built backend")
         self.backend = backend
+        if self.tracer is None:  # adopt a prebuilt backend's tracer
+            self.tracer = getattr(backend, "telemetry", None)
 
     def submit(self, prompt,
                sampling: SamplingParams = SamplingParams()) -> int:
@@ -461,13 +506,15 @@ class LLMServer:
         return self.backend.release(rid)
 
     def metrics(self) -> dict:
-        """Flat ``{name: number}`` metrics from the finished outputs still
-        retained: count, per-reason counts, and percentile summaries of
-        ``requests.ttft_s`` / ``latency_s`` / ``ttft_ticks`` / ``e2e_s`` /
-        ``tpot_s``."""
-        from repro_torch.serving.telemetry import Histogram
-
+        """Flat ``{name: number}`` metrics. Always: from the finished
+        outputs still retained, count, per-reason counts, and percentile
+        summaries of ``requests.ttft_s`` / ``latency_s`` / ``ttft_ticks`` /
+        ``e2e_s`` / ``tpot_s``. With a tracer, its whole registry (tick
+        times, pool gauges, TTFT/TPOT/e2e histograms, shape counters, the
+        split uplink account) under its own names."""
         out: dict = {}
+        if self.tracer is not None:
+            out.update(self.tracer.metrics_dict())
         finished = self.backend.outputs()
         out["requests.retained"] = len(finished)
         ttft, lat = Histogram(), Histogram()

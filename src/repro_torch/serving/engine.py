@@ -11,6 +11,11 @@ Requests are batched by equal prompt length. Unlike the reference, which
 rounds the number of decode steps up to a power of two so that lengths
 share XLA compiles, the port runs exactly ``max_new - 1`` decode steps;
 the first ``max_new`` tokens are the same.
+
+With ``telemetry=`` (a ``serving.telemetry.Tracer``) each call lands one
+``"fused_generate"`` span on the ``"engine"`` track and ``fused.*``
+counters; the span ends after a sync of the device's current stream, made
+only when a tracer is attached.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sampling import (SamplingParams, bias_rows,
                                        broadcast_params, sample_tokens,
                                        sampling_operands, token_logprobs)
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, stream_sync
 from repro_torch.models.transformer import RuntimeOpts, decode_step, prefill
 
 
@@ -84,21 +89,36 @@ def make_sampler(sampling: list, vocab_size: int, device):
 
 
 class Engine:
-    """``Engine(cfg, params, opts, cache_len=4096, device=None)``: params
-    (the flat dict of :mod:`repro_torch.params`) are moved to ``device``,
-    which is ``cuda`` unless the caller names another; with no device and
-    no CUDA card the constructor raises."""
+    """``Engine(cfg, params, opts, cache_len=4096, telemetry=None,
+    device=None)``: params (the flat dict of :mod:`repro_torch.params`) are
+    moved to ``device``, which is ``cuda`` unless the caller names another;
+    with no device and no CUDA card the constructor raises. ``telemetry``
+    takes a ``Tracer`` (module docstring)."""
 
     def __init__(self, cfg: ArchConfig, params, opts: RuntimeOpts = RuntimeOpts(),
                  cache_len: int = 4096, telemetry=None, device=None):
-        if telemetry is not None:
-            raise NotImplementedError("telemetry is not ported yet "
-                                      "(ROADMAP queue 1, item 5, telemetry)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.opts = opts
         self.cache_len = cache_len
+        # serving.telemetry.Tracer or None: None skips every tracer call
+        # and the sync that ends the span
+        self.telemetry = telemetry
+
+    def _span(self, t0: float, *, batch: int, prompt_len: int,
+              max_new: int) -> None:
+        """Close one call's span; the sync makes it cover the device work
+        (values are untouched)."""
+        tel = self.telemetry
+        stream_sync(self.device)
+        t1 = tel.now()
+        tel.add_span("fused_generate", t0, t1, track="engine", batch=batch,
+                     prompt_len=prompt_len, max_new=max_new)
+        tel.metrics.count("fused.calls")
+        tel.metrics.count("fused.requests", batch)
+        tel.metrics.count("fused.tokens", batch * max_new)
+        tel.metrics.observe("fused.batch_s", t1 - t0)
 
     def _prompts(self, prompts) -> torch.Tensor:
         tokens = torch.as_tensor(np.asarray(prompts), device=self.device)
@@ -109,8 +129,13 @@ class Engine:
 
     @torch.inference_mode()
     def _run(self, tokens, max_new: int, sample):
+        tel = self.telemetry
+        t0 = tel.now() if tel is not None else 0.0
         out, lps = _fused_generate(self.params, self.cfg, self.opts,
                                    self.cache_len, max_new, tokens, sample)
+        if tel is not None:
+            self._span(t0, batch=tokens.shape[0], prompt_len=tokens.shape[1],
+                       max_new=max_new)
         return GenerationResult(out.cpu().numpy(), max_new,
                                 logprobs=lps.cpu().numpy())
 

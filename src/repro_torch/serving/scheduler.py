@@ -70,13 +70,37 @@ wherever the two paths give it bit-identical logits (in f32 on the CPU; in
 bf16 on the card their logits differ and so may the draws). Each tick reads
 back only the sampled tokens and their logprobs, in one copy.
 
-Not ported yet, and refused with ``NotImplementedError``: ``auto_prefix``,
-telemetry and ``mesh=`` (ROADMAP queue 1, items 4, 5 and 8).
+``auto_prefix=True`` detects shared heads with no ``prefix_key``: a submit
+is matched (longest common prefix) against the last ``auto_prefix_window``
+prompts and the auto prefixes already registered; a match of at least
+``auto_prefix_min`` tokens attaches the request under a minted key
+``("auto_prefix", n)`` through the explicit-prefix and CoW fork machinery
+(:meth:`Scheduler._detect_auto_prefix`). Greedy streams do not change;
+``stats.auto_prefix_hits`` counts the attachments.
+
+``telemetry=`` (a ``serving.telemetry.Tracer``) lands a ``TickRecord`` a
+tick, built from differences of the stats, and each request's lifecycle as
+spans and instants (queued, prefill, first_token, decode, preempt,
+swap_out/swap_resume, finish). A prefill span ends after a sync of the
+pool device's current stream, made only when a tracer is attached; with
+``telemetry=None`` no tracer method runs and no sync is added. Values never
+depend on the tracer.
+
+Threads: the scheduler is single-driver. ``submit``, ``abort`` and ``step``
+mutate pool and slot state and must run on ONE thread (the async front
+end's tick thread); a second thread entering ``step`` mid-tick raises
+``RuntimeError``. ``drain_events`` and ``drain_finished`` may be called
+from another thread by a single consumer: ``_emit_lock`` makes the appends
+atomic with the drain's swap.
+
+Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
+(ROADMAP queue 1, item 8, the sharded deployment).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from collections import deque
 
 import numpy as np
@@ -86,7 +110,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sampling import (SamplingParams, bias_rows,
                                        sample_tokens_with_logprobs,
                                        speculative_verify, truncate_at_stop)
-from repro_torch.device import resolve_device, to_device
+from repro_torch.device import resolve_device, stream_sync, to_device
 from repro_torch.models.transformer import (RuntimeOpts, packed_step,
                                             paged_decode_step, paged_prefill,
                                             paged_prefill_shared,
@@ -103,9 +127,7 @@ AUTO_CHUNK_LADDER = (64, 128, 256)
 _GREEDY = SamplingParams()
 
 _NOT_PORTED = {
-    "auto_prefix": "auto_prefix (ROADMAP queue 1, item 4, auto_prefix)",
     "mesh": "mesh= (ROADMAP queue 1, item 8, the sharded deployment)",
-    "telemetry": "telemetry (ROADMAP queue 1, item 5, telemetry)",
 }
 
 
@@ -203,6 +225,8 @@ class SchedulerStats:
     spec_drafted: int = 0  # draft tokens proposed in those rounds
     spec_accepted: int = 0  # draft tokens EMITTED (accepted, not cut by a
     #                         stop token)
+    auto_prefix_hits: int = 0  # submits attached to a detected shared
+    #                            prefix (auto_prefix=True)
     # rid → ticks from submit to the first sampled token
     ttft_ticks: dict = dataclasses.field(default_factory=dict)
     # chunk size → ticks it was picked (adaptive prefill_chunk)
@@ -264,10 +288,14 @@ class Scheduler:
     request comes back, and ``preempt_cooldown`` (ticks) how long it waits
     while others run (0: re-admit at once). ``speculate_k`` > 0 is the
     verify call's draft width (see the module docstring); 0 leaves every
-    tick as it is without speculation.
+    tick as it is without speculation. ``auto_prefix`` turns on automatic
+    prefix detection (matches of at least ``auto_prefix_min`` tokens
+    against the last ``auto_prefix_window`` prompts) and ``telemetry``
+    takes a ``Tracer`` (both in the module docstring).
 
-    Not thread-safe: ``submit``, ``abort`` and ``step`` must run on one
-    thread."""
+    Single-driver: ``submit``, ``abort`` and ``step`` must run on one
+    thread; ``step`` raises ``RuntimeError`` when a second thread enters
+    it mid-tick."""
 
     def __init__(self, cfg: ArchConfig, params,
                  opts: RuntimeOpts = RuntimeOpts(), *,
@@ -277,7 +305,8 @@ class Scheduler:
                  prefill_chunk: int | str | tuple = 256,
                  preempt_cooldown: int = 1, tick_mode: str = "chunked",
                  token_budget: int | None = None, speculate_k: int = 0,
-                 auto_prefix: bool = False, telemetry=None, mesh=None,
+                 auto_prefix: bool = False, auto_prefix_min: int = 8,
+                 auto_prefix_window: int = 16, telemetry=None, mesh=None,
                  device=None):
         if tick_mode not in ("packed", "chunked", "wave"):
             raise ValueError(f"tick_mode must be 'packed', 'chunked' or "
@@ -287,12 +316,9 @@ class Scheduler:
                              f"{resume}")
         if speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
-        refused = {"auto_prefix": auto_prefix, "mesh": mesh is not None,
-                   "telemetry": telemetry is not None}
-        for name, on in refused.items():
-            if on:
-                raise NotImplementedError(f"{_NOT_PORTED[name]} is not "
-                                          f"ported yet")
+        if mesh is not None:
+            raise NotImplementedError(f"{_NOT_PORTED['mesh']} is not "
+                                      f"ported yet")
         if prefill_chunk == "auto":
             ladder = AUTO_CHUNK_LADDER
         elif isinstance(prefill_chunk, (tuple, list)):
@@ -322,8 +348,11 @@ class Scheduler:
             token_budget = self.prefill_chunk + max_slots
         # every decoding slot needs a row, and prefill at least one
         self.token_budget = max(int(token_budget), max_slots + 1)
-        # the preempt/resume page mover (bytes and host time accounted)
-        self._swap = HostSwapTransport()
+        # serving.telemetry.Tracer or None: every site below is guarded on
+        # it, so the disabled path never calls the tracer nor syncs
+        self.telemetry = telemetry
+        # the preempt/resume page mover (bytes, host time and swap spans)
+        self._swap = HostSwapTransport(telemetry=telemetry)
         self._tick = 0
         self._admit_seq = 0
         self._shapes: set = set()  # distinct step-call shapes dispatched
@@ -334,10 +363,22 @@ class Scheduler:
         self.stats = SchedulerStats()
         self._prefixes: dict = {}
         self._next_rid = 0
+        # automatic prefix detection: the last auto_prefix_window requests
+        # and the auto keys minted so far
+        self.auto_prefix = bool(auto_prefix)
+        self.auto_prefix_min = max(1, int(auto_prefix_min))
+        self._recent_reqs: deque = deque(
+            maxlen=max(1, int(auto_prefix_window)))
+        self._auto_keys: set = set()
+        self._auto_seq = 0
         # streamed (rid, index, token, logprob) events and finished rids,
-        # drained by serving.api.PagedBackend
+        # drained by serving.api.PagedBackend, possibly from another
+        # thread: _emit_lock makes an append atomic with the drain's swap.
+        # _step_guard turns a second thread entering step() into an error
         self._events: list = []
         self._finished: list = []
+        self._emit_lock = threading.Lock()
+        self._step_guard = threading.Lock()
         # per-slot sampling operands: host rows, changed at admit/evict;
         # the device copy is rebuilt only after a change. Freed rows reset
         # to greedy.
@@ -382,6 +423,8 @@ class Scheduler:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("cannot submit an empty prompt")
+        if prefix_key is None and self.auto_prefix:
+            prefix_key, prefix_len = self._detect_auto_prefix(prompt)
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid, prompt, sampling, submit_tick=self._tick)
@@ -405,8 +448,64 @@ class Scheduler:
                         f"declared {plen}-token prefix does not match the "
                         f"registered {entry.tokens.size}-token one")
                 req.prefix_key = prefix_key
+        if self.auto_prefix:
+            self._recent_reqs.append(req)
         self.queue.append(req)
+        if self.telemetry is not None:
+            self.telemetry.request_submitted(rid)
         return rid
+
+    @staticmethod
+    def _lcp(a: np.ndarray, b: np.ndarray) -> int:
+        """Length of the longest common prefix of two token sequences."""
+        n = min(a.size, b.size)
+        neq = np.nonzero(a[:n] != b[:n])[0]
+        return int(neq[0]) if neq.size else n
+
+    def _detect_auto_prefix(self, prompt: np.ndarray) -> tuple:
+        """``(prefix_key, prefix_len)`` to attach ``prompt`` with, or
+        ``(None, None)``: the longest shared head of at least
+        ``auto_prefix_min`` tokens between the prompt and (a) an auto
+        prefix already registered or (b) one of the last
+        ``auto_prefix_window`` prompts.
+
+        Matching a registered auto prefix joins it (the fork path). A longer
+        match against a recent prompt mints a new key ``("auto_prefix",
+        n)`` over the common head; when that earlier request is still
+        queued and keyless it is attached too, so the first of the pair in
+        FIFO order writes the prefix and the later one forks it. Both
+        lengths are capped at each prompt's size - 1 (a suffix token must
+        prefill to give first logits)."""
+        best_key, best_len = None, 0
+        for key in self._auto_keys:
+            entry = self._prefixes.get(key)
+            if entry is None:
+                continue
+            plen = int(entry.tokens.size)
+            if (plen > best_len and plen <= prompt.size - 1
+                    and np.array_equal(entry.tokens, prompt[:plen])):
+                best_key, best_len = key, plen
+        best_req, best_req_len = None, best_len
+        for other in self._recent_reqs:
+            lcp = min(self._lcp(prompt, other.prompt),
+                      prompt.size - 1, other.prompt.size - 1)
+            if lcp > best_req_len:
+                best_req, best_req_len = other, lcp
+        if best_req is not None and best_req_len >= self.auto_prefix_min:
+            self._auto_seq += 1
+            key = ("auto_prefix", self._auto_seq)
+            self._auto_keys.add(key)
+            self._prefixes[key] = _PrefixEntry(
+                key, prompt[:best_req_len].copy())
+            if best_req.prefix_key is None and any(
+                    r is best_req for r in self.queue):
+                best_req.prefix_key = key  # the FIFO-first creates it
+            self.stats.auto_prefix_hits += 1
+            return key, best_req_len
+        if best_key is not None and best_len >= self.auto_prefix_min:
+            self.stats.auto_prefix_hits += 1
+            return best_key, best_len
+        return None, None
 
     def release_prefixes(self) -> None:
         """Release every pinned shared prefix (its pages return once the
@@ -421,6 +520,7 @@ class Scheduler:
             st.req.prefix_key for st in self.slots if st is not None}
         self._prefixes = {k: e for k, e in self._prefixes.items()
                           if k in live}
+        self._auto_keys &= set(self._prefixes)
 
     def abort(self, rid: int) -> bool:
         """Cancel a request wherever it is — queued (swapped out too),
@@ -441,11 +541,12 @@ class Scheduler:
                 self.pool.free(i)
                 self.slots[i] = None
                 self._set_ops(i, _GREEDY)
-                self._finish_abort(st.req, st.generated)
+                self._finish_abort(st.req, st.generated, track=f"slot{i}")
                 return True
         return False
 
-    def _finish_abort(self, req: Request, generated: list) -> None:
+    def _finish_abort(self, req: Request, generated: list,
+                      track: str = "queue") -> None:
         # an aborted prefix creator must not strand waiting forks: the next
         # same-key admission materializes the prefix instead
         entry = self._prefixes.get(req.prefix_key) \
@@ -455,20 +556,38 @@ class Scheduler:
         self.results[req.rid] = np.concatenate(
             [req.prompt, np.asarray(generated, np.int32)])
         self.finish_reasons[req.rid] = "abort"
-        self._finished.append(req.rid)
+        self._mark_finished(req.rid)
         self.stats.aborted += 1
+        if self.telemetry is not None:
+            self.telemetry.request_finished(req.rid, track, "abort",
+                                            len(generated))
+
+    def _emit_event(self, rid: int, idx: int, tok: int, lp: float) -> None:
+        """Append one streamed-token event, atomically with the drain's
+        swap: an append racing the swap would otherwise land in the list
+        just drained and be lost."""
+        with self._emit_lock:
+            self._events.append((rid, idx, tok, lp))
+
+    def _mark_finished(self, rid: int) -> None:
+        with self._emit_lock:
+            self._finished.append(rid)
 
     def drain_events(self) -> list:
         """Return and clear the token events emitted since the last call:
         ``(rid, index, token, logprob)`` in emission order (position order
-        per request)."""
-        ev, self._events = self._events, []
+        per request). Safe from another thread than the one that steps,
+        for ONE consumer: each event is returned once."""
+        with self._emit_lock:
+            ev, self._events = self._events, []
         return ev
 
     def drain_finished(self) -> list:
         """Return and clear the rids finished (evicted or aborted) since the
-        last call."""
-        f, self._finished = self._finished, []
+        last call; the same single-consumer contract as
+        :meth:`drain_events`."""
+        with self._emit_lock:
+            f, self._finished = self._finished, []
         return f
 
     # ------------------------------------------------------ sampling lanes
@@ -524,8 +643,11 @@ class Scheduler:
         """Record a step call's shape (kind, R, S): ``stats.
         compiled_shapes`` counts the distinct ones, the shapes a CUDA graph
         would capture once each."""
+        new = shape not in self._shapes
         self._shapes.add(shape)
         self.stats.compiled_shapes = len(self._shapes)
+        if self.telemetry is not None:
+            self.telemetry.shape_dispatch(new)
 
     def _admission_target(self, req: Request) -> int:
         """TOKENS the admission reserves. Reserve admission: the request's
@@ -564,9 +686,12 @@ class Scheduler:
             target = self._admission_target(req)
             if not self.pool.can_admit(target, prefix=handle):
                 break
+            # a swap resume carries a snapshot, a refill resume only the
+            # tokens it generated
+            resumed = req.snapshot is not None or bool(req.generated)
             if req.snapshot is not None:
                 slot = self._swap.swap_in(self.pool, req.snapshot,
-                                          reserve_tokens=target)
+                                          reserve_tokens=target, rid=req.rid)
                 req.snapshot = None
                 restored.append(slot)
             else:
@@ -586,14 +711,16 @@ class Scheduler:
                 prefilled=int(self.pool.lengths[slot]))
             self._admit_seq += 1
             self._set_ops(slot, req.sampling)
+            if self.telemetry is not None:
+                self.telemetry.request_admitted(req.rid, slot,
+                                                resumed=resumed)
         return admitted, restored
 
     def _emit(self, st: _SlotState, token: int, logprob: float) -> None:
         st.generated.append(token)
-        self._events.append((st.req.rid, len(st.generated) - 1, token,
-                             logprob))
+        self._emit_event(st.req.rid, len(st.generated) - 1, token, logprob)
 
-    def _record_first_token(self, st: _SlotState, token: int,
+    def _record_first_token(self, st: _SlotState, slot: int, token: int,
                             logprob: float) -> None:
         """Emit the slot's first sampled token and record its TTFT. A
         resumed request keeps the tokens it emitted: its last one is the
@@ -601,8 +728,11 @@ class Scheduler:
         if st.generated:
             return
         self._emit(st, token, logprob)
-        self.stats.ttft_ticks.setdefault(st.req.rid,
-                                         self._tick - st.req.submit_tick)
+        ticks = self._tick - st.req.submit_tick
+        self.stats.ttft_ticks.setdefault(st.req.rid, ticks)
+        if self.telemetry is not None:
+            self.telemetry.first_token(st.req.rid, f"slot{slot}",
+                                       ttft_ticks=ticks)
 
     def _maybe_pin_prefix(self, st: _SlotState, slot: int) -> None:
         """Pin the shared prefix as soon as its creator has WRITTEN the
@@ -615,20 +745,30 @@ class Scheduler:
             entry.handle = self.pool.share_prefix(slot, entry.tokens.size)
             entry.creator_rid = None
 
-    def _prefill_call(self, kind: str, tokens, posn, rows=None):
+    def _traced_end(self) -> float:
+        """The end of a traced span over device work: the pool device's
+        current stream is synced first (a tracer is attached)."""
+        stream_sync(self.device)
+        return self.telemetry.now()
+
+    def _prefill_call(self, kind: str, tokens, posn, rows=None) -> tuple:
         """One prefill call through the model: ``shared`` kinds attend the
-        pool (K3). ``rows`` are the slot rows of the call (None: all)."""
+        pool (K3). ``rows`` are the slot rows of the call (None: all).
+        Returns (logits, its span's (t0, t1) with a tracer, else None)."""
         shared = kind in ("prefill_shared", "chunk_shared")
         self._register_shape(kind, *tokens.shape)
         fn = paged_prefill_shared if shared else paged_prefill
+        tel = self.telemetry
+        t0 = tel.now() if tel is not None else None
         with torch.inference_mode():
             logits, _ = fn(self.params, self.cfg,
                            to_device(tokens, self.device),
                            self.pool.device_caches(rows=rows),
                            to_device(posn, self.device), self.opts)
+        span = (t0, self._traced_end()) if tel is not None else None
         self.stats.prefills += 1
         self.stats.shared_prefill_calls += int(shared)
-        return logits
+        return logits, span
 
     def _prefill_wave(self, admitted: list) -> None:
         """One ragged right-aligned prefill over the admitted rows; the last
@@ -646,14 +786,19 @@ class Scheduler:
             tokens[i, s_pad - suffix.size:] = suffix
             posn[i, s_pad - suffix.size:] = np.arange(starts[i], toks[i].size)
         kind = "prefill_shared" if any(starts) else "prefill"
-        logits = self._prefill_call(kind, tokens, posn, rows=admitted)
+        logits, span = self._prefill_call(kind, tokens, posn, rows=admitted)
         first, first_lp = self._sample(logits, np.zeros(r, np.int32),
                                        rows=admitted)
         for i, slot in enumerate(admitted):
             st = self.slots[slot]
             self.pool.commit_prefill(slot, int(toks[i].size))
             st.prefilled = int(toks[i].size)
-            self._record_first_token(st, int(first[i]), float(first_lp[i]))
+            if span is not None:
+                self.telemetry.add_span(
+                    "prefill", *span, track=f"slot{slot}", rid=st.req.rid,
+                    tokens=lens[i], stage="wave")
+            self._record_first_token(st, slot, int(first[i]),
+                                     float(first_lp[i]))
             self._maybe_pin_prefix(st, slot)
         self.stats.prefill_tokens += sum(lens)
         self.stats.admitted += r
@@ -709,7 +854,7 @@ class Scheduler:
                 tokens[i, c - (hi - lo):] = toks[lo:hi]
                 posn[i, c - (hi - lo):] = np.arange(lo, hi)
                 ends[i] = (hi, toks.size)
-            logits = self._prefill_call(kind, tokens, posn)
+            logits, span = self._prefill_call(kind, tokens, posn)
             # sample only when some row completes its prompt this call
             first, first_lp = self._sample(
                 logits, np.zeros(self.max_slots, np.int32)) \
@@ -721,10 +866,15 @@ class Scheduler:
                 self.pool.commit_prefill(i, hi)
                 self.stats.prefill_chunks += 1
                 self.stats.prefill_tokens += hi - st.prefilled
+                if span is not None:
+                    self.telemetry.add_span(
+                        "prefill", *span, track=f"slot{i}", rid=st.req.rid,
+                        tokens=hi - st.prefilled, stage=kind,
+                        done=hi == total)
                 st.prefilled = hi
                 self._maybe_pin_prefix(st, i)
                 if hi == total:
-                    self._record_first_token(st, int(first[i]),
+                    self._record_first_token(st, i, int(first[i]),
                                              float(first_lp[i]))
         return True
 
@@ -760,6 +910,12 @@ class Scheduler:
         st = self.slots[victim]
         st.req.generated = list(st.generated)
         st.req.cooldown_until = self._tick + 1 + self.preempt_cooldown
+        tel = self.telemetry
+        if tel is not None:
+            tel.span_end(("decode", st.req.rid), outcome="preempt")
+            tel.event("preempt", track=f"slot{victim}", rid=st.req.rid,
+                      reason="pool_exhausted", resume=self.resume)
+            tel.metrics.count("scheduler.preemptions")
         # only positions WRITTEN: the last generated token is the next
         # decode input, not yet in the pool; a victim still prefilling has
         # written its chunks so far, and one admitted this tick nothing
@@ -767,7 +923,8 @@ class Scheduler:
                    if st.generated else st.prefilled)
         if self.resume == "swap" and written:
             st.req.snapshot = self._swap.swap_out(self.pool, victim,
-                                                  n_tokens=written)
+                                                  n_tokens=written,
+                                                  rid=st.req.rid)
             self.stats.peak_swap_bytes = max(self.stats.peak_swap_bytes,
                                              self.pool.swap_bytes)
         entry = self._prefixes.get(st.req.prefix_key) \
@@ -782,6 +939,8 @@ class Scheduler:
         self._set_ops(victim, _GREEDY)
         self.queue.appendleft(st.req)
         self.stats.preemptions += 1
+        if tel is not None:
+            tel.request_requeued(st.req.rid, reason="preempt")
         return True
 
     def _draft_plan(self) -> dict:
@@ -861,6 +1020,7 @@ class Scheduler:
             tokens[i, 0] = st.generated[-1]
             pos[i] = int(self.pool.lengths[i]) - 1  # position being written
             t[i] = len(st.generated)
+        self._decode_spans(active)
         with torch.inference_mode():
             logits, _ = paged_decode_step(
                 self.params, self.cfg, to_device(tokens, self.device),
@@ -871,6 +1031,14 @@ class Scheduler:
             self._emit(self.slots[i], int(nxt[i]), float(lps[i]))
         self.stats.steps += 1
         self.stats.slot_ticks += len(active)
+
+    def _decode_spans(self, rows) -> None:
+        """Open the decode-residency span of every slot in ``rows`` (a no-op
+        for one already open, and without a tracer)."""
+        if self.telemetry is not None:
+            for i in rows:
+                self.telemetry.decode_begin(self.slots[i].req.rid,
+                                            f"slot{i}")
 
     def _verify_tick(self, active: list, plan: dict) -> None:
         """The speculative decode tick: each decoding slot's last token and
@@ -904,6 +1072,7 @@ class Scheduler:
             host[i, -1] = len(st.generated)
         seeds, temp, tk, tp, bias = self._device_ops()
         dev = to_device(host, self.device)
+        self._decode_spans(active)
         with torch.inference_mode():
             logits, _ = paged_verify_step(
                 self.params, self.cfg, dev[:, :s], self.pool.device_caches(),
@@ -942,6 +1111,9 @@ class Scheduler:
             self.stats.spec_rounds += 1
             self.stats.spec_drafted += kd
             self.stats.spec_accepted += emit - 1
+            if self.telemetry is not None:
+                self.telemetry.metrics.observe("scheduler.accepted_tokens",
+                                               float(emit))
         if emit < 1 + kd:
             self.pool.truncate(slot, int(self.pool.lengths[slot])
                                - (1 + kd) + emit)
@@ -1002,6 +1174,9 @@ class Scheduler:
             return False
         self._register_shape("packed", self.max_slots, t_budget)
         dev = self.device
+        tel = self.telemetry
+        self._decode_spans(decode_rows)
+        t0 = tel.now() if tel is not None else None
         with torch.inference_mode():
             logits, _ = packed_step(
                 self.params, self.cfg, to_device(tokens, dev),
@@ -1009,6 +1184,7 @@ class Scheduler:
                 to_device(slot_ids, dev), to_device(logit_rows, dev),
                 self.opts, quant_rows=to_device(
                     logit_rows[decode_rows].astype(np.int64), dev))
+        t1 = self._traced_end() if tel is not None else None
         nxt, lps = self._sample(logits, t_idx)
         for i, (lo, hi, total) in pieces.items():
             st = self.slots[i]
@@ -1016,9 +1192,13 @@ class Scheduler:
             st.prefilled = hi
             self.stats.prefill_chunks += 1
             self.stats.prefill_tokens += hi - lo
+            if tel is not None:
+                tel.add_span("prefill", t0, t1, track=f"slot{i}",
+                             rid=st.req.rid, tokens=hi - lo, stage="packed",
+                             done=hi == total)
             self._maybe_pin_prefix(st, i)
             if hi == total:  # prompt complete → first token
-                self._record_first_token(st, int(nxt[i]), float(lps[i]))
+                self._record_first_token(st, i, int(nxt[i]), float(lps[i]))
         for i in decode_rows:
             self._emit(self.slots[i], int(nxt[i]), float(lps[i]))
         self.stats.packed_ticks += 1
@@ -1040,11 +1220,14 @@ class Scheduler:
             self.results[st.req.rid] = np.concatenate(
                 [st.req.prompt, np.asarray(toks, np.int32)])
             self.finish_reasons[st.req.rid] = reason
-            self._finished.append(st.req.rid)
+            self._mark_finished(st.req.rid)
             self.pool.free(i)
             self.slots[i] = None
             self._set_ops(i, _GREEDY)
             self.stats.evicted += 1
+            if self.telemetry is not None:
+                self.telemetry.request_finished(st.req.rid, f"slot{i}",
+                                                reason, len(toks))
 
     def _track_occupancy(self) -> None:
         s, pool = self.stats, self.pool
@@ -1079,7 +1262,58 @@ class Scheduler:
         decoding slots then take one verify call). Chunked and wave: admit,
         advance prefill (one chunk per mid-prefill slot, or the whole
         wave), evict what finished on its first token, decode the ragged
-        batch, evict. Returns whether work remains."""
+        batch, evict. Returns whether work remains.
+
+        With a tracer, the tick also lands one ``TickRecord`` built from
+        differences of the stats, so the traced tick makes the same
+        decisions as the bare one. SINGLE-DRIVER: a second thread entering
+        mid-tick raises ``RuntimeError``."""
+        if not self._step_guard.acquire(blocking=False):
+            raise RuntimeError(
+                "Scheduler.step() re-entered from another thread mid-tick: "
+                "the scheduler is single-driver — submit/abort/step must "
+                "all run on ONE thread (drain_events/drain_finished are "
+                "the only cross-thread-safe surfaces)")
+        try:
+            return self._step_guarded()
+        finally:
+            self._step_guard.release()
+
+    def _step_guarded(self) -> bool:
+        tel = self.telemetry
+        if tel is None:
+            return self._step_inner()
+        s = self.stats
+        pre = (s.packed_tokens, s.packed_pad_tokens, s.prefill_tokens,
+               s.slot_ticks)
+        tel.tick_begin(self._tick + 1, self.tick_mode)
+        try:
+            pending = self._step_inner()
+        finally:
+            if self.tick_mode == "packed":
+                tokens = s.packed_tokens - pre[0]
+                pad = s.packed_pad_tokens - pre[1]
+                if self.speculate_k:
+                    # the verify call runs outside the packed buffer:
+                    # count its stepped slots as the two-call ticks do
+                    tokens += s.slot_ticks - pre[3]
+            else:
+                # prefill tokens and one decode token per stepped slot; no
+                # fixed buffer, so no pad count
+                tokens = (s.prefill_tokens - pre[2]) + (s.slot_ticks - pre[3])
+                pad = None
+            g = self.pool.gauges()
+            tel.tick_end(
+                tokens=tokens, pad_tokens=pad,
+                pages_in_use=g["pages_in_use"],
+                pages_shared=g["pages_shared"],
+                swap_bytes=g["swap_bytes"], queue_depth=len(self.queue),
+                active_slots=sum(st is not None for st in self.slots),
+                prefilling_slots=sum(st is not None and st.prefilling
+                                     for st in self.slots))
+        return pending
+
+    def _step_inner(self) -> bool:
         self._tick += 1
         admitted, restored = self._admit_wave()
         self.stats.admitted += len(restored)

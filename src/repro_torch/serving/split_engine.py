@@ -28,8 +28,17 @@ themselves: in f32 the products agree up to summation order and the
 rounding of code × scale, in bf16 also up to the weights' bf16 rounding,
 which the reference applies and K7 does not.
 
-Not ported yet: ``telemetry=`` (ROADMAP queue 1, item 5, telemetry). Only
-the llama family's configs are ported (item 9, the rest of configs/).
+With ``telemetry=`` (a ``serving.telemetry.Tracer``): ``edge`` and
+``cloud`` spans per segment (prefill, each decode step, each speculative
+round's draft and verify), each ended after a sync of the device's current
+stream (made only with a tracer), the ``uplink`` event of every payload,
+TAB-Q's per-token bit widths and the uplink bits a token as histograms
+(from the host copy of the widths each payload's bit count reads anyway),
+and each call's ``SplitStats`` mirrored into the registry under
+``split.*``.
+
+Only the llama family's configs are ported (ROADMAP queue 1, item 9, the
+rest of configs/).
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ from repro_torch.core.quant import QuantizedTensor, quantize_sym
 from repro_torch.core.sampling import (SamplingParams, bias_rows,
                                        broadcast_params, sampling_operands,
                                        speculative_verify, token_logprobs)
-from repro_torch.device import resolve_device, to_device
+from repro_torch.device import resolve_device, stream_sync, to_device
 from repro_torch.models.transformer import (RuntimeOpts, _apply_layers,
                                             apply_head, embed_inputs,
                                             init_caches)
@@ -139,10 +148,8 @@ class SplitEngine:
         tokens (None: the pool default) over its own segment's layers in
         place of a dense per-request cache; each ``generate`` call admits
         its rows with worst-case reservation (prompt + max_new tokens).
-        ``cache_len`` (tokens) bounds every per-request history buffer."""
-        if telemetry is not None:
-            raise NotImplementedError("telemetry is not ported yet "
-                                      "(ROADMAP queue 1, item 5, telemetry)")
+        ``cache_len`` (tokens) bounds every per-request history buffer.
+        ``telemetry`` takes a ``Tracer`` (module docstring)."""
         if opsc.split_layer % len(cfg.pattern):
             raise ValueError("the split point must fall on a pattern "
                              "boundary")
@@ -153,8 +160,11 @@ class SplitEngine:
         self.cloud_pool_pages = cloud_pool_pages
         self.cloud_page_size = cloud_page_size
         self.split_block = opsc.split_layer // len(cfg.pattern)
+        # serving.telemetry.Tracer or None: None skips every tracer call
+        # and every sync that ends a span
+        self.telemetry = telemetry
         # the edge→cloud mover: every payload's wire accounting
-        self._uplink = TabqUplinkTransport()
+        self._uplink = TabqUplinkTransport(telemetry=telemetry)
 
         # the cloud reads blocks [split, nb) of these; the edge holds its
         # own quantized copy of blocks [0, split)
@@ -230,22 +240,48 @@ class SplitEngine:
 
     # ------------------------------------------------------------ payload
 
+    def _tspan(self, segment: str, stage: str, t0: float) -> None:
+        """Close one edge or cloud segment span (a tracer is attached): the
+        sync makes it cover the device work; values are untouched."""
+        tel = self.telemetry
+        stream_sync(self.device)
+        t1 = tel.now()
+        tel.add_span(segment, t0, t1, track=f"split:{segment}", stage=stage)
+        tel.metrics.observe(f"split.{segment}_s", t1 - t0)
+
+    def _t0(self) -> float:
+        return self.telemetry.now() if self.telemetry is not None else 0.0
+
     def _compress(self, h: torch.Tensor):
         """TS + TAB-Q over ``h`` (B, S, D) as f32 and back (Eq. 7):
         (reconstruction in h's dtype, measured payload bits). Reading the
-        bits back syncs the host, as the ladder needs them there."""
+        bits back syncs the host, as the ladder needs them there; a tracer
+        takes TAB-Q's per-token widths from the same host copy."""
         b, s, d = h.shape
         p = payload_encode(h.reshape(b * s, d).float(), tau=self.opsc.tau,
                            delta=self.opsc.delta,
                            max_bits=self.opsc.max_act_bits)
         rec = payload_decode(p).reshape(b, s, d).to(h.dtype)
-        return rec, float(p.payload_bits())
+        widths = p.below.bits.cpu()
+        bits = float(p.payload_bits(widths))
+        tel = self.telemetry
+        if tel is not None:
+            # the wire histograms the placement optimizer reads: each
+            # token's chosen width (sign bit included) and the payload's
+            # bits a token
+            for w in widths.tolist():
+                tel.metrics.observe("split.tabq_bits", float(w))
+            tel.metrics.observe("split.uplink_bits_per_token",
+                                bits / max(1, b * s))
+        return rec, bits
 
-    def _send(self, w: int, bits: float, i_kv: int, stats: SplitStats):
+    def _send(self, w: int, bits: float, i_kv: int, stats: SplitStats,
+              **attrs):
         """One decode-phase payload of ``bits`` at history ``w``: Algorithm
         2's ladder on the modelled total latency (drop the KV cache from
-        the uplink, then stop), then the uplink accounting. Returns the
-        I_kv in force, or None when the ladder stops the generation."""
+        the uplink, then stop), then the uplink accounting (``attrs`` go on
+        a tracer's uplink event). Returns the I_kv in force, or None when
+        the ladder stops the generation."""
         if self.deadline_s is not None:
             lat = self.latency.total_latency(w, self.opsc.split_layer, bits)
             if lat > self.deadline_s and i_kv == 1:
@@ -260,8 +296,32 @@ class SplitEngine:
         stats.uplink_bits_measured += bits
         stats.uplink_bits_eq3 += self._eq3_bits(w, i_kv)
         stats.uplink_round_trips += 1
-        self._uplink.uplink(bits)
+        self._uplink.uplink(bits, i_kv=i_kv, **attrs)
         return i_kv
+
+    def _mirror_stats(self, b: int, stats: SplitStats, paged: bool) -> None:
+        """One call's ``SplitStats`` into the tracer's registry: one uplink
+        account across ``SplitStats``, ``LLMServer.metrics()`` and traces."""
+        m = self.telemetry.metrics
+        m.count("split.calls")
+        m.count("split.requests", b)
+        m.count("split.tokens_generated", stats.tokens_generated)
+        m.count("split.uplink_bits_measured", stats.uplink_bits_measured)
+        m.count("split.uplink_bits_eq3", stats.uplink_bits_eq3)
+        m.count("split.uplink_bits_paged", stats.uplink_bits_paged)
+        m.count("split.early_exits", stats.early_exits)
+        m.count("split.kv_dropped_steps", stats.kv_dropped_steps)
+        m.count("split.deadline_latency_s", stats.latency_s)
+        m.count("split.uplink_round_trips", stats.uplink_round_trips)
+        if stats.spec_rounds:
+            m.count("split.spec_rounds", stats.spec_rounds)
+            m.count("split.spec_drafted", stats.spec_drafted)
+            m.count("split.spec_accepted", stats.spec_accepted)
+            m.gauge("split.acceptance_rate", stats.acceptance_rate)
+        if paged:
+            m.gauge("split.cloud_pool_bytes_peak",
+                    stats.cloud_pool_bytes_peak)
+            m.gauge("split.shared_prefix_pages", stats.shared_prefix_pages)
 
     def _eq3_bits(self, w: int, i_kv: int) -> float:
         c = self.cfg
@@ -375,7 +435,11 @@ class SplitEngine:
                                                   pool.page_bytes_in_use())
 
         # ---- prefill both segments; the prompt crosses the same uplink
+        tel = self.telemetry
+        t0 = self._t0()
         h = self._edge_front(tokens, edge_caches, 0, decode=False)
+        if tel is not None:
+            self._tspan("edge", "prefill", t0)
         if aligned:
             # the shared prefix crosses once, with row 0; rows 1+ ship only
             # their suffix and the cloud takes their prefix from row 0's
@@ -395,7 +459,8 @@ class SplitEngine:
         else:
             bits = float(h.numel() * 16)  # uncompressed 16-bit uplink
         stats.uplink_bits_measured += bits
-        self._uplink.uplink(bits)
+        self._uplink.uplink(bits, stage="prefill", tokens=b * s)
+        t0 = self._t0()
         if aligned:
             posn = np.tile(np.arange(s, dtype=np.int32), (b, 1))
             posn[1:, :aligned] = -1  # rows 1+ neither write nor re-read it
@@ -404,6 +469,8 @@ class SplitEngine:
                                       attend_cache=True)
         else:
             logits = self._cloud_back(h, cloud_caches, 0, decode=False)
+        if tel is not None:
+            self._tspan("cloud", "prefill", t0)
         stats.uplink_bits_eq3 += self._eq3_bits(s, self.opsc.i_kv)
         if pool is not None:
             for r in range(b):
@@ -436,17 +503,22 @@ class SplitEngine:
                 if step + 1 == max_new_tokens:
                     break
                 pos_t = t + s  # the position the token is written at
+                t0 = self._t0()
                 h = self._edge_front(tok_buf[:, step:step + 1], edge_caches,
                                      pos_t, decode=True)
+                if tel is not None:
+                    self._tspan("edge", "decode", t0)
                 if compress:
                     h_c, bits = self._compress(h)
                 else:
                     h_c, bits = h, float(h.numel() * 16)
-                i_kv = self._send(pos + 1, bits, i_kv, stats)
+                i_kv = self._send(pos + 1, bits, i_kv, stats, stage="decode",
+                                  step=step)
                 if i_kv is None:
                     break
                 h_buf[:, n_hist] = h_c[:, 0]
                 n_hist += 1
+                t0 = self._t0()
                 if i_kv:
                     if pool is not None:  # grow each request by one token
                         for r in range(b):
@@ -461,10 +533,14 @@ class SplitEngine:
                     fresh = init_caches(cfg, b, n_hist, opts, dev, nback)
                     logits = self._cloud_back(h_buf[:, :n_hist], fresh, 0,
                                               decode=False)
+                if tel is not None:
+                    self._tspan("cloud", "decode", t0)
                 pos += 1
                 t += 1
                 stats.tokens_generated += 1
 
+        if tel is not None:
+            self._mirror_stats(b, stats, pool is not None)
         out = tok_buf[:, :n_out].cpu().numpy()
         toks = np.concatenate([prompts, out.astype(prompts.dtype)], axis=1)
         if with_logprobs:
@@ -478,7 +554,7 @@ class SplitEngine:
         """:meth:`generate`'s speculative rounds after the prefill (see its
         docstring): fills ``tok_buf``/``lp_buf`` and ``stats``; returns the
         tokens emitted."""
-        cfg, opts, dev = self.cfg, self.opts, self.device
+        cfg, opts, dev, tel = self.cfg, self.opts, self.device, self.telemetry
         b, s = tokens.shape
         nback = cfg.num_blocks - self.split_block
         seeds, temp, top_k, top_p = sampling_operands(splist, dev)
@@ -497,6 +573,7 @@ class SplitEngine:
             # generation budget
             kd = min(k, max_new - n_out - 1)
             k_eff = kd + 1
+            t_draft = self._t0()
             hs, drafts = [], []
             for j in range(k_eff):
                 h = self._edge_front(cur, edge_caches, torch.full(
@@ -508,6 +585,8 @@ class SplitEngine:
             h = torch.cat(hs, dim=1)
             draft = torch.cat(drafts, dim=1) if drafts else torch.zeros(
                 (b, 0), dtype=tokens.dtype, device=dev)
+            if tel is not None:
+                self._tspan("edge", "draft", t_draft)
             if compress:
                 # one payload for the burst; TAB-Q sets bits a row, so it
                 # is k_eff one-token payloads' codes in one call
@@ -515,10 +594,12 @@ class SplitEngine:
             else:
                 h_c, bits = h, float(h.numel() * 16)
             # the ladder weighs the burst at w = pos + k_eff
-            i_kv = self._send(pos + k_eff, bits, i_kv, stats)
+            i_kv = self._send(pos + k_eff, bits, i_kv, stats,
+                              stage="speculate", tokens=b * k_eff)
             if i_kv is None:
                 break
             h_buf[:, n_hist:n_hist + k_eff] = h_c
+            t_verify = self._t0()
             if i_kv:
                 if pool is not None:
                     for r in range(b):
@@ -540,6 +621,8 @@ class SplitEngine:
                 fresh = init_caches(cfg, b, n_hist + k_eff, opts, dev, nback)
                 vlogits = self._cloud_back(h_buf[:, :n_hist + k_eff], fresh,
                                            0, decode=False, tail=k_eff)
+            if tel is not None:
+                self._tspan("cloud", "verify", t_verify)
             t0 = torch.full((b,), n_out, dtype=torch.int64, device=dev)
             out, n_acc, lps = speculative_verify(
                 draft, torch.full((b,), kd, device=dev), vlogits, seeds, t0,
@@ -552,6 +635,8 @@ class SplitEngine:
             stats.spec_rounds += 1
             stats.spec_drafted += b * kd
             stats.spec_accepted += int(n_acc.sum()) - b
+            if tel is not None:
+                tel.metrics.observe("split.accepted_tokens", float(n))
             tok_buf[:, n_out:n_out + n] = out[:, :n]
             lp_buf[:, n_out:n_out + n] = lps[:, :n]
             if pool is not None and i_kv and n < k_eff:

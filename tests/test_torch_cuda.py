@@ -1231,3 +1231,110 @@ def test_speculative_scheduler_on_card_drains(cuda_device, mode):
     assert sched.stats.spec_rounds > 0
     assert k2 == cfg.num_layers * sched.stats.steps
     assert sched.pool.pages_in_use == 0 and not sched.pool.refcount.any()
+
+
+def _async_serve(cfg, params, opts, prompts, device):
+    """The requests through AsyncLLMServer's tick thread on ``device``:
+    (token lists, K2 launches, K3 launches, names of the threads that
+    stepped the backend)."""
+    import asyncio
+
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.serving.api import LLMServer
+    from repro_torch.serving.async_engine import AsyncLLMServer
+
+    srv = LLMServer(cfg, params, opts, backend="paged", num_pages=32,
+                    page_size=4, max_slots=2, prefill_chunk=4,
+                    device=device)
+    step, threads = srv.backend.step, set()
+
+    def traced_step():
+        import threading
+
+        threads.add((threading.current_thread().name,
+                     torch.cuda.current_device()))
+        return step()
+
+    srv.backend.step = traced_step
+
+    async def go():
+        engine = AsyncLLMServer(srv)
+        rids = [await engine.submit(p, SamplingParams(max_tokens=6))
+                for p in prompts]
+        outs = [await engine.result(r) for r in rids]
+        await engine.shutdown()
+        return [o.tokens for o in outs]
+
+    k2 = pda.paged_decode_attention.launches
+    k3 = ppa.paged_prefill_attention.launches
+    toks = asyncio.run(asyncio.wait_for(go(), 300))
+    return (toks, pda.paged_decode_attention.launches - k2,
+            ppa.paged_prefill_attention.launches - k3, threads)
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_async_server_tick_thread_serves_on_its_card(cuda_device, index):
+    """AsyncLLMServer's tick thread serves two requests through K2 (decode
+    ticks) and K3 (continuation chunks) on card ``index``, inside that
+    card's device scope, with the tokens of the same requests driven from
+    the main thread."""
+    if index >= torch.cuda.device_count():
+        pytest.skip("needs a second CUDA card: the tick thread must make "
+                    "the backend's card current, not card 0")
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.serving.api import LLMServer
+
+    dev = torch.device("cuda", index)
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (11, 6)]
+    got, k2, k3, threads = _async_serve(cfg, params, opts, prompts, dev)
+    assert threads == {("asyncllm-tick", index)}
+    assert k2 > 0 and k3 > 0
+    srv = LLMServer(cfg, params, opts, backend="paged", num_pages=32,
+                    page_size=4, max_slots=2, prefill_chunk=4, device=dev)
+    rids = [srv.submit(p, SamplingParams(max_tokens=6)) for p in prompts]
+    want = srv.run()
+    for g, rid in zip(got, rids):
+        np.testing.assert_array_equal(g, want[rid].tokens)
+
+
+def test_tracer_on_and_off_give_the_same_paged_streams_on_card(
+        cuda_device, monkeypatch):
+    """The paged scheduler on the card with a Tracer and without: the same
+    streams bit for bit; only the traced run syncs the stream for its
+    prefill spans (counted), and ``torch.cuda.synchronize`` is never
+    called."""
+    from repro_torch.serving import scheduler as scheduler_mod
+    from repro_torch.serving.telemetry import Tracer
+
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(43)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (13, 5, 9)]
+    syncs, device_syncs = [], []
+    real = scheduler_mod.stream_sync
+    monkeypatch.setattr(scheduler_mod, "stream_sync",
+                        lambda dev: (syncs.append(dev), real(dev)))
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: device_syncs.append(a))
+
+    def serve(tracer):
+        sched = Scheduler(cfg, params, opts, num_pages=32, page_size=4,
+                          max_slots=2, prefill_chunk=4, telemetry=tracer,
+                          device=cuda_device)
+        rids = [sched.submit(p, 8) for p in prompts]
+        res = sched.run()
+        return [res[r] for r in rids]
+
+    off = serve(None)
+    assert syncs == []
+    tracer = Tracer()
+    on = serve(tracer)
+    assert len(syncs) > 0 and device_syncs == []
+    for a, b in zip(on, off):
+        np.testing.assert_array_equal(a, b)
+    assert tracer.metrics_dict()["requests.finished"] == 3

@@ -25,6 +25,7 @@ from repro_torch.serving.api import LLMServer, PagedBackend
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.kv_pool import PoolExhaustedError
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.telemetry import Tracer
 
 torch.set_num_threads(2)
 
@@ -448,32 +449,46 @@ def test_streaming_order_and_release_paged(tiny_model):
 
 
 # the packed tick, token_budget and lazy growth are ported now (their
-# tests are in tests/test_torch_packed.py), and so is speculation (its
-# case now checks that the keyword serves; tests/test_torch_speculation.py
-# holds it to the reference); the cases keep their ids, and the messages
-# name the current ROADMAP queue-1 items
+# tests are in tests/test_torch_packed.py), and so are speculation,
+# auto_prefix and telemetry: their cases now check that the keyword serves
+# (tests/test_torch_speculation.py, test_torch_async_serving.py and
+# test_torch_telemetry.py hold them to the reference); the cases keep their
+# ids, and the messages name the current ROADMAP queue-1 items
 @pytest.mark.parametrize("kw,item", [
     pytest.param(dict(speculate_k=2), None, id="kw3-6.3"),
-    pytest.param(dict(auto_prefix=True), "item 4, auto_prefix",
+    pytest.param(dict(auto_prefix=True, auto_prefix_min=4), None,
                  id="kw4-6.4"),
     pytest.param(dict(mesh=object()), "item 8, the sharded deployment",
                  id="kw5-item 9"),
-    pytest.param(dict(telemetry=object()), "item 5, telemetry",
-                 id="kw6-item 7")])
+    pytest.param(dict(telemetry=True), None, id="kw6-item 7")])
 def test_scheduler_refuses_what_is_not_ported(tiny_model, kw, item):
     cfg, _, params = tiny_model
     if item is None:  # ported: it serves, with the Engine's tokens
-        p = np.tile(np.random.default_rng(7).integers(0, cfg.vocab_size,
-                                                      (3,)), 3)
+        tracer = Tracer() if kw.get("telemetry") else None
+        if tracer is not None:
+            kw = dict(telemetry=tracer)
+        rng = np.random.default_rng(7)
+        p = np.tile(rng.integers(0, cfg.vocab_size, (3,)), 3)
+        # a second prompt sharing p's first 8 tokens (auto_prefix finds it)
+        q = np.concatenate([p[:8], (p[8:9] + 1) % cfg.vocab_size, p[:1]])
         sched = _sched(cfg, params, num_pages=16, page_size=4, max_slots=2,
                        **kw)
-        rid = sched.submit(p, 5)
-        np.testing.assert_array_equal(sched.run()[rid],
-                                      _engine_tokens(cfg, params, p, 5))
-        assert sched.stats.spec_rounds > 0
+        rids = [sched.submit(x, 5) for x in (p, q)]
+        results = sched.run()
+        for rid, x in zip(rids, (p, q)):
+            np.testing.assert_array_equal(results[rid],
+                                          _engine_tokens(cfg, params, x, 5))
         assert sched.pool.pages_in_use == 0
-        with pytest.raises(ValueError, match="speculate_k"):
-            _sched(cfg, params, speculate_k=-1)
+        if "speculate_k" in kw:
+            assert sched.stats.spec_rounds > 0
+            with pytest.raises(ValueError, match="speculate_k"):
+                _sched(cfg, params, speculate_k=-1)
+        if "auto_prefix" in kw:
+            assert sched.stats.auto_prefix_hits == 1
+            assert sched.stats.prefix_forks == 1
+        if tracer is not None:
+            assert len(tracer.ticks) == sched._tick
+            assert tracer.metrics_dict()["requests.finished"] == 2
         return
     with pytest.raises(NotImplementedError, match=item):
         _sched(cfg, params, **kw)

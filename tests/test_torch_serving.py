@@ -214,7 +214,8 @@ def test_fused_backend_mixed_lengths_and_stop(tiny_model):
 def test_llm_server_refuses_unported_backends_and_bad_input(tiny_model):
     """Every backend is ported; an unported deployment of the paged one is
     refused, and so is a split backend without its OPSC config. The
-    default backend (``"paged"``) serves on the CPU when asked for it."""
+    default backend (``"paged"``) serves on the CPU when asked for it, and
+    so does a traced fused backend."""
     cfg, _, params = tiny_model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLMServer(cfg, params, OPTS_Q, deployment="sharded", device="cpu")
@@ -228,9 +229,15 @@ def test_llm_server_refuses_unported_backends_and_bad_input(tiny_model):
                                       p[None], 3).tokens[0])
     with pytest.raises(ValueError, match="backend"):
         LLMServer(cfg, params, OPTS_Q, backend="warp")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        LLMServer(cfg, params, OPTS_Q, backend="fused", telemetry=True,
-                  device="cpu")
+    # telemetry is ported: a traced fused server serves the same tokens and
+    # lands its span (tests/test_torch_telemetry.py holds it further)
+    srv = LLMServer(cfg, params, OPTS_Q, backend="fused", telemetry=True,
+                    cache_len=32, device="cpu")
+    rid = srv.submit(p, SamplingParams(max_tokens=3))
+    np.testing.assert_array_equal(srv.run()[rid].full_tokens,
+                                  _engine(cfg, params).generate(
+                                      p[None], 3).tokens[0])
+    assert "fused_generate" in {sp.name for sp in srv.tracer.spans}
     with pytest.raises(ValueError, match="one request per row"):
         _server(cfg, params).submit(np.ones((4, 16), np.int32))
     srv = _server(cfg, params)
@@ -281,6 +288,9 @@ def test_port_imports_nothing_of_jax():
         "'repro_torch.')]\n"
         "for name in mods:\n"
         "    __import__(name)\n"
+        "assert {'repro_torch.serving.async_engine', "
+        "'repro_torch.serving.http', 'repro_torch.serving.telemetry'} "
+        "<= set(mods)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len(mods), bad)\n"

@@ -26,6 +26,7 @@ from repro_torch.params import from_jax_params
 from repro_torch.serving.api import LLMServer
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.split_engine import SplitEngine
+from repro_torch.serving.telemetry import Tracer
 
 torch.set_num_threads(2)
 
@@ -283,9 +284,14 @@ def test_split_refusals(tiny_model):
         eng.generate(p, 2, speculate_k=-1)
     with pytest.raises(ValueError, match="cache_len"):
         eng.generate(p, 9)
-    with pytest.raises(NotImplementedError, match="item 5, telemetry"):
-        SplitEngine(cfg, params, OPSCConfig(split_layer=1), device="cpu",
-                    telemetry=object())
+    # telemetry is ported: a traced engine gives the same tokens
+    # (tests/test_torch_telemetry.py holds its accounting)
+    tracer = Tracer()
+    traced = SplitEngine(cfg, params, OPSCConfig(split_layer=1), opts=OPTS,
+                         cache_len=16, device="cpu", telemetry=tracer)
+    np.testing.assert_array_equal(traced.generate(p, 4)[0],
+                                  eng.generate(p, 4)[0])
+    assert {"split:edge", "split:cloud"} <= {sp.track for sp in tracer.spans}
 
 
 # ------------------------------------------------------- the request API
