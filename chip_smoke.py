@@ -72,7 +72,20 @@ Phases, each printing one JSON line:
            then 503, the trace validated by tools/trace_report.py, TTFT and
            e2e percentiles from /v1/metrics; a decode tick with a tracer
            and without, in turns; the serve phase's four requests through
-           the fused backend with a tracer and without: equal streams.
+           the fused backend with a tracer and without: equal streams;
+  disagg   the disaggregated deployment at full width: the paged phase's
+           ten requests through LLMServer(backend="paged",
+           deployment="disaggregated"), a prefill and a decode replica on
+           the one card (each with the paged phase's pool) joined by the
+           page stream, chunked (A) and packed with speculate_k 3 on the
+           decode replica (B): the streams held to the single scheduler's
+           (the paged and packed phases' runs, or run here), both pools
+           drained, the page-stream bytes equal to the written pages, the
+           weights shared by the replicas, the counters set to 0 just
+           before each main run and read just after (K2 and K3 in A, K4
+           and K2's verify rows in B); TTFT beside the single scheduler's,
+           the stream's host seconds, and a facade step with eight slots
+           decoding beside the single scheduler's decode tick.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -93,7 +106,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed",
-          "split", "spec", "service")
+          "split", "spec", "service", "disagg")
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -1875,22 +1888,53 @@ F32_MIN_COMPARED = 100
 def _record_logits(sched) -> dict:
     """Wrap ``sched``'s sampler so that every emitted token's logits row is
     kept on the host: {rid: [(V,) f32, ...]} in generation order. Each
-    sample then copies its logits to the host: for checks, not timings."""
-    rec, orig_sample, orig_emit = {}, sched._sample, sched._emit
-    last = {}
+    sample then copies its logits to the host: for checks, not timings. A
+    verify tick's tokens (``speculate_k`` > 0) take their rows of the
+    verify logits: burst column j is generation index t0 + j."""
+    from repro_torch.serving import scheduler as scheduler_mod
+
+    rec, last = {}, {}
+    orig_sample, orig_emit = sched._sample, sched._emit
+    orig_verify, orig_burst = sched._verify_tick, sched._emit_burst
 
     def sample(logits, t, rows=None):
         last["logits"], last["rows"] = logits.float().cpu().numpy(), rows
         return orig_sample(logits, t, rows)
 
+    def verify_tick(active, plan):
+        real = scheduler_mod.speculative_verify
+
+        def spy(drafts, n, logits, *args):
+            last["verify"] = logits.float().cpu().numpy()
+            return real(drafts, n, logits, *args)
+
+        scheduler_mod.speculative_verify = spy
+        try:
+            orig_verify(active, plan)
+        finally:
+            scheduler_mod.speculative_verify = real
+
+    def emit_burst(slot, toks, n, lps, kd):
+        last["burst"] = [slot, 0]
+        try:
+            orig_burst(slot, toks, n, lps, kd)
+        finally:
+            del last["burst"]
+
     def emit(st, token, logprob):
-        i = sched.slots.index(st)
-        rows = last["rows"]
-        r = i if rows is None else list(rows).index(i)
-        rec.setdefault(st.req.rid, []).append(last["logits"][r])
+        burst = last.get("burst")
+        if burst is not None:
+            row = last["verify"][burst[0], burst[1]]
+            burst[1] += 1
+        else:
+            i = sched.slots.index(st)
+            rows = last["rows"]
+            row = last["logits"][i if rows is None else list(rows).index(i)]
+        rec.setdefault(st.req.rid, []).append(row)
         orig_emit(st, token, logprob)
 
     sched._sample, sched._emit = sample, emit
+    sched._verify_tick, sched._emit_burst = verify_tick, emit_burst
     return rec
 
 
@@ -2027,14 +2071,15 @@ def phase_paged(ctx) -> None:
     def serve(stop, record=False, weights=params):
         srv = LLMServer(cfg, weights, opts, backend="paged", **pool_kw)
         rec = _record_logits(srv.backend.scheduler) if record else None
+        pieces = _record_pieces(srv.backend.scheduler)
         rids = [srv.submit(p, sampling(i, stop))
                 for i, p in enumerate(prompts)]
         outs = srv.run()
-        return [outs[r] for r in rids], srv.backend.scheduler, rec
+        return [outs[r] for r in rids], srv.backend.scheduler, rec, pieces
 
     # a first run (it also warms up, and keeps every emitted token's
     # logits) picks a stop token that will fire
-    first, first_sched, rec = serve((), record=True)
+    first, first_sched, rec, _ = serve((), record=True)
     chunk = first_sched.prefill_chunk
     # its pool must not count in the timed run's peak: the recording
     # wrappers hold it in a reference cycle, so collect
@@ -2058,7 +2103,7 @@ def phase_paged(ctx) -> None:
     # int8 history (later chunks, the fork of request 2) to HISTORY_REL
     params32 = init_params(cfg, torch.Generator(device=device).manual_seed(
         0), torch.float32, device)
-    first32, sched32, rec32 = serve((), record=True, weights=params32)
+    first32, sched32, rec32, _ = serve((), record=True, weights=params32)
     del sched32
     history = {i for i, n in enumerate(lens) if n > chunk} | {2}
     agree32, compared32, rel32, rel32_first = _against_dense(
@@ -2078,8 +2123,11 @@ def phase_paged(ctx) -> None:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs, sched, _ = serve((stop,))
+    outs, sched, _, pieces = serve((stop,))
     wall_s = time.perf_counter() - t0
+    # the single scheduler's streams, which the disagg phase is held to
+    ctx["single"]["chunked"] = {"outs": outs, "pieces": pieces,
+                                "stop": stop}
     launches = {"decode_attention": da.decode_attention.launches,
                 "paged_decode_attention": pda.paged_decode_attention.launches,
                 "paged_prefill_attention":
@@ -2362,6 +2410,7 @@ def phase_packed(ctx) -> None:
     t0 = time.perf_counter()
     outs, sched, _, pieces = serve((stop,))
     wall_s = time.perf_counter() - t0
+    ctx["single"]["packed"] = {"outs": outs, "pieces": pieces, "stop": stop}
     launches = {name: fn.launches for name, fn in kernels.items()}
     k4_routes_bf16 = dict(k4_routes)
     peak = torch.cuda.max_memory_allocated()
@@ -3608,6 +3657,289 @@ def phase_service(ctx) -> None:
                          f"{[k for k, v in checks.items() if not v]}")
 
 
+DISAGG_SPEC_K = 3  # run B: the decode replica's speculate_k
+
+
+def _single_streams(ctx, cfg, params, opts, pool_kw, mode) -> dict:
+    """The ten requests through one ``Scheduler`` in ``mode``, speculation
+    off: the paged (chunked) or packed phase's main run when that phase ran
+    in this call, else run here as those phases run it (a first run picks
+    request 3's stop token, the second is kept). {"outs", "pieces",
+    "stop"}."""
+    from repro_torch.serving.api import LLMServer
+
+    if mode not in ctx["single"]:
+        prompts, sampling, _ = _ten_requests(cfg)
+
+        def serve(stop):
+            srv = LLMServer(cfg, params, opts, backend="paged",
+                            tick_mode=mode, **pool_kw)
+            pieces = _record_pieces(srv.backend.scheduler)
+            rids = [srv.submit(p, sampling(i, stop))
+                    for i, p in enumerate(prompts)]
+            outs = srv.run()
+            return [outs[r] for r in rids], pieces
+
+        first, _ = serve(())
+        stop = int(first[3].tokens[10])
+        outs, pieces = serve((stop,))
+        ctx["single"][mode] = {"outs": outs, "pieces": pieces, "stop": stop}
+    return ctx["single"][mode]
+
+
+def _disagg_run(cfg, params, opts, pool_kw, mode, k, stop, record) -> dict:
+    """The ten requests through ``LLMServer(deployment="disaggregated")``
+    (tick ``mode`` on both replicas, ``speculate_k`` k on the decode one, a
+    Tracer on the prefill one): outputs, the facade, the tracer, host
+    seconds of each extract, and with ``record`` both replicas' logits and
+    prefill pieces merged by rid."""
+    from repro_torch.serving.api import LLMServer
+    from repro_torch.serving.telemetry import Tracer
+
+    prompts, sampling, _ = _ten_requests(cfg)
+    tracer = Tracer()
+    srv = LLMServer(cfg, params, opts, backend="paged",
+                    deployment="disaggregated", tick_mode=mode,
+                    decode_kwargs={"speculate_k": k}, telemetry=tracer,
+                    **pool_kw)
+    ds = srv.backend.scheduler
+    recs = [_record_logits(s) for s in (ds.prefill, ds.decode)] \
+        if record else None
+    pieces = [_record_pieces(s) for s in (ds.prefill, ds.decode)]
+    extract_s, extract = [], ds.prefill.extract
+
+    def timed_extract(rid):
+        t0 = time.perf_counter()
+        req = extract(rid)
+        extract_s.append(time.perf_counter() - t0)
+        return req
+
+    ds.prefill.extract = timed_extract
+    rids = [srv.submit(p, sampling(i, (stop,)))
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    outs = srv.run()
+    wall_s = time.perf_counter() - t0
+
+    def merged(parts):
+        out = {}
+        for part in parts:  # prefill side first: its tokens come first
+            for rid, rows in part.items():
+                out.setdefault(rid, []).extend(rows)
+        return out
+
+    return {"outs": [outs[r] for r in rids], "ds": ds, "tracer": tracer,
+            "rec": merged(recs) if record else None,
+            "pieces": merged(pieces), "extract_s": extract_s,
+            "wall_s": wall_s}
+
+
+def _facade_step_timing(ctx, cfg, params, opts, pool_kw) -> dict:
+    """A facade step with eight slots decoding on the decode replica (the
+    prefill replica idle) beside the single scheduler's decode tick with
+    the same eight slots, in turns: host included (CUDA events) and
+    device busy (``torch.profiler``)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.page_transport import DisaggregatedScheduler
+    from repro_torch.serving.scheduler import Scheduler
+
+    rng = np.random.default_rng(23)
+    prompts = rng.integers(0, cfg.vocab_size, (pool_kw["max_slots"], 128))
+    ds = DisaggregatedScheduler(cfg, params, opts, **pool_kw)
+    single = Scheduler(cfg, params, opts, **pool_kw)
+    for p in prompts:
+        ds.submit(p, 200)
+        single.submit(p, 200)
+    single.step()  # every prompt in one chunk, first tokens sampled
+    while ds.prefill.pending or any(
+            st is None for st in ds.decode.slots):
+        ds.step()
+    ms = ctx["timer"]({"facade_step": ds.step,
+                       "single_decode_tick": single._decode_tick},
+                      iters=20, device_only=False)
+    dev_ds, top_ds = _device_profile(torch, ds.step, 5)
+    dev_single, _ = _device_profile(torch, single._decode_tick, 5)
+    out = {"facade_step_ms": ms["facade_step"],
+           "single_decode_tick_ms": ms["single_decode_tick"],
+           "facade_step_device_ms": dev_ds,
+           "single_decode_tick_device_ms": dev_single,
+           "facade_idle_share": 1 - dev_ds / ms["facade_step"],
+           "decoding_slots": sum(st is not None for st in ds.decode.slots),
+           "prefill_idle": not ds.prefill.pending, "profile_top": top_ds[:6]}
+    for rid in range(len(prompts)):
+        ds.abort(rid)
+        single.abort(rid)
+    return out
+
+
+def phase_disagg(ctx) -> None:
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import varlen_attention as va
+    from repro_torch.models.transformer import RuntimeOpts
+
+    device = ctx["device"]
+    cfg = get_config("llama2-7b")  # full width and depth
+    opts = RuntimeOpts(quantized_kv=True)
+    params, _ = _llama7b_params(ctx)
+    pool_kw = dict(num_pages=513, page_size=16, max_slots=8,
+                   max_seq_len=1024, prefill_chunk=256, device=device)
+    prompts, _, _ = _ten_requests(cfg)
+    greedy = [i for i in range(len(prompts)) if i != 4]
+    kernels = {"paged_decode_attention": pda.paged_decode_attention,
+               "paged_prefill_attention": ppa.paged_prefill_attention,
+               "varlen_attention": va.varlen_attention}
+    layers = cfg.num_layers
+    checks, runs = {}, {}
+    for name, mode, k in (("A", "chunked", 0), ("B", "packed", DISAGG_SPEC_K)):
+        single = _single_streams(ctx, cfg, params, opts, pool_kw, mode)
+        stop = single["stop"]
+        # a recorded run (every emitted token's logits: the margin rule),
+        # which also warms up, then the main path's run: the counters set
+        # to 0 just before it and read just after
+        rec_run = _disagg_run(cfg, params, opts, pool_kw, mode, k, stop,
+                              record=True)
+        held = _hold_streams(
+            (single["outs"], None, single["pieces"]),
+            (rec_run["outs"], rec_run["rec"], rec_run["pieces"]), greedy,
+            PAGED_REL)
+        rec_tokens = [o.tokens for o in rec_run["outs"]]
+        del rec_run
+        gc.collect()
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        run = _disagg_run(cfg, params, opts, pool_kw, mode, k, stop,
+                          record=False)
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        for n, c in launches.items():
+            ctx["launches"][n] = ctx["launches"].get(n, 0) + c
+        ds, tracer, outs = run["ds"], run["tracer"], run["outs"]
+        st, pre, dec = ds.stats, ds.prefill, ds.decode
+        tp = ds.transport
+        page_bytes = pre.pool.page_bytes()
+        # what crossed: every request the decode replica finished; each
+        # shipped the pages of what it had written on the prefill replica:
+        # its prompt, and in chunked ticks the token the prefill tick's own
+        # decode step fed (its first token)
+        crossed = sorted(set(dec.results))
+        fed = 1 if mode == "chunked" else 0
+        rid_row = {o.rid: i for i, o in enumerate(outs)}
+        want_pages = sum(pre.pool.pages_for(len(prompts[rid_row[r]]) + fed)
+                         for r in crossed)
+        spans = [sp for sp in tracer.spans if sp.name == "page_stream"]
+        single_outs = single["outs"]
+        seeded_equal = bool(np.array_equal(outs[4].tokens,
+                                           single_outs[4].tokens))
+        first_equal = {i: bool(outs[i].tokens[0] == single_outs[i].tokens[0])
+                       for i in greedy if held["same_pieces"][i]}
+        c = {
+            "streams_margin_rule": held["agree"],
+            "same_as_recorded_run": all(
+                np.array_equal(o.tokens, t) for o, t in zip(outs, rec_tokens)),
+            # request 3 stops where the single run's does unless its
+            # stream flipped before (allowed under the margin rule)
+            "lengths_equal_single": all(
+                len(outs[i].tokens) == len(single_outs[i].tokens)
+                for i in range(len(prompts))
+                if i != 3 or held["first_difference"][3] is None),
+            "same_pieces_first_token_equal": all(first_equal.values()),
+            "pools_drained": all(
+                s.pool.pages_in_use == 0 and not s.pool.refcount.any()
+                and s.pool.swap_bytes == 0 for s in (pre, dec)),
+            "every_multi_token_request_crossed_once": crossed == sorted(
+                o.rid for o in outs if len(o.tokens) > 1 + fed)
+            and sorted(sp.rid for sp in spans) == crossed
+            and tp.transfers == len(crossed) * len(cfg.pattern),
+            "bytes_moved_equal_written_pages": tp.bytes_moved
+            == want_pages * page_bytes,
+            "span_bytes_equal_bytes_moved": sum(
+                sp.attrs["bytes"] for sp in spans) == tp.bytes_moved,
+            "weights_shared": all(
+                dec.params[key].data_ptr() == t.data_ptr()
+                for key, t in pre.params.items()),
+            "ttft_on_prefill_replica": set(st.ttft_ticks)
+            == {o.rid for o in outs} and not dec.stats.ttft_ticks,
+            "tokens_in_vocab": all(int(o.tokens.min()) >= 0 and int(
+                o.tokens.max()) < cfg.vocab_size for o in outs)}
+        if mode == "chunked":
+            # same decode path on both sides: the pieces decide each row
+            c["same_pieces_bit_identical"] = held["same_pieces_identical"]
+            c["seeded_stream_equal"] = seeded_equal
+            c["k2_launches"] = launches["paged_decode_attention"] \
+                == layers * st.steps > 0
+            c["k3_launches"] = launches["paged_prefill_attention"] \
+                == layers * st.shared_prefill_calls > 0
+        else:
+            c["k4_launches"] = launches["varlen_attention"] \
+                == layers * st.packed_ticks > 0
+            c["k2_verify_launches"] = launches["paged_decode_attention"] \
+                == layers * st.steps > 0
+            c["decode_replica_speculated"] = dec.stats.spec_rounds > 0 \
+                and pre.speculate_k == 0
+        checks.update({f"{name}_{key}": v for key, v in c.items()})
+        moved_s = tp.seconds
+        runs[name] = {
+            "tick_mode": mode, "speculate_k": k, "stop_token": stop,
+            "ticks": {"prefill_replica": pre._tick,
+                      "decode_replica": dec._tick},
+            "wall_s": run["wall_s"],
+            "tokens_per_s": sum(len(o.tokens) for o in outs) / run["wall_s"],
+            "ttft_ticks": [o.metrics.ttft_ticks for o in outs],
+            "ttft_ticks_single": [o.metrics.ttft_ticks for o in single_outs],
+            "ttft_s": [o.metrics.ttft_s for o in outs],
+            "ttft_s_single": [o.metrics.ttft_s for o in single_outs],
+            "e2e_s": [o.metrics.e2e_s for o in outs],
+            "e2e_s_single": [o.metrics.e2e_s for o in single_outs],
+            "page_stream": {
+                "transfers": tp.transfers, "bytes_moved": tp.bytes_moved,
+                "pages": want_pages, "page_bytes": page_bytes,
+                "wire_s": moved_s, "wire_s_per_transfer":
+                moved_s / max(tp.transfers, 1),
+                "wire_gb_per_s": tp.bytes_moved / moved_s / 1e9
+                if moved_s else None,
+                "extract_s": sum(run["extract_s"]),
+                "extract_s_per_request": run["extract_s"],
+                "restore_s": dec._swap.seconds,
+                "restore_transfers": dec._swap.transfers,
+                "span_bytes": [sp.attrs["bytes"] for sp in spans],
+                "span_s": [sp.end - sp.start for sp in spans]},
+            "launches": launches,
+            "spec": {"rounds": dec.stats.spec_rounds,
+                     "drafted": dec.stats.spec_drafted,
+                     "accepted": dec.stats.spec_accepted},
+            "streams": {"bit_identical": held["bit_identical"],
+                        "first_difference": held["first_difference"],
+                        "same_pieces": held["same_pieces"],
+                        "tokens_compared": held["tokens_compared"],
+                        "tol": PAGED_REL, "seeded_equal": seeded_equal,
+                        "same_pieces_first_token_equal": first_equal},
+            "max_memory_allocated": peak,
+            "weights_bytes": sum(t.numel() * t.element_size()
+                                 for t in params.values()),
+            "pools_bytes": 2 * pre.pool.num_pages * page_bytes}
+        del run, ds, tracer, pre, dec
+        gc.collect()
+
+    step = _facade_step_timing(ctx, cfg, params, opts, pool_kw)
+    gc.collect()
+    emit({"phase": "disagg", "config": cfg.name, "nvidia_smi": ctx["smi"],
+          "pool": {k: v for k, v in pool_kw.items() if k != "device"},
+          "runs": runs, "step": step, "checks": checks,
+          "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise SystemExit(f"disagg: failed checks "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -3636,12 +3968,13 @@ def main(argv=None) -> int:
     device = resolve_device()
     ctx = {"device": device, "device_name": torch.cuda.get_device_name(0),
            "smi": nvidia_smi(), "kernels": {}, "launches": {},
-           "timer": Timer(torch, device)}
+           "single": {}, "timer": Timer(torch, device)}
     runners = {"env": phase_env, "kernels": phase_kernels,
                "model": phase_model, "vehicle": phase_vehicle,
                "serve": phase_serve, "paged": phase_paged,
                "packed": phase_packed, "split": phase_split,
-               "spec": phase_spec, "service": phase_service}
+               "spec": phase_spec, "service": phase_service,
+               "disagg": phase_disagg}
     for name in PHASES:
         if name in phases:
             runners[name](ctx)

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -44,3 +46,13 @@ def stream_sync(device: torch.device) -> None:
     it launched; an untraced path never calls it."""
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
+
+
+def device_scope(device: torch.device):
+    """A context that makes ``device`` the current CUDA device (nothing off
+    CUDA). Work keyed by the current device, such as a kernel's
+    shared-memory opt-in and ``kernels.tickets``' buffers, then lands on
+    ``device``'s card."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -14,7 +14,9 @@ The port has the reference's three backends: ``"paged"`` (the default:
 and wave ticks and reserve or lazy admission), ``"fused"``
 (:class:`FusedBackend`, over :class:`~repro_torch.serving.engine.Engine`)
 and ``"split"`` (:class:`SplitBackend`, over the paper's
-:class:`~repro_torch.serving.split_engine.SplitEngine`). Per request,
+:class:`~repro_torch.serving.split_engine.SplitEngine`); the paged
+backend's ``deployment="disaggregated"`` splits it into a prefill and a
+decode replica joined by the page stream. Per request,
 token events arrive strictly in position order; finish events carry
 ``token = -1``, ``index = len(generated)`` and the finish reason
 (``"stop"`` | ``"length"`` | ``"abort"`` | ``"deadline"``).
@@ -49,6 +51,7 @@ import numpy as np
 from repro_torch.core.sampling import SamplingParams, truncate_at_stop
 from repro_torch.models.transformer import RuntimeOpts
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.page_transport import DisaggregatedScheduler
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.split_engine import SplitEngine
 from repro_torch.serving.telemetry import Histogram, Tracer
@@ -335,27 +338,39 @@ class PagedBackend(_RequestBook):
     events in index order, each with its own logprob;
     ``SamplingParams(speculate_k=)`` lowers a request's burst below k.
     The fused backend ignores ``speculate_k``: it has no incremental tick
-    to amortize. Of the reference's deployments only ``"fused"`` (one
-    scheduler on one card) is ported."""
+    to amortize.
+
+    ``deployment`` picks the topology; greedy streams agree across them:
+
+    * ``"fused"`` (default): one scheduler on one device;
+    * ``"disaggregated"``: a prefill replica and a decode replica with
+      pools of their own, joined by the page stream
+      (:class:`~repro_torch.serving.page_transport.DisaggregatedScheduler`);
+      ``prefill_kwargs=`` and ``decode_kwargs=`` tune the two sides (their
+      ``device=`` too);
+    * ``"sharded"`` is not ported yet and raises ``NotImplementedError``
+      (ROADMAP queue 1, item 8, the sharded deployment)."""
 
     def __init__(self, cfg, params, opts: RuntimeOpts = RuntimeOpts(), *,
                  telemetry=None, deployment: str = "fused",
                  **scheduler_kwargs):
         super().__init__()
         self.telemetry = telemetry
-        if deployment in ("sharded", "disaggregated"):
-            item = "7, the disaggregated deployment" \
-                if deployment == "disaggregated" \
-                else "8, the sharded deployment"
-            raise NotImplementedError(f"deployment={deployment!r} is not "
-                                      f"ported yet (ROADMAP queue 1, item "
-                                      f"{item})")
-        if deployment != "fused":
+        if deployment == "sharded":
+            raise NotImplementedError(
+                "deployment='sharded' is not ported yet (ROADMAP queue 1, "
+                "item 8, the sharded deployment)")
+        if deployment == "fused":
+            self.scheduler = Scheduler(cfg, params, opts,
+                                       telemetry=telemetry,
+                                       **scheduler_kwargs)
+        elif deployment == "disaggregated":
+            self.scheduler = DisaggregatedScheduler(
+                cfg, params, opts, telemetry=telemetry, **scheduler_kwargs)
+        else:
             raise ValueError(f"unknown deployment {deployment!r}: expected "
                              f"'fused', 'sharded' or 'disaggregated'")
         self.deployment = deployment
-        self.scheduler = Scheduler(cfg, params, opts, telemetry=telemetry,
-                                   **scheduler_kwargs)
         self.device = self.scheduler.device
 
     def submit(self, req: GenerationRequest) -> int:
@@ -368,10 +383,17 @@ class PagedBackend(_RequestBook):
 
     @property
     def queue_depth(self) -> int:
-        """Requests waiting unadmitted in the scheduler's queue."""
-        return len(self.scheduler.queue)
+        """Requests waiting unadmitted in the scheduler's queue; the
+        disaggregated facade sums its two replicas' queues."""
+        sched = self.scheduler
+        if hasattr(sched, "queue"):
+            return len(sched.queue)
+        return len(sched.prefill.queue) + len(sched.decode.queue)
 
     def _release_dicts(self) -> tuple:
+        rd = getattr(self.scheduler, "_release_dicts", None)
+        if rd is not None:  # the disaggregated facade's own dicts
+            return rd()
         return (self.scheduler.results, self.scheduler.finish_reasons)
 
     def step(self) -> list:

@@ -234,7 +234,10 @@ class AsyncLLMServer:
         generator ``finally`` running under ``GeneratorExit``, where no
         further ``await`` is allowed. This is the disconnect path."""
         with self._accept_lock:
-            if self._accepting:
+            # after a tick-thread failure nothing runs on the backend any
+            # more: a stream that ends BY the failure must not abort its
+            # request into a finished output that ``result`` would return
+            if self._accepting and self._error is None:
                 self._cmds.put((lambda: self.server.abort(rid), None))
         # after shutdown the backend is drained — nothing left to free
 

@@ -39,9 +39,11 @@ entry point of the port does; on a card the demo builds and loads the
 kernels the fused and paged backends launch (K1 to K4) before it binds
 its port, so that no client's first token waits on a compiler.
 ``--backend``/``--deployment`` thread straight through to
-:class:`~repro_torch.serving.api.LLMServer`; of the deployments only
-``fused`` is ported (``sharded`` and ``disaggregated`` raise
-``NotImplementedError`` naming their ROADMAP items).
+:class:`~repro_torch.serving.api.LLMServer`: ``--deployment
+disaggregated`` serves through a prefill replica and a decode replica on
+the one device, joined by the page stream
+(``page_transport.DisaggregatedScheduler``); ``sharded`` is not ported yet
+and raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations

@@ -37,12 +37,15 @@ scrubbed and freed; a double free is an assert.
 Preemption swap: :meth:`PagedKVPool.export_slot` copies a slot's written
 pages to host memory and :meth:`PagedKVPool.restore_slot` writes them back
 into fresh pages, bit-identically; ``swap_bytes`` counts the host bytes
-the snapshots hold.
+the snapshots hold. The disaggregated deployment restores a snapshot that
+another pool exported: :meth:`PagedKVPool.adopt_snapshot` moves its bytes
+onto the receiving pool's account, :meth:`PagedKVPool.discard_snapshot`
+off the sender's.
 
 Speculation's rollback: :meth:`PagedKVPool.truncate` scrubs a rejected
 draft tail's positions and keeps its pages.
 
-Not ported yet: ``mesh=`` (sharded pools) and ``adopt_snapshot``.
+Not ported yet: ``mesh=`` (sharded pools).
 """
 
 from __future__ import annotations
@@ -458,6 +461,16 @@ class PagedKVPool:
         aborted while swapped out): releases its ``swap_bytes``."""
         self.swap_bytes -= self.snapshot_bytes(snapshot)
         assert self.swap_bytes >= 0, "snapshot discarded twice"
+
+    def adopt_snapshot(self, snapshot: dict) -> None:
+        """Take over the account of a snapshot that ANOTHER pool exported
+        (the disaggregated deployment's page stream,
+        ``page_transport.PageStreamTransport``): charges this pool's
+        ``swap_bytes``, so that the :meth:`restore_slot` that consumes it
+        balances. The exporting pool releases its side with
+        :meth:`discard_snapshot`: one pool holds a snapshot's bytes at a
+        time."""
+        self.swap_bytes += self.snapshot_bytes(snapshot)
 
     def restore_slot(self, snapshot: dict,
                      reserve_tokens: int | None = None) -> int:

@@ -86,6 +86,11 @@ pool device's current stream, made only when a tracer is attached; with
 ``telemetry=None`` no tracer method runs and no sync is added. Values never
 depend on the tracer.
 
+``extract`` and ``inject`` hand a running request from one scheduler to
+another with its written pages as a host snapshot (the swap preemption's
+export) and its emitted tokens: the disaggregated deployment's handoff
+(``page_transport.DisaggregatedScheduler``).
+
 Threads: the scheduler is single-driver. ``submit``, ``abort`` and ``step``
 mutate pool and slot state and must run on ONE thread (the async front
 end's tick thread); a second thread entering ``step`` mid-tick raises
@@ -561,6 +566,46 @@ class Scheduler:
         if self.telemetry is not None:
             self.telemetry.request_finished(req.rid, track, "abort",
                                             len(generated))
+
+    def extract(self, rid: int) -> Request | None:
+        """Detach a RUNNING request from its slot and return it with a host
+        snapshot of every position it has WRITTEN (``req.snapshot``) and the
+        tokens it emitted (``req.generated``, never sampled again): the
+        prefill→decode handoff of the disaggregated deployment
+        (``page_transport.DisaggregatedScheduler``). The snapshot is the
+        swap preemption's export, so the request, :meth:`inject`-ed into
+        ANOTHER scheduler, decodes on bit-identically. Its slot and pages
+        free now and the slot's sampling row goes back to greedy. None when
+        the rid is not in a slot (queued or finished)."""
+        for i, st in enumerate(self.slots):
+            if st is None or st.req.rid != rid:
+                continue
+            st.req.generated = list(st.generated)
+            # only positions written: the last generated token is the next
+            # decode input, not yet in the pool
+            written = (len(st.req.prompt) + len(st.generated) - 1
+                       if st.generated else st.prefilled)
+            st.req.snapshot = self.pool.export_slot(i, n_tokens=written)
+            self.pool.free(i)
+            self.slots[i] = None
+            self._set_ops(i, _GREEDY)
+            if self.telemetry is not None:
+                self.telemetry.event("extract", track=f"slot{i}", rid=rid,
+                                     tokens=written)
+            return st.req
+        return None
+
+    def inject(self, req: Request) -> None:
+        """Enqueue a request :meth:`extract`-ed from another scheduler, its
+        snapshot and generated tokens intact: the decode side of the
+        disaggregated handoff. The next admission restores the snapshot
+        through the swap-resume path. The caller keeps rids unique: a
+        scheduler that both ``submit``s and ``inject``s must keep the two
+        rid spaces apart (``page_transport.DisaggregatedScheduler`` only
+        injects into its decode replica)."""
+        self.queue.append(req)
+        if self.telemetry is not None:
+            self.telemetry.request_submitted(req.rid)
 
     def _emit_event(self, rid: int, idx: int, tok: int, lp: float) -> None:
         """Append one streamed-token event, atomically with the drain's

@@ -564,20 +564,27 @@ def test_auto_prefix_detection_parity_and_forks(tiny_model, reference):
 
 def test_demo_server_builds_and_refuses_what_is_not_ported():
     """``python -m repro_torch.serving.http``'s server: the tiny paged demo
-    on ``--device cpu`` answers a completion; the unported deployments
-    raise naming their ROADMAP items; the default device raises without a
-    card."""
+    on ``--device cpu`` answers a completion, fused and disaggregated
+    (the same tokens, the second through the page stream); the sharded
+    deployment raises naming its ROADMAP item; the default device raises
+    without a card."""
     args = dict(config="llama2-7b", vocab=64, seed=0, num_pages=16,
                 max_slots=2, auto_prefix=True, backend="paged",
                 deployment="fused", device="cpu")
     srv = http_mod._build_server(argparse.Namespace(**args))
     rid = srv.submit([1, 2, 3], SamplingParams(max_tokens=3))
-    assert len(srv.run()[rid].tokens) == 3
+    fused = srv.run()[rid].tokens
+    assert len(fused) == 3
     assert srv.backend.scheduler.auto_prefix
-    for dep, item in (("sharded", "item 8"), ("disaggregated", "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            http_mod._build_server(argparse.Namespace(
-                **dict(args, deployment=dep)))
+    srv = http_mod._build_server(argparse.Namespace(
+        **dict(args, deployment="disaggregated")))
+    rid = srv.submit([1, 2, 3], SamplingParams(max_tokens=3))
+    np.testing.assert_array_equal(srv.run()[rid].tokens, fused)
+    ds = srv.backend.scheduler
+    assert ds.prefill.auto_prefix and ds.transport.transfers == 1
+    with pytest.raises(NotImplementedError, match="item 8"):
+        http_mod._build_server(argparse.Namespace(
+            **dict(args, deployment="sharded")))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             http_mod._build_server(argparse.Namespace(

@@ -1233,10 +1233,11 @@ def test_speculative_scheduler_on_card_drains(cuda_device, mode):
     assert sched.pool.pages_in_use == 0 and not sched.pool.refcount.any()
 
 
-def _async_serve(cfg, params, opts, prompts, device):
-    """The requests through AsyncLLMServer's tick thread on ``device``:
-    (token lists, K2 launches, K3 launches, names of the threads that
-    stepped the backend)."""
+def _async_serve(cfg, params, opts, prompts, device, **server_kw):
+    """The requests through AsyncLLMServer's tick thread on ``device``
+    (``server_kw`` reach the paged ``LLMServer``): (token lists, K2
+    launches, K3 launches, names of the threads that stepped the
+    backend)."""
     import asyncio
 
     from repro_torch.core.sampling import SamplingParams
@@ -1245,7 +1246,7 @@ def _async_serve(cfg, params, opts, prompts, device):
 
     srv = LLMServer(cfg, params, opts, backend="paged", num_pages=32,
                     page_size=4, max_slots=2, prefill_chunk=4,
-                    device=device)
+                    device=device, **server_kw)
     step, threads = srv.backend.step, set()
 
     def traced_step():
@@ -1338,3 +1339,76 @@ def test_tracer_on_and_off_give_the_same_paged_streams_on_card(
     for a, b in zip(on, off):
         np.testing.assert_array_equal(a, b)
     assert tracer.metrics_dict()["requests.finished"] == 3
+
+
+@pytest.mark.parametrize("mode", ["chunked", "packed"])
+def test_disaggregated_facade_on_card_matches_single_scheduler(cuda_device,
+                                                               mode):
+    """llama2-7b tiny (f32) through the disaggregated facade on one card:
+    the single scheduler's streams bit for bit (every prompt is cut into
+    the same pieces in both), one page-stream transfer a request, the
+    replicas sharing the weights, both pools drained, and the path's
+    kernels launched (K2 and K3 chunked, K4 packed)."""
+    from repro_torch.serving.page_transport import DisaggregatedScheduler
+
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = {k: v.to(cuda_device) for k, v in init_params(
+        cfg, torch.Generator().manual_seed(0)).items()}
+    rng = np.random.default_rng(47)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (11, 6, 9)]
+    kw = dict(num_pages=32, page_size=4, max_slots=3, tick_mode=mode,
+              prefill_chunk=4 if mode == "chunked" else 256,
+              device=cuda_device)
+    single = Scheduler(cfg, params, opts, **kw)
+    for p in prompts:
+        single.submit(p, 7)
+    want = single.run()
+    kernels = (pda.paged_decode_attention, ppa.paged_prefill_attention,
+               va.varlen_attention)
+    before = [fn.launches for fn in kernels]
+    ds = DisaggregatedScheduler(cfg, params, opts, **kw)
+    rids = [ds.submit(p, 7) for p in prompts]
+    got = ds.run()
+    k2, k3, k4 = (fn.launches - b for fn, b in zip(kernels, before))
+    for rid in rids:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    assert ds.transport.transfers == len(prompts)
+    assert all(ds.decode.params[k].data_ptr() == v.data_ptr()
+               for k, v in ds.prefill.params.items())
+    for sched in (ds.prefill, ds.decode):
+        assert sched.pool.pages_in_use == 0 and sched.pool.swap_bytes == 0
+    if mode == "chunked":
+        assert k2 > 0 and k3 > 0 and k4 == 0
+    else:
+        assert k4 > 0 and k2 == k3 == 0
+
+
+def test_disaggregated_replicas_on_two_cards_serve_async(cuda_device):
+    """Prefill on card 0 and decode on card 1, through AsyncLLMServer's
+    tick thread: the streams of the same facade on card 0 alone, with K2
+    and K3 launched."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card: the decode replica's ticks "
+                    "must make card 1 current")
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.serving.api import LLMServer
+
+    cards = [torch.device("cuda", i) for i in (0, 1)]
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(53)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (11, 6)]
+    got, k2, k3, threads = _async_serve(
+        cfg, params, opts, prompts, cards[0], deployment="disaggregated",
+        decode_kwargs={"device": cards[1]})
+    assert threads == {("asyncllm-tick", 0)}
+    assert k2 > 0 and k3 > 0
+    srv = LLMServer(cfg, params, opts, backend="paged", num_pages=32,
+                    page_size=4, max_slots=2, prefill_chunk=4,
+                    device=cards[0], deployment="disaggregated")
+    rids = [srv.submit(p, SamplingParams(max_tokens=6)) for p in prompts]
+    want = srv.run()
+    for g, rid in zip(got, rids):
+        np.testing.assert_array_equal(g, want[rid].tokens)

@@ -495,11 +495,21 @@ def test_scheduler_refuses_what_is_not_ported(tiny_model, kw, item):
 
 
 def test_paged_backend_refuses_unported_deployments(tiny_model):
+    """``"sharded"`` raises naming its ROADMAP item; ``"disaggregated"``
+    serves the Engine's tokens through its two replicas; an unknown name
+    is a ``ValueError``."""
     cfg, _, params = tiny_model
-    for dep, item in (("sharded", "item 8, the sharded deployment"),
-                      ("disaggregated", "item 7, the disaggregated "
-                                        "deployment")):
-        with pytest.raises(NotImplementedError, match=item):
-            LLMServer(cfg, params, OPTS_Q, deployment=dep, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="item 8, the sharded deployment"):
+        LLMServer(cfg, params, OPTS_Q, deployment="sharded", device="cpu")
+    srv = _paged(cfg, params, deployment="disaggregated")
+    prompt = np.arange(2, 9, dtype=np.int32)
+    rid = srv.submit(prompt, SamplingParams(max_tokens=4))
+    np.testing.assert_array_equal(
+        srv.run()[rid].tokens,
+        _engine_tokens(cfg, params, prompt, 4)[prompt.size:])
+    ds = srv.backend.scheduler
+    assert ds.transport.transfers == 1
+    assert ds.prefill.pool.pages_in_use == ds.decode.pool.pages_in_use == 0
     with pytest.raises(ValueError, match="deployment"):
         LLMServer(cfg, params, OPTS_Q, deployment="mesh", device="cpu")
