@@ -85,7 +85,25 @@ Phases, each printing one JSON line:
            before each main run and read just after (K2 and K3 in A, K4
            and K2's verify rows in B); TTFT beside the single scheduler's,
            the stream's host seconds, and a facade step with eight slots
-           decoding beside the single scheduler's decode tick.
+           decoding beside the single scheduler's decode tick;
+  families the sliding-window families: gemma2-2b and h2o-danube-3-4b tiny
+           on the CPU against the card; both at full width and depth
+           (random bf16 weights, int8 KV, cache_len 4352) answering four
+           requests through LLMServer(backend="fused"), two of whose
+           4160-token prompts wrap every 4096-slot ring: finish reasons,
+           lengths, a repeat of the first run, K1 once a layer and
+           decode step on danube and never on gemma2 (its soft caps take
+           the plain route; the counter set to 0 just before the run and
+           read just after); request 0's stream decoded step by step: the
+           rings hold exactly the window's positions, K1 equals its plain
+           version over them, the first 8 steps' int8 logits lie within
+           the reference's bound of an unquantized prefill's; a decode
+           step timed, the 4160-token prefill, peak memory; then danube
+           through LLMServer(backend="split") at ℓ = 8 (K1, K5, K6 and K7
+           at its widths, K7 by route; payloads held to their plain
+           versions; an uncompressed split equal to the Engine; the step
+           by stage). The kernels phase holds K1 at danube's decode shape
+           over a wrapped ring (``K1_STEPS["danube_step"]``).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -106,7 +124,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed",
-          "split", "spec", "service", "disagg")
+          "split", "spec", "service", "disagg", "families")
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -238,9 +256,23 @@ def _decode_inputs(torch, b, kh, g, hd, s, fill, qdtype, gen, device,
 
 # K1's timed shapes beside the kernels phase's main one (B, K, G, hd, S,
 # live slots a row): the serve run's last decode step (rows at positions up
-# to 191) and the split run's longest row (160 live slots)
+# to 191), the split run's longest row (160 live slots), and
+# h2o-danube-3-4b's decode step over a 4096-slot ring that has wrapped
 K1_STEPS = {"serve_step": (2, 32, 1, 128, 1024, 192),
-            "split_step": (1, 32, 1, 128, 1024, 160)}
+            "split_step": (1, 32, 1, 128, 1024, 160),
+            "danube_step": (2, 8, 4, 120, 4096, 4096)}
+# the ring steps' q_pos: slot t holds the p = t (mod W) in (q_pos - W, q_pos]
+K1_RING_Q_POS = {"danube_step": 4223}
+
+
+def ring_positions(torch, b, s, w, q_pos, device):
+    """(B, S) int32 positions of a sliding-window ring of ``w`` of ``s``
+    slots that has wrapped at ``q_pos``: slot t < w holds the p = t (mod
+    w) in (q_pos - w, q_pos], the slots past w hold -1."""
+    t = torch.arange(s, device=device)
+    p = q_pos - torch.remainder(q_pos - t, w)
+    return torch.where(t < w, p, -1).to(torch.int32).expand(b, s) \
+        .contiguous()
 
 
 def _k1_bound(ctx, q, b, kh, g, hd, live) -> dict:
@@ -333,19 +365,46 @@ def _kernel_k1(ctx) -> dict:
         "plain_ms": ms["plain"], "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": ms["library"]}
 
-    # the serve and split steps' shapes: rows live up to q_pos only; and at
-    # the serve step's, the host's time a call (the wrapper's checks, its
-    # workspace and tickets, the launch), no sync between
+    # the serve and split steps' shapes: rows live up to q_pos only (the
+    # ring step's every slot, held to the plain version first in f32 and
+    # bf16 q); and at the serve step's, the host's time a call (the
+    # wrapper's checks, its workspace and tickets, the launch), no sync
+    # between
     steps, host_us = {}, None
     for name, (b, kh, g, hd, s, live) in K1_STEPS.items():
-        st = _decode_inputs(torch, b, kh, g, hd, s, live, torch.bfloat16,
-                            gen, device)
+        ring_qp = K1_RING_Q_POS.get(name)
+        for qdtype in ((torch.float32, torch.bfloat16) if ring_qp else
+                       (torch.bfloat16,)):
+            st = list(_decode_inputs(torch, b, kh, g, hd, s, live, qdtype,
+                                     gen, device))
+            if ring_qp is None:
+                break
+            st[5] = ring_positions(torch, b, s, live, ring_qp, device)
+            st[6] = torch.tensor(ring_qp, dtype=torch.int32, device=device)
+            err = float((da.decode_attention(*st)
+                         - da.decode_attention_ref(*st)).abs().max())
+            checks.append({"shape": [b, kh, g, hd, s, live], "ring": name,
+                           "q_pos": ring_qp, "q_dtype": str(qdtype)[6:],
+                           "units": da.grid(b, kh, g, s,
+                                            da.unit_keys(hd))[2],
+                           "max_abs_err": err, "atol": ATOL,
+                           "ok": err <= ATOL})
+            worst = max(worst, err)
+            if not err <= ATOL:
+                emit({"phase": "kernels", "decode_attention": checks})
+                raise SystemExit(f"decode_attention disagrees: "
+                                 f"{checks[-1]}")
         sq, skc, sks, svc, svs, spos, sqp = st
-        skd = (skc.float() * sks[..., None]).to(torch.bfloat16)
-        svd = (svc.float() * svs[..., None]).to(torch.bfloat16)
+        # SDPA over the kv heads expanded to the query heads
+        skd = (skc.float() * sks[..., None]).to(torch.bfloat16) \
+            .repeat_interleave(g, dim=1)
+        svd = (svc.float() * svs[..., None]).to(torch.bfloat16) \
+            .repeat_interleave(g, dim=1)
+        sq = sq.reshape(b, kh * g, 1, hd)
         smask = ((spos >= 0) & (spos <= sqp))[:, None, None, :]
         t = ctx["timer"]({
             "kernel": lambda st=st: da.decode_attention(*st),
+            "plain": lambda st=st: da.decode_attention_ref(*st),
             "library": lambda sq=sq, skd=skd, svd=svd, smask=smask: sdpa(
                 sq, skd, svd, attn_mask=smask)})
         if name == "serve_step":
@@ -356,8 +415,10 @@ def _kernel_k1(ctx) -> dict:
             host_us = (time.perf_counter() - t0) / 200 * 1e6
             torch.cuda.synchronize()
         steps[name] = {"shape": [b, kh, g, hd, s], "live_slots": live,
-                       **_k1_bound(ctx, sq, b, kh, g, hd, live),
-                       "kernel_ms": t["kernel"], "library_ms": t["library"]}
+                       "ring_q_pos": ring_qp,
+                       **_k1_bound(ctx, st[0], b, kh, g, hd, live),
+                       "kernel_ms": t["kernel"], "plain_ms": t["plain"],
+                       "library_ms": t["library"]}
     return {"checks": checks, "main_shape": main,
             "unit_keys": da.unit_keys(hd),
             "grid": da.grid(main[0], main[1], main[2], main[4],
@@ -1558,7 +1619,8 @@ def _graph_replay(ctx) -> dict:
 
 
 def phase_kernels(ctx) -> None:
-    emit({"phase": "kernels", "decode_attention": _kernel_k1(ctx),
+    emit({"phase": "kernels", "nvidia_smi": ctx["smi"],
+          "decode_attention": _kernel_k1(ctx),
           "paged_decode_attention": _kernel_k2(ctx),
           "paged_decode_attention_verify": _k2_verify(ctx),
           "paged_prefill_attention": _kernel_k3(ctx),
@@ -2685,6 +2747,50 @@ def _payloads_identical(held, opsc) -> dict:
     return {"payloads": len(held), "tokens": tokens, "identical": same}
 
 
+def _split_stages(ctx, eng, opts, prompt, cache_len) -> dict:
+    """One split decode step at B = 1 after ``prompt`` (1, S), by stage:
+    edge (the front layers: K7 and K1), payload (TS + TAB-Q and the
+    reconstruction, with the host sync that reads its bits), cloud (the
+    back layers and the head) and the whole step; host-included times
+    (CUDA events, in turns), device-busy times and profiles
+    (``torch.profiler``), the decode payload's bits, and the edge's prefill
+    of the prompt (it rewrites the same cache entries): its device time and
+    profile."""
+    import torch
+    from repro_torch.models.transformer import init_caches
+
+    cfg, device = eng.cfg, ctx["device"]
+    with torch.inference_mode():
+        nfront = eng.split_block
+        edge_c = init_caches(cfg, 1, cache_len, opts, device, nfront)
+        cloud_c = init_caches(cfg, 1, cache_len, opts, device,
+                              cfg.num_blocks - nfront)
+        toks = torch.as_tensor(prompt, device=device)
+        h, _ = eng._compress(eng._edge_front(toks, edge_c, 0, decode=False))
+        nxt = eng._cloud_back(h, cloud_c, 0, decode=False).argmax(-1)[:, None]
+        pos = torch.tensor(toks.shape[1], dtype=torch.int32, device=device)
+        h_edge = eng._edge_front(nxt, edge_c, pos, decode=True)
+        h_rec, bits = eng._compress(h_edge)
+        stages = {
+            "edge": lambda: eng._edge_front(nxt, edge_c, pos, decode=True),
+            "payload": lambda: eng._compress(h_edge),
+            "cloud": lambda: eng._cloud_back(h_rec, cloud_c, pos,
+                                             decode=True),
+            "step": lambda: eng._cloud_back(eng._compress(eng._edge_front(
+                nxt, edge_c, pos, decode=True))[0], cloud_c, pos,
+                decode=True)}
+        stage_ms = ctx["timer"](stages, iters=20, device_only=False)
+        device_ms, profiles = {}, {}
+        for k, fn in stages.items():
+            device_ms[k], profiles[k] = _device_profile(torch, fn, 5)
+        _, top = _device_profile(torch, stages["step"], 5)
+        prefill = _device_profile(
+            torch, lambda: eng._edge_front(toks, edge_c, 0, decode=False), 3)
+    return {"host_included_ms": stage_ms, "device_busy_ms": device_ms,
+            "profiles": profiles, "top": top, "bits": bits,
+            "edge_prefill": prefill}
+
+
 def phase_split(ctx) -> None:
     import gc
 
@@ -2699,7 +2805,7 @@ def phase_split(ctx) -> None:
     from repro_torch.kernels import paged_prefill_attention as ppa
     from repro_torch.kernels import tabq_quantize as tq
     from repro_torch.kernels import ts_mask as tsm
-    from repro_torch.models.transformer import RuntimeOpts, init_caches
+    from repro_torch.models.transformer import RuntimeOpts
     from repro_torch.serving.api import LLMServer
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.split_engine import SplitEngine
@@ -2879,41 +2985,17 @@ def phase_split(ctx) -> None:
         < st_ikv1.uplink_bits_eq3
     gc.collect()
 
-    # one decode step at B = 1 after a 128-token prompt, by stage: edge
-    # (8 layers, K7 and K1), payload (TS + TAB-Q + reconstruct, with the
-    # host sync that reads its bits) and cloud (24 layers and the head)
-    with torch.inference_mode():
-        nfront = eng.split_block
-        edge_c = init_caches(cfg, 1, 1024, opts, device, nfront)
-        cloud_c = init_caches(cfg, 1, 1024, opts, device,
-                              cfg.num_blocks - nfront)
-        toks = torch.as_tensor(prompts[0][None], device=device)
-        h, _ = eng._compress(eng._edge_front(toks, edge_c, 0, decode=False))
-        nxt = eng._cloud_back(h, cloud_c, 0, decode=False).argmax(-1)[:, None]
-        pos = torch.tensor(128, dtype=torch.int32, device=device)
-        h_edge = eng._edge_front(nxt, edge_c, pos, decode=True)
-        h_rec, bits = eng._compress(h_edge)
-        stages = {
-            "edge": lambda: eng._edge_front(nxt, edge_c, pos, decode=True),
-            "payload": lambda: eng._compress(h_edge),
-            "cloud": lambda: eng._cloud_back(h_rec, cloud_c, pos,
-                                             decode=True),
-            "step": lambda: eng._cloud_back(eng._compress(eng._edge_front(
-                nxt, edge_c, pos, decode=True))[0], cloud_c, pos,
-                decode=True)}
-        stage_ms = ctx["timer"](stages, iters=20, device_only=False)
-        device_ms, profiles = {}, {}
-        for k, fn in stages.items():
-            device_ms[k], profiles[k] = _device_profile(torch, fn, 5)
-        _, top = _device_profile(torch, stages["step"], 5)
-        # K6 does threshold splitting's selection: no sort on the card
-        checks["no_sort_in_payload"] = not any(
-            "sort" in row["kernel"].lower() for row in profiles["payload"])
-        # and the edge's 128-token prefill (it rewrites the same cache
-        # entries): its device time and how much of it is K7's
-        prefill_ms, prefill_top = _device_profile(
-            torch, lambda: eng._edge_front(toks, edge_c, 0, decode=False), 3)
-        del edge_c, cloud_c
+    # one decode step at B = 1 after a 128-token prompt, by stage
+    nfront = eng.split_block
+    by_stage = _split_stages(ctx, eng, opts, prompts[0][None], 1024)
+    stage_ms, device_ms = by_stage["host_included_ms"], \
+        by_stage["device_busy_ms"]
+    profiles, top = by_stage["profiles"], by_stage["top"]
+    bits = by_stage["bits"]
+    prefill_ms, prefill_top = by_stage["edge_prefill"]
+    # K6 does threshold splitting's selection: no sort on the card
+    checks["no_sort_in_payload"] = not any(
+        "sort" in row["kernel"].lower() for row in profiles["payload"])
     bw, _ = peak_rates(ctx["device_name"])
     front_keys = [k for k in params if k.startswith("blocks/")]
     bf16_front = sum(params[k][:nfront].numel() * 2 for k in front_keys)
@@ -3940,6 +4022,436 @@ def phase_disagg(ctx) -> None:
                          f"{[k for k, v in checks.items() if not v]}")
 
 
+# ----------------------------------------------------------- the families
+
+# the families phase's fused traffic (gemma2-2b and h2o-danube-3-4b at full
+# width): two prompts that wrap every 4096-slot ring in prefill and keep it
+# wrapping in decode, two that never wrap
+FAMILY_LENS = (4160, 4160, 256, 256)
+FAMILY_CACHE_LEN = 4352
+FAMILY_TF_STEPS = 8  # decode steps held to the unquantized prefill
+# the reference's bound on int8-KV logits against the unquantized cache's,
+# relative to the largest logit (tests/test_arch_smoke.py::
+# test_quantized_kv_decode_close)
+INT8_BOUND = 0.08
+FAMILY_SPLIT_LAYER = 8  # ℓ of h2o-danube-3-4b's 24 layers
+FAMILY_TINY = ("gemma2-2b-tiny", "h2o-danube-3-4b-tiny")
+
+
+def _family_params(ctx, name) -> tuple:
+    """The config's random bf16 weights from seed 0, drawn on the card;
+    (cfg, params, seconds to draw)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(
+        device=ctx["device"]).manual_seed(0), torch.bfloat16, ctx["device"])
+    torch.cuda.synchronize()
+    return cfg, params, time.perf_counter() - t0
+
+
+def _ring_check(cfg, caches, q_pos) -> dict:
+    """Each layer's cache after a run that wrote positions 0 .. q_pos of
+    every row: a windowed layer's ring holds exactly (q_pos - W, q_pos]
+    and -1 in its pad slots; a full layer 0 .. q_pos at slot = position
+    and -1 past it."""
+    import torch
+
+    ok, slots = True, []
+    for c, ls in zip(caches, cfg.pattern * cfg.num_blocks):
+        s = c.pos.shape[1]
+        t = torch.arange(s, device=c.pos.device)
+        w = ls.mixer.sliding_window
+        if w is None:
+            want = torch.where(t <= q_pos, t, -1)
+        else:
+            w = min(w, s)
+            want = torch.where(t < w, q_pos - torch.remainder(q_pos - t, w),
+                               -1)
+        ok = ok and bool((c.pos == want.to(torch.int32)).all())
+        slots.append(s)
+    return {"ok": ok, "slots": sorted(set(slots))}
+
+
+def _family_fused(ctx, name) -> dict:
+    """One family at full width and depth (random bf16 weights, int8 KV)
+    answering ``FAMILY_LENS``' four requests through
+    LLMServer(backend="fused"): a first run picks a stop token; the main
+    run (K1's counter set to 0 just before it and read just after) gives
+    the asked finish reasons and lengths, repeats the first run, and
+    launches K1 once a layer and decode step on a family without soft
+    caps, never on a soft-capped one. Then request 0's stream decoded step
+    by step on rows 0 and 1 (both fed request 0's tokens): the rings hold
+    exactly the window's positions, K1 equals its plain version on every
+    layer's last query over the wrapped rings (gemma2: a random query over
+    each local layer's ring), and the first decode steps' logits lie within
+    the reference's int8 bound of an unquantized prefill's. Timed: the
+    4160-token prefill, a decode step at B = 2 (host included; device
+    busy), peak memory against weights plus caches."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import (RuntimeOpts, decode_step,
+                                                init_caches, prefill)
+    from repro_torch.serving.api import LLMServer
+
+    device = ctx["device"]
+    base = torch.cuda.memory_allocated()  # other phases' tensors
+    cfg, params, init_s = _family_params(ctx, name)
+    opts = RuntimeOpts(quantized_kv=True)
+    windowed_only = all(ls.mixer.attn_softcap is None for ls in cfg.pattern)
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in FAMILY_LENS]
+
+    def requests(stop_tok):
+        return [SamplingParams(max_tokens=64),
+                SamplingParams(max_tokens=48, stop_token_ids=stop_tok),
+                SamplingParams(max_tokens=64, temperature=0.8, top_p=0.9,
+                               seed=7),
+                SamplingParams(max_tokens=32)]
+
+    def serve(sps):
+        srv = LLMServer(cfg, params, opts, backend="fused",
+                        cache_len=FAMILY_CACHE_LEN, device=device)
+        rids = [srv.submit(p, sp) for p, sp in zip(prompts, sps)]
+        outs = srv.run()
+        return [outs[r] for r in rids]
+
+    first = serve(requests(()))
+    stop = int(first[1].tokens[10])
+    stop_at = list(first[1].tokens).index(stop) + 1
+    decode_steps = (64 - 1) + (64 - 1)  # two length groups, 64 tokens each
+    da.decode_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = serve(requests((stop,)))
+    wall_s = time.perf_counter() - t0
+    launches = da.decode_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    reasons = [o.finish_reason for o in outs]
+    lengths = [len(o.tokens) for o in outs]
+    checks = {
+        "reasons": reasons == ["length", "stop", "length", "length"],
+        "lengths": lengths == [64, stop_at, 64, 32],
+        "same_as_first_run": all(
+            np.array_equal(o.tokens, f.tokens[:len(o.tokens)])
+            for o, f in zip(outs, first)),
+        "tokens_in_vocab": all(int(o.tokens.min()) >= 0 and int(
+            o.tokens.max()) < cfg.vocab_size for o in outs),
+        "k1_launches": launches == (cfg.num_layers * decode_steps
+                                    if windowed_only else 0)}
+
+    # request 0's stream, step by step, on the two long prompts
+    forced = torch.as_tensor(np.tile(outs[0].tokens[:63], (2, 1)),
+                             device=device)
+    s = FAMILY_LENS[0]
+    with torch.inference_mode():
+        toks = torch.as_tensor(np.stack(prompts[:2]), device=device)
+        logits, caches = prefill(params, cfg, toks, FAMILY_CACHE_LEN, opts)
+        stepped = [logits.float().cpu()]
+        for t in range(62):
+            pos = torch.tensor(s + t, dtype=torch.int32, device=device)
+            logits, caches = decode_step(params, cfg, forced[:, t:t + 1],
+                                         caches, pos, opts)
+            if t < FAMILY_TF_STEPS:
+                stepped.append(logits.float().cpu())
+        # the last step, every layer's K1 call recorded
+        q_pos = s + 62
+        seen, real = [], ops.decode_attention
+
+        def record(*args):
+            seen.append(args)
+            return real(*args)
+
+        ops.decode_attention = record
+        try:
+            decode_step(params, cfg, forced[:, 62:], caches, torch.tensor(
+                q_pos, dtype=torch.int32, device=device), opts)
+        finally:
+            ops.decode_attention = real
+        rings = _ring_check(cfg, caches, q_pos)
+        checks["rings_hold_the_window"] = rings["ok"]
+        k1_err = 0.0
+        if windowed_only:
+            checks["k1_calls_last_step"] = len(seen) == cfg.num_layers
+            for a in seen:
+                k1_err = max(k1_err, float((da.decode_attention(*a)
+                                            - da.decode_attention_ref(*a))
+                                           .abs().max()))
+        else:
+            checks["k1_calls_last_step"] = not seen
+            gen = torch.Generator(device=device).manual_seed(1)
+            qp = torch.tensor(q_pos, dtype=torch.int32, device=device)
+            for c, ls in zip(caches, cfg.pattern * cfg.num_blocks):
+                if ls.mixer.sliding_window is None:
+                    continue
+                m = ls.mixer
+                q = torch.randn((2, m.num_kv_heads, m.num_heads
+                                 // m.num_kv_heads, m.head_dim),
+                                generator=gen, device=device)
+                a = (q, c.k, c.k_scale, c.v, c.v_scale, c.pos, qp)
+                k1_err = max(k1_err, float((da.decode_attention(*a)
+                                            - da.decode_attention_ref(*a))
+                                           .abs().max()))
+        checks["k1_equals_plain_on_rings"] = k1_err <= ATOL
+        # the int8 cache against an unquantized prefill over the prompt
+        # and the tokens so far: decode step j's logits
+        plain = RuntimeOpts(quantized_kv=False)
+        tf_rel = []
+        for j in range(1, FAMILY_TF_STEPS + 1):  # request 0's row
+            full = torch.cat([toks[:1], forced[:1, :j]], dim=1)
+            ref, _ = prefill(params, cfg, full, None, plain)
+            ref = ref.float().cpu()
+            tf_rel.append(float((stepped[j][:1] - ref).abs().max()
+                                / ref.abs().max()))
+        checks["int8_within_reference_bound"] = max(tf_rel) < INT8_BOUND
+
+        # timings: a 4160-token prefill (B = 1), and one decode step at
+        # B = 2 over the wrapped rings (it rewrites the same slots)
+        one = toks[:1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, cfg, one, FAMILY_CACHE_LEN, opts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        nxt = forced[:, 62:63]
+        pos = torch.tensor(q_pos, dtype=torch.int32, device=device)
+        step = lambda: decode_step(params, cfg, nxt, caches, pos, opts)  # noqa: E731
+        step_ms = ctx["timer"]({"step": step}, iters=20,
+                               device_only=False)["step"]
+        device_ms, rows = _device_profile(torch, step, 5)
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    meta = init_caches(cfg, 2, FAMILY_CACHE_LEN, opts, torch.device("meta"))
+    cache_bytes = sum(t.numel() * t.element_size() for c in meta
+                      for t in (c.k, c.v, c.k_scale, c.v_scale, c.pos))
+    bw, _ = peak_rates(ctx["device_name"])
+    m = cfg.pattern[0].mixer
+    # a step reads every weight but the embedding's rows (a tied head
+    # reads them all), and each layer's live slots: codes, scales, position
+    read = weight_bytes - (0 if cfg.tie_embeddings else
+                           params["embed"].numel() * 2) + sum(
+        2 * min(c.pos.shape[1], q_pos + 1)
+        * (m.num_kv_heads * (2 * m.head_dim + 8) + 4) for c in caches)
+    out = {"config": name, "params": sum(t.numel() for t in params.values()),
+           "init_s": init_s, "cache_len": FAMILY_CACHE_LEN,
+           "cache_slots": rings["slots"], "prompt_lens": list(FAMILY_LENS),
+           "finish_reasons": reasons, "generated": lengths,
+           "stop_token": stop, "decode_steps": decode_steps,
+           "k1_launches": launches, "wall_s": wall_s,
+           "tokens_per_s": sum(lengths) / wall_s,
+           "k1_max_abs_err_on_rings": k1_err,
+           "int8_rel_err_per_step": tf_rel, "int8_bound": INT8_BOUND,
+           "prefill_4160_s": prefill_s,
+           "decode_step_b2": {
+               "q_pos": q_pos, "host_included_ms": step_ms,
+               "device_busy_ms": device_ms,
+               "idle_share": 1 - device_ms / step_ms,
+               "bound_ms": read / bw * 1e3,
+               "k1_in_step": _kernel_share(rows, K1_DEVICE_NAMES),
+               "profile_top": rows[:8]},
+           "max_memory_allocated": peak, "allocated_before": base,
+           "weight_bytes": weight_bytes,
+           "cache_bytes_b2": cache_bytes, "checks": checks}
+    del params, caches, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_split(ctx) -> dict:
+    """h2o-danube-3-4b at full width through LLMServer(backend="split") at
+    ℓ = FAMILY_SPLIT_LAYER with the paper's OPSC defaults, four requests
+    of the split phase's lengths (counters set to 0 just before the run
+    and read just after: K1 on the edge and the cloud, K5, K6 and K7, K7
+    by route); the first request's payloads held to their plain versions
+    after the run; an uncompressed
+    full-precision split equal to the Engine bit for bit; one decode step
+    by stage."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.opsc import OPSCConfig
+    from repro_torch.core.sampling import SamplingParams, truncate_at_stop
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import tabq_quantize as tq
+    from repro_torch.kernels import ts_mask as tsm
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.serving.api import LLMServer
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.split_engine import SplitEngine
+
+    device = ctx["device"]
+    cfg, params, _ = _family_params(ctx, "h2o-danube-3-4b")
+    opts = RuntimeOpts(quantized_kv=True)
+    opsc = OPSCConfig(split_layer=FAMILY_SPLIT_LAYER, qw_front=4)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in SPLIT_LENS]
+    n_new = SPLIT_MAX_TOKENS
+    sps = [SamplingParams(max_tokens=n_new),
+           SamplingParams(max_tokens=n_new, temperature=0.8, top_p=0.9,
+                          seed=7),
+           SamplingParams(max_tokens=n_new), SamplingParams(max_tokens=n_new)]
+
+    def serve(srv):
+        rids = [srv.submit(p, sp) for p, sp in zip(prompts, sps)]
+        outs = srv.run()
+        return [outs[r] for r in rids]
+
+    srv = LLMServer(cfg, params, opts, backend="split", opsc=opsc,
+                    cache_len=1024, device=device)
+    eng = srv.backend.engine
+    held = []
+
+    def compress(h):  # keeps the first request's hidden states
+        if len(held) < 4:  # the prefill and three decode payloads
+            held.append(h.detach().clone())
+        return SplitEngine._compress(eng, h)
+
+    eng._compress = compress
+    kernels = {"decode_attention": da.decode_attention,
+               "tabq_adaptive": tq.tabq_adaptive, "ts_encode": tsm.ts_encode,
+               "dequant_matmul": dm.dequant_matmul}
+    for fn in kernels.values():
+        fn.launches = 0
+    k7_routes = dm.dequant_matmul.route_launches
+    k7_routes.update(dict.fromkeys(k7_routes, 0))
+    outs = serve(srv)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    k7_routes = dict(k7_routes)
+    del eng._compress
+    payloads = _payloads_identical(held, opsc)
+    payloads_n = len(prompts) * n_new
+    decodes = len(prompts) * (n_new - 1)
+    checks = {
+        "payloads_identical_to_plain": payloads["identical"],
+        "lengths": [len(o.tokens) for o in outs] == [n_new] * 4,
+        "k1_launches": launches["decode_attention"]
+        == cfg.num_layers * decodes,
+        "k5_k6_launches": launches["tabq_adaptive"] == launches["ts_encode"]
+        == payloads_n,
+        "k7_launches": launches["dequant_matmul"]
+        == 7 * opsc.split_layer * payloads_n,
+        "no_early_exit": all(o.split_stats.early_exits == 0 for o in outs)}
+
+    # a full-precision, uncompressed split: the Engine's streams bit for bit
+    srv16 = LLMServer(cfg, params, opts, backend="split",
+                      opsc=OPSCConfig(split_layer=FAMILY_SPLIT_LAYER,
+                                      qw_front=16),
+                      compress=False, cache_len=1024, device=device)
+    outs16 = serve(srv16)
+    engine = Engine(cfg, params, opts, cache_len=1024, device=device)
+    equal16 = []
+    for p, sp, o in zip(prompts, sps, outs16):
+        want = engine.generate_requests(p[None], [sp])
+        gen, _ = truncate_at_stop(want.tokens[0, len(p):], sp)
+        equal16.append(gen == o.tokens.tolist())
+    checks["uncompressed_fp_front_equals_engine"] = all(equal16)
+    del srv16, engine, outs16
+    by_stage = _split_stages(ctx, eng, opts, prompts[0][None], 1024)
+    stage_ms, device_ms = by_stage["host_included_ms"], \
+        by_stage["device_busy_ms"]
+    profiles = by_stage["profiles"]
+    out = {"config": cfg.name, "opsc": vars(opsc),
+           "prompt_lens": list(SPLIT_LENS), "launches": launches,
+           "k7_routes": k7_routes, "payload_check": payloads,
+           "uncompressed_equal_engine": equal16,
+           "uplink_bits_measured": [o.split_stats.uplink_bits_measured
+                                    for o in outs],
+           "edge_weight_bytes": eng.edge_weight_bytes(),
+           "decode_step_b1": {
+               "host_included_ms": stage_ms, "device_busy_ms": device_ms,
+               "idle_share": {k: 1 - device_ms[k] / stage_ms[k]
+                              for k in stage_ms},
+               "decode_payload_bits": by_stage["bits"],
+               "k1_in_edge": _kernel_share(profiles["edge"],
+                                           K1_DEVICE_NAMES),
+               "k1_in_cloud": _kernel_share(profiles["cloud"],
+                                            K1_DEVICE_NAMES),
+               "k7_in_edge": _kernel_share(profiles["edge"],
+                                           K7_DEVICE_NAMES),
+               "k5_in_payload": _kernel_share(profiles["payload"],
+                                              K5_DEVICE_NAMES),
+               "k6_in_payload": _kernel_share(profiles["payload"],
+                                              K6_DEVICE_NAMES),
+               "profile_top": by_stage["top"][:8]},
+           "checks": checks}
+    del srv, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_tiny(ctx, name) -> dict:
+    """A tiny family (f32 weights, int8 KV, 20-token prompts past the
+    16-slot window) greedily on the CPU (plain versions) and on the card
+    (kernels): logits within MODEL_REL, tokens under the margin rule, as
+    the model phase holds llama2-7b tiny."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import Engine
+
+    device = ctx["device"]
+    cfg = get_config(name)
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    card = {k: v.to(device) for k, v in cpu.items()}
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 20))
+    n, cache_len = 24, 64
+    want, want_lg = _greedy_stepwise(cpu, cfg, prompts, n, opts, cache_len,
+                                     "cpu")
+    got_lg = _teacher_forced(card, cfg, prompts, want, opts, cache_len,
+                             device)
+    rel = float(np.abs(got_lg - want_lg).max() / np.abs(want_lg).max())
+    got = Engine(cfg, card, opts, cache_len=cache_len,
+                 device=device).generate(prompts, n).tokens[:, 20:]
+    ok, compared = _margin_agreement(got, want, want_lg, MODEL_REL)
+    return {"config": name, "steps": n, "max_rel_logit_err": rel,
+            "tol": MODEL_REL, "tokens_compared": compared,
+            "ok": ok and rel <= MODEL_REL}
+
+
+def phase_families(ctx) -> None:
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def timed(part, fn, *args):
+        t = time.perf_counter()
+        out = fn(ctx, *args)
+        part_s[part] = time.perf_counter() - t
+        return out
+
+    tiny = {name: timed(name, _family_tiny, name) for name in FAMILY_TINY}
+    fused = {name: timed(name, _family_fused, name)
+             for name in ("h2o-danube-3-4b", "gemma2-2b")}
+    split = timed("split", _family_split)
+    checks = {f"tiny_{k}": v["ok"] for k, v in tiny.items()}
+    for part, res in (("A", fused["h2o-danube-3-4b"]),
+                      ("B", fused["gemma2-2b"]), ("C", split)):
+        checks.update({f"{part}_{k}": v for k, v in res["checks"].items()})
+    emit({"phase": "families", "nvidia_smi": ctx["smi"], "tiny": tiny,
+          "A_danube_fused": fused["h2o-danube-3-4b"],
+          "B_gemma2_fused": fused["gemma2-2b"], "C_danube_split": split,
+          "phase_s": time.perf_counter() - t0, "part_s": part_s,
+          "checks": checks,
+          "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise SystemExit(f"families: failed checks "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -3974,7 +4486,7 @@ def main(argv=None) -> int:
                "serve": phase_serve, "paged": phase_paged,
                "packed": phase_packed, "split": phase_split,
                "spec": phase_spec, "service": phase_service,
-               "disagg": phase_disagg}
+               "disagg": phase_disagg, "families": phase_families}
     for name in PHASES:
         if name in phases:
             runners[name](ctx)

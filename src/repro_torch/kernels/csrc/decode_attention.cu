@@ -21,11 +21,14 @@
 // K*(2*hd + 8) bytes a slot plus its position, against 4*K*G*hd flops a
 // slot, so at G <= 8 it is bound by device-memory bytes.
 //
-// The slot contract: the dense cache writes position p at slot p
-// (models/layers.py::cache_update), so slot t holds t or -1, and a row's
-// valid slots all lie in 0 .. q_pos. The split kernel reads only those
-// (the TPU kernel walks all S slots; the rest are masked and weigh exactly
-// 0 there).
+// The slot contract: every valid slot of a row lies in 0 .. min(q_pos,
+// S - 1). The dense cache writes position p at slot p, so slot t holds t
+// or -1; a sliding-window ring of W <= S slots writes p at slot p mod W,
+// and once it has wrapped q_pos >= W, so its slots all lie below q_pos
+// and hold positions in (q_pos - W, q_pos]: the position mask is the
+// window's (models/layers.py::cache_update). The split kernel reads only
+// slots 0 .. min(q_pos, S - 1) (the TPU kernel walks all S slots; the
+// rest are masked and weigh exactly 0 there).
 //
 // decode_split_kernel (flash-decoding, K2's split kernel on the dense
 // cache): a unit is one row, one run of KEYS consecutive slots (256, 128 at
@@ -47,6 +50,15 @@
 // row where no unit saw a valid slot takes the slow branch: the merging
 // unit (or the only one) averages v over all S slots. Codes widen to f32
 // in registers; no dequantized copy is written.
+//
+// Head dim 120 (h2o-danube-3-4b) runs the hd-128 lanes (padded_hd: hd
+// rounded up to whole 16-code lanes): a unit's rows stay contiguous in
+// shared memory, 120 bytes apart, so a lane's 16 codes are two 8-byte
+// loads, and the 8 codes past a row's end (the next row's, or bytes never
+// staged: any byte widens to a finite code) meet q's tail, which is zero:
+// the scores are exact, and the value dims past 120 are never written
+// out. A unit stages by 16-byte copies when its first slot
+// is 16-byte aligned (an even slot index), else by 8-byte copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,7 +70,7 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kVec = 16;  // int8 codes per lane per slot: one 16-byte load
+constexpr int kVec = 16;  // int8 codes per lane per slot: 16 bytes
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -87,6 +99,30 @@ struct Args {
 template <int HD>
 __host__ __device__ constexpr int unit_keys() {
   return HD == 256 ? 128 : 256;
+}
+
+// the lanes' head dim: hd rounded up to whole 16-code lanes
+template <int HD>
+__host__ __device__ constexpr int padded_hd() {
+  return (HD + kVec - 1) / kVec * kVec;
+}
+
+// a lane's 16 codes of a staged row: one 16-byte load, or two 8-byte ones
+// where rows are 8-byte aligned (hd 120)
+template <int HD>
+__device__ __forceinline__ int4 lane_codes(const int8_t* p) {
+  if constexpr (HD % kVec == 0) {
+    return *reinterpret_cast<const int4*>(p);
+  } else {
+    const int2 lo = *reinterpret_cast<const int2*>(p);
+    const int2 hi = *reinterpret_cast<const int2*>(p + 8);
+    return make_int4(lo.x, lo.y, hi.x, hi.y);
+  }
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(src));
 }
 
 template <int HD, int GC>
@@ -123,7 +159,7 @@ template <int HD, int GC>
 __global__ void __launch_bounds__(kThreads, GC == 1 ? 3 : (GC == 2 ? 2 : 1))
 decode_split_kernel(const __grid_constant__ Args a) {
   constexpr int KEYS = unit_keys<HD>();
-  constexpr int LPS = HD / kVec;       // lanes a key
+  constexpr int LPS = padded_hd<HD>() / kVec;  // lanes a key
   constexpr int SPW = 32 / LPS;        // keys a warp a step
   constexpr int SPB = kWarps * SPW;    // keys a block a step
   constexpr int KPL = KEYS / SPB;      // keys a lane group
@@ -161,9 +197,21 @@ decode_split_kernel(const __grid_constant__ Args a) {
   const size_t s0 = bk * a.S + k0;
   const int8_t* kg = a.k_codes + s0 * HD;
   const int8_t* vg = a.v_codes + s0 * HD;
-  for (int e = tid; e < n * LPS; e += kThreads) {
-    cp_async16(smem_u32(kc + e * kVec), kg + e * kVec);
-    cp_async16(smem_u32(vc + e * kVec), vg + e * kVec);
+  const int bytes = n * HD;  // a multiple of 8
+  if (HD % 16 == 0 || ((uintptr_t)kg | (uintptr_t)vg) % 16 == 0) {
+    for (int e = tid; e < bytes / 16; e += kThreads) {
+      cp_async16(smem_u32(kc + e * 16), kg + e * 16);
+      cp_async16(smem_u32(vc + e * 16), vg + e * 16);
+    }
+    if (HD % 16 != 0 && bytes % 16 != 0 && tid == 0) {
+      cp_async8(smem_u32(kc + bytes - 8), kg + bytes - 8);
+      cp_async8(smem_u32(vc + bytes - 8), vg + bytes - 8);
+    }
+  } else {  // hd 120 from an odd slot index: 8-byte aligned
+    for (int e = tid; e < bytes / 8; e += kThreads) {
+      cp_async8(smem_u32(kc + e * 8), kg + e * 8);
+      cp_async8(smem_u32(vc + e * 8), vg + e * 8);
+    }
   }
   for (int jj = tid; jj < n; jj += kThreads) {
     cp_async4(smem_u32(ksc + jj), a.k_scale + s0 + jj);
@@ -172,7 +220,7 @@ decode_split_kernel(const __grid_constant__ Args a) {
   }
 
   // this lane's 16-dim slice of each query row, pre-scaled by
-  // log2(e)/sqrt(hd): the softmax runs in base 2
+  // log2(e)/sqrt(hd): the softmax runs in base 2; dims past hd are zero
   float qv[GC][kVec];
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
@@ -180,7 +228,7 @@ decode_split_kernel(const __grid_constant__ Args a) {
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
       float x = 0.f;
-      if (g0 + g < a.G)
+      if (g0 + g < a.G && (HD % kVec == 0 || j * kVec + i < HD))
         x = a.q_bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
                            a.q)[row + i])
                      : reinterpret_cast<const float*>(a.q)[row + i];
@@ -203,7 +251,7 @@ decode_split_kernel(const __grid_constant__ Args a) {
     const int key = t * SPB + warp * SPW + sub;
     const int kk = key < n ? key : 0;
     float kf[kVec];
-    widen16(*reinterpret_cast<const int4*>(kc + kk * HD + j * kVec), kf);
+    widen16(lane_codes<HD>(kc + kk * HD + j * kVec), kf);
     const int p = key < n ? kps[kk] : -1;
     if (p >= 0 && p <= qp) valid |= 1u << t;
     const float ks = ksc[kk];
@@ -239,7 +287,7 @@ decode_split_kernel(const __grid_constant__ Args a) {
     if (!(valid >> t & 1)) continue;
     const int key = t * SPB + warp * SPW + sub;
     float vf[kVec];
-    widen16(*reinterpret_cast<const int4*>(vc + key * HD + j * kVec), vf);
+    widen16(lane_codes<HD>(vc + key * HD + j * kVec), vf);
     const float vs = vsc[key];
 #pragma unroll
     for (int g = 0; g < GC; ++g) {
@@ -279,7 +327,8 @@ decode_split_kernel(const __grid_constant__ Args a) {
     for (int g = 0; g < GC; ++g) {
       float* w = red + (warp * GC + g) * (HD + 2);
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) w[j * kVec + i] = acc[g][i];
+      for (int i = 0; i < kVec; ++i)
+        if (HD % kVec == 0 || j * kVec + i < HD) w[j * kVec + i] = acc[g][i];
       if (j == 0) {
         w[HD] = m[g];
         w[HD + 1] = l[g];
@@ -419,6 +468,7 @@ extern "C" int decode_attention_launch(
   switch (HD) {
     case 32: return (int)launch_hd<32>(a, units, st);
     case 64: return (int)launch_hd<64>(a, units, st);
+    case 120: return (int)launch_hd<120>(a, units, st);
     case 128: return (int)launch_hd<128>(a, units, st);
     case 256: return (int)launch_hd<256>(a, units, st);
     default: return (int)cudaErrorInvalidValue;

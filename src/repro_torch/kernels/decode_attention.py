@@ -18,19 +18,29 @@ A slot is attended when ``0 <= kv_pos <= q_pos``; masked scores are
 in that average; the port does not pad (callers allocate caches at
 :func:`padded_cache_len`, where the two agree).
 
-**The slot contract.** Slot ``t`` of a row holds position ``t`` or ``-1``
-(the dense cache writes position p at slot p:
-``models.layers.cache_update``), so all of a row's valid slots lie in
-``0 .. q_pos``. The kernel reads only those; the TPU kernel walks all S
-slots, and the rest are masked there and weigh exactly 0. A caller that
-put position p at another slot (a sliding-window ring cache, a left-padded
-batch) would lose it from the kernel's sum: ``models.layers`` refuses
-sliding windows, and a ring cache must not call this kernel.
+**The slot contract.** Every valid slot of a row lies in ``0 ..
+min(q_pos, S - 1)``, and the kernel reads only those; the TPU kernel walks
+all S slots, and the rest are masked there and weigh exactly 0. The dense
+cache (``models.layers.cache_update``) keeps it two ways:
+
+* a full layer writes position p at slot p, so slot t holds t or -1;
+* a sliding-window layer's ring of ``W = min(window, slots) <= S`` slots
+  writes p at slot ``p % W``. Before it wraps, slot t holds t. Once it
+  has wrapped, q_pos >= W, so every ring slot lies below q_pos; slots
+  ``W .. S - 1`` (block padding) hold -1; and every ring slot holds a
+  position in ``(q_pos - W, q_pos]``, so the kernel's position mask is the
+  window's mask.
+
+A caller that put position p anywhere else (a left-padded batch) would
+lose it from the kernel's sum.
 
 What bounds it on an H100: one call reads the codes and scales of the slots
 its rows need, ``Σ_b min(q_pos_b + 1, S) · K · (2·hd + 8)`` bytes plus
 their positions, against ``4·K·G·hd`` flops a slot, so it is bound by
 device-memory bytes.
+
+Head dim 120 runs the hd-128 lanes over rows 120 bytes apart (q's tail
+set to zero; ``decode_attention.cu``'s header).
 
 ``decode_split_kernel`` (flash-decoding): a row is cut into units of
 :func:`unit_keys` consecutive slots, each with one kv-head and up to four
@@ -61,9 +71,9 @@ from repro_torch.kernels.tickets import scratch
 
 NEG_INF = -1e30
 BLOCK_S = 512  # block size of the TPU kernel's sequence axis; sizes caches
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 120, 128, 256)
 GROUP = 4  # query heads of one kv-head a unit carries at most
-WARPS = 8  # of a block: a step walks WARPS · 32 / (hd / 16) slots
+WARPS = 8  # of a block: a step walks WARPS · 32 / ⌈hd / 16⌉ slots
 
 
 def padded_cache_len(s: int) -> int:
@@ -93,7 +103,8 @@ def decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, kv_pos, q_pos):
 def unit_keys(hd: int) -> int:
     """The slots of a unit at head dim ``hd`` (``unit_keys`` in the
     source): 256, 128 at hd 256, whole block steps whose codes, scales and
-    positions stage within 69 KB of shared memory. On an H100 the fastest
+    positions stage within 69 KB of shared memory (64.5 KB at hd 120, 66 at
+    hd 128). On an H100 the fastest
     of 32 to 256 at llama2-7b's three decode shapes (every slot of 1,024
     live at B 4, 192 at B 2, 160 at B 1), where a row of one unit needs no
     merge (``python -m repro_torch.kernels.decode_probe --only k1``)."""

@@ -49,8 +49,9 @@ the split kernel's variants
     pass).
 
 K1 at the kernels phase's main shape (B 4, K 32, S 1024, every slot live),
-the fused serve run's decode rows (B 2, q_pos 191: its last step) and the
-split run's (B 1, 160 live slots), bf16 q: the wrapper, SDPA over K/V
+the fused serve run's decode rows (B 2, q_pos 191: its last step), the
+split run's (B 1, 160 live slots) and h2o-danube-3-4b's decode step (B 2,
+K 8, G 4, hd 120, 4096 live slots), bf16 q: the wrapper, SDPA over K/V
 dequantized to bf16 beforehand, an empty launch, the kernel's variants
 
   * ``units_64`` / ``units_128``: units of 64 or 128 slots (the kernel's
@@ -321,9 +322,11 @@ def _probe_k2_shape(time_us, libs: dict, toks: list, nb: int) -> None:
 
 
 # K1's shapes (B, K, G, hd, S, live slots a row): the kernels phase's main
-# shape, the serve run's last decode step, the split run's longest row
+# shape, the serve run's last decode step, the split run's longest row,
+# h2o-danube-3-4b's decode step (every slot of its ring live: 16 units a
+# row, each of four query heads)
 K1_TIMED = ((4, 32, 1, 128, 1024, 1024), (2, 32, 1, 128, 1024, 192),
-            (1, 32, 1, 128, 1024, 160))
+            (1, 32, 1, 128, 1024, 160), (2, 8, 4, 120, 4096, 4096))
 
 
 _K1_PASS = "  for (int t = 0; t < KPL; ++t) {"

@@ -17,11 +17,11 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, kv_pos, q_pos):
     """Int8-KV decode attention, q (B, K, G, hd) → (B, K, G, hd) f32; see
     :mod:`repro_torch.kernels.decode_attention`.
 
-    The slot contract: slot t of a row holds position t or -1, as the dense
-    cache writes it. The kernel reads only slots ``0 .. q_pos``, while the
-    plain version masks all S, so a cache that puts a position elsewhere (a
-    ring, a left-padded batch) gets answers on the card that differ from
-    the CPU's. Sliding-window layers are refused before they get here."""
+    The slot contract: every valid slot of a row lies in ``0 .. min(q_pos,
+    S - 1)``, as the dense cache and its sliding-window rings write them.
+    The kernel reads only those slots, while the plain version masks all
+    S, so a cache that puts a position elsewhere (a left-padded batch) gets
+    answers on the card that differ from the CPU's."""
     if q.device.type == "cpu":
         return _da.decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale,
                                         kv_pos, q_pos)

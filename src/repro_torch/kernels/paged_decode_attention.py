@@ -58,7 +58,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import HEAD_DIMS, NEG_INF
+from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.kernels.tickets import tickets
 
 TRASH_PAGE = 0  # page id the pool reserves for masked and pad entries
@@ -67,6 +67,7 @@ MAX_PAGE = 64
 # in the source: a split's codes, scales and positions, 68 KB at hd 128,
 # sit in shared memory at once)
 SPLIT = {32: 256, 64: 256, 128: 256, 256: 128}
+HEAD_DIMS = tuple(SPLIT)  # the source's instantiations
 GROUP = 4  # query heads of one kv-head a unit carries at most
 ROUTES = ("single_pass", "split")
 

@@ -6,6 +6,10 @@ of ``repro/launch/serve.py``).
       --tiny --batch 4 --new 16 --quantized-kv [--device cpu] \
       [--split --split-layer 1 --qw-front 8 [--deadline-ms 0.1]]
 
+``--arch`` takes any config of ``repro_torch.configs`` (llama2-7b,
+llama2-13b, gemma2-2b, h2o-danube-3-4b); ``--split-layer`` is snapped to
+a pattern boundary (gemma2's pattern is two layers).
+
 Runs on the CUDA card unless ``--device`` names another device.
 """
 

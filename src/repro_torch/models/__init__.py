@@ -1,1 +1,2 @@
-"""Model numerics of the port (dense llama path)."""
+"""Model numerics of the port (the llama and gemma2 paths: dense, paged
+and packed)."""

@@ -1,8 +1,10 @@
 """Model building blocks (port of ``repro/models/layers.py``, the llama
-path): RMSNorm, rotary embeddings, the KV caches and their int8 writes,
-position-masked prefill attention, int8-KV decode attention through the
-CUDA kernels (dense and paged), prefill attention through the paged pool,
-token-packed varlen attention, the attention layer and the gated MLP.
+and gemma2 paths): RMSNorm, rotary embeddings, the KV caches and their
+int8 writes (sliding-window layers into a ring), position-masked prefill
+attention with windows and logit soft caps, int8-KV decode attention
+through the CUDA kernels (dense and paged), prefill attention through the
+paged pool, token-packed varlen attention, the attention layer and the
+(gated) MLP.
 
 Caches come in three layouts, as in the reference:
   * fp (bf16/f32): token-major (B, S, K, hd), read by ``chunked_attention``;
@@ -21,6 +23,7 @@ engine's edge segment) goes through the int8-weight kernel K7
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -162,7 +165,7 @@ def _quantize_kv(x: torch.Tensor):
 
 
 def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos) -> KVCache:
+                 pos, window: int | None = None) -> KVCache:
     """Write ``k_new``/``v_new`` (B, S_new, K, hd) at absolute positions
     ``pos .. pos + S_new - 1`` (``pos`` an int or a 0-d int32 tensor on the
     cache's device, so a decode loop never reads it back to the host).
@@ -170,10 +173,25 @@ def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     Unlike the reference, which returns a new cache, this writes the
     cache's tensors IN PLACE (``index_copy_``) and returns the same cache.
     Quantized caches are written in the kernel's kv-head-major layout, the
-    slot axis being 2 instead of 1. Sliding-window ring caches are not
-    ported yet."""
+    slot axis being 2 instead of 1.
+
+    With ``window`` the cache is a ring of ``size = min(window, slots)``
+    slots: position p lands at slot ``p % size``, and a write of ``size``
+    tokens or more keeps only its last ``size``. Slots past ``size`` (the
+    quantized cache's block padding) are never written and keep pos = -1,
+    so the ring holds exactly the positions ``(p - size, p]`` after a write
+    that ends at p."""
     s_new = k_new.shape[1]
-    idx = torch.arange(s_new, dtype=torch.int64, device=cache.pos.device) + pos
+    size = cache.pos.shape[1]
+    if window is not None:
+        size = min(window, size)
+        if s_new >= size:  # only the last ``size`` tokens survive
+            k_new, v_new = k_new[:, s_new - size:], v_new[:, s_new - size:]
+            pos = pos + (s_new - size)
+            s_new = size
+    abs_pos = torch.arange(s_new, dtype=torch.int64,
+                           device=cache.pos.device) + pos
+    idx = abs_pos if window is None else abs_pos % size
     if cache.quantized:
         kc, ks = _quantize_kv(k_new)  # (B, S_new, K, hd), (B, S_new, K, 1)
         vc, vs = _quantize_kv(v_new)
@@ -185,7 +203,7 @@ def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
         cache.k.index_copy_(1, idx, k_new.to(cache.k.dtype))
         cache.v.index_copy_(1, idx, v_new.to(cache.v.dtype))
     b = cache.pos.shape[0]
-    cache.pos.index_copy_(1, idx, idx.to(torch.int32).expand(b, s_new))
+    cache.pos.index_copy_(1, idx, abs_pos.to(torch.int32).expand(b, s_new))
     return cache
 
 
@@ -239,18 +257,29 @@ def paged_cache_update(cache: PagedKVCache, k_new: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def chunked_attention(q, k, v, q_pos, kv_pos, *, q_chunk: int = 1024,
+def soft_cap(scores: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """``cap · tanh(scores / cap)``, the logit soft cap (gemma2); None
+    leaves the scores as they are."""
+    if cap is None:
+        return scores
+    return cap * torch.tanh(scores / cap)
+
+
+def chunked_attention(q, k, v, q_pos, kv_pos, *, window: int | None = None,
+                      softcap: float | None = None, q_chunk: int = 1024,
                       kv_chunk: int = 1024) -> torch.Tensor:
     """Causal, position-masked attention (the reference's
-    ``chunked_attention`` without window or softcap): q (B, Sq, H, hd),
-    k/v (B, Skv, K, hd), q_pos (B, Sq), kv_pos (B, Skv) with -1 = invalid.
-    Query chunks of ``q_chunk`` walk key chunks of ``kv_chunk`` with an
-    online softmax, so no (Sq, Skv) score tensor larger than one chunk
-    pair exists. Scores and sums are f32; the result has q's dtype. Query
-    head ``h`` reads kv-head ``h // G``. A query with no valid key gets the
-    uniform average of the Skv values (the reference's chunked walk pads
-    the keys to whole chunks and averages over those pads too; dense
-    prefill never has such a query)."""
+    ``chunked_attention``): q (B, Sq, H, hd), k/v (B, Skv, K, hd), q_pos
+    (B, Sq), kv_pos (B, Skv) with -1 = invalid. A key is attended when
+    ``0 <= kv_pos <= q_pos`` and, with ``window``, ``kv_pos > q_pos -
+    window``; ``softcap`` caps the scaled scores (:func:`soft_cap`) before
+    the mask. Query chunks of ``q_chunk`` walk key chunks of ``kv_chunk``
+    with an online softmax, so no (Sq, Skv) score tensor larger than one
+    chunk pair exists. Scores and sums are f32; the result has q's dtype.
+    Query head ``h`` reads kv-head ``h // G``. A query with no valid key
+    gets the uniform average of the Skv values (the reference's chunked
+    walk pads the keys to whole chunks and averages over those pads too;
+    dense prefill never has such a query)."""
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -266,10 +295,12 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, q_chunk: int = 1024,
         for k0 in range(0, skv, kv_chunk):
             kb = k[:, k0:k0 + kv_chunk].float()
             vb = v[:, k0:k0 + kv_chunk].float()
-            kp = kv_pos[:, k0:k0 + kv_chunk]
-            s = torch.einsum("bqkgd,bckd->bkgqc", qb, kb)
-            mask = (kp[:, None, None, None, :] >= 0) & (
-                kp[:, None, None, None, :] <= qp[:, None, None, :, None])
+            kp = kv_pos[:, k0:k0 + kv_chunk][:, None, None, None, :]
+            s = soft_cap(torch.einsum("bqkgd,bckd->bkgqc", qb, kb), softcap)
+            qpc = qp[:, None, None, :, None]
+            mask = (kp >= 0) & (kp <= qpc)
+            if window is not None:
+                mask &= kp > qpc - window
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -288,16 +319,21 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, q_chunk: int = 1024,
 # ---------------------------------------------------------------------------
 
 
-def quantized_decode_attention(q, cache: KVCache, q_positions, pos, *,
+def quantized_decode_attention(q, cache: KVCache, spec, q_positions, pos, *,
                                q_chunk: int = 1024, kv_chunk: int = 1024):
     """Decode-time attention over the kv-head-major int8 cache. A
-    single-token query streams the codes through the decode kernel
-    (``kernels.ops.decode_attention``: the CUDA kernel on the card, its
-    plain version on the CPU); longer queries dequantize the cache and take
-    ``chunked_attention``."""
+    single-token query of a layer without a logit soft cap streams the
+    codes through the decode kernel (``kernels.ops.decode_attention``: the
+    CUDA kernel on the card, its plain version on the CPU). Sliding-window
+    layers take it too: their ring holds only positions inside the window,
+    so the kernel's position mask is the window's, and every ring slot lies
+    below ``q_pos`` once it has wrapped (the kernel's slot contract).
+    Soft-capped layers (gemma2) and longer queries dequantize the cache and
+    take ``chunked_attention`` with the layer's window and cap, as the
+    reference does."""
     b, s, h, hd = q.shape
     kh = cache.k.shape[1]
-    if s == 1:
+    if s == 1 and spec.attn_softcap is None:
         qh = q[:, 0].reshape(b, kh, h // kh, hd)
         out = ops.decode_attention(qh, cache.k, cache.k_scale, cache.v,
                                    cache.v_scale, cache.pos, pos)
@@ -305,7 +341,9 @@ def quantized_decode_attention(q, cache: KVCache, q_positions, pos, *,
     k = (cache.k.float() * cache.k_scale[..., None]).transpose(1, 2)
     v = (cache.v.float() * cache.v_scale[..., None]).transpose(1, 2)
     return chunked_attention(q, k, v, q_positions, cache.pos,
-                             q_chunk=q_chunk, kv_chunk=kv_chunk)
+                             window=spec.sliding_window,
+                             softcap=spec.attn_softcap, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
 
 
 def paged_prefill_attention(q, cache: PagedKVCache, k_fresh, v_fresh,
@@ -447,11 +485,9 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
     (output, cache)."""
     b, s, _ = x.shape
     h, kh, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
-    if spec.sliding_window is not None or spec.attn_softcap is not None \
-            or spec.qk_norm:
-        raise NotImplementedError("sliding windows, softcap and qk_norm are "
-                                  "not ported yet (ROADMAP queue 1, item 9, "
-                                  "the rest of configs/)")
+    if spec.qk_norm:
+        raise NotImplementedError("qk_norm is not ported yet (ROADMAP queue "
+                                  "1, item 9, the rest of configs/)")
     q = matmul(x, params["wq"]).reshape(b, s, h, hd)
     k = matmul(x, params["wk"]).reshape(b, s, kh, hd)
     v = matmul(x, params["wv"]).reshape(b, s, kh, hd)
@@ -460,6 +496,12 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     if isinstance(cache, PagedKVCache):
+        if spec.attn_softcap is not None and packed is None:
+            # the reference gathers the pool dense for these
+            # (_gather_dense_kv); the pool itself refuses windows
+            raise NotImplementedError(
+                "soft-capped attention through the paged pool is not "
+                "ported yet (ROADMAP queue 1, item 9, the rest of configs/)")
         paged_cache_update(cache, k, v, q_positions,
                            slots=None if packed is None else packed.slots)
         if packed is not None:
@@ -477,25 +519,32 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
             out = chunked_attention(q, k, v, q_positions, q_positions,
                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
         return matmul(out.reshape(b, s, h * hd), params["wo"]), cache
+    attn_kw = dict(window=spec.sliding_window, softcap=spec.attn_softcap,
+                   q_chunk=q_chunk, kv_chunk=kv_chunk)
     if cache is not None:
-        cache = cache_update(cache, k, v, pos)
+        cache = cache_update(cache, k, v, pos, spec.sliding_window)
     if cache is not None and decode:
         if cache.quantized:
-            out = quantized_decode_attention(q, cache, q_positions, pos,
+            out = quantized_decode_attention(q, cache, spec, q_positions, pos,
                                              q_chunk=q_chunk,
                                              kv_chunk=kv_chunk)
         else:
             out = chunked_attention(q, cache.k, cache.v, q_positions,
-                                    cache.pos, q_chunk=q_chunk,
-                                    kv_chunk=kv_chunk)
+                                    cache.pos, **attn_kw)
     else:
+        # prefill attends the fresh k/v under the window mask: a ring
+        # cannot serve early queries their own window
         out = chunked_attention(q, k, v, q_positions, q_positions,
-                                q_chunk=q_chunk, kv_chunk=kv_chunk)
+                                **attn_kw)
     return matmul(out.reshape(b, s, h * hd), params["wo"]), cache
 
 
 def mlp_layer(params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
-    act = {"silu": F.silu, "gelu": F.gelu}[activation]
+    """The (gated) MLP: ``act(x W_gate) · x W_up`` (or ``act(x W_up)``
+    without a gate), then ``W_down``. GELU is the tanh approximation, as
+    the reference's ``jax.nn.gelu`` computes it by default."""
+    act = {"silu": F.silu,
+           "gelu": functools.partial(F.gelu, approximate="tanh")}[activation]
     up = matmul(x, params["w_up"])
     if "w_gate" in params:
         up = act(matmul(x, params["w_gate"])) * up

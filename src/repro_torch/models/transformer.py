@@ -1,6 +1,6 @@
 """Model assembly (port of ``repro/models/transformer.py``, the llama
-path): a decoder of ``len(pattern) × num_blocks`` layers whose parameters
-are stacked per pattern position. Entry points:
+and gemma2 paths): a decoder of ``len(pattern) × num_blocks`` layers
+whose parameters are stacked per pattern position. Entry points:
 
   prefill(params, cfg, tokens, cache_len, opts)      → (last_logits, caches)
   decode_step(params, cfg, tokens, caches, pos, opts)→ (logits, caches)
@@ -23,6 +23,7 @@ point writes the caches in place. Everything runs on the device of
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -73,19 +74,23 @@ def layer_params(cfg: ArchConfig, params: dict, blocks=None) -> list:
 def init_caches(cfg: ArchConfig, batch: int, cache_len: int,
                 opts: RuntimeOpts, device=None, num_blocks=None) -> list:
     """One empty ``KVCache`` per layer of ``num_blocks`` blocks (default:
-    all). Quantized caches take the kernel's kv-head-major int8 layout with
-    the slot axis at ``padded_cache_len(cache_len)`` (pad slots keep pos =
-    -1)."""
+    all), sized per pattern position as the reference sizes them: a
+    sliding-window layer's ring holds ``min(cache_len, window)`` slots, a
+    full layer ``cache_len``. Quantized caches take the kernel's
+    kv-head-major int8 layout with that slot count rounded by
+    ``padded_cache_len`` (pad slots keep pos = -1; a ring wraps within its
+    window)."""
     caches = []
     for _ in range(cfg.num_blocks if num_blocks is None else num_blocks):
         for ls in cfg.pattern:
             m = ls.mixer
-            if not isinstance(m, AttnSpec) or m.sliding_window:
+            if not isinstance(m, AttnSpec):
                 raise NotImplementedError(
-                    "only full attention layers are ported (ROADMAP queue "
-                    "1, item 9, the rest of configs/)")
-            size = padded_cache_len(cache_len) if opts.quantized_kv \
-                else cache_len
+                    "only attention layers are ported (ROADMAP queue 1, "
+                    "item 9, the rest of configs/)")
+            size = min(cache_len, m.sliding_window or cache_len)
+            if opts.quantized_kv:
+                size = padded_cache_len(size)
             caches.append(L.init_cache(batch, size, m.num_kv_heads,
                                        m.head_dim,
                                        getattr(torch, opts.cache_dtype),
@@ -105,15 +110,22 @@ def rope_tables(cfg: ArchConfig, positions: torch.Tensor):
 
 
 def embed_inputs(cfg: ArchConfig, params: dict, tokens: torch.Tensor):
-    """Token embedding (B, S) → (B, S, D) in the embedding's dtype."""
-    return F.embedding(tokens, params["embed"])
+    """Token embedding (B, S) → (B, S, D) in the embedding's dtype; with
+    ``embed_scale`` (gemma) times √d_model, rounded to that dtype first as
+    the reference's weakly typed product does."""
+    x = F.embedding(tokens, params["embed"])
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
 
 
 def apply_head(cfg: ArchConfig, params: dict, x: torch.Tensor):
-    """Final norm and head; the logits are f32."""
+    """Final norm and head (the embedding's transpose when tied); the
+    logits are f32, soft-capped by ``final_softcap`` (gemma2)."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     w = params["lm_head"] if "lm_head" in params else params["embed"].T
-    return (x @ w).float()
+    return L.soft_cap((x @ w).float(), cfg.final_softcap)
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,12 @@ pytree's paths joined by ``/`` (the keys of the reference's ``arrays.npz``
 checkpoints), with every block leaf stacked over ``num_blocks`` on its
 leading axis, as in ``repro/models/transformer.py:98-121``:
 
-  embed (V, D)   final_norm (D,)   lm_head (D, V)  [untied configs]
+  embed (V, D)   final_norm (D,)   lm_head (D, V)  [untied configs; a
+                                                   tied one reads embed.T]
   blocks/p{i}/ln1, ln2                    (nb, D)
   blocks/p{i}/mixer/wq, wk, wv            (nb, D, H·hd | K·hd)
   blocks/p{i}/mixer/wo                    (nb, H·hd, D)
-  blocks/p{i}/ffn/w_up, w_gate            (nb, D, F)
+  blocks/p{i}/ffn/w_up, w_gate            (nb, D, F)  [w_gate if gated]
   blocks/p{i}/ffn/w_down                  (nb, F, D)
 
 Weights keep the ``x @ W`` layout, W (d_in, d_out), so nothing is
@@ -29,22 +30,22 @@ def param_specs(cfg: ArchConfig) -> dict:
     """``{key: (shape, init scale)}``; a scale of None means ones (norms).
     The scales are the reference's: embed and head ×0.02, projections
     ×1/√d_in (``layers.py:658-672,775-783``)."""
-    if cfg.embed != "token" or cfg.num_codebooks != 1 or cfg.embed_scale \
-            or cfg.final_softcap is not None or cfg.rope != "rope":
-        raise NotImplementedError(f"{cfg.name}: only the llama family's "
-                                  f"token embedding, RoPE and plain head are "
-                                  f"ported (ROADMAP queue 1, item 9, the "
-                                  f"rest of configs/)")
+    if cfg.embed != "token" or cfg.num_codebooks != 1 or cfg.rope != "rope":
+        raise NotImplementedError(f"{cfg.name}: only the token embedding "
+                                  f"and RoPE are ported (ROADMAP queue 1, "
+                                  f"item 9, the rest of configs/)")
     d, v, nb = cfg.d_model, cfg.vocab_size, cfg.num_blocks
     specs = {"embed": ((v, d), 0.02), "final_norm": ((d,), None)}
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((d, v), 0.02)
     for i, ls in enumerate(cfg.pattern):
         m, f = ls.mixer, ls.ffn
-        if not isinstance(m, AttnSpec) or not isinstance(f, MLPSpec):
-            raise NotImplementedError(f"{cfg.name}: only attention + MLP "
-                                      f"layers are ported (ROADMAP queue 1, "
-                                      f"item 9, the rest of configs/)")
+        if not isinstance(m, AttnSpec) or m.qk_norm \
+                or not isinstance(f, MLPSpec):
+            raise NotImplementedError(f"{cfg.name}: only attention (without "
+                                      f"qk_norm) + MLP layers are ported "
+                                      f"(ROADMAP queue 1, item 9, the rest "
+                                      f"of configs/)")
         p = f"blocks/p{i}/"
         hq, hk = m.num_heads * m.head_dim, m.num_kv_heads * m.head_dim
         specs[p + "ln1"] = ((nb, d), None)

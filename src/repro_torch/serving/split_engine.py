@@ -37,8 +37,12 @@ TAB-Q's per-token bit widths and the uplink bits a token as histograms
 and each call's ``SplitStats`` mirrored into the registry under
 ``split.*``.
 
-Only the llama family's configs are ported (ROADMAP queue 1, item 9, the
-rest of configs/).
+The ported configs run on the dense clouds: the llama family and the
+sliding-window families (gemma2-2b, h2o-danube-3-4b), whose edge and cloud
+caches keep a ring per windowed layer. The paged cloud refuses windows, as
+the reference's pool does, and so does speculation: a verify burst written
+into a ring that has wrapped overwrites positions its earlier columns
+still attend.
 """
 
 from __future__ import annotations
@@ -324,6 +328,9 @@ class SplitEngine:
             m.gauge("split.shared_prefix_pages", stats.shared_prefix_pages)
 
     def _eq3_bits(self, w: int, i_kv: int) -> float:
+        # Eq. 3 counts one KV width for every layer: the ported patterns'
+        # positions share kv heads and head dim (gemma2's windowed and
+        # global layers too)
         c = self.cfg
         m = c.pattern[0].mixer
         return payload_bytes(w, self.opsc.split_layer, c.num_layers,
@@ -369,6 +376,12 @@ class SplitEngine:
         round trips."""
         if speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        if speculate_k and any(ls.mixer.sliding_window is not None
+                               for ls in self.cfg.pattern):
+            raise NotImplementedError(
+                "speculate_k over sliding-window layers: a verify burst "
+                "written into a ring that has wrapped overwrites positions "
+                "its earlier columns still attend")
         cfg, opts, dev = self.cfg, self.opts, self.device
         prompts = np.asarray(prompts)
         if prompts.ndim != 2:

@@ -901,6 +901,98 @@ def test_decode_attention_replays_from_a_cuda_graph(cuda_device):
             assert torch.equal(out, want)
 
 
+# K1 over a sliding-window ring that has wrapped: (B, K, G, hd, S slots, W
+# ring slots, q_pos). Slot t < W holds the position p = t (mod W) in
+# (q_pos - W, q_pos]; slots W .. S - 1 (block padding) hold -1
+K1_RINGS = {
+    "danube_step": (2, 8, 4, 120, 4096, 4096, 4223),
+    "padded_ring": (2, 2, 4, 120, 1024, 600, 1000),
+    # odd S: units start at odd slot indices (8-byte staging at hd 120)
+    "odd_slots": (2, 2, 4, 120, 301, 301, 450),
+    "tiny_ring": (2, 2, 2, 32, 16, 16, 47),
+}
+
+
+def ring_positions(b, s, w, q_pos):
+    """(B, S) int32 positions of a wrapped ring (``K1_RINGS``)."""
+    t = np.arange(s)
+    p = q_pos - ((q_pos - t) % w)
+    return np.tile(np.where(t < w, p, -1).astype(np.int32), (b, 1))
+
+
+def _k1_ring(device, name, qdtype, seed=23):
+    b, kh, g, hd, s, w, qp = K1_RINGS[name]
+    args = _inputs(device, b, kh, g, hd, s, seed)
+    args[0] = args[0].to(qdtype)
+    args[5] = torch.from_numpy(ring_positions(b, s, w, qp)).to(device)
+    return args, torch.tensor(qp, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(K1_RINGS))
+def test_decode_attention_over_a_wrapped_ring_matches_plain_version(
+        cuda_device, qdtype, name):
+    """K1 over a ring that has wrapped (hd 120 at h2o-danube-3-4b's decode
+    shape, a padded ring, an odd slot count) within 1e-4 of the plain
+    version, which masks by position over all S slots; each call repeated
+    bit for bit."""
+    args, q_pos = _k1_ring(cuda_device, name, getattr(torch, qdtype))
+    want = da.decode_attention_ref(*args, q_pos)
+    before = da.decode_attention.launches
+    got = da.decode_attention(*args, q_pos)
+    again = da.decode_attention(*args, q_pos)
+    assert da.decode_attention.launches == before + 2
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    assert torch.equal(got, again)
+
+
+def test_decode_attention_over_a_ring_replays_from_a_cuda_graph(cuda_device):
+    """K1 at h2o-danube-3-4b's decode shape over a wrapped ring (two units
+    a row, tickets) captured in a CUDA graph: each replay equals the eager
+    call bit for bit."""
+    args, q_pos = _k1_ring(cuda_device, "danube_step", torch.bfloat16)
+    eager = da.decode_attention(*args, q_pos)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.decode_attention(*args, q_pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(*args, q_pos)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("name", ["gemma2-2b-tiny", "h2o-danube-3-4b-tiny"])
+def test_sliding_window_families_engine_on_card_matches_cpu(cuda_device,
+                                                            name):
+    """The two sliding-window families, tiny, same f32 weights, int8 KV, a
+    20-token prompt past the 16-slot window and 8 new tokens (the rings
+    wrap in prefill and keep wrapping): greedy tokens on the card equal the
+    CPU's; h2o-danube launches K1 once a layer and decode step, gemma2
+    never (its soft cap takes the plain route)."""
+    cfg = get_config(name)
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20))
+    want = Engine(cfg, params, opts, cache_len=32,
+                  device="cpu").generate(prompts, 8)
+    before = da.decode_attention.launches
+    got = Engine(cfg, params, opts, cache_len=32,
+                 device=cuda_device).generate(prompts, 8)
+    windowed_only = cfg.pattern[0].mixer.attn_softcap is None
+    assert da.decode_attention.launches - before == (
+        cfg.num_layers * 7 if windowed_only else 0)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.logprobs, want.logprobs, rtol=1e-3,
+                               atol=1e-3)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("t,d", [(1, 4096), (7, 64), (96, 4096),
                                  (128, 4096), (3, 100)])

@@ -120,6 +120,9 @@ K1_CASES = {
     "hd256_ragged_g": (2, 2, 3, 256, 130, 100, None, ()),
     "live_slots_all_empty": (2, 2, 1, 64, 256, 256, [200, 255],
                              tuple((0, t) for t in range(256))),
+    # h2o-danube-3-4b's head dim and group, two units a row, odd S (the
+    # kernel's 8-byte staging from an odd slot index)
+    "hd120_g4": (2, 2, 4, 120, 301, 301, None, ()),
 }
 
 
@@ -145,7 +148,7 @@ def test_k1_split_arithmetic_matches_pallas_kernel(case):
 @pytest.mark.parametrize("b,kh,g,hd,s", [
     (4, 32, 1, 128, 1024), (1, 32, 1, 128, 1024), (2, 2, 6, 64, 600),
     (1, 1, 48, 128, 700), (2, 4, 3, 256, 130), (2, 2, 2, 32, 96),
-    (3, 1, 1, 64, 1)])
+    (3, 1, 1, 64, 1), (2, 8, 4, 120, 4096)])
 def test_k1_unit_plan_covers_exactly_the_live_slots(b, kh, g, hd, s):
     """The grid is (kv-heads × head groups, rows, units) from shapes
     alone, at the kernel's unit size and the probe's; for every causal
@@ -170,10 +173,11 @@ def test_k1_unit_plan_covers_exactly_the_live_slots(b, kh, g, hd, s):
 @pytest.mark.parametrize("hd", da.HEAD_DIMS)
 def test_k1_unit_sizes_are_whole_block_steps_within_shared_memory(hd):
     """The unit size at each head dim, and each the probe builds, is a
-    whole number of a block's steps (8 warps, hd / 16 lanes a slot) and
-    stages within 69 KB; the kernel's is the largest such size up to 256
-    slots (``unit_keys`` in the source says the same)."""
-    step = da.WARPS * 32 // (hd // 16)
+    whole number of a block's steps (8 warps, hd / 16 lanes a slot, hd 120
+    rounded up to hd 128's 8) and stages within 69 KB; the kernel's is the
+    largest such size up to 256 slots (``unit_keys`` in the source says
+    the same)."""
+    step = da.WARPS * 32 // -(-hd // 16)
     for keys in _emulated_keys(hd):
         assert keys % step == 0 and keys * (2 * hd + 12) <= 70 * 1024
     fits = [k for k in (32, 64, 128, 256)

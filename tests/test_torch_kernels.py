@@ -58,7 +58,7 @@ def test_decode_attention_matches_jax(h, kh, s, fill):
     want = JL.quantized_decode_attention(jnp.asarray(q), jc, spec, None,
                                          jnp.int32(fill - 1))
     got = TL.quantized_decode_attention(
-        _t(q), tc, None, torch.tensor(fill - 1, dtype=torch.int32))
+        _t(q), tc, spec, None, torch.tensor(fill - 1, dtype=torch.int32))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     qh = q[:, 0].reshape(b, kh, h // kh, hd)
     oracle = jref.decode_attention_ref(jnp.asarray(qh), jc.k, jc.k_scale, jc.v,

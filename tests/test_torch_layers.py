@@ -134,14 +134,21 @@ def test_chunked_attention_matches_jax(sq, q_chunk, kv_chunk):
                                atol=1e-5)
 
 
-def test_mlp_layer_matches_jax():
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+def test_mlp_layer_matches_jax(activation, gated):
+    """SiLU and GELU (the reference's ``jax.nn.gelu``, whose default is the
+    tanh approximation: the exact erf form misses by 4e-4 here),
+    gated and not."""
     rng = np.random.default_rng(3)
     x = rng.normal(size=(2, 3, 64)).astype(np.float32)
     p = {"w_up": rng.normal(size=(64, 96)).astype(np.float32) / 8,
          "w_gate": rng.normal(size=(64, 96)).astype(np.float32) / 8,
          "w_down": rng.normal(size=(96, 64)).astype(np.float32) / 10}
+    if not gated:
+        del p["w_gate"]
     want = JL.mlp_layer({k: jnp.asarray(v) for k, v in p.items()},
-                        jnp.asarray(x))
-    got = TL.mlp_layer({k: _t(v) for k, v in p.items()}, _t(x))
+                        jnp.asarray(x), activation)
+    got = TL.mlp_layer({k: _t(v) for k, v in p.items()}, _t(x), activation)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)

@@ -36,7 +36,9 @@ def tiny():
 
 
 @pytest.mark.parametrize("name", ["llama2-7b", "llama2-13b",
-                                  "llama2-7b-tiny"])
+                                  "llama2-7b-tiny", "gemma2-2b",
+                                  "gemma2-2b-tiny", "h2o-danube-3-4b",
+                                  "h2o-danube-3-4b-tiny"])
 def test_configs_equal_the_reference(name):
     assert dataclasses.asdict(get_config(name)) == \
         dataclasses.asdict(jax_config(name))
