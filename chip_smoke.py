@@ -103,7 +103,27 @@ Phases, each printing one JSON line:
            at its widths, K7 by route; payloads held to their plain
            versions; an uncompressed split equal to the Engine; the step
            by stage). The kernels phase holds K1 at danube's decode shape
-           over a wrapped ring (``K1_STEPS["danube_step"]``).
+           over a wrapped ring (``K1_STEPS["danube_step"]``);
+  moe      the mixture-of-experts configs, served dropless: both tiny ones
+           on the CPU against the card; qwen2-moe-a2.7b at full width and
+           depth (random bf16 weights, int8 KV) through
+           LLMServer(backend="fused") (A: four requests of 512, 512, 128
+           and 128 tokens, as the families phase checks them, K1 and k
+           routed pairs a token and layer, none dropped; a decode step
+           against the bytes of the experts it ran; the MoE layer alone,
+           its dispatch beside its expert products and its host syncs),
+           through the paged backend (B: eight requests, three forking a
+           256-token prefix, chunked then packed; K2, K3, K4 counted; the
+           streams held to the fused path and to each other) and through
+           the split backend at ℓ = 8 (C: K7 on the edge's expert slices
+           and router, counted by route); qwen3-moe-235b-a22b at full width
+           over 4 of its 94 blocks (D: QK-norm, K1 and K4 at 16 query
+           heads a kv head), fused then packed. Two paths of a MoE config
+           are held step by step with each layer's expert choice recorded
+           on both: a step is left out only where its own token chose
+           other experts on one path (MOE_RULE). The kernels phase holds K1
+           at qwen3's decode step (``K1_STEPS["qwen3_step"]``) and K7 at
+           qwen2-moe's expert and router products (``K7_MOE``).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -114,6 +134,7 @@ beside this file, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -124,7 +145,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed",
-          "split", "spec", "service", "disagg", "families")
+          "split", "spec", "service", "disagg", "families", "moe")
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -256,13 +277,17 @@ def _decode_inputs(torch, b, kh, g, hd, s, fill, qdtype, gen, device,
 
 # K1's timed shapes beside the kernels phase's main one (B, K, G, hd, S,
 # live slots a row): the serve run's last decode step (rows at positions up
-# to 191), the split run's longest row (160 live slots), and
-# h2o-danube-3-4b's decode step over a 4096-slot ring that has wrapped
+# to 191), the split run's longest row (160 live slots),
+# h2o-danube-3-4b's decode step over a 4096-slot ring that has wrapped, and
+# qwen3-moe-235b-a22b's (64 heads on 4 kv heads: 16 query heads a kv head)
 K1_STEPS = {"serve_step": (2, 32, 1, 128, 1024, 192),
             "split_step": (1, 32, 1, 128, 1024, 160),
-            "danube_step": (2, 8, 4, 120, 4096, 4096)}
+            "danube_step": (2, 8, 4, 120, 4096, 4096),
+            "qwen3_step": (2, 4, 16, 128, 1024, 1024)}
 # the ring steps' q_pos: slot t holds the p = t (mod W) in (q_pos - W, q_pos]
 K1_RING_Q_POS = {"danube_step": 4223}
+# the steps held to the plain version in f32 and bf16 q before their timing
+K1_HELD_STEPS = ("danube_step", "qwen3_step")
 
 
 def ring_positions(torch, b, s, w, q_pos, device):
@@ -366,24 +391,27 @@ def _kernel_k1(ctx) -> dict:
         "bound_by": bound["bound_by"], "library_ms": ms["library"]}
 
     # the serve and split steps' shapes: rows live up to q_pos only (the
-    # ring step's every slot, held to the plain version first in f32 and
-    # bf16 q); and at the serve step's, the host's time a call (the
-    # wrapper's checks, its workspace and tickets, the launch), no sync
-    # between
+    # ring step's and the qwen3 step's every slot, held to the plain
+    # version first in f32 and bf16 q); and at the serve step's, the host's
+    # time a call (the wrapper's checks, its workspace and tickets, the
+    # launch), no sync between
     steps, host_us = {}, None
     for name, (b, kh, g, hd, s, live) in K1_STEPS.items():
         ring_qp = K1_RING_Q_POS.get(name)
-        for qdtype in ((torch.float32, torch.bfloat16) if ring_qp else
+        held = name in K1_HELD_STEPS
+        for qdtype in ((torch.float32, torch.bfloat16) if held else
                        (torch.bfloat16,)):
             st = list(_decode_inputs(torch, b, kh, g, hd, s, live, qdtype,
                                      gen, device))
-            if ring_qp is None:
+            if not held:
                 break
-            st[5] = ring_positions(torch, b, s, live, ring_qp, device)
-            st[6] = torch.tensor(ring_qp, dtype=torch.int32, device=device)
+            if ring_qp is not None:
+                st[5] = ring_positions(torch, b, s, live, ring_qp, device)
+                st[6] = torch.tensor(ring_qp, dtype=torch.int32,
+                                     device=device)
             err = float((da.decode_attention(*st)
                          - da.decode_attention_ref(*st)).abs().max())
-            checks.append({"shape": [b, kh, g, hd, s, live], "ring": name,
+            checks.append({"shape": [b, kh, g, hd, s, live], "step": name,
                            "q_pos": ring_qp, "q_dtype": str(qdtype)[6:],
                            "units": da.grid(b, kh, g, s,
                                             da.unit_keys(hd))[2],
@@ -1113,6 +1141,14 @@ K7_GEMV_TIMED = ((1, 4096, 4096), (1, 4096, 11008), (1, 11008, 4096),
 K7_GEMV_PER_LAYER = {(4096, 4096): 4, (4096, 11008): 2, (11008, 4096): 1}
 # the prefill M K7 is timed at beside x @ W (w_up's K and N)
 K7_TIMED_M = (128, 384, 600)
+# qwen2-moe-a2.7b's edge decode products (M, K, N, x's dtype): an expert's
+# w_gate and w_up, its w_down (each a view of rows of one (E·K, N) code
+# matrix whose scale row the experts share), and the f32 router (N 60);
+# held to the plain version, timed beside x @ W and their bound
+K7_MOE = {"expert_up": (1, 2048, 1408, "bfloat16"),
+          "expert_down": (1, 1408, 2048, "bfloat16"),
+          "router": (1, 2048, 60, "float32")}
+K7_MOE_EXPERTS = 4  # experts in the code matrix an expert view is cut from
 # K7's device functions (csrc/dequant_matmul.cu), as a profile names them
 K7_DEVICE_NAMES = ("gemm_kernel", "gemv_kernel", "gemv16_kernel",
                    "splitk_reduce_kernel", "tc_gemm_kernel",
@@ -1123,6 +1159,9 @@ K1_DEVICE_NAMES = ("decode_split_kernel",)
 K5_DEVICE_NAMES = ("tabq_adaptive_kernel", "tabq_quantize_kernel")
 K6_DEVICE_NAMES = ("ts_encode_kernel",)
 K2_DEVICE_NAMES = ("paged_split_kernel", "paged_decode_attention_kernel")
+# cuBLAS's and K7's matrix products, as a profile names them
+GEMM_DEVICE_NAMES = ("nvjet", "gemm", "gemv", "xmma", "cutlass",
+                     "splitKreduce", "splitk_reduce")
 
 
 def _activations(torch, gen, t, d, dtype, device, outliers=0):
@@ -1491,6 +1530,50 @@ def _kernel_k7(ctx) -> dict:
                        "achieved_TFLOPs": 2 * mp * n * k
                        / ms_p["kernel"] / 1e9}
 
+    # the MoE edge's decode products: the last expert's rows of a code
+    # matrix (a view at an offset of (E - 1)·K·N bytes), and the router
+    _, f32_peak = peak_rates(ctx["device_name"])
+    moe = {}
+    for name, (mm, km, nm, xdt) in K7_MOE.items():
+        e = 1 if name == "router" else K7_MOE_EXPERTS
+        full = torch.randint(-7, 8, (e * km, nm), generator=gen,
+                             device=device, dtype=torch.int8)
+        cm = full[(e - 1) * km:]
+        sm = torch.rand((nm,), generator=gen, device=device) * 0.01 + 1e-4
+        xm = torch.randn((mm, km), generator=gen, device=device).to(
+            getattr(torch, xdt))
+        before = dict(routes)
+        got = dm.dequant_matmul(xm, cm, sm)
+        way = next(r for r in routes if routes[r] != before[r])
+        want = dm.dequant_matmul_ref(xm, cm, sm)
+        torch.cuda.synchronize()
+        rel = float((got - want).abs().max()) / float(
+            (xm.float().abs() @ cm.float().abs() * sm).max())
+        checks.append({"m_k_n": [mm, km, nm], "x_dtype": xdt, "moe": name,
+                       "route": way, "rel_err": rel, "max_abs_err": float(
+                           (got - want).abs().max()), "ok": rel <= K7_REL})
+        worst = max(worst, checks[-1]["max_abs_err"])
+        if not rel <= K7_REL:
+            emit({"phase": "kernels", "dequant_matmul": checks})
+            raise SystemExit(f"dequant_matmul disagrees: {checks[-1]}")
+        wm = (cm.float() * sm).to(xm.dtype)  # the reference's weight
+        t = ctx["timer"]({
+            "kernel": lambda xm=xm, cm=cm, sm=sm: dm.dequant_matmul(xm, cm,
+                                                                    sm),
+            "plain": lambda xm=xm, cm=cm, sm=sm: dm.dequant_matmul_ref(
+                xm, cm, sm),
+            "library": lambda xm=xm, wm=wm: xm @ wm})
+        nb = mm * km * xm.element_size() + km * nm + nm * 4 + mm * nm * 4
+        b_ms = nb / bw * 1e3
+        o_ms = 2 * mm * nm * km / (BF16_PEAK if xdt == "bfloat16"
+                                   else f32_peak) * 1e3
+        moe[name] = {"m_k_n": [mm, km, nm], "x_dtype": xdt, "route": way,
+                     "vec": dm.gemv_vec(nm, cm.data_ptr(), sm.data_ptr()),
+                     "kernel_ms": t["kernel"], "plain_ms": t["plain"],
+                     "library_ms": t["library"], "bytes": nb,
+                     "bound_ms": max(b_ms, o_ms),
+                     "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
     nbytes, bound_ms, bound_by = bound(1)
     ctx["kernels"]["dequant_matmul"] = {
         "name": "dequant_matmul", "route": "cuda",
@@ -1504,13 +1587,16 @@ def _kernel_k7(ctx) -> dict:
             for shape, r in gemv.items()},
         "prefill": {str(mp): {key: r[key] for key in (
             "route", "kernel_ms", "library_ms", "bound_ms", "bound_by")}
-            for mp, r in prefill.items()}}
+            for mp, r in prefill.items()},
+        "moe": {name: {key: r[key] for key in (
+            "route", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")} for name, r in moe.items()}}
     return {"checks": checks, "tol_rel_to_abs_sum": K7_REL,
             "main_shape": [m, k, n], "bytes": nbytes, "bound_ms": bound_ms,
             "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
             "library_ms": ms["library"],
             "achieved_GBps": nbytes / ms["kernel"] / 1e6,
-            "gemv": gemv, "prefill": prefill}
+            "gemv": gemv, "prefill": prefill, "moe": moe}
 
 
 def _graph_replay(ctx) -> dict:
@@ -1630,15 +1716,24 @@ def phase_kernels(ctx) -> None:
           "cuda_graph": _graph_replay(ctx)})
 
 
-def _greedy_stepwise(params, cfg, prompts, n, opts, cache_len, device):
+def _greedy_stepwise(params, cfg, prompts, n, opts, cache_len, device,
+                     routes=None):
     """Greedy decoding through prefill/decode_step: tokens (B, n) and the
-    logits each token was drawn from, (B, n, V), both numpy."""
+    logits each token was drawn from, (B, n, V), both numpy; with an
+    active ``routes`` (:class:`_Routes`), also a route record: each
+    step's MoE choices at its token ``sel`` (B, n, L, k), their router
+    gaps ``gap`` (B, n, L), and the prefill's choices at every prompt
+    position ``prompt`` (L, B, S, k), and the int8 KV codes written, by
+    position: ``codes`` (B, slots, L·2·K·hd), from the final caches (an
+    int8 cache without rings)."""
     import torch
     from repro_torch.models.transformer import decode_step, prefill
 
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts, device=device)
         logits, caches = prefill(params, cfg, tokens, cache_len, opts)
+        if routes is not None:
+            routes.keep(*tokens.shape)
         toks, lgs = [], []
         for t in range(n):
             nxt = logits.argmax(-1)
@@ -1649,14 +1744,21 @@ def _greedy_stepwise(params, cfg, prompts, n, opts, cache_len, device):
                     params, cfg, nxt[:, None], caches,
                     torch.tensor(tokens.shape[1] + t, dtype=torch.int32,
                                  device=device), opts)
+                if routes is not None:
+                    routes.keep(tokens.shape[0], 1)
     import numpy as np
 
-    return np.stack(toks, 1), np.stack(lgs, 1)
+    out = np.stack(toks, 1), np.stack(lgs, 1)
+    if routes is None:
+        return out
+    return out + (routes.record(caches),)
 
 
-def _teacher_forced(params, cfg, prompts, forced, opts, cache_len, device):
+def _teacher_forced(params, cfg, prompts, forced, opts, cache_len, device,
+                    routes=None):
     """The logits (B, n, V) at each step when the decode is fed ``forced``
-    (B, n) instead of its own argmax."""
+    (B, n) instead of its own argmax; with an active ``routes``, also the
+    route record of :func:`_greedy_stepwise`."""
     import numpy as np
     import torch
     from repro_torch.models.transformer import decode_step, prefill
@@ -1664,6 +1766,8 @@ def _teacher_forced(params, cfg, prompts, forced, opts, cache_len, device):
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts, device=device)
         logits, caches = prefill(params, cfg, tokens, cache_len, opts)
+        if routes is not None:
+            routes.keep(*tokens.shape)
         lgs = [logits.cpu().numpy()]
         for t in range(forced.shape[1] - 1):
             nxt = torch.as_tensor(forced[:, t:t + 1], device=device)
@@ -1671,8 +1775,12 @@ def _teacher_forced(params, cfg, prompts, forced, opts, cache_len, device):
                 params, cfg, nxt, caches,
                 torch.tensor(tokens.shape[1] + t, dtype=torch.int32,
                              device=device), opts)
+            if routes is not None:
+                routes.keep(tokens.shape[0], 1)
             lgs.append(logits.cpu().numpy())
-    return np.stack(lgs, 1)
+    if routes is None:
+        return np.stack(lgs, 1)
+    return np.stack(lgs, 1), routes.record(caches)
 
 
 def _margin_agreement(got, want, want_logits, tol):
@@ -1697,6 +1805,211 @@ def _margin_agreement(got, want, want_logits, tol):
 # matmuls in another order, and an int8 code can land one step apart when a
 # key differs in its last bit
 MODEL_REL = 1e-3
+# Two paths of a mixture-of-experts config are held step by step, with
+# each MoE layer's top-k choice recorded on both (``_Routes``). Every step
+# is held to the dense configs' bound (its largest logit error against
+# the tolerance). A step past the bound is excused only where the two
+# paths measurably made another discrete choice: at the step's own token
+# some layer chose another set of experts, or (where both paths are
+# recorded at every position: the tiny configs' CPU and card runs, the
+# int8 bound's two paths) an earlier position of its row did so in a
+# layer whose keys and values later layers attend, or (the tiny runs,
+# both int8) a cache slot the step attends holds another int8 code. At
+# most half the steps of a comparison may be excused. Tokens must agree
+# at every step within the bound whose top-1/top-2 margin exceeds the
+# tolerance (streams running free: up to the first step where they part,
+# which only a near tie or an excused step may cause), at least one
+# token a row where both paths are fed the same tokens
+MOE_RULE = ("every step at the full bound; a step past it excused only "
+            "where a routing choice or an int8 code measurably differs; "
+            "at most half excused")
+MOE_MAX_EXCUSED = 0.5
+
+
+class _Routes:
+    """Each MoE layer's top-k choice as a path computes it. Inside
+    ``with``, ``moe.top_k`` is wrapped: every call returns what the real
+    one returns and keeps, on the host, the chosen experts (T, k) and the
+    gap between the k-th and (k+1)-th router probability (T,), a copy a
+    call (for checks, not timings); ``by_rid`` holds what
+    :func:`_record_logits` keeps a request."""
+
+    def __init__(self):
+        self.calls, self.by_rid, self.undo, self.kept = [], {}, [], []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+
+        self._moe, real = moe, moe.top_k
+
+        def top_k(probs, k):
+            vals, idx = real(probs, k)
+            more, _ = real(probs, min(k + 1, probs.shape[-1]))
+            gap = more[..., k - 1] - more[..., k] if more.shape[-1] > k \
+                else torch.full_like(more[..., 0], float("inf"))
+            self.calls.append((idx.cpu().numpy(), gap.float().cpu().numpy()))
+            return vals, idx
+
+        self._real, moe.top_k = real, top_k
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.top_k = self._real
+        while self.undo:
+            self.undo.pop()()
+
+    def take(self):
+        """The calls since the last take, one a layer: choices (L, T, k)
+        and gaps (L, T)."""
+        import numpy as np
+
+        calls, self.calls = self.calls, []
+        return (np.stack([c[0] for c in calls]),
+                np.stack([c[1] for c in calls]))
+
+    def last_tokens(self, b, s):
+        """A (b, s) call's every layer at each row's last token: choices
+        (b, L, k), gaps (b, L), and the whole call's choices (L, b, s, k)."""
+        sel, gap = self.take()
+        sel = sel.reshape(sel.shape[0], b, s, -1)
+        return (sel[:, :, -1].transpose(1, 0, 2),
+                gap.reshape(gap.shape[0], b, s)[:, :, -1].T, sel)
+
+    def keep(self, b, s):
+        """Keep a stepwise run's (b, s) call: each row's last token, and
+        every position of the run's first call (its prefill)."""
+        self.kept.append(self.last_tokens(b, s))
+
+    def record(self, caches):
+        """The kept run's route record (see :func:`_greedy_stepwise`), its
+        final ``caches`` read for their codes; the next run starts
+        afresh."""
+        import numpy as np
+
+        kept, self.kept = self.kept, []
+        return {"sel": np.stack([k[0] for k in kept], 1),
+                "gap": np.stack([k[1] for k in kept], 1),
+                "prompt": kept[0][2], "codes": _cache_codes(caches)}
+
+
+def _route_flips(sel_a, sel_b):
+    """Per step, the layers whose chosen set of experts differs between two
+    paths: ``sel_a``/``sel_b`` (n, L, k) → a list of n arrays of layer
+    indices."""
+    import numpy as np
+
+    differ = (np.sort(sel_a, -1) != np.sort(sel_b, -1)).any(-1)  # (n, L)
+    return [np.nonzero(d)[0] for d in differ]
+
+
+def _cache_codes(caches):
+    """The int8 K and V codes of every layer's cache (B, K, S, hd), by
+    slot: (B, S, L·2·K·hd) on the host; None for an unquantized cache."""
+    import numpy as np
+    import torch
+
+    if caches[0].k.dtype != torch.int8:
+        return None
+    return np.concatenate([
+        t.permute(0, 2, 1, 3).reshape(t.shape[0], t.shape[2], -1)
+        .cpu().numpy() for c in caches for t in (c.k, c.v)], axis=-1)
+
+
+def _earlier_flips(rec_a, rec_b, row):
+    """Per step of ``row``, the (layer, position) pairs before the step's
+    token whose choice differs between two stepwise runs (``rec_a``,
+    ``rec_b``: the route records of :func:`_greedy_stepwise` /
+    :func:`_teacher_forced`), in every layer but the last (whose choices
+    no later layer attends)."""
+    import numpy as np
+
+    def differ(a, b):
+        return (np.sort(a, -1) != np.sort(b, -1)).any(-1)[:-1]
+
+    prompt = int(differ(rec_a["prompt"][:, row, :-1],
+                        rec_b["prompt"][:, row, :-1]).sum())
+    steps = differ(rec_a["sel"][row].transpose(1, 0, 2),
+                   rec_b["sel"][row].transpose(1, 0, 2)).sum(0)  # (n,)
+    return [prompt + int(steps[:j].sum()) for j in range(len(steps))]
+
+
+def _code_flips(rec_a, rec_b, row):
+    """Per step of ``row``, the cache slots up to the step's own token
+    (which its query attends) where some layer's int8 K or V code differs
+    between two stepwise runs: the cache's own discontinuity, a value one
+    side of a rounding boundary on one path and the other on the other."""
+    import numpy as np
+
+    differ = (rec_a["codes"][row] != rec_b["codes"][row]).any(-1)
+    s = rec_a["prompt"].shape[2]
+    return [int(differ[:s + j].sum()) for j in range(rec_a["sel"].shape[1])]
+
+
+def _moe_hold(rows, tol, free, min_tokens):
+    """MOE_RULE over ``rows``, one dict a row: ``err`` (n,) each step's
+    largest logit error relative to the largest reference logit,
+    ``margin`` (n,) the reference's top-1/top-2 gap on the same scale,
+    ``got``/``want`` (n,) tokens, ``flips`` (n arrays of the layers whose
+    choice differs at that step's token), ``earlier`` (n counts of
+    differing (layer, position) pairs before it) and ``codes`` (n counts
+    of cache slots up to it whose int8 codes differ), each None where not
+    recorded, ``gaps`` ((n, L) router gaps of each path, for the report).
+    ``free``: the two streams ran free, so a row compares only up to the
+    first step where its tokens part. Returns the report, with ``ok``."""
+    import numpy as np
+
+    steps = within = tokens = served = routed_otherwise = coded = 0
+    worst = 0.0
+    excused, unexplained, wrong = [], [], []
+    for r, row in enumerate(rows):
+        err, got, want = row["err"], row["got"], row["want"]
+        earlier, codes = row.get("earlier"), row.get("codes")
+        n = len(err)
+        served += n
+        if free:
+            parted = np.nonzero(got != want)[0]
+            n = int(parted[0]) + 1 if parted.size else n
+        for j in range(n):
+            steps += 1
+            layers = row["flips"][j]
+            before = earlier[j] if earlier is not None else 0
+            slots = codes[j] if codes is not None else 0
+            routed_otherwise += bool(len(layers) or before)
+            coded += bool(slots)
+            worst = max(worst, float(err[j]))
+            if err[j] > tol:
+                step = {"row": r, "step": j, "err": float(err[j]),
+                        "layers": layers.tolist(), "earlier_pairs": before,
+                        "code_slots": slots,
+                        "gaps": [[float(g[j, ly]) for ly in layers]
+                                 for g in row["gaps"]]}
+                (excused if len(layers) or before or slots
+                 else unexplained).append(step)
+                continue
+            within += 1
+            if row["margin"][j] > tol:
+                tokens += 1
+                if got[j] != want[j]:
+                    wrong.append((r, j))
+    ok = (not unexplained and not wrong and tokens >= min_tokens
+          and len(excused) <= MOE_MAX_EXCUSED * steps)
+    return {"steps_comparable": steps, "steps_within_bound": within,
+            "steps_routed_otherwise": routed_otherwise,
+            "steps_after_a_code_differs": coded,
+            "steps_excused": excused, "steps_past_unexplained": unexplained,
+            "tokens_served": served, "tokens_compared": tokens,
+            "min_tokens": min_tokens, "tokens_differing": wrong,
+            "max_rel_logit_err": worst, "tol": tol, "ok": ok}
+
+
+def _margins(logits):
+    """Each step's top-1/top-2 gap relative to the largest logit of
+    ``logits`` (..., V)."""
+    import numpy as np
+
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    return (top2[..., 1] - top2[..., 0]) / np.abs(logits).max()
 
 
 def phase_model(ctx) -> None:
@@ -1947,17 +2260,39 @@ HISTORY_REL = 2e-2
 F32_MIN_COMPARED = 100
 
 
-def _record_logits(sched) -> dict:
+def _record_logits(sched, routes=None) -> dict:
     """Wrap ``sched``'s sampler so that every emitted token's logits row is
     kept on the host: {rid: [(V,) f32, ...]} in generation order. Each
     sample then copies its logits to the host: for checks, not timings. A
     verify tick's tokens (``speculate_k`` > 0) take their rows of the
-    verify logits: burst column j is generation index t0 + j."""
+    verify logits: burst column j is generation index t0 + j. With an
+    active ``routes`` (:class:`_Routes`; not with ``speculate_k``), each
+    emitted token also keeps every MoE layer's choice at the token its
+    logits came from and the router gaps, in ``routes.by_rid[rid]``: a
+    (R, S) prefill, chunk or decode call's row i at its last column, a
+    packed call's at its ``logit_rows[i]``. Leaving ``routes`` undoes
+    this."""
+    import numpy as np
     from repro_torch.serving import scheduler as scheduler_mod
 
     rec, last = {}, {}
     orig_sample, orig_emit = sched._sample, sched._emit
     orig_verify, orig_burst = sched._verify_tick, sched._emit_burst
+    forwards = ("paged_prefill", "paged_prefill_shared",
+                "paged_decode_step", "packed_step")
+    real_fwd = {f: getattr(scheduler_mod, f) for f in forwards}
+
+    def routed(name):
+        def call(params, cfg, tokens, *args, **kw):
+            routes.calls.clear()
+            out = real_fwd[name](params, cfg, tokens, *args, **kw)
+            sel, gap = routes.take()
+            r, t = tokens.shape
+            at = (args[3].cpu().numpy() if name == "packed_step"
+                  else np.arange(r) * t + t - 1)
+            last["routes"] = (sel[:, at], gap[:, at])
+            return out
+        return call
 
     def sample(logits, t, rows=None):
         last["logits"], last["rows"] = logits.float().cpu().numpy(), rows
@@ -1991,12 +2326,22 @@ def _record_logits(sched) -> dict:
         else:
             i = sched.slots.index(st)
             rows = last["rows"]
-            row = last["logits"][i if rows is None else list(rows).index(i)]
+            j = i if rows is None else list(rows).index(i)
+            row = last["logits"][j]
+            if routes is not None:
+                sel, gap = last["routes"]
+                routes.by_rid.setdefault(st.req.rid, []).append(
+                    (sel[:, j], gap[:, j]))
         rec.setdefault(st.req.rid, []).append(row)
         orig_emit(st, token, logprob)
 
     sched._sample, sched._emit = sample, emit
     sched._verify_tick, sched._emit_burst = verify_tick, emit_burst
+    if routes is not None:
+        for f in forwards:
+            setattr(scheduler_mod, f, routed(f))
+        routes.undo.append(lambda: [setattr(scheduler_mod, f, fn)
+                                    for f, fn in real_fwd.items()])
     return rec
 
 
@@ -2023,6 +2368,37 @@ def _against_dense(params, cfg, opts, prompts, outs, rec, tols,
         agree = agree and ok and rel[i] <= tol
         compared += c
     return agree, compared, rel, rel_first
+
+
+def _moe_against_dense(params, cfg, opts, prompts, outs, rec, routes, tol,
+                       device) -> dict:
+    """As :func:`_against_dense` for a MoE config over every row of
+    ``outs``, held step by step as MOE_RULE says: ``routes`` is the
+    :class:`_Routes` the paged run was recorded with, and the dense path
+    is recorded here. Returns the rule's report with each row's largest
+    error and first-token error."""
+    import numpy as np
+
+    rows, rel, rel_first = [], {}, {}
+    for i, o in enumerate(outs):
+        with _Routes() as dense_routes:
+            dense, dense_rec = _teacher_forced(
+                params, cfg, prompts[i][None], o.tokens[None], opts, 1024,
+                device, dense_routes)
+        err = np.abs(np.stack(rec[o.rid]) - dense[0]).max(-1) / np.abs(
+            dense).max()
+        rel[i], rel_first[i] = float(err.max()), float(err[0])
+        paged = routes.by_rid[o.rid]
+        rows.append({"err": err, "margin": _margins(dense[0]),
+                     "got": o.tokens, "want": dense[0].argmax(-1),
+                     "flips": _route_flips(dense_rec["sel"][0], np.stack(
+                         [p[0] for p in paged])),
+                     "gaps": (dense_rec["gap"][0],
+                              np.stack([p[1] for p in paged]))})
+    report = _moe_hold(rows, tol, False, len(rows))
+    report.update(max_rel_logit_err_by_row=rel,
+                  first_token_rel_err_by_row=rel_first)
+    return report
 
 
 def _paged_tiny(ctx) -> dict:
@@ -4038,14 +4414,19 @@ FAMILY_SPLIT_LAYER = 8  # ℓ of h2o-danube-3-4b's 24 layers
 FAMILY_TINY = ("gemma2-2b-tiny", "h2o-danube-3-4b-tiny")
 
 
-def _family_params(ctx, name) -> tuple:
-    """The config's random bf16 weights from seed 0, drawn on the card;
-    (cfg, params, seconds to draw)."""
+def _family_params(ctx, name, blocks=None) -> tuple:
+    """The config's random bf16 weights from seed 0, drawn on the card, of
+    its first ``blocks`` blocks (default: all); (cfg, params, seconds to
+    draw)."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import get_config
     from repro_torch.params import init_params
 
     cfg = get_config(name)
+    if blocks is not None:
+        cfg = dataclasses.replace(cfg, num_blocks=blocks)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(
         device=ctx["device"]).manual_seed(0), torch.bfloat16, ctx["device"])
@@ -4076,21 +4457,28 @@ def _ring_check(cfg, caches, q_pos) -> dict:
     return {"ok": ok, "slots": sorted(set(slots))}
 
 
-def _family_fused(ctx, name) -> dict:
-    """One family at full width and depth (random bf16 weights, int8 KV)
-    answering ``FAMILY_LENS``' four requests through
-    LLMServer(backend="fused"): a first run picks a stop token; the main
-    run (K1's counter set to 0 just before it and read just after) gives
-    the asked finish reasons and lengths, repeats the first run, and
-    launches K1 once a layer and decode step on a family without soft
-    caps, never on a soft-capped one. Then request 0's stream decoded step
-    by step on rows 0 and 1 (both fed request 0's tokens): the rings hold
-    exactly the window's positions, K1 equals its plain version on every
-    layer's last query over the wrapped rings (gemma2: a random query over
-    each local layer's ring), and the first decode steps' logits lie within
-    the reference's int8 bound of an unquantized prefill's. Timed: the
-    4160-token prefill, a decode step at B = 2 (host included; device
-    busy), peak memory against weights plus caches."""
+def _family_fused(ctx, name, weights=None, lens=FAMILY_LENS,
+                  cache_len=FAMILY_CACHE_LEN, max_tokens=(64, 48, 64, 32),
+                  opts_kw=None) -> dict:
+    """One config at full width (random bf16 weights, int8 KV; ``weights``
+    (cfg, params, seconds) or drawn here) answering four requests of
+    prompt lengths ``lens`` through LLMServer(backend="fused"): a first
+    run picks a stop token; the main run (K1's and the MoE layer's counters
+    set to 0 just before it and read just after) gives the asked finish
+    reasons and lengths, repeats the first run, and launches K1 once a
+    layer and decode step on a config without soft caps, never on a
+    soft-capped one; a MoE config routes k pairs a token and layer and
+    drops none. Then request 0's stream decoded step by step on rows 0 and
+    1 (both fed request 0's tokens): the caches hold exactly the positions
+    written (a ring its window's), K1 equals its plain version on every
+    layer's last query (gemma2: a random query over each local layer's
+    ring), and the first decode steps' logits lie within the reference's
+    int8 bound of an unquantized prefill's (a MoE config step by step as
+    MOE_RULE says). Timed: the first prompt's
+    prefill, a decode step at B = 2 (host included; device busy) beside
+    the bytes it must read (on a MoE config, of the experts it ran), the
+    MoE layer alone (dispatch and expert products), peak memory against
+    weights plus caches."""
     import gc
 
     import numpy as np
@@ -4098,28 +4486,32 @@ def _family_fused(ctx, name) -> dict:
     from repro_torch.core.sampling import SamplingParams
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
     from repro_torch.models.transformer import (RuntimeOpts, decode_step,
                                                 init_caches, prefill)
     from repro_torch.serving.api import LLMServer
 
     device = ctx["device"]
     base = torch.cuda.memory_allocated()  # other phases' tensors
-    cfg, params, init_s = _family_params(ctx, name)
-    opts = RuntimeOpts(quantized_kv=True)
+    cfg, params, init_s = weights or _family_params(ctx, name)
+    opts = RuntimeOpts(quantized_kv=True, **(opts_kw or {}))
     windowed_only = all(ls.mixer.attn_softcap is None for ls in cfg.pattern)
+    ffn = cfg.pattern[0].ffn
+    is_moe = ffn.kind == "moe"
     rng = np.random.default_rng(24)
-    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in FAMILY_LENS]
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
 
     def requests(stop_tok):
-        return [SamplingParams(max_tokens=64),
-                SamplingParams(max_tokens=48, stop_token_ids=stop_tok),
-                SamplingParams(max_tokens=64, temperature=0.8, top_p=0.9,
-                               seed=7),
-                SamplingParams(max_tokens=32)]
+        return [SamplingParams(max_tokens=max_tokens[0]),
+                SamplingParams(max_tokens=max_tokens[1],
+                               stop_token_ids=stop_tok),
+                SamplingParams(max_tokens=max_tokens[2], temperature=0.8,
+                               top_p=0.9, seed=7),
+                SamplingParams(max_tokens=max_tokens[3])]
 
     def serve(sps):
         srv = LLMServer(cfg, params, opts, backend="fused",
-                        cache_len=FAMILY_CACHE_LEN, device=device)
+                        cache_len=cache_len, device=device)
         rids = [srv.submit(p, sp) for p, sp in zip(prompts, sps)]
         outs = srv.run()
         return [outs[r] for r in rids]
@@ -4127,20 +4519,30 @@ def _family_fused(ctx, name) -> dict:
     first = serve(requests(()))
     stop = int(first[1].tokens[10])
     stop_at = list(first[1].tokens).index(stop) + 1
-    decode_steps = (64 - 1) + (64 - 1)  # two length groups, 64 tokens each
+    # the fused backend runs each prompt length's group to its largest
+    # max_tokens: (rows, decode steps) a group
+    groups: dict = {}
+    for n, mt in zip(lens, max_tokens):
+        rows, most = groups.get(n, (0, 0))
+        groups[n] = (rows + 1, max(most, mt))
+    decode_steps = sum(most - 1 for _, most in groups.values())
+    decode_rows = sum(rows * (most - 1) for rows, most in groups.values())
     da.decode_attention.launches = 0
+    moe.reset_stats()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = serve(requests((stop,)))
     wall_s = time.perf_counter() - t0
     launches = da.decode_attention.launches
+    moe_stats = dict(moe.STATS)
     peak = torch.cuda.max_memory_allocated()
     reasons = [o.finish_reason for o in outs]
     lengths = [len(o.tokens) for o in outs]
     checks = {
         "reasons": reasons == ["length", "stop", "length", "length"],
-        "lengths": lengths == [64, stop_at, 64, 32],
+        "lengths": lengths == [max_tokens[0], stop_at, max_tokens[2],
+                               max_tokens[3]],
         "same_as_first_run": all(
             np.array_equal(o.tokens, f.tokens[:len(o.tokens)])
             for o, f in zip(outs, first)),
@@ -4148,23 +4550,40 @@ def _family_fused(ctx, name) -> dict:
             o.tokens.max()) < cfg.vocab_size for o in outs),
         "k1_launches": launches == (cfg.num_layers * decode_steps
                                     if windowed_only else 0)}
+    if is_moe:  # k pairs a token and layer: the prefills' and each step's
+        checks["moe_routes_k_pairs_a_token"] = moe_stats["pairs"] \
+            == cfg.num_layers * ffn.top_k * (sum(lens) + decode_rows)
+        checks["moe_drops_none"] = moe_stats["dropped"] == 0
 
     # request 0's stream, step by step, on the two long prompts
-    forced = torch.as_tensor(np.tile(outs[0].tokens[:63], (2, 1)),
+    n0 = len(outs[0].tokens)
+    forced = torch.as_tensor(np.tile(outs[0].tokens[:n0 - 1], (2, 1)),
                              device=device)
-    s = FAMILY_LENS[0]
+    s = lens[0]
+    # a MoE config: each layer's choices on row 0, the prompt's (L, s, k)
+    # and each held decode step's token's (L, k)
+    routes = _Routes() if is_moe else None
+    step_sel = []
     with torch.inference_mode():
         toks = torch.as_tensor(np.stack(prompts[:2]), device=device)
-        logits, caches = prefill(params, cfg, toks, FAMILY_CACHE_LEN, opts)
-        stepped = [logits.float().cpu()]
-        for t in range(62):
-            pos = torch.tensor(s + t, dtype=torch.int32, device=device)
-            logits, caches = decode_step(params, cfg, forced[:, t:t + 1],
-                                         caches, pos, opts)
-            if t < FAMILY_TF_STEPS:
-                stepped.append(logits.float().cpu())
+        with routes or contextlib.nullcontext():
+            logits, caches = prefill(params, cfg, toks, cache_len, opts)
+            if routes:
+                prompt_sel = routes.last_tokens(2, s)[2][:, 0]
+            stepped = [logits.float().cpu()]
+            for t in range(n0 - 2):
+                pos = torch.tensor(s + t, dtype=torch.int32, device=device)
+                logits, caches = decode_step(params, cfg, forced[:, t:t + 1],
+                                             caches, pos, opts)
+                if t < FAMILY_TF_STEPS:
+                    stepped.append(logits.float().cpu())
+                    if routes:
+                        sel, gap, _ = routes.last_tokens(2, 1)
+                        step_sel.append((sel[0], gap[0]))
+                elif routes:
+                    routes.take()
         # the last step, every layer's K1 call recorded
-        q_pos = s + 62
+        q_pos = s + n0 - 2
         seen, real = [], ops.decode_attention
 
         def record(*args):
@@ -4173,12 +4592,12 @@ def _family_fused(ctx, name) -> dict:
 
         ops.decode_attention = record
         try:
-            decode_step(params, cfg, forced[:, 62:], caches, torch.tensor(
+            decode_step(params, cfg, forced[:, n0 - 2:], caches, torch.tensor(
                 q_pos, dtype=torch.int32, device=device), opts)
         finally:
             ops.decode_attention = real
         rings = _ring_check(cfg, caches, q_pos)
-        checks["rings_hold_the_window"] = rings["ok"]
+        checks["caches_hold_the_positions"] = rings["ok"]
         k1_err = 0.0
         if windowed_only:
             checks["k1_calls_last_step"] = len(seen) == cfg.num_layers
@@ -4201,62 +4620,108 @@ def _family_fused(ctx, name) -> dict:
                 k1_err = max(k1_err, float((da.decode_attention(*a)
                                             - da.decode_attention_ref(*a))
                                            .abs().max()))
-        checks["k1_equals_plain_on_rings"] = k1_err <= ATOL
+        checks["k1_equals_plain_on_caches"] = k1_err <= ATOL
         # the int8 cache against an unquantized prefill over the prompt
         # and the tokens so far: decode step j's logits
-        plain = RuntimeOpts(quantized_kv=False)
-        tf_rel = []
+        plain = RuntimeOpts(quantized_kv=False, **(opts_kw or {}))
+        tf_rel, ref_sel, earlier = [], [], []
         for j in range(1, FAMILY_TF_STEPS + 1):  # request 0's row
             full = torch.cat([toks[:1], forced[:1, :j]], dim=1)
-            ref, _ = prefill(params, cfg, full, None, plain)
+            with routes or contextlib.nullcontext():
+                ref, _ = prefill(params, cfg, full, None, plain)
             ref = ref.float().cpu()
             tf_rel.append(float((stepped[j][:1] - ref).abs().max()
                                 / ref.abs().max()))
-        checks["int8_within_reference_bound"] = max(tf_rel) < INT8_BOUND
+            if routes:
+                sel, gap, whole = routes.last_tokens(1, s + j)
+                ref_sel.append((sel[0], gap[0]))
+                # (layer, position) pairs before this step's token whose
+                # choice differs: the prompt's and the earlier steps', in
+                # every layer but the last (none attends its choices)
+                mine = np.concatenate([prompt_sel] + [
+                    st[0][:, None] for st in step_sel[:j - 1]], axis=1)
+                earlier.append(int((np.sort(mine, -1) != np.sort(
+                    whole[:, 0, :-1], -1)).any(-1)[:-1].sum()))
+        if is_moe:  # step by step, MOE_RULE
+            int8_rule = _moe_hold([{
+                "err": np.array(tf_rel), "got": np.zeros(len(tf_rel)),
+                "want": np.zeros(len(tf_rel)),
+                "margin": np.zeros(len(tf_rel)),
+                "flips": _route_flips(np.stack([r[0] for r in ref_sel]),
+                                      np.stack([d[0] for d in step_sel])),
+                "earlier": earlier,
+                "gaps": (np.stack([r[1] for r in ref_sel]),
+                         np.stack([d[1] for d in step_sel]))}],
+                INT8_BOUND, False, 0)
+            checks["int8_within_reference_bound"] = int8_rule["ok"]
+        else:
+            int8_rule = None
+            checks["int8_within_reference_bound"] = max(tf_rel) < INT8_BOUND
 
-        # timings: a 4160-token prefill (B = 1), and one decode step at
-        # B = 2 over the wrapped rings (it rewrites the same slots)
+        # timings: the first prompt's prefill (B = 1), and one decode step
+        # at B = 2 (it rewrites the same slots)
         one = toks[:1]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prefill(params, cfg, one, FAMILY_CACHE_LEN, opts)
+        prefill(params, cfg, one, cache_len, opts)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
-        nxt = forced[:, 62:63]
+        nxt = forced[:, n0 - 2:n0 - 1]
         pos = torch.tensor(q_pos, dtype=torch.int32, device=device)
         step = lambda: decode_step(params, cfg, nxt, caches, pos, opts)  # noqa: E731
+        moe.reset_stats()
+        step()
+        step_moe = dict(moe.STATS)
         step_ms = ctx["timer"]({"step": step}, iters=20,
                                device_only=False)["step"]
         device_ms, rows = _device_profile(torch, step, 5)
+        moe_layer = _moe_layer_timing(ctx, cfg, params, opts, 2) \
+            if is_moe else None
     weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
-    meta = init_caches(cfg, 2, FAMILY_CACHE_LEN, opts, torch.device("meta"))
+    meta = init_caches(cfg, 2, cache_len, opts, torch.device("meta"))
     cache_bytes = sum(t.numel() * t.element_size() for c in meta
                       for t in (c.k, c.v, c.k_scale, c.v_scale, c.pos))
     bw, _ = peak_rates(ctx["device_name"])
     m = cfg.pattern[0].mixer
     # a step reads every weight but the embedding's rows (a tied head
-    # reads them all), and each layer's live slots: codes, scales, position
-    read = weight_bytes - (0 if cfg.tie_embeddings else
-                           params["embed"].numel() * 2) + sum(
+    # reads them all) and the experts it does not run, and each layer's
+    # live slots: codes, scales, position
+    expert_bytes = 0
+    if is_moe:
+        expert_bytes = 3 * cfg.d_model * ffn.d_ff * 2  # bf16 gate, up, down
+        weight_read = weight_bytes - expert_bytes * (
+            cfg.num_layers * ffn.num_experts - step_moe["experts"])
+    else:
+        weight_read = weight_bytes
+    read = weight_read - (0 if cfg.tie_embeddings else
+                          params["embed"].numel() * 2) + sum(
         2 * min(c.pos.shape[1], q_pos + 1)
         * (m.num_kv_heads * (2 * m.head_dim + 8) + 4) for c in caches)
-    out = {"config": name, "params": sum(t.numel() for t in params.values()),
-           "init_s": init_s, "cache_len": FAMILY_CACHE_LEN,
-           "cache_slots": rings["slots"], "prompt_lens": list(FAMILY_LENS),
+    gemm = _kernel_share(rows, GEMM_DEVICE_NAMES)
+    k1 = _kernel_share(rows, K1_DEVICE_NAMES)
+    out = {"config": cfg.name, "blocks": cfg.num_blocks,
+           "params": sum(t.numel() for t in params.values()),
+           "init_s": init_s, "cache_len": cache_len,
+           "cache_slots": rings["slots"], "prompt_lens": list(lens),
+           "max_tokens": list(max_tokens),
            "finish_reasons": reasons, "generated": lengths,
            "stop_token": stop, "decode_steps": decode_steps,
-           "k1_launches": launches, "wall_s": wall_s,
-           "tokens_per_s": sum(lengths) / wall_s,
-           "k1_max_abs_err_on_rings": k1_err,
+           "k1_launches": launches, "moe_counts": moe_stats,
+           "wall_s": wall_s, "tokens_per_s": sum(lengths) / wall_s,
+           "k1_max_abs_err_on_caches": k1_err,
            "int8_rel_err_per_step": tf_rel, "int8_bound": INT8_BOUND,
-           "prefill_4160_s": prefill_s,
+           "int8_moe_rule": int8_rule,
+           "prefill_tokens": s, "prefill_s": prefill_s,
            "decode_step_b2": {
                "q_pos": q_pos, "host_included_ms": step_ms,
                "device_busy_ms": device_ms,
                "idle_share": 1 - device_ms / step_ms,
-               "bound_ms": read / bw * 1e3,
-               "k1_in_step": _kernel_share(rows, K1_DEVICE_NAMES),
+               "bytes_read": read, "bound_ms": read / bw * 1e3,
+               "moe_counts": step_moe if is_moe else None,
+               "gemm_in_step": gemm, "k1_in_step": k1,
+               "other_ms": device_ms - gemm["ms"] - k1["ms"],
                "profile_top": rows[:8]},
+           "moe_layer_b2": moe_layer,
            "max_memory_allocated": peak, "allocated_before": base,
            "weight_bytes": weight_bytes,
            "cache_bytes_b2": cache_bytes, "checks": checks}
@@ -4266,15 +4731,63 @@ def _family_fused(ctx, name) -> dict:
     return out
 
 
-def _family_split(ctx) -> dict:
-    """h2o-danube-3-4b at full width through LLMServer(backend="split") at
-    ℓ = FAMILY_SPLIT_LAYER with the paper's OPSC defaults, four requests
-    of the split phase's lengths (counters set to 0 just before the run
-    and read just after: K1 on the edge and the cloud, K5, K6 and K7, K7
-    by route); the first request's payloads held to their plain versions
-    after the run; an uncompressed
-    full-precision split equal to the Engine bit for bit; one decode step
-    by stage."""
+def _moe_layer_timing(ctx, cfg, params, opts, b) -> dict:
+    """Block 0's MoE layer alone on a decode step's input (B rows, one
+    token each, in the weights' dtype): host-included time (CUDA events)
+    and device time (``torch.profiler``), split into the GEMMs (router,
+    experts, shared expert) and everything else (the dispatch: softmax,
+    top-k, ranks, grouping, gathers, the combine, the SiLU products), and
+    its host syncs and experts run a call."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_params
+
+    ls, p = layer_params(cfg, params, (0, 1))[0]
+    gen = torch.Generator(device=ctx["device"]).manual_seed(3)
+    x = torch.randn((b, 1, cfg.d_model), generator=gen,
+                    device=ctx["device"]).to(params["embed"].dtype)
+
+    def call():
+        return moe.moe_layer(p["ffn"], x, ls.ffn, opts.moe_capacity_factor,
+                             opts.moe_groups)
+
+    moe.reset_stats()
+    call()
+    counts = dict(moe.STATS)
+    host_ms = ctx["timer"]({"moe_layer": call}, iters=20,
+                           device_only=False)["moe_layer"]
+    device_ms, rows = _device_profile(torch, call, 10)
+    gemm = _kernel_share(rows, GEMM_DEVICE_NAMES)
+    return {"rows": b, "host_included_ms": host_ms,
+            "device_busy_ms": device_ms, "products_ms": gemm["ms"],
+            "dispatch_ms": device_ms - gemm["ms"],
+            "host_syncs_a_call": counts["host_syncs"],
+            "experts_a_call": counts["experts"], "profile_top": rows[:10]}
+
+
+def _k7_per_edge_layer(cfg) -> int:
+    """K7 launches of one edge layer's forward apart from its routed
+    experts (each expert that runs adds 3): the 4 attention projections
+    and the ffn's products (an MLP's 2 or 3; a MoE layer's router and its
+    shared expert's 3)."""
+    ffn = cfg.pattern[0].ffn
+    if ffn.kind != "moe":
+        return 4 + (3 if ffn.gated else 2)
+    return 4 + 1 + (3 if ffn.num_shared else 0)
+
+
+def _family_split(ctx, name="h2o-danube-3-4b", weights=None,
+                  opts_kw=None, n_new=SPLIT_MAX_TOKENS) -> dict:
+    """A config at full width (``weights`` (cfg, params, seconds) or drawn
+    here) through LLMServer(backend="split") at ℓ = FAMILY_SPLIT_LAYER
+    with the paper's OPSC defaults, four requests of the split phase's
+    lengths (counters set to 0 just before the run and read just after:
+    K1 on the edge and the cloud, K5, K6 and K7, K7 by route and, on a MoE
+    config, once a projection, the router and each expert the edge ran);
+    the first request's payloads held to their plain versions after the
+    run; an uncompressed full-precision split equal to the Engine bit for
+    bit; one decode step by stage. Each request asks for ``n_new``
+    tokens."""
     import gc
 
     import numpy as np
@@ -4290,13 +4803,14 @@ def _family_split(ctx) -> dict:
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.split_engine import SplitEngine
 
+    from repro_torch.models import moe
+
     device = ctx["device"]
-    cfg, params, _ = _family_params(ctx, "h2o-danube-3-4b")
-    opts = RuntimeOpts(quantized_kv=True)
+    cfg, params, _ = weights or _family_params(ctx, name)
+    opts = RuntimeOpts(quantized_kv=True, **(opts_kw or {}))
     opsc = OPSCConfig(split_layer=FAMILY_SPLIT_LAYER, qw_front=4)
     rng = np.random.default_rng(14)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in SPLIT_LENS]
-    n_new = SPLIT_MAX_TOKENS
     sps = [SamplingParams(max_tokens=n_new),
            SamplingParams(max_tokens=n_new, temperature=0.8, top_p=0.9,
                           seed=7),
@@ -4310,14 +4824,20 @@ def _family_split(ctx) -> dict:
     srv = LLMServer(cfg, params, opts, backend="split", opsc=opsc,
                     cache_len=1024, device=device)
     eng = srv.backend.engine
-    held = []
+    held, edge_experts = [], [0]
 
     def compress(h):  # keeps the first request's hidden states
         if len(held) < 4:  # the prefill and three decode payloads
             held.append(h.detach().clone())
         return SplitEngine._compress(eng, h)
 
-    eng._compress = compress
+    def edge_front(*args, **kw):  # counts the experts the edge runs
+        before = moe.STATS["experts"]
+        out = SplitEngine._edge_front(eng, *args, **kw)
+        edge_experts[0] += moe.STATS["experts"] - before
+        return out
+
+    eng._compress, eng._edge_front = compress, edge_front
     kernels = {"decode_attention": da.decode_attention,
                "tabq_adaptive": tq.tabq_adaptive, "ts_encode": tsm.ts_encode,
                "dequant_matmul": dm.dequant_matmul}
@@ -4325,13 +4845,17 @@ def _family_split(ctx) -> dict:
         fn.launches = 0
     k7_routes = dm.dequant_matmul.route_launches
     k7_routes.update(dict.fromkeys(k7_routes, 0))
+    moe.reset_stats()
     outs = serve(srv)
     launches = {k: fn.launches for k, fn in kernels.items()}
     k7_routes = dict(k7_routes)
-    del eng._compress
+    moe_counts = dict(moe.STATS)
+    del eng._compress, eng._edge_front
     payloads = _payloads_identical(held, opsc)
     payloads_n = len(prompts) * n_new
     decodes = len(prompts) * (n_new - 1)
+    k7_want = _k7_per_edge_layer(cfg) * opsc.split_layer * payloads_n \
+        + 3 * edge_experts[0]
     checks = {
         "payloads_identical_to_plain": payloads["identical"],
         "lengths": [len(o.tokens) for o in outs] == [n_new] * 4,
@@ -4339,8 +4863,7 @@ def _family_split(ctx) -> dict:
         == cfg.num_layers * decodes,
         "k5_k6_launches": launches["tabq_adaptive"] == launches["ts_encode"]
         == payloads_n,
-        "k7_launches": launches["dequant_matmul"]
-        == 7 * opsc.split_layer * payloads_n,
+        "k7_launches": launches["dequant_matmul"] == k7_want,
         "no_early_exit": all(o.split_stats.early_exits == 0 for o in outs)}
 
     # a full-precision, uncompressed split: the Engine's streams bit for bit
@@ -4363,7 +4886,9 @@ def _family_split(ctx) -> dict:
     profiles = by_stage["profiles"]
     out = {"config": cfg.name, "opsc": vars(opsc),
            "prompt_lens": list(SPLIT_LENS), "launches": launches,
-           "k7_routes": k7_routes, "payload_check": payloads,
+           "k7_routes": k7_routes, "k7_expected": k7_want,
+           "edge_experts_run": edge_experts[0], "moe_counts": moe_counts,
+           "payload_check": payloads,
            "uncompressed_equal_engine": equal16,
            "uplink_bits_measured": [o.split_stats.uplink_bits_measured
                                     for o in outs],
@@ -4391,11 +4916,13 @@ def _family_split(ctx) -> dict:
     return out
 
 
-def _family_tiny(ctx, name) -> dict:
-    """A tiny family (f32 weights, int8 KV, 20-token prompts past the
-    16-slot window) greedily on the CPU (plain versions) and on the card
-    (kernels): logits within MODEL_REL, tokens under the margin rule, as
-    the model phase holds llama2-7b tiny."""
+def _family_tiny(ctx, name, opts_kw=None) -> dict:
+    """A tiny config (f32 weights, int8 KV, 20-token prompts: past the
+    families' 16-slot window) greedily on the CPU (plain versions) and on
+    the card (kernels): logits within MODEL_REL, tokens under the margin
+    rule, as the model phase holds llama2-7b tiny (a MoE config step by
+    step as MOE_RULE says: the card fed the CPU's tokens, then the card's
+    Engine running free)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -4405,22 +4932,52 @@ def _family_tiny(ctx, name) -> dict:
 
     device = ctx["device"]
     cfg = get_config(name)
-    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True,
+                       **(opts_kw or {}))
     cpu = init_params(cfg, torch.Generator().manual_seed(0))
     card = {k: v.to(device) for k, v in cpu.items()}
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 20))
     n, cache_len = 24, 64
-    want, want_lg = _greedy_stepwise(cpu, cfg, prompts, n, opts, cache_len,
-                                     "cpu")
-    got_lg = _teacher_forced(card, cfg, prompts, want, opts, cache_len,
-                             device)
-    rel = float(np.abs(got_lg - want_lg).max() / np.abs(want_lg).max())
+    moe = cfg.pattern[0].ffn.kind == "moe"
     got = Engine(cfg, card, opts, cache_len=cache_len,
                  device=device).generate(prompts, n).tokens[:, 20:]
-    ok, compared = _margin_agreement(got, want, want_lg, MODEL_REL)
-    return {"config": name, "steps": n, "max_rel_logit_err": rel,
-            "tol": MODEL_REL, "tokens_compared": compared,
-            "ok": ok and rel <= MODEL_REL}
+    if not moe:
+        want, want_lg = _greedy_stepwise(cpu, cfg, prompts, n, opts,
+                                         cache_len, "cpu")
+        got_lg = _teacher_forced(card, cfg, prompts, want, opts, cache_len,
+                                 device)
+        rel = float((np.abs(got_lg - want_lg).max() / np.abs(want_lg).max()))
+        ok, compared = _margin_agreement(got, want, want_lg, MODEL_REL)
+        return {"config": name, "steps": n, "max_rel_logit_err": rel,
+                "tol": MODEL_REL, "tokens_compared": compared,
+                "ok": ok and rel <= MODEL_REL}
+    with _Routes() as routes:
+        want, want_lg, cpu_routes = _greedy_stepwise(
+            cpu, cfg, prompts, n, opts, cache_len, "cpu", routes)
+        got_lg, card_routes = _teacher_forced(
+            card, cfg, prompts, want, opts, cache_len, device, routes)
+    err = np.abs(got_lg - want_lg).max(-1) / np.abs(want_lg).max()
+    margin = _margins(want_lg)
+    rows = [{"err": err[r], "margin": margin[r], "want": want[r],
+             "flips": _route_flips(cpu_routes["sel"][r],
+                                   card_routes["sel"][r]),
+             "earlier": _earlier_flips(cpu_routes, card_routes, r),
+             "codes": _code_flips(cpu_routes, card_routes, r),
+             "gaps": (cpu_routes["gap"][r], card_routes["gap"][r])}
+            for r in range(len(want))]
+    # the card fed the CPU's tokens: its argmax at every step
+    forced = _moe_hold([dict(row, got=got_lg[r].argmax(-1))
+                        for r, row in enumerate(rows)], MODEL_REL, False,
+                       len(rows))
+    # the card's Engine running free
+    free = _moe_hold([dict(row, got=got[r]) for r, row in enumerate(rows)],
+                     MODEL_REL, True, len(rows))
+    return {"config": name, "steps": n,
+            "max_rel_logit_err": float(err.max()), "held": MOE_RULE,
+            "tol": MODEL_REL, "rel_logit_err_by_step": err.tolist(),
+            "teacher_forced": forced, "engine_free": free,
+            "tokens_compared": forced["tokens_compared"]
+            + free["tokens_compared"], "ok": forced["ok"] and free["ok"]}
 
 
 def phase_families(ctx) -> None:
@@ -4449,6 +5006,212 @@ def phase_families(ctx) -> None:
           "ok": all(checks.values())})
     if not all(checks.values()):
         raise SystemExit(f"families: failed checks "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
+# the mixture-of-experts configs: qwen2-moe-a2.7b at full width and depth,
+# qwen3-moe-235b-a22b at full width over its first 4 of 94 blocks (all of
+# them are 470 GB of bf16); both served dropless, as the reference serves
+MOE_OPTS = dict(moe_capacity_factor=0.0)
+MOE_QWEN3_BLOCKS = 4
+MOE_FUSED_LENS = (512, 512, 128, 128)  # A: qwen2-moe through "fused"
+MOE_FUSED_CACHE_LEN = 640
+MOE_QWEN3_LENS = (256, 256, 64, 64)  # D: qwen3-moe, fused then packed
+MOE_QWEN3_MAX_TOKENS = (32, 32, 32, 32)
+# B: eight requests through the paged backend, the last three sharing a
+# 256-token prefix (forks, K3), a 256-token chunk budget
+MOE_PAGED_LENS = (600, 96, 450, 128, 200, 300, 280, 400)
+MOE_PAGED_PREFIX = 256
+MOE_PAGED_FORKS = (5, 6, 7)
+MOE_PAGED_MAX_TOKENS = 32
+MOE_SPLIT_MAX_TOKENS = 16  # C: the split phase's prompts, 16 tokens each
+MOE_TINY = ("qwen2-moe-a2.7b-tiny", "qwen3-moe-235b-a22b-tiny")
+
+
+def _moe_paged(ctx, weights, lens, max_new, prefix, forks, modes) -> dict:
+    """A MoE config (``weights``: cfg, params, seconds) answering greedy
+    requests of prompt lengths ``lens`` (``forks`` share a ``prefix``)
+    through LLMServer(backend="paged") in each tick mode of ``modes`` (the
+    paged phase's pool: 8 slots, 513 pages of 16, a 256-token chunk
+    budget), its counters set to 0 just before each run and read just
+    after: K2 once a layer and decode step, K3 once a layer and chunk or
+    fork call, K4 once a layer and packed tick, no pair dropped, no page
+    left. Each run records every emitted token's logits and MoE choices:
+    the first mode's streams are held to the dense (fused) path fed the
+    same tokens, a later mode's to the first's while the two streams
+    agree, step by step within PAGED_REL as MOE_RULE says."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import varlen_attention as va
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.serving.api import LLMServer
+
+    device = ctx["device"]
+    cfg, params, _ = weights
+    opts = RuntimeOpts(quantized_kv=True, **MOE_OPTS)
+    rng = np.random.default_rng(25)
+    shared = rng.integers(0, cfg.vocab_size, (prefix,))
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+    for i in forks:
+        prompts[i][:prefix] = shared
+
+    def sampling(i):
+        kw = dict(prefix_key="shared", prefix_len=prefix) if i in forks \
+            else {}
+        return SamplingParams(max_tokens=max_new, **kw)
+
+    kernels = {"decode_attention": da.decode_attention,
+               "paged_decode_attention": pda.paged_decode_attention,
+               "paged_prefill_attention": ppa.paged_prefill_attention,
+               "varlen_attention": va.varlen_attention}
+    runs, out, checks = {}, {}, {}
+    for mode in modes:
+        srv = LLMServer(cfg, params, opts, backend="paged", tick_mode=mode,
+                        num_pages=513, page_size=16, max_slots=8,
+                        max_seq_len=1024, prefill_chunk=256, device=device)
+        sched = srv.backend.scheduler
+        routes = _Routes().__enter__()
+        rec = _record_logits(sched, routes)
+        for fn in kernels.values():
+            fn.launches = 0
+        k4_routes = va.varlen_attention.route_launches
+        k4_routes.update(dict.fromkeys(k4_routes, 0))
+        moe.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [srv.submit(p, sampling(i)) for i, p in enumerate(prompts)]
+        try:
+            outs = srv.run()
+        finally:
+            routes.__exit__()
+        wall_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        st = sched.stats
+        outs = [outs[r] for r in rids]
+        runs[mode] = (outs, rec, routes)
+        L = cfg.num_layers
+        checks.update({
+            f"{mode}_lengths": [len(o.tokens) for o in outs]
+            == [max_new] * len(lens),
+            f"{mode}_pool_reclaimed": sched.pool.pages_in_use == 0
+            and not sched.pool.refcount.any(),
+            f"{mode}_drops_none": moe.STATS["dropped"] == 0,
+            f"{mode}_k1_not_launched": launches["decode_attention"] == 0})
+        if mode == "packed":
+            checks["packed_k4_launches"] = launches["varlen_attention"] \
+                == L * st.packed_ticks > 0
+            checks["packed_k4_on_tensor_cores"] = \
+                k4_routes["tensor_cores"] == launches["varlen_attention"]
+        else:
+            checks[f"{mode}_k2_launches"] = \
+                launches["paged_decode_attention"] == L * st.steps > 0
+            checks[f"{mode}_k3_launches"] = \
+                launches["paged_prefill_attention"] \
+                == L * st.shared_prefill_calls
+            if forks:
+                checks[f"{mode}_k3_launched"] = st.shared_prefill_calls > 0
+        if forks:
+            checks[f"{mode}_prefix_forks"] = st.prefix_forks \
+                == len(forks) - 1
+        out[mode] = {"wall_s": wall_s,
+                     "tokens_per_s": sum(len(o.tokens) for o in outs)
+                     / wall_s, "ticks": sched._tick,
+                     "decode_steps": st.steps,
+                     "packed_ticks": st.packed_ticks,
+                     "shared_prefill_calls": st.shared_prefill_calls,
+                     "prefix_forks": st.prefix_forks,
+                     "launches": launches, "k4_routes": dict(k4_routes),
+                     "moe_counts": dict(moe.STATS)}
+        del srv, sched
+    first = modes[0]
+    report = _moe_against_dense(params, cfg, opts, prompts, *runs[first],
+                                PAGED_REL, device)
+    checks[f"{first}_equal_fused_margin_rule"] = report["ok"]
+    out[first]["vs_fused"] = report
+    for mode in modes[1:]:
+        (want, want_rec, want_routes), (got, got_rec, got_routes) = \
+            runs[first], runs[mode]
+        rows = []
+        for w, g in zip(want, got):
+            n = min(len(w.tokens), len(g.tokens))
+            wl = np.stack(want_rec[w.rid])[:n]
+            ws = want_routes.by_rid[w.rid][:n]
+            gs = got_routes.by_rid[g.rid][:n]
+            rows.append({
+                "err": np.abs(np.stack(got_rec[g.rid])[:n] - wl).max(-1)
+                / np.abs(wl).max(), "margin": _margins(wl),
+                "got": g.tokens[:n], "want": w.tokens[:n],
+                "flips": _route_flips(np.stack([x[0] for x in ws]),
+                                      np.stack([x[0] for x in gs])),
+                "gaps": (np.stack([x[1] for x in ws]),
+                         np.stack([x[1] for x in gs]))})
+        # streams running free part at the first step whose error crosses
+        # a top-1/top-2 gap, often the first few: one token in all
+        report = _moe_hold(rows, PAGED_REL, True, 1)
+        checks[f"{mode}_equal_{first}_margin_rule"] = report["ok"]
+        out[mode]["vs_" + first] = report
+        out[mode]["bit_identical_rows"] = [bool(np.array_equal(
+            w.tokens, g.tokens)) for w, g in zip(want, got)]
+    return {"config": cfg.name, "prompt_lens": list(lens),
+            "max_tokens": max_new, "shared_prefix": prefix,
+            "forks": list(forks), "tol": PAGED_REL, "runs": out,
+            "checks": checks}
+
+
+def phase_moe(ctx) -> None:
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def timed(part, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(ctx, *args, **kw)
+        part_s[part] = time.perf_counter() - t
+        return out
+
+    tiny = {name: timed(name, _family_tiny, name, MOE_OPTS)
+            for name in MOE_TINY}
+    qwen2 = timed("init_qwen2", _family_params, "qwen2-moe-a2.7b")
+    a = timed("A", _family_fused, "qwen2-moe-a2.7b", qwen2,
+              lens=MOE_FUSED_LENS, cache_len=MOE_FUSED_CACHE_LEN,
+              opts_kw=MOE_OPTS)
+    b = timed("B", _moe_paged, qwen2, MOE_PAGED_LENS, MOE_PAGED_MAX_TOKENS,
+              MOE_PAGED_PREFIX, MOE_PAGED_FORKS, ("chunked", "packed"))
+    c = timed("C", _family_split, "qwen2-moe-a2.7b", qwen2,
+              opts_kw=MOE_OPTS, n_new=MOE_SPLIT_MAX_TOKENS)
+    del qwen2
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen3 = timed("init_qwen3", _family_params, "qwen3-moe-235b-a22b",
+                  MOE_QWEN3_BLOCKS)
+    d = timed("D", _family_fused, "qwen3-moe-235b-a22b", qwen3,
+              lens=MOE_QWEN3_LENS, cache_len=MOE_FUSED_CACHE_LEN,
+              max_tokens=MOE_QWEN3_MAX_TOKENS, opts_kw=MOE_OPTS)
+    d_packed = timed("D_packed", _moe_paged, qwen3, MOE_QWEN3_LENS,
+                     MOE_QWEN3_MAX_TOKENS[0], 0, (), ("packed",))
+    del qwen3
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {f"tiny_{k}": v["ok"] for k, v in tiny.items()}
+    for part, res in (("A", a), ("B", b), ("C", c), ("D", d),
+                      ("D", d_packed)):
+        checks.update({f"{part}_{k}": v for k, v in res["checks"].items()})
+    emit({"phase": "moe", "nvidia_smi": ctx["smi"], "tiny": tiny,
+          "A_qwen2_moe_fused": a, "B_qwen2_moe_paged": b,
+          "C_qwen2_moe_split": c, "D_qwen3_moe_fused": d,
+          "D_qwen3_moe_packed": d_packed,
+          "phase_s": time.perf_counter() - t0, "part_s": part_s,
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise SystemExit(f"moe: failed checks "
                          f"{[k for k, v in checks.items() if not v]}")
 
 
@@ -4486,7 +5249,8 @@ def main(argv=None) -> int:
                "serve": phase_serve, "paged": phase_paged,
                "packed": phase_packed, "split": phase_split,
                "spec": phase_spec, "service": phase_service,
-               "disagg": phase_disagg, "families": phase_families}
+               "disagg": phase_disagg, "families": phase_families,
+               "moe": phase_moe}
     for name in PHASES:
         if name in phases:
             runners[name](ctx)

@@ -7,13 +7,22 @@ of ``repro/launch/serve.py``).
       [--split --split-layer 1 --qw-front 8 [--deadline-ms 0.1]]
 
 ``--arch`` takes any config of ``repro_torch.configs`` (llama2-7b,
-llama2-13b, gemma2-2b, h2o-danube-3-4b); ``--split-layer`` is snapped to
-a pattern boundary (gemma2's pattern is two layers).
+llama2-13b, gemma2-2b, h2o-danube-3-4b, qwen2-moe-a2.7b,
+qwen3-moe-235b-a22b); ``--split-layer`` is snapped to a pattern boundary
+(gemma2's pattern is two layers). Mixture-of-experts layers route
+dropless (``moe_capacity_factor=0.0``), as the reference serves them.
+``--num-blocks`` keeps the first blocks of a config too deep for one
+card: qwen3-moe-235b-a22b's 94 blocks are 940 GB of f32 weights, four of
+them with its embedding and head about 45 GB:
+
+  python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \
+      --num-blocks 4 --quantized-kv
 
 Runs on the CUDA card unless ``--device`` names another device.
 """
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -39,6 +48,8 @@ def main(argv=None):
     ap.add_argument("--quantized-kv", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="serve only the first N blocks (default: all)")
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--split-layer", type=int, default=1)
     ap.add_argument("--qw-front", type=int, default=8)
@@ -49,7 +60,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.tiny:
         cfg = cfg.tiny()
-    opts = RuntimeOpts(q_chunk=64, kv_chunk=64, quantized_kv=args.quantized_kv)
+    if args.num_blocks is not None:
+        cfg = dataclasses.replace(cfg, num_blocks=args.num_blocks)
+    opts = RuntimeOpts(q_chunk=64, kv_chunk=64, quantized_kv=args.quantized_kv,
+                       moe_capacity_factor=0.0)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device=device)
     rng = np.random.default_rng(0)
@@ -84,7 +98,8 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     print(f"[serve] {res.tokens.shape} in {dt:.2f}s on {device} = "
           f"{args.batch * args.new / dt:.1f} tok/s "
-          f"(kv={'int8' if args.quantized_kv else 'float32'})")
+          f"(kv={'int8' if args.quantized_kv else 'float32'}, "
+          f"{cfg.num_layers} layers)")
 
 
 if __name__ == "__main__":

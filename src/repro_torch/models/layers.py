@@ -1,10 +1,10 @@
-"""Model building blocks (port of ``repro/models/layers.py``, the llama
-and gemma2 paths): RMSNorm, rotary embeddings, the KV caches and their
+"""Model building blocks (port of ``repro/models/layers.py``, the llama,
+gemma2 and qwen3 paths): RMSNorm, rotary embeddings, the KV caches and their
 int8 writes (sliding-window layers into a ring), position-masked prefill
 attention with windows and logit soft caps, int8-KV decode attention
 through the CUDA kernels (dense and paged), prefill attention through the
-paged pool, token-packed varlen attention, the attention layer and the
-(gated) MLP.
+paged pool, token-packed varlen attention, the attention layer (with
+QK-norm) and the (gated) MLP.
 
 Caches come in three layouts, as in the reference:
   * fp (bf16/f32): token-major (B, S, K, hd), read by ``chunked_attention``;
@@ -485,12 +485,12 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
     (output, cache)."""
     b, s, _ = x.shape
     h, kh, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
-    if spec.qk_norm:
-        raise NotImplementedError("qk_norm is not ported yet (ROADMAP queue "
-                                  "1, item 9, the rest of configs/)")
     q = matmul(x, params["wq"]).reshape(b, s, h, hd)
     k = matmul(x, params["wk"]).reshape(b, s, kh, hd)
     v = matmul(x, params["wv"]).reshape(b, s, kh, hd)
+    if spec.qk_norm:  # qwen3: RMSNorm over each head, before RoPE
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
     if rope_cs is not None:
         cos, sin = rope_cs
         q = apply_rope(q, cos, sin)
@@ -501,7 +501,7 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
             # (_gather_dense_kv); the pool itself refuses windows
             raise NotImplementedError(
                 "soft-capped attention through the paged pool is not "
-                "ported yet (ROADMAP queue 1, item 9, the rest of configs/)")
+                "ported yet (ROADMAP queue 1, item 9: _gather_dense_kv)")
         paged_cache_update(cache, k, v, q_positions,
                            slots=None if packed is None else packed.slots)
         if packed is not None:

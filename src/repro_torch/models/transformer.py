@@ -1,6 +1,11 @@
-"""Model assembly (port of ``repro/models/transformer.py``, the llama
-and gemma2 paths): a decoder of ``len(pattern) × num_blocks`` layers
-whose parameters are stacked per pattern position. Entry points:
+"""Model assembly (port of ``repro/models/transformer.py``, the llama,
+gemma2 and mixture-of-experts paths): a decoder of ``len(pattern) ×
+num_blocks`` attention layers whose parameters are stacked per pattern
+position; a layer's ffn is a (gated) MLP or, for an ``MoESpec``, the
+mixture-of-experts layer of :mod:`repro_torch.models.moe` (routed with
+``RuntimeOpts.moe_capacity_factor`` and ``moe_groups``; its auxiliary
+loss is dropped, as the reference's serving paths drop it). Entry
+points:
 
   prefill(params, cfg, tokens, cache_len, opts)      → (last_logits, caches)
   decode_step(params, cfg, tokens, caches, pos, opts)→ (logits, caches)
@@ -28,9 +33,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig, AttnSpec
+from repro_torch.configs.base import ArchConfig, AttnSpec, MoESpec
 from repro_torch.kernels.decode_attention import padded_cache_len
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +48,9 @@ class RuntimeOpts:
     kv_chunk: int = 1024
     quantized_kv: bool = False
     cache_dtype: str = "bfloat16"
+    moe_capacity_factor: float = 1.25  # <= 0: dropless routing
+    # the MoE capacity rule's token groups (1: the whole call is one group)
+    moe_groups: int = 1
 
 
 def layer_params(cfg: ArchConfig, params: dict, blocks=None) -> list:
@@ -87,7 +96,7 @@ def init_caches(cfg: ArchConfig, batch: int, cache_len: int,
             if not isinstance(m, AttnSpec):
                 raise NotImplementedError(
                     "only attention layers are ported (ROADMAP queue 1, "
-                    "item 9, the rest of configs/)")
+                    "item 9: the state-space mixers)")
             size = min(cache_len, m.sliding_window or cache_len)
             if opts.quantized_kv:
                 size = padded_cache_len(size)
@@ -144,7 +153,12 @@ def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
         packed=packed)
     x = x + out
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_layer(p["ffn"], h, ls.ffn.activation), cache
+    if isinstance(ls.ffn, MoESpec):
+        out, _ = moe_layer(p["ffn"], h, ls.ffn, opts.moe_capacity_factor,
+                           opts.moe_groups)
+    else:
+        out = L.mlp_layer(p["ffn"], h, ls.ffn.activation)
+    return x + out, cache
 
 
 def _apply_layers(cfg, params, x, caches, *, q_positions, pos,

@@ -8,8 +8,16 @@ leading axis, as in ``repro/models/transformer.py:98-121``:
   blocks/p{i}/ln1, ln2                    (nb, D)
   blocks/p{i}/mixer/wq, wk, wv            (nb, D, H·hd | K·hd)
   blocks/p{i}/mixer/wo                    (nb, H·hd, D)
+  blocks/p{i}/mixer/q_norm, k_norm        (nb, hd)     [qk_norm]
+  an MLP ffn (``MLPSpec``):
   blocks/p{i}/ffn/w_up, w_gate            (nb, D, F)  [w_gate if gated]
   blocks/p{i}/ffn/w_down                  (nb, F, D)
+  a mixture-of-experts ffn (``MoESpec``, ``repro/models/moe.py:24-38``):
+  blocks/p{i}/ffn/w_router                (nb, D, E)  f32 whatever the dtype
+  blocks/p{i}/ffn/w_gate, w_up            (nb, E, D, F)
+  blocks/p{i}/ffn/w_down                  (nb, E, F, D)
+  blocks/p{i}/ffn/shared/w_gate, w_up     (nb, D, S·F)  [num_shared S > 0]
+  blocks/p{i}/ffn/shared/w_down           (nb, S·F, D)
 
 Weights keep the ``x @ W`` layout, W (d_in, d_out), so nothing is
 transposed on the way across.
@@ -23,7 +31,11 @@ import os
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig, AttnSpec, MLPSpec
+from repro_torch.configs.base import ArchConfig, AttnSpec, MLPSpec, MoESpec
+
+# leaves kept in f32 whatever the model's dtype: the router, whose logits
+# the reference computes in f32 (``moe.py:30``)
+F32_LEAVES = ("ffn/w_router",)
 
 
 def param_specs(cfg: ArchConfig) -> dict:
@@ -33,19 +45,20 @@ def param_specs(cfg: ArchConfig) -> dict:
     if cfg.embed != "token" or cfg.num_codebooks != 1 or cfg.rope != "rope":
         raise NotImplementedError(f"{cfg.name}: only the token embedding "
                                   f"and RoPE are ported (ROADMAP queue 1, "
-                                  f"item 9, the rest of configs/)")
+                                  f"item 9: M-RoPE, the codebook and "
+                                  f"vision embeddings)")
     d, v, nb = cfg.d_model, cfg.vocab_size, cfg.num_blocks
     specs = {"embed": ((v, d), 0.02), "final_norm": ((d,), None)}
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((d, v), 0.02)
     for i, ls in enumerate(cfg.pattern):
         m, f = ls.mixer, ls.ffn
-        if not isinstance(m, AttnSpec) or m.qk_norm \
-                or not isinstance(f, MLPSpec):
-            raise NotImplementedError(f"{cfg.name}: only attention (without "
-                                      f"qk_norm) + MLP layers are ported "
-                                      f"(ROADMAP queue 1, item 9, the rest "
-                                      f"of configs/)")
+        if not isinstance(m, AttnSpec) or not isinstance(f, (MLPSpec,
+                                                             MoESpec)):
+            raise NotImplementedError(f"{cfg.name}: only attention + MLP or "
+                                      f"mixture-of-experts layers are ported "
+                                      f"(ROADMAP queue 1, item 9: the "
+                                      f"state-space mixers)")
         p = f"blocks/p{i}/"
         hq, hk = m.num_heads * m.head_dim, m.num_kv_heads * m.head_dim
         specs[p + "ln1"] = ((nb, d), None)
@@ -53,7 +66,24 @@ def param_specs(cfg: ArchConfig) -> dict:
         specs[p + "mixer/wk"] = ((nb, d, hk), 1.0 / math.sqrt(d))
         specs[p + "mixer/wv"] = ((nb, d, hk), 1.0 / math.sqrt(d))
         specs[p + "mixer/wo"] = ((nb, hq, d), 1.0 / math.sqrt(hq))
+        if m.qk_norm:
+            specs[p + "mixer/q_norm"] = ((nb, m.head_dim), None)
+            specs[p + "mixer/k_norm"] = ((nb, m.head_dim), None)
         specs[p + "ln2"] = ((nb, d), None)
+        if isinstance(f, MoESpec):
+            e, ff = f.num_experts, f.d_ff
+            specs[p + "ffn/w_router"] = ((nb, d, e), 1.0 / math.sqrt(d))
+            specs[p + "ffn/w_gate"] = ((nb, e, d, ff), 1.0 / math.sqrt(d))
+            specs[p + "ffn/w_up"] = ((nb, e, d, ff), 1.0 / math.sqrt(d))
+            specs[p + "ffn/w_down"] = ((nb, e, ff, d), 1.0 / math.sqrt(ff))
+            if f.num_shared:
+                sf = f.num_shared * ff
+                specs[p + "ffn/shared/w_up"] = ((nb, d, sf), 1.0 / math.sqrt(d))
+                specs[p + "ffn/shared/w_gate"] = ((nb, d, sf),
+                                                  1.0 / math.sqrt(d))
+                specs[p + "ffn/shared/w_down"] = ((nb, sf, d),
+                                                  1.0 / math.sqrt(sf))
+            continue
         specs[p + "ffn/w_up"] = ((nb, d, f.d_ff), 1.0 / math.sqrt(d))
         if f.gated:
             specs[p + "ffn/w_gate"] = ((nb, d, f.d_ff), 1.0 / math.sqrt(d))
@@ -67,14 +97,18 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     live on that device), with the reference's shapes and scales. The draws
     differ from the reference's JAX PRNG: to serve the same weights as the
     reference, carry them across with :func:`from_jax_params`. Draws one
-    block at a time, so the f32 temporaries stay one block large."""
+    matrix at a time (a block's, or a block's expert's), so the f32
+    temporaries stay one matrix large; ``F32_LEAVES`` stay f32."""
     params = {}
     for key, (shape, scale) in param_specs(cfg).items():
+        dt = torch.float32 if key.endswith(F32_LEAVES) else dtype
         if scale is None:
-            params[key] = torch.ones(shape, dtype=dtype, device=device)
+            params[key] = torch.ones(shape, dtype=dt, device=device)
             continue
-        t = torch.empty(shape, dtype=dtype, device=device)
-        for part in (t.unbind(0) if len(shape) == 3 else (t,)):
+        t = torch.empty(shape, dtype=dt, device=device)
+        parts = t.reshape(-1, *shape[-2:]).unbind(0) if len(shape) >= 3 \
+            else (t,)
+        for part in parts:
             part.copy_(torch.randn(part.shape, generator=generator,
                                    device=device) * scale)
         params[key] = t

@@ -321,7 +321,8 @@ def _build_server(args):
                               vocab_size=args.vocab)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed), device=device)
-    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True,
+                       moe_capacity_factor=0.0)
     kwargs: dict = {"device": device}
     if args.backend == "paged":
         kwargs.update(deployment=args.deployment, num_pages=args.num_pages,

@@ -37,12 +37,18 @@ TAB-Q's per-token bit widths and the uplink bits a token as histograms
 and each call's ``SplitStats`` mirrored into the registry under
 ``split.*``.
 
-The ported configs run on the dense clouds: the llama family and the
+The ported configs run on the dense clouds: the llama family, the
 sliding-window families (gemma2-2b, h2o-danube-3-4b), whose edge and cloud
-caches keep a ring per windowed layer. The paged cloud refuses windows, as
+caches keep a ring per windowed layer, and the mixture-of-experts families
+(qwen2-moe-a2.7b, qwen3-moe-235b-a22b). The paged cloud refuses windows, as
 the reference's pool does, and so does speculation: a verify burst written
 into a ring that has wrapped overwrites positions its earlier columns
-still attend.
+still attend. On the edge an expert weight (nb, E, d_in, d_out) is held as
+(E·d_in, d_out) codes a block with one scale per output column shared by
+all experts, and the f32 router (nb, D, E) as codes too, as the reference
+fake-quantizes them; ``models.moe`` multiplies expert i by its rows of
+the codes. The engine's default ``RuntimeOpts`` keep the reference's
+capacity factor of 1.25, which drops pairs at prefill.
 """
 
 from __future__ import annotations
@@ -78,11 +84,13 @@ def slice_blocks(params: dict, lo: int, hi: int) -> dict:
 
 
 def quantize_front_blocks(params: dict, bits: int) -> dict:
-    """OPSC front-segment weights: every stacked (nb, d_in, d_out) matrix
-    of ``params`` becomes a :class:`QuantizedTensor` of int8 codes with one
-    scale per block and output column (``quantize_sym`` over d_in, the
-    reference's ``_fake_quant_blocks`` without the dequantization); norms
-    and the embedding stay as they are. ``bits`` ≥ 16 keeps the full
+    """OPSC front-segment weights: every stacked (nb, ..., d_out) leaf of
+    three or more axes of ``params`` becomes a :class:`QuantizedTensor` of
+    int8 codes (nb, ∏ middle axes, d_out) with one scale per block and
+    output column (``quantize_sym`` over the middle axes, the reference's
+    ``_fake_quant_blocks`` without the dequantization: an expert weight's
+    scales are shared by its experts); norms and the embedding stay as
+    they are. ``bits`` ≥ 16 keeps the full
     precision weights (the paper's high-precision segment)."""
     if bits >= 16:
         return params

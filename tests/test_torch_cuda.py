@@ -22,6 +22,7 @@ from repro_torch.kernels import paged_prefill_attention as ppa
 from repro_torch.kernels import tabq_quantize as tq
 from repro_torch.kernels import ts_mask as tsm
 from repro_torch.kernels import varlen_attention as va
+from repro_torch.models import moe
 from repro_torch.models.transformer import RuntimeOpts
 from repro_torch.params import init_params
 from repro_torch.serving.engine import Engine
@@ -823,6 +824,8 @@ K1_SHAPES = {
     "mqa_48": (1, 1, 48, 128, 700, 700, None, None),
     "hd256": (2, 4, 3, 256, 130, 100, None, None),
     "empty_live_row": (2, 4, 1, 128, 512, 512, [300, 511], 0),
+    # qwen3-moe-235b-a22b's decode step: 64 heads on 4 kv heads
+    "qwen3_g16": (2, 4, 16, 128, 1024, 1024, None, None),
 }
 
 
@@ -1504,3 +1507,104 @@ def test_disaggregated_replicas_on_two_cards_serve_async(cuda_device):
     want = srv.run()
     for g, rid in zip(got, rids):
         np.testing.assert_array_equal(g, want[rid].tokens)
+
+
+# ------------------------------------------------------ mixture of experts
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 12])
+def test_dequant_matmul_on_expert_slices_of_one_code_matrix(cuda_device,
+                                                            dtype, m):
+    """K7 on expert i's rows of a split edge's (E·K, N) code matrix (a
+    view, one scale row shared by the experts), at qwen2-moe-a2.7b's
+    expert shapes, and on its f32 router (N 60): within 1e-5 of the plain
+    version relative to the largest output."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for e, k, n in ((4, 2048, 1408), (3, 1408, 2048)):
+        codes = torch.randint(-127, 128, (e * k, n), generator=gen,
+                              device=cuda_device, dtype=torch.int8)
+        scale = torch.rand(n, generator=gen, device=cuda_device) * 1e-2
+        x = torch.randn(m, k, generator=gen, device=cuda_device).to(
+            getattr(torch, dtype))
+        for i in range(e):
+            w = codes[i * k:(i + 1) * k]
+            got = dm.dequant_matmul(x, w, scale)
+            want = dm.dequant_matmul_ref(x, w, scale)
+            rel = float((got - want).abs().max() / want.abs().max())
+            assert rel <= 1e-5, (e, k, n, i)
+    router = torch.randint(-127, 128, (2048, 60), generator=gen,
+                           device=cuda_device, dtype=torch.int8)
+    scale = torch.rand(60, generator=gen, device=cuda_device) * 1e-2
+    x = torch.randn(m, 2048, generator=gen, device=cuda_device)
+    got = dm.dequant_matmul(x, router, scale)
+    want = dm.dequant_matmul_ref(x, router, scale)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b-tiny",
+                                  "qwen3-moe-235b-a22b-tiny"])
+def test_moe_engine_and_packed_scheduler_on_card_match_cpu(cuda_device,
+                                                           name):
+    """Both tiny MoE configs, the same f32 weights, int8 KV, dropless: the
+    Engine's greedy tokens and the packed scheduler's on the card equal
+    the CPU's; K1 runs once a layer and decode step, K4 once a layer and
+    packed tick."""
+    cfg = get_config(name)
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True,
+                       moe_capacity_factor=0.0)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 20))
+    want = Engine(cfg, params, opts, cache_len=32,
+                  device="cpu").generate(prompts, 8)
+    before = da.decode_attention.launches
+    got = Engine(cfg, params, opts, cache_len=32,
+                 device=cuda_device).generate(prompts, 8)
+    assert da.decode_attention.launches - before == cfg.num_layers * 7
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+
+    def serve(device):
+        sched = Scheduler(cfg, params, opts, num_pages=24, page_size=4,
+                          max_slots=3, tick_mode="packed", device=device)
+        rids = [sched.submit(p, 6) for p in prompts]
+        res = sched.run()
+        assert sched.pool.pages_in_use == 0
+        return [res[r] for r in rids], sched.stats
+
+    want, _ = serve("cpu")
+    k4 = va.varlen_attention.launches
+    got, stats = serve(cuda_device)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert va.varlen_attention.launches - k4 \
+        == cfg.num_layers * stats.packed_ticks
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_on_card_repeats_its_bits(cuda_device, dtype):
+    """qwen2-moe-a2.7b's layer shape (60 experts top-4, a shared expert),
+    four experts' rows routed from 40 tokens: two calls give the same
+    bits (the combine writes each pair's row once and sums k rows; no
+    atomics), one host read of the counts each."""
+    cfg = get_config("qwen2-moe-a2.7b")
+    spec = cfg.pattern[0].ffn
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    d, e, f = cfg.d_model, spec.num_experts, spec.d_ff
+    dt = getattr(torch, dtype)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=cuda_device)
+                / shape[-2] ** 0.5).to(dt)
+
+    params = {"w_router": w(d, e).float(), "w_gate": w(e, d, f),
+              "w_up": w(e, d, f), "w_down": w(e, f, d),
+              "shared": {"w_gate": w(d, 4 * f), "w_up": w(d, 4 * f),
+                         "w_down": w(4 * f, d)}}
+    x = torch.randn((2, 20, d), generator=gen, device=cuda_device).to(dt)
+    moe.reset_stats()
+    y1, a1 = moe.moe_layer(params, x, spec, 1.25)
+    y2, a2 = moe.moe_layer(params, x, spec, 1.25)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+    assert moe.STATS["host_syncs"] == 2 and moe.STATS["pairs"] == 2 * 160
+    assert bool(torch.isfinite(y1).all())

@@ -6,7 +6,7 @@ int8 decode over a wrapped ring at head dims 32 and 120 against the
 Pallas kernel in interpret mode, teacher-forced logits past the window,
 the fused and split backends' tokens and ``SplitStats``, the full-width
 parameter counts, and the refusals that stay (the paged pool, the packed
-tick, ``qk_norm``)."""
+tick; ``qk_norm`` is ported now)."""
 
 import dataclasses
 
@@ -488,15 +488,41 @@ def test_paged_and_packed_paths_refuse_the_families(name):
 
 
 def test_qk_norm_still_names_item_9():
+    """QK-norm is ported now (qwen3-moe; tests/test_torch_moe.py holds it
+    to the reference): a windowed config with ``qk_norm`` gets q_norm and
+    k_norm leaves, and its attention layer applies them (norms of 2 scale
+    q and k by 2). What item 9 still names on such a config is the rest of
+    the item: the same config with M-RoPE is refused naming item 9, and
+    the refusal no longer speaks of QK-norm."""
     cfg = get_config("h2o-danube-3-4b").tiny()
     spec = dataclasses.replace(cfg.pattern[0].mixer, qk_norm=True)
     qk = dataclasses.replace(cfg, pattern=(dataclasses.replace(
         cfg.pattern[0], mixer=spec),))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        param_specs(qk)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TL.attention_layer({}, torch.zeros(1, 1, cfg.d_model), spec,
-                           rope_cs=None, cache=None, pos=0, q_positions=None)
+    specs = param_specs(qk)
+    assert specs["blocks/p0/mixer/q_norm"] == ((2, spec.head_dim), None)
+    assert specs["blocks/p0/mixer/k_norm"] == ((2, spec.head_dim), None)
+    gen = torch.Generator().manual_seed(0)
+    hq, hk = spec.num_heads * spec.head_dim, spec.num_kv_heads * spec.head_dim
+    p = {"wq": torch.randn(cfg.d_model, hq, generator=gen),
+         "wk": torch.randn(cfg.d_model, hk, generator=gen),
+         "wv": torch.randn(cfg.d_model, hk, generator=gen),
+         "wo": torch.eye(hq), "q_norm": torch.ones(spec.head_dim),
+         "k_norm": torch.ones(spec.head_dim)}
+    x = torch.randn(1, 3, cfg.d_model, generator=gen)
+    pos = torch.arange(3, dtype=torch.int32)[None]
+
+    def run(params, s):
+        return TL.attention_layer(params, x, s, rope_cs=None, cache=None,
+                                  pos=0, q_positions=pos)[0]
+
+    twice = dict(p, q_norm=2 * p["q_norm"], k_norm=2 * p["k_norm"])
+    assert not torch.allclose(run(p, spec), run(twice, spec))
+    plain = dataclasses.replace(spec, qk_norm=False)
+    assert not torch.allclose(run(p, spec), run(p, plain))
+    mrope = dataclasses.replace(qk, rope="mrope", mrope_sections=(4, 6, 6))
+    with pytest.raises(NotImplementedError, match="item 9") as refused:
+        param_specs(mrope)
+    assert "qk" not in str(refused.value).lower()
 
 
 def test_init_caches_size_rings_and_global_caches():

@@ -38,19 +38,28 @@ def tiny():
 @pytest.mark.parametrize("name", ["llama2-7b", "llama2-13b",
                                   "llama2-7b-tiny", "gemma2-2b",
                                   "gemma2-2b-tiny", "h2o-danube-3-4b",
-                                  "h2o-danube-3-4b-tiny"])
+                                  "h2o-danube-3-4b-tiny", "qwen2-moe-a2.7b",
+                                  "qwen2-moe-a2.7b-tiny",
+                                  "qwen3-moe-235b-a22b",
+                                  "qwen3-moe-235b-a22b-tiny"])
 def test_configs_equal_the_reference(name):
     assert dataclasses.asdict(get_config(name)) == \
         dataclasses.asdict(jax_config(name))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bridge_round_trip_is_exact(dtype):
-    cfg = jax_config("llama2-7b").tiny()
+# the llama cases keep their ids; the MoE ones carry an f32 router
+@pytest.mark.parametrize("dtype,name", [
+    pytest.param(dt, name, id=dt if name == "llama2-7b" else f"{dt}-{name}")
+    for name in ("llama2-7b", "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b")
+    for dt in ("float32", "bfloat16")])
+def test_bridge_round_trip_is_exact(dtype, name):
+    cfg = jax_config(name).tiny()
     tree = jax.tree.map(np.asarray, JT.init_params(
         cfg, jax.random.PRNGKey(1), getattr(jnp, dtype)))
     flat = from_jax_params(tree)
-    assert all(str(t.dtype) == f"torch.{dtype}" for t in flat.values())
+    assert all(str(t.dtype) == ("torch.float32" if k.endswith("w_router")
+                                else f"torch.{dtype}")
+               for k, t in flat.items())
     back = to_jax_params(flat)
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
