@@ -123,7 +123,32 @@ Phases, each printing one JSON line:
            on both: a step is left out only where its own token chose
            other experts on one path (MOE_RULE). The kernels phase holds K1
            at qwen3's decode step (``K1_STEPS["qwen3_step"]``) and K7 at
-           qwen2-moe's expert and router products (``K7_MOE``).
+           qwen2-moe's expert and router products (``K7_MOE``);
+  gqa      the grouped- and multi-query configs: internlm2-20b (G 6) and
+           granite-34b (G 48) at small widths with those group sizes on
+           the CPU against the card; internlm2-20b at full width and depth
+           (random bf16 weights, int8 KV) through LLMServer(backend=
+           "fused") (A: four requests, as the families phase checks them),
+           the paged backend (B: eight requests, three forking a
+           256-token prefix, chunked then packed; K2, K3, K4 counted by
+           route; every step held to the fused path, packed to chunked)
+           and the split backend at ℓ = 8 (C: K7 by route); granite-34b
+           the same, fused (D), paged chunked (E) and split (F: its
+           ungated GELU w_up through K7). The kernels phase holds K1 at
+           both decode steps (``K1_STEPS``), K2 to K4 at both group sizes
+           (``GQA_GROUPS``) and K7 at granite's w_up (``K7_SLICE16``);
+  ssm      the state-space configs: mamba2-780m tiny and jamba-v0.1-52b
+           at small widths with its whole period-8 pattern on the CPU
+           against the card; mamba2-780m on f32 weights at full width and
+           depth, the step recurrence held to the chunked prefill and a
+           bf16 recurrent state to the f32 one; mamba2-780m on bf16
+           weights through the fused backend (A: requests of 4160, 4160,
+           256 and 256 tokens, K1 never) and the split backend at ℓ = 8
+           (B: K5, K6, K7 on the SSM projections); jamba-v0.1-52b at full
+           width over 2 of its 4 blocks fused (C: 1024, 1024, 256, 256
+           tokens, K1 once an attention layer and step, MoE held by
+           MOE_RULE) and split at ℓ = 8 (D). The kernels phase holds K7 at
+           mamba2's projections (``K7_SLICE16``).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -145,7 +170,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed",
-          "split", "spec", "service", "disagg", "families", "moe")
+          "split", "spec", "service", "disagg", "families", "moe", "gqa",
+          "ssm")
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -278,16 +304,21 @@ def _decode_inputs(torch, b, kh, g, hd, s, fill, qdtype, gen, device,
 # K1's timed shapes beside the kernels phase's main one (B, K, G, hd, S,
 # live slots a row): the serve run's last decode step (rows at positions up
 # to 191), the split run's longest row (160 live slots),
-# h2o-danube-3-4b's decode step over a 4096-slot ring that has wrapped, and
-# qwen3-moe-235b-a22b's (64 heads on 4 kv heads: 16 query heads a kv head)
+# h2o-danube-3-4b's decode step over a 4096-slot ring that has wrapped,
+# qwen3-moe-235b-a22b's (64 heads on 4 kv heads: 16 query heads a kv head),
+# internlm2-20b's (48 on 8: G 6, groups of 4 and 2) and granite-34b's (48
+# on 1: G 48, twelve groups of 4 reading the same slots)
 K1_STEPS = {"serve_step": (2, 32, 1, 128, 1024, 192),
             "split_step": (1, 32, 1, 128, 1024, 160),
             "danube_step": (2, 8, 4, 120, 4096, 4096),
-            "qwen3_step": (2, 4, 16, 128, 1024, 1024)}
+            "qwen3_step": (2, 4, 16, 128, 1024, 1024),
+            "internlm2_step": (2, 8, 6, 128, 1024, 1024),
+            "granite_step": (2, 1, 48, 128, 1024, 1024)}
 # the ring steps' q_pos: slot t holds the p = t (mod W) in (q_pos - W, q_pos]
 K1_RING_Q_POS = {"danube_step": 4223}
 # the steps held to the plain version in f32 and bf16 q before their timing
-K1_HELD_STEPS = ("danube_step", "qwen3_step")
+K1_HELD_STEPS = ("danube_step", "qwen3_step", "internlm2_step",
+                 "granite_step")
 
 
 def ring_positions(torch, b, s, w, q_pos, device):
@@ -1149,6 +1180,15 @@ K7_MOE = {"expert_up": (1, 2048, 1408, "bfloat16"),
           "expert_down": (1, 1408, 2048, "bfloat16"),
           "router": (1, 2048, 60, "float32")}
 K7_MOE_EXPERTS = 4  # experts in the code matrix an expert view is cut from
+# the edge's decode products of the GQA/MQA and state-space configs, held
+# and timed as K7_MOE's (one expert: the whole code matrix): granite-34b's
+# ungated w_up, and mamba2-780m's w_z and w_x (N d_inner), w_B and w_C
+# (N d_state), w_dt (N 48 heads, no multiple of 16) and w_out
+K7_SLICE16 = {"granite_w_up": (1, 6144, 24576, "bfloat16"),
+              "mamba2_w_z": (1, 1536, 3072, "bfloat16"),
+              "mamba2_w_B": (1, 1536, 128, "bfloat16"),
+              "mamba2_w_dt": (1, 1536, 48, "bfloat16"),
+              "mamba2_w_out": (1, 3072, 1536, "bfloat16")}
 # K7's device functions (csrc/dequant_matmul.cu), as a profile names them
 K7_DEVICE_NAMES = ("gemm_kernel", "gemv_kernel", "gemv16_kernel",
                    "splitk_reduce_kernel", "tc_gemm_kernel",
@@ -1533,9 +1573,9 @@ def _kernel_k7(ctx) -> dict:
     # the MoE edge's decode products: the last expert's rows of a code
     # matrix (a view at an offset of (E - 1)·K·N bytes), and the router
     _, f32_peak = peak_rates(ctx["device_name"])
-    moe = {}
-    for name, (mm, km, nm, xdt) in K7_MOE.items():
-        e = 1 if name == "router" else K7_MOE_EXPERTS
+    moe, slice16 = {}, {}
+    for name, (mm, km, nm, xdt) in {**K7_MOE, **K7_SLICE16}.items():
+        e = K7_MOE_EXPERTS if name in K7_MOE and name != "router" else 1
         full = torch.randint(-7, 8, (e * km, nm), generator=gen,
                              device=device, dtype=torch.int8)
         cm = full[(e - 1) * km:]
@@ -1567,12 +1607,13 @@ def _kernel_k7(ctx) -> dict:
         b_ms = nb / bw * 1e3
         o_ms = 2 * mm * nm * km / (BF16_PEAK if xdt == "bfloat16"
                                    else f32_peak) * 1e3
-        moe[name] = {"m_k_n": [mm, km, nm], "x_dtype": xdt, "route": way,
-                     "vec": dm.gemv_vec(nm, cm.data_ptr(), sm.data_ptr()),
-                     "kernel_ms": t["kernel"], "plain_ms": t["plain"],
-                     "library_ms": t["library"], "bytes": nb,
-                     "bound_ms": max(b_ms, o_ms),
-                     "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+        (moe if name in K7_MOE else slice16)[name] = {
+            "m_k_n": [mm, km, nm], "x_dtype": xdt, "route": way,
+            "vec": dm.gemv_vec(nm, cm.data_ptr(), sm.data_ptr()),
+            "kernel_ms": t["kernel"], "plain_ms": t["plain"],
+            "library_ms": t["library"], "bytes": nb,
+            "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
 
     nbytes, bound_ms, bound_by = bound(1)
     ctx["kernels"]["dequant_matmul"] = {
@@ -1590,13 +1631,17 @@ def _kernel_k7(ctx) -> dict:
             for mp, r in prefill.items()},
         "moe": {name: {key: r[key] for key in (
             "route", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")} for name, r in moe.items()}}
+            "bound_by")} for name, r in moe.items()},
+        "slice16": {name: {key: r[key] for key in (
+            "route", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")} for name, r in slice16.items()}}
     return {"checks": checks, "tol_rel_to_abs_sum": K7_REL,
             "main_shape": [m, k, n], "bytes": nbytes, "bound_ms": bound_ms,
             "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
             "library_ms": ms["library"],
             "achieved_GBps": nbytes / ms["kernel"] / 1e6,
-            "gemv": gemv, "prefill": prefill, "moe": moe}
+            "gemv": gemv, "prefill": prefill, "moe": moe,
+            "slice16": slice16}
 
 
 def _graph_replay(ctx) -> dict:
@@ -1704,6 +1749,190 @@ def _graph_replay(ctx) -> dict:
     return {"replay_bit_identical": res, "eager_twice_bit_identical": repeat}
 
 
+# K2, K3 and K4 at internlm2-20b's (8 kv heads, G 6) and granite-34b's (1
+# kv head, G 48) group sizes, hd 128, at the main path's shapes: the paged
+# decode tick's rows (``_kernel_k2``'s serve shape), the chunk call's rows
+# (``_kernel_k3``'s) and the packed tick (``VARLEN_MAIN``)
+GQA_GROUPS = {"internlm2": (8, 6), "granite": (1, 48)}
+
+
+def _expand_heads(t, g, dim):
+    """``t``'s kv heads (axis ``dim``) repeated for their ``g`` query heads:
+    the layout SDPA takes (a yardstick only)."""
+    return t.repeat_interleave(g, dim=dim)
+
+
+def _kernel_groups(ctx) -> dict:
+    """K2, K3 and K4 at each ``GQA_GROUPS`` group size, bf16 q (the main
+    path's), held to their plain versions in f32 and bf16 q, then timed
+    beside their bound, the plain version and SDPA over the dequantized
+    bf16 K/V with the kv heads expanded to the query heads."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import varlen_attention as va
+
+    device = ctx["device"]
+    rng = np.random.default_rng(26)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bw, f32_peak = peak_rates(ctx["device_name"])
+    out = {}
+
+    def held(name, fn, ref, zeros_at):
+        err = float((fn() - ref()).abs().max())
+        got = fn()
+        ok = bool(torch.isfinite(got).all()) and err <= ATOL and bool(
+            (got[zeros_at] == 0).all())
+        if not ok:
+            raise SystemExit(f"{name} disagrees at a GQA group: {err}")
+        return err
+
+    def dequant(codes, scale, bt):
+        return (pda.gather_pages(codes, bt).float()
+                * pda.gather_pages(scale, bt)[..., None]).to(torch.bfloat16)
+
+    for cfg_name, (kh, g) in GQA_GROUPS.items():
+        res = {}
+        # K2: the paged decode tick's eight rows
+        toks = [1024, 700, 301, 64, 17, 1, 0, 500]
+        r, hd, page, nb = len(toks), 128, 16, 64
+        pool = _paged_pool(torch, rng, kh, hd, page, nb, toks, device)
+        q_pos = torch.tensor([n - 1 for n in toks], dtype=torch.int32,
+                             device=device)
+        errs = []
+        for qdtype in (torch.float32, torch.bfloat16):
+            q = torch.from_numpy(rng.normal(size=(r, kh, g, hd)).astype(
+                np.float32)).to(device, qdtype)
+            errs.append(held("paged_decode_attention",
+                             lambda: pda.paged_decode_attention(q, *pool,
+                                                                q_pos),
+                             lambda: pda.paged_decode_attention_ref(
+                                 q, *pool, q_pos), q_pos < 0))
+        kc, ks, vc, vs, pool_pos, bt = pool
+        kd = _expand_heads(dequant(kc, ks, bt), g, 1)
+        vd = _expand_heads(dequant(vc, vs, bt), g, 1)
+        kv_pos = pda.gather_pages(pool_pos, bt)
+        mask = ((kv_pos >= 0) & (kv_pos <= q_pos[:, None]))[:, None, None, :]
+        ql = q.reshape(r, kh * g, 1, hd)
+        t = ctx["timer"]({
+            "kernel": lambda: pda.paged_decode_attention(q, *pool, q_pos),
+            "plain": lambda: pda.paged_decode_attention_ref(q, *pool, q_pos),
+            "library": lambda: sdpa(ql, kd, vd, attn_mask=mask)})
+        pages = sum(min(-(-n // page), nb) for n in toks)
+        nbytes = (q.numel() * 2 + pages * (kh * page * (2 * hd + 8)
+                                           + page * 4)
+                  + bt.numel() * 4 + r * 4 + r * kh * g * hd * 4)
+        bound = attention_bound(ctx, nbytes,
+                                4 * kh * g * hd * sum(toks), False)
+        res["paged_decode_attention"] = {
+            "shape": [r, kh, g, hd, page, nb], "tokens": toks,
+            "route": pda.route(hd, page, nb), "max_abs_err": max(errs),
+            **bound, "kernel_ms": t["kernel"], "plain_ms": t["plain"],
+            "library_ms": t["library"]}
+
+        # K3: the chunk call (two continuation chunks, a fork, five pads)
+        rows = [(256, 256), None, (512, 88), None, (200, 150), None, None,
+                None]
+        s = 256
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _prefill_inputs(torch, rng, r, s, kh, g, hd, page, nb,
+                                   rows, dtype, device)
+            start = ppa.first_call_position(args[7])
+            errs.append(held("paged_prefill_attention",
+                             lambda: ppa.paged_prefill_attention(
+                                 *args[:8], start, *args[8:]),
+                             lambda: ppa.paged_prefill_attention_ref(
+                                 *args[:8], start, *args[8:]),
+                             args[7] < 0))
+        q, kc, ks, vc, vs, pool_pos, bt, qp, kf, vf = args
+        hist = pda.gather_pages(pool_pos, bt)
+        kv_pos = torch.cat([torch.where(hist < start[:, None], hist, -1),
+                            qp], dim=1)
+        k_all = _expand_heads(torch.cat([dequant(kc, ks, bt),
+                                         kf.transpose(1, 2)], dim=2), g, 1)
+        v_all = _expand_heads(torch.cat([dequant(vc, vs, bt),
+                                         vf.transpose(1, 2)], dim=2), g, 1)
+        ql = q.permute(0, 2, 3, 1, 4).reshape(r, kh * g, s, hd)
+        mask = ((kv_pos[:, None, :] >= 0)
+                & (kv_pos[:, None, :] <= qp[:, :, None]))[:, None]
+        t = ctx["timer"]({
+            "kernel": lambda: ppa.paged_prefill_attention(*args[:8], start,
+                                                          *args[8:]),
+            "plain": lambda: ppa.paged_prefill_attention_ref(
+                *args[:8], start, *args[8:]),
+            "library": lambda: sdpa(ql, k_all, v_all, attn_mask=mask)},
+            iters=10)
+        pages, pairs, live = 0, 0, 0
+        for x in rows:
+            if x is not None:
+                pages += min(-(-x[0] // page), nb)
+                pairs += x[1] * x[0] + x[1] * (x[1] + 1) // 2
+                live += x[1]
+        nbytes = (live * kh * (g + 2) * hd * 2 + pages * (
+            kh * page * (2 * hd + 8) + page * 4) + bt.numel() * 4
+            + qp.numel() * 4 + r * 4 + q.numel() * 4)
+        bound = attention_bound(ctx, nbytes, 4 * hd * kh * g * pairs, True)
+        res["paged_prefill_attention"] = {
+            "shape": [r, s, kh, g, hd, page, nb], "rows": rows,
+            "query_rows_a_kv_head": s * g, "max_abs_err": max(errs),
+            **bound, "kernel_ms": t["kernel"], "plain_ms": t["plain"],
+            "library_ms": t["library"]}
+
+        # K4: the packed tick (six decode rows, chunks of 200 and 50)
+        m = VARLEN_MAIN
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _varlen_inputs(torch, rng, m["segs"], kh, g, hd, page, nb,
+                                  m["pad"], dtype, device)
+            start = va.segment_start(args[7], args[8], len(m["segs"]))
+            full = (*args[:9], start, *args[9:])
+            errs.append(held("varlen_attention",
+                             lambda: va.varlen_attention(*full),
+                             lambda: va.varlen_attention_ref(*full),
+                             (slice(None), args[8] < 0)))
+        q, kc, ks, vc, vs, pool_pos, bt, qp, tok_slot, kf, vf = args
+        nr, tt = len(m["segs"]), q.shape[1]
+        rows_list = va.segment_rows(tok_slot, nr)
+        hist = pda.gather_pages(pool_pos, bt)
+        sp = hist.shape[1]
+        ok_hist = (hist >= 0) & (hist < start[:, None])
+        own = tok_slot[:, None] == torch.arange(nr, device=device)
+        fresh_ok = ((tok_slot[None, :] == tok_slot[:, None])
+                    & (tok_slot[None, :] >= 0) & (qp[None, :] <= qp[:, None])
+                    & (qp[None, :] >= 0))
+        mask = torch.cat([(own[:, :, None] & ok_hist[None]).reshape(
+            tt, nr * sp), fresh_ok], dim=1)
+        k_all = torch.cat([dequant(kc, ks, bt).transpose(0, 1).reshape(
+            kh, nr * sp, hd), kf], dim=1)
+        v_all = torch.cat([dequant(vc, vs, bt).transpose(0, 1).reshape(
+            kh, nr * sp, hd), vf], dim=1)
+        k_all, v_all = (_expand_heads(x, g, 0)[None] for x in (k_all, v_all))
+        ql = q.permute(0, 2, 1, 3).reshape(1, kh * g, tt, hd)
+        t = ctx["timer"]({
+            "kernel": lambda: va.varlen_attention(*full, rows_list),
+            "plain": lambda: va.varlen_attention_ref(*full),
+            "library": lambda: sdpa(ql, k_all, v_all, attn_mask=mask)},
+            iters=10)
+        pages, pairs, live = 0, 0, 0
+        for h, n in m["segs"]:
+            if n:
+                pages += min(-(-h // page), nb)
+                pairs += n * h + n * (n + 1) // 2
+                live += n
+        nbytes = (live * kh * (g + 2) * hd * 2 + pages * (
+            kh * page * (2 * hd + 8) + page * 4) + bt.numel() * 4
+            + 2 * tt * 4 + nr * 4 + q.numel() * 4)
+        bound = attention_bound(ctx, nbytes, 4 * hd * kh * g * pairs, True)
+        res["varlen_attention"] = {
+            "segs": m["segs"], "K": kh, "G": g, "T": tt,
+            "max_abs_err": max(errs), **bound, "kernel_ms": t["kernel"],
+            "plain_ms": t["plain"], "library_ms": t["library"]}
+        out[cfg_name] = res
+    return out
+
+
 def phase_kernels(ctx) -> None:
     emit({"phase": "kernels", "nvidia_smi": ctx["smi"],
           "decode_attention": _kernel_k1(ctx),
@@ -1713,6 +1942,7 @@ def phase_kernels(ctx) -> None:
           "varlen_attention": _kernel_k4(ctx),
           "tabq_ts_encode": _kernel_k5_k6(ctx),
           "dequant_matmul": _kernel_k7(ctx),
+          "gqa_groups": _kernel_groups(ctx),
           "cuda_graph": _graph_replay(ctx)})
 
 
@@ -1904,11 +2134,13 @@ def _route_flips(sel_a, sel_b):
 
 
 def _cache_codes(caches):
-    """The int8 K and V codes of every layer's cache (B, K, S, hd), by
-    slot: (B, S, L·2·K·hd) on the host; None for an unquantized cache."""
+    """The int8 K and V codes of every attention layer's cache (B, K, S,
+    hd), by slot: (B, S, L·2·K·hd) on the host; None for an unquantized
+    cache. A Mamba-2 layer's state has no slots and no codes."""
     import numpy as np
     import torch
 
+    caches = [c for c in caches if not isinstance(c, tuple)]
     if caches[0].k.dtype != torch.int8:
         return None
     return np.concatenate([
@@ -1955,8 +2187,10 @@ def _moe_hold(rows, tol, free, min_tokens):
     differing (layer, position) pairs before it) and ``codes`` (n counts
     of cache slots up to it whose int8 codes differ), each None where not
     recorded, ``gaps`` ((n, L) router gaps of each path, for the report).
-    ``free``: the two streams ran free, so a row compares only up to the
-    first step where its tokens part. Returns the report, with ``ok``."""
+    A dense config's rows carry no ``flips`` and no ``gaps``: no step is
+    excused, so every step must lie within the bound. ``free``: the two
+    streams ran free, so a row compares only up to the first step where
+    its tokens part. Returns the report, with ``ok``."""
     import numpy as np
 
     steps = within = tokens = served = routed_otherwise = coded = 0
@@ -1972,7 +2206,7 @@ def _moe_hold(rows, tol, free, min_tokens):
             n = int(parted[0]) + 1 if parted.size else n
         for j in range(n):
             steps += 1
-            layers = row["flips"][j]
+            layers = row["flips"][j] if "flips" in row else np.zeros(0, int)
             before = earlier[j] if earlier is not None else 0
             slots = codes[j] if codes is not None else 0
             routed_otherwise += bool(len(layers) or before)
@@ -1983,7 +2217,7 @@ def _moe_hold(rows, tol, free, min_tokens):
                         "layers": layers.tolist(), "earlier_pairs": before,
                         "code_slots": slots,
                         "gaps": [[float(g[j, ly]) for ly in layers]
-                                 for g in row["gaps"]]}
+                                 for g in row.get("gaps", ())]}
                 (excused if len(layers) or before or slots
                  else unexplained).append(step)
                 continue
@@ -3123,15 +3357,15 @@ def _payloads_identical(held, opsc) -> dict:
     return {"payloads": len(held), "tokens": tokens, "identical": same}
 
 
-def _split_stages(ctx, eng, opts, prompt, cache_len) -> dict:
+def _split_stages(ctx, eng, opts, prompt, cache_len, profile_n=5) -> dict:
     """One split decode step at B = 1 after ``prompt`` (1, S), by stage:
     edge (the front layers: K7 and K1), payload (TS + TAB-Q and the
     reconstruction, with the host sync that reads its bits), cloud (the
     back layers and the head) and the whole step; host-included times
     (CUDA events, in turns), device-busy times and profiles
-    (``torch.profiler``), the decode payload's bits, and the edge's prefill
-    of the prompt (it rewrites the same cache entries): its device time and
-    profile."""
+    (``torch.profiler``, ``profile_n`` calls a stage), the decode payload's
+    bits, and the edge's prefill of the prompt (it rewrites the same cache
+    entries): its device time and profile."""
     import torch
     from repro_torch.models.transformer import init_caches
 
@@ -3158,8 +3392,9 @@ def _split_stages(ctx, eng, opts, prompt, cache_len) -> dict:
         stage_ms = ctx["timer"](stages, iters=20, device_only=False)
         device_ms, profiles = {}, {}
         for k, fn in stages.items():
-            device_ms[k], profiles[k] = _device_profile(torch, fn, 5)
-        _, top = _device_profile(torch, stages["step"], 5)
+            device_ms[k], profiles[k] = _device_profile(torch, fn,
+                                                        profile_n)
+        _, top = _device_profile(torch, stages["step"], profile_n)
         prefill = _device_profile(
             torch, lambda: eng._edge_front(toks, edge_c, 0, decode=False), 3)
     return {"host_included_ms": stage_ms, "device_busy_ms": device_ms,
@@ -4411,6 +4646,10 @@ FAMILY_TF_STEPS = 8  # decode steps held to the unquantized prefill
 # test_quantized_kv_decode_close)
 INT8_BOUND = 0.08
 FAMILY_SPLIT_LAYER = 8  # ℓ of h2o-danube-3-4b's 24 layers
+# the profiled calls of a full-width step (or split stage) in the families,
+# moe, gqa and ssm phases: one profiled call of these eager steps costs a
+# second or more of host time, and the device time a call is steady
+STEP_PROFILE_N = 2
 FAMILY_TINY = ("gemma2-2b-tiny", "h2o-danube-3-4b-tiny")
 
 
@@ -4434,6 +4673,18 @@ def _family_params(ctx, name, blocks=None) -> tuple:
     return cfg, params, time.perf_counter() - t0
 
 
+def _cache_bytes(caches) -> int:
+    """Bytes of per-layer caches: a KV cache's codes or values, scales and
+    positions, a Mamba-2 layer's conv and recurrent states."""
+    total = 0
+    for c in caches:
+        parts = c if isinstance(c, tuple) else (c.k, c.v, c.k_scale,
+                                                c.v_scale, c.pos)
+        total += sum(t.numel() * t.element_size() for t in parts
+                     if t is not None)
+    return total
+
+
 def _ring_check(cfg, caches, q_pos) -> dict:
     """Each layer's cache after a run that wrote positions 0 .. q_pos of
     every row: a windowed layer's ring holds exactly (q_pos - W, q_pos]
@@ -4443,6 +4694,8 @@ def _ring_check(cfg, caches, q_pos) -> dict:
 
     ok, slots = True, []
     for c, ls in zip(caches, cfg.pattern * cfg.num_blocks):
+        if ls.mixer.kind == "ssm":  # a recurrent state: no slots
+            continue
         s = c.pos.shape[1]
         t = torch.arange(s, device=c.pos.device)
         w = ls.mixer.sliding_window
@@ -4459,7 +4712,7 @@ def _ring_check(cfg, caches, q_pos) -> dict:
 
 def _family_fused(ctx, name, weights=None, lens=FAMILY_LENS,
                   cache_len=FAMILY_CACHE_LEN, max_tokens=(64, 48, 64, 32),
-                  opts_kw=None) -> dict:
+                  opts_kw=None, tf_held=True) -> dict:
     """One config at full width (random bf16 weights, int8 KV; ``weights``
     (cfg, params, seconds) or drawn here) answering four requests of
     prompt lengths ``lens`` through LLMServer(backend="fused"): a first
@@ -4473,8 +4726,12 @@ def _family_fused(ctx, name, weights=None, lens=FAMILY_LENS,
     written (a ring its window's), K1 equals its plain version on every
     layer's last query (gemma2: a random query over each local layer's
     ring), and the first decode steps' logits lie within the reference's
-    int8 bound of an unquantized prefill's (a MoE config step by step as
-    MOE_RULE says). Timed: the first prompt's
+    int8 bound of an unquantized prefill's over the same tokens (a MoE
+    config step by step as MOE_RULE says); on a config with Mamba-2 layers
+    that also compares the step recurrence with the chunked prefill, and
+    the steps' tokens must agree where the prefill's top-1/top-2 margin
+    exceeds the bound (with ``tf_held=False`` the comparison is reported,
+    not held). Timed: the first prompt's
     prefill, a decode step at B = 2 (host included; device busy) beside
     the bytes it must read (on a MoE config, of the experts it ran), the
     MoE layer alone (dispatch and expert products), peak memory against
@@ -4495,9 +4752,14 @@ def _family_fused(ctx, name, weights=None, lens=FAMILY_LENS,
     base = torch.cuda.memory_allocated()  # other phases' tensors
     cfg, params, init_s = weights or _family_params(ctx, name)
     opts = RuntimeOpts(quantized_kv=True, **(opts_kw or {}))
-    windowed_only = all(ls.mixer.attn_softcap is None for ls in cfg.pattern)
-    ffn = cfg.pattern[0].ffn
-    is_moe = ffn.kind == "moe"
+    layers = cfg.pattern * cfg.num_blocks
+    attn = [ls.mixer for ls in layers if ls.mixer.kind == "attn"]
+    windowed_only = all(m.attn_softcap is None for m in attn)
+    moe_layers = [ls.ffn for ls in layers
+                  if ls.ffn is not None and ls.ffn.kind == "moe"]
+    is_moe = bool(moe_layers)
+    ffn = moe_layers[0] if is_moe else None
+    ssm = len(attn) < len(layers)  # Mamba-2 layers carry a state
     rng = np.random.default_rng(24)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
 
@@ -4548,11 +4810,11 @@ def _family_fused(ctx, name, weights=None, lens=FAMILY_LENS,
             for o, f in zip(outs, first)),
         "tokens_in_vocab": all(int(o.tokens.min()) >= 0 and int(
             o.tokens.max()) < cfg.vocab_size for o in outs),
-        "k1_launches": launches == (cfg.num_layers * decode_steps
+        "k1_launches": launches == (len(attn) * decode_steps
                                     if windowed_only else 0)}
     if is_moe:  # k pairs a token and layer: the prefills' and each step's
         checks["moe_routes_k_pairs_a_token"] = moe_stats["pairs"] \
-            == cfg.num_layers * ffn.top_k * (sum(lens) + decode_rows)
+            == len(moe_layers) * ffn.top_k * (sum(lens) + decode_rows)
         checks["moe_drops_none"] = moe_stats["dropped"] == 0
 
     # request 0's stream, step by step, on the two long prompts
@@ -4600,7 +4862,7 @@ def _family_fused(ctx, name, weights=None, lens=FAMILY_LENS,
         checks["caches_hold_the_positions"] = rings["ok"]
         k1_err = 0.0
         if windowed_only:
-            checks["k1_calls_last_step"] = len(seen) == cfg.num_layers
+            checks["k1_calls_last_step"] = len(seen) == len(attn)
             for a in seen:
                 k1_err = max(k1_err, float((da.decode_attention(*a)
                                             - da.decode_attention_ref(*a))
@@ -4624,12 +4886,13 @@ def _family_fused(ctx, name, weights=None, lens=FAMILY_LENS,
         # the int8 cache against an unquantized prefill over the prompt
         # and the tokens so far: decode step j's logits
         plain = RuntimeOpts(quantized_kv=False, **(opts_kw or {}))
-        tf_rel, ref_sel, earlier = [], [], []
+        tf_rel, ref_sel, earlier, ref_lg = [], [], [], []
         for j in range(1, FAMILY_TF_STEPS + 1):  # request 0's row
             full = torch.cat([toks[:1], forced[:1, :j]], dim=1)
             with routes or contextlib.nullcontext():
                 ref, _ = prefill(params, cfg, full, None, plain)
             ref = ref.float().cpu()
+            ref_lg.append(ref[0].numpy())
             tf_rel.append(float((stepped[j][:1] - ref).abs().max()
                                 / ref.abs().max()))
             if routes:
@@ -4642,21 +4905,37 @@ def _family_fused(ctx, name, weights=None, lens=FAMILY_LENS,
                     st[0][:, None] for st in step_sel[:j - 1]], axis=1)
                 earlier.append(int((np.sort(mine, -1) != np.sort(
                     whole[:, 0, :-1], -1)).any(-1)[:-1].sum()))
+        ref_lg = np.stack(ref_lg)
+        step_tok = np.array([int(stepped[j][0].argmax())
+                             for j in range(1, FAMILY_TF_STEPS + 1)])
+        tf_tokens = None
+        if ssm:  # tokens where the prefill's margin exceeds the tolerance
+            margin = _margins(ref_lg[None])[0]
+            far = margin > INT8_BOUND
+            tf_tokens = {"compared": int(far.sum()), "equal": bool(
+                (step_tok[far] == ref_lg.argmax(-1)[far]).all())}
         if is_moe:  # step by step, MOE_RULE
+            z = np.zeros(len(tf_rel))
             int8_rule = _moe_hold([{
-                "err": np.array(tf_rel), "got": np.zeros(len(tf_rel)),
-                "want": np.zeros(len(tf_rel)),
-                "margin": np.zeros(len(tf_rel)),
+                "err": np.array(tf_rel),
+                "got": step_tok if ssm else z,
+                "want": ref_lg.argmax(-1) if ssm else z,
+                "margin": _margins(ref_lg[None])[0] if ssm else z,
                 "flips": _route_flips(np.stack([r[0] for r in ref_sel]),
                                       np.stack([d[0] for d in step_sel])),
                 "earlier": earlier,
                 "gaps": (np.stack([r[1] for r in ref_sel]),
                          np.stack([d[1] for d in step_sel]))}],
                 INT8_BOUND, False, 0)
-            checks["int8_within_reference_bound"] = int8_rule["ok"]
+            if tf_held:
+                checks["int8_within_reference_bound"] = int8_rule["ok"]
         else:
             int8_rule = None
-            checks["int8_within_reference_bound"] = max(tf_rel) < INT8_BOUND
+            if tf_held:
+                checks["int8_within_reference_bound"] = \
+                    max(tf_rel) < INT8_BOUND
+            if ssm and tf_held:
+                checks["steps_tokens_margin_rule"] = tf_tokens["equal"]
 
         # timings: the first prompt's prefill (B = 1), and one decode step
         # at B = 2 (it rewrites the same slots)
@@ -4674,29 +4953,33 @@ def _family_fused(ctx, name, weights=None, lens=FAMILY_LENS,
         step_moe = dict(moe.STATS)
         step_ms = ctx["timer"]({"step": step}, iters=20,
                                device_only=False)["step"]
-        device_ms, rows = _device_profile(torch, step, 5)
+        device_ms, rows = _device_profile(torch, step, STEP_PROFILE_N)
         moe_layer = _moe_layer_timing(ctx, cfg, params, opts, 2) \
             if is_moe else None
     weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
     meta = init_caches(cfg, 2, cache_len, opts, torch.device("meta"))
-    cache_bytes = sum(t.numel() * t.element_size() for c in meta
-                      for t in (c.k, c.v, c.k_scale, c.v_scale, c.pos))
+    cache_bytes = _cache_bytes(meta)
     bw, _ = peak_rates(ctx["device_name"])
-    m = cfg.pattern[0].mixer
     # a step reads every weight but the embedding's rows (a tied head
-    # reads them all) and the experts it does not run, and each layer's
-    # live slots: codes, scales, position
+    # reads them all) and the experts it does not run, each attention
+    # layer's live slots (codes, scales, position) and each Mamba-2
+    # layer's state, which it also writes back
     expert_bytes = 0
     if is_moe:
         expert_bytes = 3 * cfg.d_model * ffn.d_ff * 2  # bf16 gate, up, down
         weight_read = weight_bytes - expert_bytes * (
-            cfg.num_layers * ffn.num_experts - step_moe["experts"])
+            len(moe_layers) * ffn.num_experts - step_moe["experts"])
     else:
         weight_read = weight_bytes
     read = weight_read - (0 if cfg.tie_embeddings else
-                          params["embed"].numel() * 2) + sum(
-        2 * min(c.pos.shape[1], q_pos + 1)
-        * (m.num_kv_heads * (2 * m.head_dim + 8) + 4) for c in caches)
+                          params["embed"].numel() * 2)
+    for c, ls in zip(caches, layers):
+        m = ls.mixer
+        if m.kind == "ssm":
+            read += 2 * _cache_bytes([c])
+        else:
+            read += 2 * min(c.pos.shape[1], q_pos + 1) * (
+                m.num_kv_heads * (2 * m.head_dim + 8) + 4)
     gemm = _kernel_share(rows, GEMM_DEVICE_NAMES)
     k1 = _kernel_share(rows, K1_DEVICE_NAMES)
     out = {"config": cfg.name, "blocks": cfg.num_blocks,
@@ -4710,7 +4993,8 @@ def _family_fused(ctx, name, weights=None, lens=FAMILY_LENS,
            "wall_s": wall_s, "tokens_per_s": sum(lengths) / wall_s,
            "k1_max_abs_err_on_caches": k1_err,
            "int8_rel_err_per_step": tf_rel, "int8_bound": INT8_BOUND,
-           "int8_moe_rule": int8_rule,
+           "int8_bound_held": tf_held,
+           "int8_moe_rule": int8_rule, "steps_tokens": tf_tokens,
            "prefill_tokens": s, "prefill_s": prefill_s,
            "decode_step_b2": {
                "q_pos": q_pos, "host_included_ms": step_ms,
@@ -4732,8 +5016,8 @@ def _family_fused(ctx, name, weights=None, lens=FAMILY_LENS,
 
 
 def _moe_layer_timing(ctx, cfg, params, opts, b) -> dict:
-    """Block 0's MoE layer alone on a decode step's input (B rows, one
-    token each, in the weights' dtype): host-included time (CUDA events)
+    """Block 0's first MoE layer alone on a decode step's input (B rows,
+    one token each, in the weights' dtype): host-included time (CUDA events)
     and device time (``torch.profiler``), split into the GEMMs (router,
     experts, shared expert) and everything else (the dispatch: softmax,
     top-k, ranks, grouping, gathers, the combine, the SiLU products), and
@@ -4742,7 +5026,8 @@ def _moe_layer_timing(ctx, cfg, params, opts, b) -> dict:
     from repro_torch.models import moe
     from repro_torch.models.transformer import layer_params
 
-    ls, p = layer_params(cfg, params, (0, 1))[0]
+    ls, p = next((ls, p) for ls, p in layer_params(cfg, params, (0, 1))
+                 if ls.ffn is not None and ls.ffn.kind == "moe")
     gen = torch.Generator(device=ctx["device"]).manual_seed(3)
     x = torch.randn((b, 1, cfg.d_model), generator=gen,
                     device=ctx["device"]).to(params["embed"].dtype)
@@ -4765,15 +5050,23 @@ def _moe_layer_timing(ctx, cfg, params, opts, b) -> dict:
             "experts_a_call": counts["experts"], "profile_top": rows[:10]}
 
 
-def _k7_per_edge_layer(cfg) -> int:
-    """K7 launches of one edge layer's forward apart from its routed
-    experts (each expert that runs adds 3): the 4 attention projections
+def _k7_per_edge_block(cfg) -> int:
+    """K7 launches of one edge block's forward apart from its routed
+    experts (each expert that runs adds 3): a layer's 4 attention
+    projections or a Mamba-2 layer's 6 (``conv_w`` is used dequantized),
     and the ffn's products (an MLP's 2 or 3; a MoE layer's router and its
-    shared expert's 3)."""
-    ffn = cfg.pattern[0].ffn
-    if ffn.kind != "moe":
-        return 4 + (3 if ffn.gated else 2)
-    return 4 + 1 + (3 if ffn.num_shared else 0)
+    shared expert's 3; none without an ffn)."""
+    n = 0
+    for ls in cfg.pattern:
+        n += 4 if ls.mixer.kind == "attn" else 6
+        f = ls.ffn
+        if f is None:
+            continue
+        if f.kind != "moe":
+            n += 3 if f.gated else 2
+        else:
+            n += 1 + (3 if f.num_shared else 0)
+    return n
 
 
 def _family_split(ctx, name="h2o-danube-3-4b", weights=None,
@@ -4786,8 +5079,8 @@ def _family_split(ctx, name="h2o-danube-3-4b", weights=None,
     config, once a projection, the router and each expert the edge ran);
     the first request's payloads held to their plain versions after the
     run; an uncompressed full-precision split equal to the Engine bit for
-    bit; one decode step by stage. Each request asks for ``n_new``
-    tokens."""
+    bit; one decode step by stage (STEP_PROFILE_N profiled calls a
+    stage). Each request asks for ``n_new`` tokens."""
     import gc
 
     import numpy as np
@@ -4846,27 +5139,34 @@ def _family_split(ctx, name="h2o-danube-3-4b", weights=None,
     k7_routes = dm.dequant_matmul.route_launches
     k7_routes.update(dict.fromkeys(k7_routes, 0))
     moe.reset_stats()
+    part_s, t0 = {}, time.perf_counter()
     outs = serve(srv)
+    part_s["serve"] = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.items()}
     k7_routes = dict(k7_routes)
     moe_counts = dict(moe.STATS)
     del eng._compress, eng._edge_front
+    t0 = time.perf_counter()
     payloads = _payloads_identical(held, opsc)
+    part_s["payloads"] = time.perf_counter() - t0
     payloads_n = len(prompts) * n_new
     decodes = len(prompts) * (n_new - 1)
-    k7_want = _k7_per_edge_layer(cfg) * opsc.split_layer * payloads_n \
+    blocks = opsc.split_layer // len(cfg.pattern)
+    k7_want = _k7_per_edge_block(cfg) * blocks * payloads_n \
         + 3 * edge_experts[0]
+    n_attn = cfg.num_blocks * sum(ls.mixer.kind == "attn"
+                                  for ls in cfg.pattern)
     checks = {
         "payloads_identical_to_plain": payloads["identical"],
         "lengths": [len(o.tokens) for o in outs] == [n_new] * 4,
-        "k1_launches": launches["decode_attention"]
-        == cfg.num_layers * decodes,
+        "k1_launches": launches["decode_attention"] == n_attn * decodes,
         "k5_k6_launches": launches["tabq_adaptive"] == launches["ts_encode"]
         == payloads_n,
         "k7_launches": launches["dequant_matmul"] == k7_want,
         "no_early_exit": all(o.split_stats.early_exits == 0 for o in outs)}
 
     # a full-precision, uncompressed split: the Engine's streams bit for bit
+    t0 = time.perf_counter()
     srv16 = LLMServer(cfg, params, opts, backend="split",
                       opsc=OPSCConfig(split_layer=FAMILY_SPLIT_LAYER,
                                       qw_front=16),
@@ -4880,7 +5180,11 @@ def _family_split(ctx, name="h2o-danube-3-4b", weights=None,
         equal16.append(gen == o.tokens.tolist())
     checks["uncompressed_fp_front_equals_engine"] = all(equal16)
     del srv16, engine, outs16
-    by_stage = _split_stages(ctx, eng, opts, prompts[0][None], 1024)
+    part_s["uncompressed_and_engine"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_stage = _split_stages(ctx, eng, opts, prompts[0][None], 1024,
+                             STEP_PROFILE_N)
+    part_s["stages"] = time.perf_counter() - t0
     stage_ms, device_ms = by_stage["host_included_ms"], \
         by_stage["device_busy_ms"]
     profiles = by_stage["profiles"]
@@ -4892,7 +5196,7 @@ def _family_split(ctx, name="h2o-danube-3-4b", weights=None,
            "uncompressed_equal_engine": equal16,
            "uplink_bits_measured": [o.split_stats.uplink_bits_measured
                                     for o in outs],
-           "edge_weight_bytes": eng.edge_weight_bytes(),
+           "edge_weight_bytes": eng.edge_weight_bytes(), "part_s": part_s,
            "decode_step_b1": {
                "host_included_ms": stage_ms, "device_busy_ms": device_ms,
                "idle_share": {k: 1 - device_ms[k] / stage_ms[k]
@@ -4916,13 +5220,14 @@ def _family_split(ctx, name="h2o-danube-3-4b", weights=None,
     return out
 
 
-def _family_tiny(ctx, name, opts_kw=None) -> dict:
+def _family_tiny(ctx, name, opts_kw=None, cfg=None) -> dict:
     """A tiny config (f32 weights, int8 KV, 20-token prompts: past the
-    families' 16-slot window) greedily on the CPU (plain versions) and on
-    the card (kernels): logits within MODEL_REL, tokens under the margin
-    rule, as the model phase holds llama2-7b tiny (a MoE config step by
-    step as MOE_RULE says: the card fed the CPU's tokens, then the card's
-    Engine running free)."""
+    families' 16-slot window; ``cfg`` in place of the registered ``name``)
+    greedily on the CPU (plain versions) and on the card (kernels): logits
+    within MODEL_REL, tokens under the margin rule, as the model phase
+    holds llama2-7b tiny (a config with MoE layers step by step as
+    MOE_RULE says: the card fed the CPU's tokens, then the card's Engine
+    running free)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -4931,14 +5236,15 @@ def _family_tiny(ctx, name, opts_kw=None) -> dict:
     from repro_torch.serving.engine import Engine
 
     device = ctx["device"]
-    cfg = get_config(name)
+    cfg = cfg or get_config(name)
     opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True,
                        **(opts_kw or {}))
     cpu = init_params(cfg, torch.Generator().manual_seed(0))
     card = {k: v.to(device) for k, v in cpu.items()}
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 20))
     n, cache_len = 24, 64
-    moe = cfg.pattern[0].ffn.kind == "moe"
+    moe = any(ls.ffn is not None and ls.ffn.kind == "moe"
+              for ls in cfg.pattern)
     got = Engine(cfg, card, opts, cache_len=cache_len,
                  device=device).generate(prompts, n).tokens[:, 20:]
     if not moe:
@@ -4982,14 +5288,7 @@ def _family_tiny(ctx, name, opts_kw=None) -> dict:
 
 def phase_families(ctx) -> None:
     t0 = time.perf_counter()
-    part_s = {}
-
-    def timed(part, fn, *args):
-        t = time.perf_counter()
-        out = fn(ctx, *args)
-        part_s[part] = time.perf_counter() - t
-        return out
-
+    timed, part_s = _timed_parts(ctx)
     tiny = {name: timed(name, _family_tiny, name) for name in FAMILY_TINY}
     fused = {name: timed(name, _family_fused, name)
              for name in ("h2o-danube-3-4b", "gemma2-2b")}
@@ -5164,19 +5463,8 @@ def _moe_paged(ctx, weights, lens, max_new, prefix, forks, modes) -> dict:
 
 
 def phase_moe(ctx) -> None:
-    import gc
-
-    import torch
-
     t0 = time.perf_counter()
-    part_s = {}
-
-    def timed(part, fn, *args, **kw):
-        t = time.perf_counter()
-        out = fn(ctx, *args, **kw)
-        part_s[part] = time.perf_counter() - t
-        return out
-
+    timed, part_s = _timed_parts(ctx)
     tiny = {name: timed(name, _family_tiny, name, MOE_OPTS)
             for name in MOE_TINY}
     qwen2 = timed("init_qwen2", _family_params, "qwen2-moe-a2.7b")
@@ -5188,8 +5476,7 @@ def phase_moe(ctx) -> None:
     c = timed("C", _family_split, "qwen2-moe-a2.7b", qwen2,
               opts_kw=MOE_OPTS, n_new=MOE_SPLIT_MAX_TOKENS)
     del qwen2
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free_weights()
     qwen3 = timed("init_qwen3", _family_params, "qwen3-moe-235b-a22b",
                   MOE_QWEN3_BLOCKS)
     d = timed("D", _family_fused, "qwen3-moe-235b-a22b", qwen3,
@@ -5198,8 +5485,7 @@ def phase_moe(ctx) -> None:
     d_packed = timed("D_packed", _moe_paged, qwen3, MOE_QWEN3_LENS,
                      MOE_QWEN3_MAX_TOKENS[0], 0, (), ("packed",))
     del qwen3
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free_weights()
     checks = {f"tiny_{k}": v["ok"] for k, v in tiny.items()}
     for part, res in (("A", a), ("B", b), ("C", c), ("D", d),
                       ("D", d_packed)):
@@ -5213,6 +5499,430 @@ def phase_moe(ctx) -> None:
     if not all(checks.values()):
         raise SystemExit(f"moe: failed checks "
                          f"{[k for k, v in checks.items() if not v]}")
+
+
+# the GQA/MQA configs (ROADMAP queue 1 item 9.1): internlm2-20b (48 query
+# heads on 8 kv heads: G 6) and granite-34b (48 on 1: G 48, an ungated GELU
+# MLP) at full width and depth, random bf16 weights, int8 KV
+GQA_FUSED_LENS = (512, 512, 128, 128)
+GQA_FUSED_CACHE_LEN = 640
+GQA_MAX_TOKENS = (16, 16, 16, 16)
+# the paged runs: eight greedy requests, the last three forking a 256-token
+# prefix (K3), through the paged phase's pool and chunk budget
+GQA_PAGED_LENS = (600, 96, 450, 128, 200, 300, 280, 400)
+GQA_PAGED_PREFIX = 256
+GQA_PAGED_FORKS = (5, 6, 7)
+GQA_PAGED_MAX_TOKENS = 16
+GQA_SPLIT_MAX_TOKENS = 8  # the split runs: the split phase's prompts
+
+
+def _small_config(name, blocks=2):
+    """The registered config ``name`` at ``tiny()``'s widths (d_model 128,
+    vocab 256, head dim 32, d_ff 256; a Mamba-2 mixer of d_inner 256,
+    d_state 16, chunk 8; 4 experts top-2 of d_ff 64) over ``blocks`` of
+    its whole pattern (``tiny()`` keeps two layer kinds: jamba's has no
+    attention layer) with its full-width query heads a kv head (``tiny()``
+    gives internlm2 G 2 and granite G 4): 2 kv heads below G 12, else 1."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+
+    def mixer(m):
+        if m.kind != "attn":
+            return dataclasses.replace(m, d_inner=256, d_state=16,
+                                       head_dim=32, chunk=8)
+        g = m.num_heads // m.num_kv_heads
+        kv = 2 if g < 12 else 1
+        return dataclasses.replace(m, num_heads=g * kv, num_kv_heads=kv,
+                                   head_dim=32)
+
+    def ffn(f):
+        if f is None or f.kind == "mlp":
+            return f and dataclasses.replace(f, d_ff=256)
+        return dataclasses.replace(f, num_experts=4, top_k=2, d_ff=64)
+
+    pattern = tuple(dataclasses.replace(ls, mixer=mixer(ls.mixer),
+                                        ffn=ffn(ls.ffn))
+                    for ls in cfg.pattern)
+    return dataclasses.replace(cfg, name=name + "-small", d_model=128,
+                               vocab_size=256, pattern=pattern,
+                               num_blocks=blocks)
+
+
+def _dense_paged(ctx, weights, modes) -> dict:
+    """A dense config (``weights``: cfg, params, seconds) answering eight
+    greedy requests (``GQA_PAGED_*``: three fork a 256-token prefix)
+    through LLMServer(backend="paged") in each tick mode of ``modes`` (the
+    paged phase's pool: 8 slots, 513 pages of 16, a 256-token chunk
+    budget), the counters set to 0 just before each run and read just
+    after: K2 once a layer and decode step, K3 once a layer and chunk or
+    fork call, K4 once a layer and packed tick, each on the tensor cores
+    where it has them, K1 never, no page left. Every emitted token's
+    logits are recorded and held step by step (``_moe_hold`` with no
+    route record: every step within PAGED_REL of the largest logit, the
+    tokens equal at every step whose top-1/top-2 margin exceeds it): the
+    first mode's streams against the dense (fused) path fed the same
+    tokens, a later mode's against the first's up to the first step where
+    the two streams part."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import varlen_attention as va
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.serving.api import LLMServer
+
+    device = ctx["device"]
+    cfg, params, _ = weights
+    opts = RuntimeOpts(quantized_kv=True)
+    rng = np.random.default_rng(26)
+    shared = rng.integers(0, cfg.vocab_size, (GQA_PAGED_PREFIX,))
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in GQA_PAGED_LENS]
+    for i in GQA_PAGED_FORKS:
+        prompts[i][:GQA_PAGED_PREFIX] = shared
+
+    def sampling(i):
+        kw = dict(prefix_key="shared", prefix_len=GQA_PAGED_PREFIX) \
+            if i in GQA_PAGED_FORKS else {}
+        return SamplingParams(max_tokens=GQA_PAGED_MAX_TOKENS, **kw)
+
+    kernels = {"decode_attention": da.decode_attention,
+               "paged_decode_attention": pda.paged_decode_attention,
+               "paged_prefill_attention": ppa.paged_prefill_attention,
+               "varlen_attention": va.varlen_attention}
+    routed = {k: kernels[k].route_launches for k in
+              ("paged_decode_attention", "paged_prefill_attention",
+               "varlen_attention")}
+    runs, out, checks = {}, {}, {}
+    L = cfg.num_layers
+    for mode in modes:
+        srv = LLMServer(cfg, params, opts, backend="paged", tick_mode=mode,
+                        num_pages=513, page_size=16, max_slots=8,
+                        max_seq_len=1024, prefill_chunk=256, device=device)
+        sched = srv.backend.scheduler
+        rec = _record_logits(sched)
+        for fn in kernels.values():
+            fn.launches = 0
+        for r in routed.values():
+            r.update(dict.fromkeys(r, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [srv.submit(p, sampling(i)) for i, p in enumerate(prompts)]
+        outs = srv.run()
+        wall_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        routes = {k: dict(r) for k, r in routed.items()}
+        st = sched.stats
+        outs = [outs[r] for r in rids]
+        runs[mode] = (outs, rec)
+        checks.update({
+            f"{mode}_lengths": [len(o.tokens) for o in outs]
+            == [GQA_PAGED_MAX_TOKENS] * len(prompts),
+            f"{mode}_pool_reclaimed": sched.pool.pages_in_use == 0
+            and not sched.pool.refcount.any(),
+            f"{mode}_prefix_forks": st.prefix_forks
+            == len(GQA_PAGED_FORKS) - 1,
+            f"{mode}_k1_not_launched": launches["decode_attention"] == 0})
+        if mode == "packed":
+            checks["packed_k4_launches"] = launches["varlen_attention"] \
+                == L * st.packed_ticks > 0
+            checks["packed_k4_on_tensor_cores"] = \
+                routes["varlen_attention"]["tensor_cores"] \
+                == launches["varlen_attention"]
+        else:
+            checks[f"{mode}_k2_launches"] = \
+                launches["paged_decode_attention"] == L * st.steps > 0
+            checks[f"{mode}_k3_launches"] = \
+                launches["paged_prefill_attention"] \
+                == L * st.shared_prefill_calls > 0
+            checks[f"{mode}_k3_on_tensor_cores"] = \
+                routes["paged_prefill_attention"]["tensor_cores"] \
+                == launches["paged_prefill_attention"]
+        out[mode] = {"wall_s": wall_s,
+                     "tokens_per_s": sum(len(o.tokens) for o in outs)
+                     / wall_s, "ticks": sched._tick,
+                     "decode_steps": st.steps,
+                     "packed_ticks": st.packed_ticks,
+                     "shared_prefill_calls": st.shared_prefill_calls,
+                     "prefix_forks": st.prefix_forks,
+                     "launches": launches, "routes": routes}
+        del srv, sched
+    first = modes[0]
+    outs, rec = runs[first]
+    rows = []
+    for i, o in enumerate(outs):
+        dense = _teacher_forced(params, cfg, prompts[i][None],
+                                o.tokens[None], opts, 1024, device)[0]
+        rows.append({"err": np.abs(np.stack(rec[o.rid]) - dense).max(-1)
+                     / np.abs(dense).max(), "margin": _margins(dense),
+                     "got": o.tokens, "want": dense.argmax(-1)})
+    report = _moe_hold(rows, PAGED_REL, False, len(rows))
+    checks[f"{first}_equal_fused_step_rule"] = report["ok"]
+    out[first]["vs_fused"] = report
+    for mode in modes[1:]:
+        (want, want_rec), (got, got_rec) = runs[first], runs[mode]
+        rows = []
+        for w, g in zip(want, got):
+            wl = np.stack(want_rec[w.rid])
+            rows.append({"err": np.abs(np.stack(got_rec[g.rid]) - wl).max(-1)
+                         / np.abs(wl).max(), "margin": _margins(wl),
+                         "got": g.tokens, "want": w.tokens})
+        # streams running free part at the first step whose error crosses
+        # a top-1/top-2 gap
+        report = _moe_hold(rows, PAGED_REL, True, 1)
+        checks[f"{mode}_equal_{first}_step_rule"] = report["ok"]
+        out[mode]["vs_" + first] = dict(report, bit_identical_rows=[
+            bool(np.array_equal(w.tokens, g.tokens))
+            for w, g in zip(want, got)])
+    return {"config": cfg.name, "prompt_lens": list(GQA_PAGED_LENS),
+            "max_tokens": GQA_PAGED_MAX_TOKENS,
+            "shared_prefix": GQA_PAGED_PREFIX,
+            "forks": list(GQA_PAGED_FORKS), "tol": PAGED_REL, "runs": out,
+            "checks": checks}
+
+
+def _timed_parts(ctx):
+    """(``timed(part, fn, *args, **kw)``: ``fn(ctx, ...)`` with its seconds
+    kept under ``part``, the dict of those seconds)."""
+    part_s = {}
+
+    def timed(part, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(ctx, *args, **kw)
+        part_s[part] = time.perf_counter() - t
+        return out
+
+    return timed, part_s
+
+
+def _free_weights() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _phase_verdict(name, parts, checks) -> None:
+    """Fold the parts' checks into one verdict and fail the phase on any."""
+    for part, res in parts:
+        checks.update({f"{part}_{k}": v for k, v in res["checks"].items()})
+    if not all(checks.values()):
+        raise SystemExit(f"{name}: failed checks "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
+def phase_gqa(ctx) -> None:
+    t0 = time.perf_counter()
+    timed, part_s = _timed_parts(ctx)
+    # granite-34b's 67.3 GB of bf16 weights and its split's codes leave no
+    # room for llama2-7b's, which the earlier phases share; no later phase
+    # reads them (``_llama7b_params`` draws them again if asked)
+    ctx.pop("params_7b", None)
+    _free_weights()
+    tiny = {name: timed(name, _family_tiny, name, cfg=_small_config(name))
+            for name in ("internlm2-20b", "granite-34b")}
+    internlm2 = timed("init_internlm2", _family_params, "internlm2-20b")
+    a = timed("A", _family_fused, "internlm2-20b", internlm2,
+              lens=GQA_FUSED_LENS, cache_len=GQA_FUSED_CACHE_LEN,
+              max_tokens=GQA_MAX_TOKENS)
+    b = timed("B", _dense_paged, internlm2, ("chunked", "packed"))
+    c = timed("C", _family_split, "internlm2-20b", internlm2,
+              n_new=GQA_SPLIT_MAX_TOKENS)
+    del internlm2
+    _free_weights()
+    granite = timed("init_granite", _family_params, "granite-34b")
+    d = timed("D", _family_fused, "granite-34b", granite,
+              lens=GQA_FUSED_LENS, cache_len=GQA_FUSED_CACHE_LEN,
+              max_tokens=GQA_MAX_TOKENS)
+    e = timed("E", _dense_paged, granite, ("chunked",))
+    f = timed("F", _family_split, "granite-34b", granite,
+              n_new=GQA_SPLIT_MAX_TOKENS)
+    del granite
+    _free_weights()
+    checks = {f"tiny_{k}": v["ok"] for k, v in tiny.items()}
+    report = {"phase": "gqa", "nvidia_smi": ctx["smi"], "tiny": tiny,
+              "A_internlm2_fused": a, "B_internlm2_paged": b,
+              "C_internlm2_split": c, "D_granite_fused": d,
+              "E_granite_paged": e, "F_granite_split": f,
+              "phase_s": time.perf_counter() - t0, "part_s": part_s,
+              "checks": checks}
+    try:
+        _phase_verdict("gqa", (("A", a), ("B", b), ("C", c), ("D", d),
+                              ("E", e), ("F", f)), checks)
+    finally:
+        report["ok"] = all(checks.values())
+        emit(report)
+
+
+# the state-space configs (ROADMAP queue 1 item 9.2): mamba2-780m at full
+# width and depth; jamba-v0.1-52b at full width over 2 of its 4 blocks (16
+# of 32 layers: 2 attention, 14 Mamba-2, 8 MoE; all 4 blocks are 103 GB of
+# bf16), served dropless; random bf16 weights, int8 KV
+SSM_JAMBA_BLOCKS = 2
+SSM_JAMBA_LENS = (1024, 1024, 256, 256)
+SSM_JAMBA_CACHE_LEN = 1152
+SSM_JAMBA_MAX_TOKENS = (32, 32, 32, 32)
+SSM_SPLIT_MAX_TOKENS = 16  # mamba2's split: the split phase's prompts
+SSM_STATE_LEN = 256  # the bf16-state run: two prompts of this many tokens
+SSM_STATE_STEPS = 32
+# the recurrence hold: two prompts of FAMILY_LENS[0] tokens, then this many
+# decode steps, each against a prefill of the same tokens
+SSM_RECURRENCE_STEPS = 8
+
+
+def _ssm_f32_holds(ctx) -> dict:
+    """mamba2-780m at full width and depth on f32 weights (seed 0, 3.1 GB),
+    where bf16 rounding does not hide the algorithm: (a) the step
+    recurrence against the chunked prefill, two prompts of FAMILY_LENS[0]
+    tokens, then SSM_RECURRENCE_STEPS decode steps, step j's logits against
+    a prefill of the same S + j tokens (17 chunks of 256) within MODEL_REL
+    of the largest logit, their tokens equal wherever the prefill's
+    top-1/top-2 margin exceeds it, and the final recurrent states alike (the
+    conv state kept in f32, ``cache_dtype="float32"``: a bf16 conv state
+    rounds the f32 inputs it keeps); (b) ``ssm_state_dtype="bfloat16"``
+    against the f32 state: the recurrent states' bytes halved; two
+    SSM_STATE_LEN-token prompts decoded greedily with the f32 state, then
+    fed the same tokens with the bf16 state, every step within INT8_BOUND
+    of the largest logit (the reference's bound on a cache stored at lower
+    precision) and the tokens equal where the margin exceeds it; the bf16
+    state's own greedy stream held to the f32 one up to the first step
+    where they part (``_moe_hold``, no route record)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import (RuntimeOpts, decode_step,
+                                                init_caches, prefill)
+    from repro_torch.params import init_params
+
+    device = ctx["device"]
+    cfg = get_config("mamba2-780m")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         torch.float32, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(28)
+
+    # (a) the recurrence against the chunked prefill
+    s, n = FAMILY_LENS[0], SSM_RECURRENCE_STEPS
+    opts = RuntimeOpts(quantized_kv=True, cache_dtype="float32")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, s + n)),
+                           device=device)
+    stepped, refs = [], []
+    with torch.inference_mode():
+        _, caches = prefill(params, cfg, toks[:, :s], s + n, opts)
+        for j in range(n):
+            lg, caches = decode_step(params, cfg, toks[:, s + j:s + j + 1],
+                                     caches, s + j, opts)
+            stepped.append(lg.float().cpu().numpy())
+            ref, full = prefill(params, cfg, toks[:, :s + j + 1], s + n, opts)
+            refs.append(ref.float().cpu().numpy())
+        state_err = max(float((a[1] - b[1]).abs().max() / b[1].abs().max())
+                        for a, b in zip(caches, full))
+    stepped, refs = np.stack(stepped, 1), np.stack(refs, 1)  # (2, n, V)
+    err = np.abs(stepped - refs).max(-1) / np.abs(refs).max()
+    margin = _margins(refs)
+    rows = [{"err": err[r], "margin": margin[r],
+             "got": stepped[r].argmax(-1), "want": refs[r].argmax(-1)}
+            for r in range(2)]
+    recurrence = _moe_hold(rows, MODEL_REL, False, 1)
+    recurrence.update(prompt_len=s, steps=n, final_state_rel_err=state_err,
+                      rel_logit_err_by_step=err.max(0).tolist())
+
+    # (b) the bf16 state against the f32 state
+    f32 = RuntimeOpts(quantized_kv=True)
+    bf16 = RuntimeOpts(quantized_kv=True, ssm_state_dtype="bfloat16")
+    meta = torch.device("meta")
+    state_bytes = {
+        name: sum(c[1].numel() * c[1].element_size() for c in init_caches(
+            cfg, 2, 1, o, meta))
+        for name, o in (("float32", f32), ("bfloat16", bf16))}
+    prompts = rng.integers(0, cfg.vocab_size, (2, SSM_STATE_LEN))
+    cache_len = SSM_STATE_LEN + SSM_STATE_STEPS
+    want, want_lg = _greedy_stepwise(params, cfg, prompts, SSM_STATE_STEPS,
+                                     f32, cache_len, device)
+    forced = _teacher_forced(params, cfg, prompts, want, bf16, cache_len,
+                             device)
+    got, _ = _greedy_stepwise(params, cfg, prompts, SSM_STATE_STEPS, bf16,
+                              cache_len, device)
+    err = np.abs(forced - want_lg).max(-1) / np.abs(want_lg).max()
+    margin = _margins(want_lg)
+    teacher = _moe_hold([{"err": err[r], "margin": margin[r],
+                          "got": forced[r].argmax(-1), "want": want[r]}
+                         for r in range(2)], INT8_BOUND, False, 1)
+    free = _moe_hold([{"err": err[r], "margin": margin[r], "got": got[r],
+                       "want": want[r]} for r in range(2)], INT8_BOUND,
+                     True, 1)
+    del params, caches, full
+    _free_weights()
+    checks = {"recurrence_equals_chunked_prefill": recurrence["ok"],
+              "bf16_state_bytes_halved": state_bytes["bfloat16"] * 2
+              == state_bytes["float32"],
+              "bf16_state_teacher_forced": teacher["ok"],
+              "bf16_state_stream": free["ok"]}
+    return {"config": cfg.name, "weights": "float32", "init_s": init_s,
+            "recurrence": recurrence,
+            "bf16_state": {"state_bytes_b2": state_bytes,
+                           "prompt_len": SSM_STATE_LEN,
+                           "steps": SSM_STATE_STEPS,
+                           "rel_logit_err_by_step": err.max(0).tolist(),
+                           "teacher_forced": teacher, "free": free,
+                           "bit_identical_rows": [
+                               bool(np.array_equal(g, w))
+                               for g, w in zip(got, want)]},
+            "checks": checks}
+
+
+def phase_ssm(ctx) -> None:
+    t0 = time.perf_counter()
+    timed, part_s = _timed_parts(ctx)
+    # f32 conv states: a bf16 one rounds the f32 inputs it keeps, a
+    # boundary the CPU and the card can land on either side of
+    tiny_kw = dict(cache_dtype="float32")
+    tiny = {"mamba2-780m-tiny": timed("mamba2-780m-tiny", _family_tiny,
+                                      "mamba2-780m-tiny", tiny_kw),
+            "jamba-v0.1-52b-small": timed(
+                "jamba-v0.1-52b-small", _family_tiny, "jamba-v0.1-52b",
+                dict(MOE_OPTS, **tiny_kw),
+                cfg=_small_config("jamba-v0.1-52b"))}
+    holds = timed("f32_holds", _ssm_f32_holds)
+    mamba = timed("init_mamba2", _family_params, "mamba2-780m")
+    # on bf16 weights the state integrates each step's rounding
+    # differences: the step-against-prefill comparison is reported here and
+    # held on f32 weights (_ssm_f32_holds)
+    a = timed("A", _family_fused, "mamba2-780m", mamba,
+              max_tokens=(32, 24, 32, 16), tf_held=False)
+    b = timed("B", _family_split, "mamba2-780m", mamba,
+              n_new=SSM_SPLIT_MAX_TOKENS)
+    del mamba
+    _free_weights()
+    jamba = timed("init_jamba", _family_params, "jamba-v0.1-52b",
+                  SSM_JAMBA_BLOCKS)
+    c = timed("C", _family_fused, "jamba-v0.1-52b", jamba,
+              lens=SSM_JAMBA_LENS, cache_len=SSM_JAMBA_CACHE_LEN,
+              max_tokens=SSM_JAMBA_MAX_TOKENS, opts_kw=MOE_OPTS)
+    d = timed("D", _family_split, "jamba-v0.1-52b", jamba, opts_kw=MOE_OPTS,
+              n_new=MOE_SPLIT_MAX_TOKENS)
+    del jamba
+    _free_weights()
+    checks = {f"tiny_{k}": v["ok"] for k, v in tiny.items()}
+    report = {"phase": "ssm", "nvidia_smi": ctx["smi"], "tiny": tiny,
+              "f32_holds": holds, "A_mamba2_fused": a, "B_mamba2_split": b,
+              "C_jamba_fused": c, "D_jamba_split": d,
+              "phase_s": time.perf_counter() - t0, "part_s": part_s,
+              "checks": checks}
+    try:
+        _phase_verdict("ssm", (("f32", holds), ("A", a), ("B", b),
+                               ("C", c), ("D", d)), checks)
+    finally:
+        report["ok"] = all(checks.values())
+        emit(report)
 
 
 # ------------------------------------------------------------------- main
@@ -5250,7 +5960,7 @@ def main(argv=None) -> int:
                "packed": phase_packed, "split": phase_split,
                "spec": phase_spec, "service": phase_service,
                "disagg": phase_disagg, "families": phase_families,
-               "moe": phase_moe}
+               "moe": phase_moe, "gqa": phase_gqa, "ssm": phase_ssm}
     for name in PHASES:
         if name in phases:
             runners[name](ctx)

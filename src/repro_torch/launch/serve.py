@@ -8,15 +8,19 @@ of ``repro/launch/serve.py``).
 
 ``--arch`` takes any config of ``repro_torch.configs`` (llama2-7b,
 llama2-13b, gemma2-2b, h2o-danube-3-4b, qwen2-moe-a2.7b,
-qwen3-moe-235b-a22b); ``--split-layer`` is snapped to a pattern boundary
-(gemma2's pattern is two layers). Mixture-of-experts layers route
-dropless (``moe_capacity_factor=0.0``), as the reference serves them.
-``--num-blocks`` keeps the first blocks of a config too deep for one
+qwen3-moe-235b-a22b, internlm2-20b, granite-34b, mamba2-780m,
+jamba-v0.1-52b); ``--split-layer`` is snapped to a pattern boundary
+(gemma2's pattern is two layers, jamba's eight). Mixture-of-experts layers
+route dropless (``moe_capacity_factor=0.0``), as the reference serves
+them. ``--num-blocks`` keeps the first blocks of a config too deep for one
 card: qwen3-moe-235b-a22b's 94 blocks are 940 GB of f32 weights, four of
-them with its embedding and head about 45 GB:
+them with its embedding and head about 45 GB; jamba-v0.1-52b's 4 blocks
+of 8 layers are 206 GB of f32, one of them about 53 GB:
 
   python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \
       --num-blocks 4 --quantized-kv
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+      --num-blocks 1 --quantized-kv
 
 Runs on the CUDA card unless ``--device`` names another device.
 """

@@ -1,11 +1,12 @@
 """Model assembly (port of ``repro/models/transformer.py``, the llama,
-gemma2 and mixture-of-experts paths): a decoder of ``len(pattern) ×
-num_blocks`` attention layers whose parameters are stacked per pattern
-position; a layer's ffn is a (gated) MLP or, for an ``MoESpec``, the
-mixture-of-experts layer of :mod:`repro_torch.models.moe` (routed with
-``RuntimeOpts.moe_capacity_factor`` and ``moe_groups``; its auxiliary
-loss is dropped, as the reference's serving paths drop it). Entry
-points:
+gemma2, mixture-of-experts and state-space paths): a decoder of
+``len(pattern) × num_blocks`` layers whose parameters are stacked per
+pattern position; a layer's mixer is attention or a Mamba-2 block
+(:mod:`repro_torch.models.ssm`), its ffn a (gated) MLP, the
+mixture-of-experts layer of :mod:`repro_torch.models.moe` for an
+``MoESpec`` (routed with ``RuntimeOpts.moe_capacity_factor`` and
+``moe_groups``; its auxiliary loss is dropped, as the reference's serving
+paths drop it), or none (mamba2). Entry points:
 
   prefill(params, cfg, tokens, cache_len, opts)      → (last_logits, caches)
   decode_step(params, cfg, tokens, caches, pos, opts)→ (logits, caches)
@@ -19,10 +20,13 @@ and, over the paged pool (``serving.kv_pool.PagedKVPool.device_caches``):
   packed_step(params, cfg, tokens, caches, positions, slots, logit_rows,
               opts, quant_rows)
 
-``caches`` is a list with one ``KVCache`` (or ``PagedKVCache``) per layer,
-in depth order (the reference stacks them over blocks instead). Every entry
-point writes the caches in place. Everything runs on the device of
-``tokens``.
+``caches`` is a list with one entry per layer, in depth order (the
+reference stacks them over blocks instead): a ``KVCache`` (or
+``PagedKVCache``) for an attention layer, a ``(conv_state, ssm_state)``
+pair for a Mamba-2 layer (the paged pool refuses those). Every entry point
+writes the caches in place; an SSM state is stored back in its own dtypes
+(``RuntimeOpts.cache_dtype`` for the conv state, ``ssm_state_dtype`` for
+the recurrent state). Everything runs on the device of ``tokens``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from repro_torch.configs.base import ArchConfig, AttnSpec, MoESpec
 from repro_torch.kernels.decode_attention import padded_cache_len
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_layer
+from repro_torch.models.ssm import ssm_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +56,9 @@ class RuntimeOpts:
     moe_capacity_factor: float = 1.25  # <= 0: dropless routing
     # the MoE capacity rule's token groups (1: the whole call is one group)
     moe_groups: int = 1
+    # the SSM recurrent state's storage dtype (compute stays f32): bf16
+    # halves a Mamba layer's decode state
+    ssm_state_dtype: str = "float32"
 
 
 def layer_params(cfg: ArchConfig, params: dict, blocks=None) -> list:
@@ -82,21 +90,30 @@ def layer_params(cfg: ArchConfig, params: dict, blocks=None) -> list:
 
 def init_caches(cfg: ArchConfig, batch: int, cache_len: int,
                 opts: RuntimeOpts, device=None, num_blocks=None) -> list:
-    """One empty ``KVCache`` per layer of ``num_blocks`` blocks (default:
-    all), sized per pattern position as the reference sizes them: a
+    """One empty cache per layer of ``num_blocks`` blocks (default: all),
+    sized per pattern position as the reference sizes them: a
     sliding-window layer's ring holds ``min(cache_len, window)`` slots, a
     full layer ``cache_len``. Quantized caches take the kernel's
     kv-head-major int8 layout with that slot count rounded by
     ``padded_cache_len`` (pad slots keep pos = -1; a ring wraps within its
-    window)."""
+    window). A Mamba-2 layer gets zeros ``(conv_state (B, W - 1, d_inner +
+    2 d_state) in cache_dtype, ssm_state (B, H, P, N) in
+    ssm_state_dtype)``, whatever ``cache_len``."""
     caches = []
     for _ in range(cfg.num_blocks if num_blocks is None else num_blocks):
         for ls in cfg.pattern:
             m = ls.mixer
             if not isinstance(m, AttnSpec):
-                raise NotImplementedError(
-                    "only attention layers are ported (ROADMAP queue 1, "
-                    "item 9: the state-space mixers)")
+                conv_ch = m.d_inner + 2 * m.d_state
+                caches.append((
+                    torch.zeros((batch, m.conv_width - 1, conv_ch),
+                                dtype=getattr(torch, opts.cache_dtype),
+                                device=device),
+                    torch.zeros((batch, m.n_heads, m.d_inner // m.n_heads,
+                                 m.d_state),
+                                dtype=getattr(torch, opts.ssm_state_dtype),
+                                device=device)))
+                continue
             size = min(cache_len, m.sliding_window or cache_len)
             if opts.quantized_kv:
                 size = padded_cache_len(size)
@@ -113,9 +130,13 @@ def make_positions(cfg: ArchConfig, b: int, s: int, device=None):
 
 
 def rope_tables(cfg: ArchConfig, positions: torch.Tensor):
-    """(cos, sin) for the pattern's attention head_dim."""
-    return L.rope_table(positions, cfg.pattern[0].mixer.head_dim,
-                        cfg.rope_theta)
+    """(cos, sin) for the pattern's attention head_dim, or None when the
+    config has no attention layer or no rotary positions (``rope="none"``:
+    jamba, mamba2)."""
+    attn = [ls.mixer for ls in cfg.pattern if isinstance(ls.mixer, AttnSpec)]
+    if not attn or cfg.rope == "none":
+        return None
+    return L.rope_table(positions, attn[0].head_dim, cfg.rope_theta)
 
 
 def embed_inputs(cfg: ArchConfig, params: dict, tokens: torch.Tensor):
@@ -146,12 +167,22 @@ def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
                  opts: RuntimeOpts, decode: bool, attend_cache: bool = False,
                  packed: L.PackedLayout | None = None):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    out, cache = L.attention_layer(
-        p["mixer"], h, ls.mixer, rope_cs=rope_cs, cache=cache, pos=pos,
-        q_positions=q_positions, q_chunk=opts.q_chunk,
-        kv_chunk=opts.kv_chunk, decode=decode, attend_cache=attend_cache,
-        packed=packed)
+    if isinstance(ls.mixer, AttnSpec):
+        out, cache = L.attention_layer(
+            p["mixer"], h, ls.mixer, rope_cs=rope_cs, cache=cache, pos=pos,
+            q_positions=q_positions, q_chunk=opts.q_chunk,
+            kv_chunk=opts.kv_chunk, decode=decode, attend_cache=attend_cache,
+            packed=packed)
+    else:
+        conv_state, ssm_state = cache
+        out, (conv, state) = ssm_layer(p["mixer"], h, ls.mixer,
+                                       conv_state=conv_state,
+                                       ssm_state=ssm_state, decode=decode)
+        conv_state.copy_(conv)  # stored back in the caches' dtypes
+        ssm_state.copy_(state)
     x = x + out
+    if ls.ffn is None:  # a mixer-only layer (mamba2)
+        return x, cache
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if isinstance(ls.ffn, MoESpec):
         out, _ = moe_layer(p["ffn"], h, ls.ffn, opts.moe_capacity_factor,

@@ -18,6 +18,17 @@ leading axis, as in ``repro/models/transformer.py:98-121``:
   blocks/p{i}/ffn/w_down                  (nb, E, F, D)
   blocks/p{i}/ffn/shared/w_gate, w_up     (nb, D, S·F)  [num_shared S > 0]
   blocks/p{i}/ffn/shared/w_down           (nb, S·F, D)
+  a Mamba-2 mixer (``SSMSpec``, ``repro/models/ssm.py:22-41``; di =
+  d_inner, N = d_state, H = n_heads, W = conv_width, C = di + 2N):
+  blocks/p{i}/mixer/w_z, w_x              (nb, D, di)
+  blocks/p{i}/mixer/w_B, w_C              (nb, D, N)
+  blocks/p{i}/mixer/w_dt                  (nb, D, H)
+  blocks/p{i}/mixer/dt_bias, A_log, D     (nb, H)      f32 whatever the dtype
+  blocks/p{i}/mixer/conv_w                (nb, W, C)
+  blocks/p{i}/mixer/conv_b                (nb, C)
+  blocks/p{i}/mixer/norm                  (nb, di)
+  blocks/p{i}/mixer/w_out                 (nb, di, D)
+  a layer without an ffn (mamba2) has no ln2 and no ffn leaves.
 
 Weights keep the ``x @ W`` layout, W (d_in, d_out), so nothing is
 transposed on the way across.
@@ -31,21 +42,45 @@ import os
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig, AttnSpec, MLPSpec, MoESpec
+from repro_torch.configs.base import (ArchConfig, AttnSpec, MLPSpec, MoESpec,
+                                      SSMSpec)
 
 # leaves kept in f32 whatever the model's dtype: the router, whose logits
-# the reference computes in f32 (``moe.py:30``)
-F32_LEAVES = ("ffn/w_router",)
+# the reference computes in f32 (``moe.py:30``), and the SSM's step bias,
+# decay and skip, which it initialises in f32 (``ssm.py:34-36``)
+F32_LEAVES = ("ffn/w_router", "mixer/dt_bias", "mixer/A_log", "mixer/D")
+
+
+def _ssm_specs(specs: dict, p: str, nb: int, d: int, m: SSMSpec) -> None:
+    """A Mamba-2 mixer's leaves, the reference's shapes and scales."""
+    di, n, h = m.d_inner, m.d_state, m.n_heads
+    s_in = 1.0 / math.sqrt(d)
+    specs[p + "mixer/w_z"] = ((nb, d, di), s_in)
+    specs[p + "mixer/w_x"] = ((nb, d, di), s_in)
+    specs[p + "mixer/w_B"] = ((nb, d, n), s_in)
+    specs[p + "mixer/w_C"] = ((nb, d, n), s_in)
+    specs[p + "mixer/w_dt"] = ((nb, d, h), s_in)
+    specs[p + "mixer/dt_bias"] = ((nb, h), 0.0)
+    specs[p + "mixer/A_log"] = ((nb, h), 0.0)  # A = -exp(A_log) = -1
+    specs[p + "mixer/D"] = ((nb, h), None)
+    specs[p + "mixer/conv_w"] = ((nb, m.conv_width, di + 2 * n),
+                                 1.0 / math.sqrt(m.conv_width))
+    specs[p + "mixer/conv_b"] = ((nb, di + 2 * n), 0.0)
+    specs[p + "mixer/norm"] = ((nb, di), None)
+    specs[p + "mixer/w_out"] = ((nb, di, d), 1.0 / math.sqrt(di))
 
 
 def param_specs(cfg: ArchConfig) -> dict:
-    """``{key: (shape, init scale)}``; a scale of None means ones (norms).
-    The scales are the reference's: embed and head ×0.02, projections
-    ×1/√d_in (``layers.py:658-672,775-783``)."""
-    if cfg.embed != "token" or cfg.num_codebooks != 1 or cfg.rope != "rope":
-        raise NotImplementedError(f"{cfg.name}: only the token embedding "
-                                  f"and RoPE are ported (ROADMAP queue 1, "
-                                  f"item 9: M-RoPE, the codebook and "
+    """``{key: (shape, init scale)}``; a scale of None means ones (norms),
+    0.0 zeros (the SSM's biases and ``A_log``). The scales are the
+    reference's: embed and head ×0.02, projections ×1/√d_in
+    (``layers.py:658-672,775-783``, ``ssm.py:22-41``)."""
+    if cfg.embed != "token" or cfg.num_codebooks != 1 \
+            or cfg.rope not in ("rope", "none"):
+        raise NotImplementedError(f"{cfg.name}: only the token embedding, "
+                                  f"RoPE and no positions are ported "
+                                  f"(ROADMAP queue 1, item 9: M-RoPE, "
+                                  f"sinusoidal positions, the codebook and "
                                   f"vision embeddings)")
     d, v, nb = cfg.d_model, cfg.vocab_size, cfg.num_blocks
     specs = {"embed": ((v, d), 0.02), "final_norm": ((d,), None)}
@@ -53,22 +88,27 @@ def param_specs(cfg: ArchConfig) -> dict:
         specs["lm_head"] = ((d, v), 0.02)
     for i, ls in enumerate(cfg.pattern):
         m, f = ls.mixer, ls.ffn
-        if not isinstance(m, AttnSpec) or not isinstance(f, (MLPSpec,
-                                                             MoESpec)):
-            raise NotImplementedError(f"{cfg.name}: only attention + MLP or "
-                                      f"mixture-of-experts layers are ported "
-                                      f"(ROADMAP queue 1, item 9: the "
-                                      f"state-space mixers)")
+        if not isinstance(m, (AttnSpec, SSMSpec)) or not (
+                f is None or isinstance(f, (MLPSpec, MoESpec))):
+            raise NotImplementedError(f"{cfg.name}: only attention or "
+                                      f"Mamba-2 mixers with an MLP, a "
+                                      f"mixture of experts or no ffn are "
+                                      f"ported")
         p = f"blocks/p{i}/"
-        hq, hk = m.num_heads * m.head_dim, m.num_kv_heads * m.head_dim
         specs[p + "ln1"] = ((nb, d), None)
-        specs[p + "mixer/wq"] = ((nb, d, hq), 1.0 / math.sqrt(d))
-        specs[p + "mixer/wk"] = ((nb, d, hk), 1.0 / math.sqrt(d))
-        specs[p + "mixer/wv"] = ((nb, d, hk), 1.0 / math.sqrt(d))
-        specs[p + "mixer/wo"] = ((nb, hq, d), 1.0 / math.sqrt(hq))
-        if m.qk_norm:
-            specs[p + "mixer/q_norm"] = ((nb, m.head_dim), None)
-            specs[p + "mixer/k_norm"] = ((nb, m.head_dim), None)
+        if isinstance(m, SSMSpec):
+            _ssm_specs(specs, p, nb, d, m)
+        else:
+            hq, hk = m.num_heads * m.head_dim, m.num_kv_heads * m.head_dim
+            specs[p + "mixer/wq"] = ((nb, d, hq), 1.0 / math.sqrt(d))
+            specs[p + "mixer/wk"] = ((nb, d, hk), 1.0 / math.sqrt(d))
+            specs[p + "mixer/wv"] = ((nb, d, hk), 1.0 / math.sqrt(d))
+            specs[p + "mixer/wo"] = ((nb, hq, d), 1.0 / math.sqrt(hq))
+            if m.qk_norm:
+                specs[p + "mixer/q_norm"] = ((nb, m.head_dim), None)
+                specs[p + "mixer/k_norm"] = ((nb, m.head_dim), None)
+        if f is None:
+            continue
         specs[p + "ln2"] = ((nb, d), None)
         if isinstance(f, MoESpec):
             e, ff = f.num_experts, f.d_ff
@@ -102,8 +142,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     params = {}
     for key, (shape, scale) in param_specs(cfg).items():
         dt = torch.float32 if key.endswith(F32_LEAVES) else dtype
-        if scale is None:
-            params[key] = torch.ones(shape, dtype=dt, device=device)
+        if scale is None or scale == 0.0:
+            fill = torch.ones if scale is None else torch.zeros
+            params[key] = fill(shape, dtype=dt, device=device)
             continue
         t = torch.empty(shape, dtype=dt, device=device)
         parts = t.reshape(-1, *shape[-2:]).unbind(0) if len(shape) >= 3 \

@@ -5,7 +5,10 @@ The loop keeps the sampled tokens, their logprobs, the logits and the
 write position on the device; nothing is read back to the host between
 steps, and the finished tokens and logprobs are copied to the host once at
 the end. With ``RuntimeOpts(quantized_kv=True)`` each decode step streams
-the int8 KV cache through the decode-attention CUDA kernel at every layer.
+the int8 KV cache through the decode-attention CUDA kernel at every
+attention layer; a Mamba-2 layer carries its conv and recurrent states
+through the loop instead (``transformer.init_caches``), each step writing
+them in place.
 
 Requests are batched by equal prompt length. Unlike the reference, which
 rounds the number of decode steps up to a power of two so that lengths

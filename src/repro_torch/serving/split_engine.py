@@ -39,15 +39,20 @@ and each call's ``SplitStats`` mirrored into the registry under
 
 The ported configs run on the dense clouds: the llama family, the
 sliding-window families (gemma2-2b, h2o-danube-3-4b), whose edge and cloud
-caches keep a ring per windowed layer, and the mixture-of-experts families
-(qwen2-moe-a2.7b, qwen3-moe-235b-a22b). The paged cloud refuses windows, as
-the reference's pool does, and so does speculation: a verify burst written
-into a ring that has wrapped overwrites positions its earlier columns
-still attend. On the edge an expert weight (nb, E, d_in, d_out) is held as
-(E·d_in, d_out) codes a block with one scale per output column shared by
-all experts, and the f32 router (nb, D, E) as codes too, as the reference
-fake-quantizes them; ``models.moe`` multiplies expert i by its rows of
-the codes. The engine's default ``RuntimeOpts`` keep the reference's
+caches keep a ring per windowed layer, the mixture-of-experts families
+(qwen2-moe-a2.7b, qwen3-moe-235b-a22b), the grouped- and multi-query
+configs (internlm2-20b, granite-34b) and the state-space ones
+(mamba2-780m, jamba-v0.1-52b), whose Mamba-2 layers carry a recurrent
+state on both sides of the split and whose edge runs their projections
+through K7 (``conv_w`` as its dequantized codes). The paged cloud refuses
+windows and SSM layers, as the reference's pool does, and so does
+speculation: a verify burst written into a ring that has wrapped
+overwrites positions its earlier columns still attend, and an SSM layer
+takes one token a decode step. On the edge an expert weight (nb, E, d_in,
+d_out) is held as (E·d_in, d_out) codes a block with one scale per output
+column shared by all experts, and the f32 router (nb, D, E) as codes too,
+as the reference fake-quantizes them; ``models.moe`` multiplies expert i
+by its rows of the codes. The engine's default ``RuntimeOpts`` keep the reference's
 capacity factor of 1.25, which drops pairs at prefill.
 """
 
@@ -91,7 +96,10 @@ def quantize_front_blocks(params: dict, bits: int) -> dict:
     ``_fake_quant_blocks`` without the dequantization: an expert weight's
     scales are shared by its experts); norms and the embedding stay as
     they are. ``bits`` ≥ 16 keeps the full
-    precision weights (the paper's high-precision segment)."""
+    precision weights (the paper's high-precision segment). Each block is
+    quantized on its own into the codes, so the temporaries are one
+    block's, not the whole leaf's (granite-34b's eight-block ``w_up`` is
+    2.4 GB of bf16)."""
     if bits >= 16:
         return params
     if bits > 8:
@@ -102,8 +110,15 @@ def quantize_front_blocks(params: dict, bits: int) -> dict:
     out = dict(params)
     for key, x in params.items():
         if key.startswith("blocks/") and x.dim() >= 3:
-            out[key] = quantize_sym(x.reshape(x.shape[0], -1, x.shape[-1]),
-                                    bits, dim=-2)
+            flat = x.reshape(x.shape[0], -1, x.shape[-1])
+            codes = torch.empty(flat.shape, dtype=torch.int8,
+                                device=x.device)
+            scale = torch.empty((flat.shape[0], 1, flat.shape[-1]),
+                                dtype=torch.float32, device=x.device)
+            for i, block in enumerate(flat):
+                q = quantize_sym(block, bits, dim=-2)
+                codes[i], scale[i] = q.codes, q.scale
+            out[key] = QuantizedTensor(codes, scale, bits, tuple(flat.shape))
     return out
 
 
@@ -336,15 +351,16 @@ class SplitEngine:
             m.gauge("split.shared_prefix_pages", stats.shared_prefix_pages)
 
     def _eq3_bits(self, w: int, i_kv: int) -> float:
-        # Eq. 3 counts one KV width for every layer: the ported patterns'
-        # positions share kv heads and head dim (gemma2's windowed and
-        # global layers too)
+        # Eq. 3 counts one KV width for every layer, the first attention
+        # layer's (the ported patterns' attention positions share kv heads
+        # and head dim), or d_model on a pattern without attention (mamba2),
+        # as the reference counts it
         c = self.cfg
-        m = c.pattern[0].mixer
-        return payload_bytes(w, self.opsc.split_layer, c.num_layers,
-                             m.num_kv_heads * m.head_dim, c.d_model,
-                             self.opsc.qa_front, self.opsc.qa_back,
-                             i_kv) * 8.0
+        attn = [ls.mixer for ls in c.pattern if ls.mixer.kind == "attn"]
+        hd = attn[0].num_kv_heads * attn[0].head_dim if attn else c.d_model
+        return payload_bytes(w, self.opsc.split_layer, c.num_layers, hd,
+                             c.d_model, self.opsc.qa_front,
+                             self.opsc.qa_back, i_kv) * 8.0
 
     # ----------------------------------------------------------- generate
 
@@ -384,8 +400,15 @@ class SplitEngine:
         round trips."""
         if speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
-        if speculate_k and any(ls.mixer.sliding_window is not None
+        if speculate_k and any(ls.mixer.kind == "ssm"
                                for ls in self.cfg.pattern):
+            raise NotImplementedError(
+                "speculate_k over Mamba-2 layers: the cloud's verify burst "
+                "is a k-token decode call, which the SSM's one-token "
+                "recurrence cannot take, and a rejected draft would stay "
+                "in the recurrent state")
+        if speculate_k and any(getattr(ls.mixer, "sliding_window", None)
+                               is not None for ls in self.cfg.pattern):
             raise NotImplementedError(
                 "speculate_k over sliding-window layers: a verify burst "
                 "written into a ring that has wrapped overwrites positions "

@@ -826,6 +826,9 @@ K1_SHAPES = {
     "empty_live_row": (2, 4, 1, 128, 512, 512, [300, 511], 0),
     # qwen3-moe-235b-a22b's decode step: 64 heads on 4 kv heads
     "qwen3_g16": (2, 4, 16, 128, 1024, 1024, None, None),
+    # internlm2-20b's (48 heads on 8) and granite-34b's (48 on 1) steps
+    "internlm2_g6": (2, 8, 6, 128, 1024, 700, None, None),
+    "granite_g48": (2, 1, 48, 128, 1024, 700, None, None),
 }
 
 
@@ -1608,3 +1611,122 @@ def test_moe_layer_on_card_repeats_its_bits(cuda_device, dtype):
     assert torch.equal(y1, y2) and torch.equal(a1, a2)
     assert moe.STATS["host_syncs"] == 2 and moe.STATS["pairs"] == 2 * 160
     assert bool(torch.isfinite(y1).all())
+
+
+# ----------------------------------------------- the GQA/MQA group sizes
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kh,g", [(8, 6), (1, 48)], ids=["g6", "g48"])
+def test_paged_decode_kernel_at_the_gqa_groups(cuda_device, kh, g, qdtype):
+    """K2 at internlm2's G 6 (8 kv heads) and granite's G 48 (one), hd
+    128, page 16: within 1e-4 of its plain version (a free slot exact
+    zeros), repeated bit for bit, counted once a call."""
+    rng = np.random.default_rng(31)
+    pool = _pool(rng, cuda_device, p=80, kh=kh, hd=128,
+                 lens=(700, 0, 129, 33))
+    q = torch.from_numpy(rng.normal(size=(4, kh, g, 128)).astype(
+        np.float32)).to(cuda_device, getattr(torch, qdtype))
+    q_pos = torch.tensor([699, -1, 128, 32], dtype=torch.int32,
+                         device=cuda_device)
+    before = pda.paged_decode_attention.launches
+    got = ops.paged_decode_attention(q, *pool, q_pos)
+    again = ops.paged_decode_attention(q, *pool, q_pos)
+    assert pda.paged_decode_attention.launches == before + 2
+    want = pda.paged_decode_attention_ref(q, *pool, q_pos)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    assert torch.equal(got, again) and (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kh,g", [(8, 6), (1, 48)], ids=["g6", "g48"])
+def test_paged_prefill_kernel_at_the_gqa_groups(cuda_device, kh, g, dtype):
+    """K3 at G 6 and G 48 (its S·G query rows a kv head: 2,880 at G 48),
+    hd 128, S 60: a continuation row, a padded row and a row with no
+    history, within 1e-4 of its plain version; pads exact zeros."""
+    rng = np.random.default_rng(32)
+    rows = [(150, 60), None, (0, 45)]
+    pool = _pool(rng, cuda_device, p=40, kh=kh, hd=128,
+                 lens=[0 if x is None else sum(x) for x in rows])
+    s, dt = 60, getattr(torch, dtype)
+    q_pos = np.full((3, s), -1, np.int32)
+    for i, x in enumerate(rows):
+        if x is not None:
+            q_pos[i, s - x[1]:] = np.arange(x[0], x[0] + x[1])
+    q_pos = torch.from_numpy(q_pos).to(cuda_device)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda_device, dt)
+
+    q, kf, vf = rand(3, s, kh, g, 128), rand(3, s, kh, 128), \
+        rand(3, s, kh, 128)
+    got = ops.paged_prefill_attention(q, *pool, q_pos, kf, vf)
+    start = ppa.first_call_position(q_pos)
+    want = ppa.paged_prefill_attention_ref(q, *pool, q_pos, start, kf, vf)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    assert (got[q_pos < 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kh,g", [(8, 6), (1, 48)], ids=["g6", "g48"])
+def test_varlen_kernel_at_the_gqa_groups(cuda_device, kh, g, dtype):
+    """K4 at G 6 and G 48, hd 128: decode rows beside a 60-token chunk
+    over history, within 1e-4 of its plain version; pads exact zeros."""
+    rng = np.random.default_rng(33)
+    segs = [(300, 1), (90, 60), (0, 40), (17, 1)]
+    args = _varlen(rng, cuda_device, segs, 4, getattr(torch, dtype), kh=kh,
+                   g=g, hd=128, p=60)
+    start = ops.segment_start(args[7], args[8], len(segs))
+    got = ops.varlen_attention(*args[:9], start, *args[9:])
+    want = va.varlen_attention_ref(*args[:9], start, *args[9:])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    assert (got[:, args[8] < 0] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "jamba-v0.1-52b"])
+def test_ssm_decode_step_on_card_matches_cpu(cuda_device, name):
+    """The tiny state-space config (mamba2: two Mamba-2 layers; jamba's
+    tiny: an SSM layer with an MLP and one with MoE) in f32: a 20-token
+    prefill and 6 decode steps fed the same tokens on the card against the
+    CPU: logits and the recurrent states within 1e-3 of their largest, the
+    state kept on the card in its storage dtype; greedy Engine tokens
+    equal."""
+    from repro_torch.models.transformer import decode_step, prefill
+
+    cfg = get_config(name).tiny()
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True,
+                       moe_capacity_factor=0.0)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    card = {k: v.to(cuda_device) for k, v in cpu.items()}
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 26)))
+    runs = []
+    for params, dev in ((cpu, "cpu"), (card, cuda_device)):
+        t = toks.to(dev)
+        with torch.inference_mode():
+            lg, caches = prefill(params, cfg, t[:, :20], 32, opts)
+            out = [lg.cpu()]
+            for p in range(20, 26):
+                lg, caches = decode_step(params, cfg, t[:, p:p + 1], caches,
+                                         p, opts)
+                out.append(lg.cpu())
+        runs.append((torch.stack(out), caches))
+    (want, wc), (got, gc) = runs
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    assert rel <= 1e-3
+    for a, b in zip(gc, wc):
+        if isinstance(a, tuple):
+            assert a[1].device.type == "cuda" and a[1].dtype == torch.float32
+            assert ((a[1].cpu() - b[1]).abs().max()
+                    / b[1].abs().max()).item() <= 1e-3
+    prompts = toks[:, :20].numpy()
+    eng = [Engine(cfg, p, opts, cache_len=32, device=d).generate(
+        prompts, 8).tokens for p, d in ((cpu, "cpu"), (card, cuda_device))]
+    np.testing.assert_array_equal(eng[0], eng[1])

@@ -522,18 +522,28 @@ def test_init_params_keeps_the_router_f32_and_draws_each_expert(name):
 
 
 def test_refusals_that_stay_name_item_9():
-    """A state-space mixer, M-RoPE and the codebook embedding (built as
-    specs here: their configs are not registered in the port) are still
+    """A state-space mixer is now ported: an SSM spec in place of the
+    attention (built here from a MoE config) gets the Mamba-2 mixer's
+    leaves from ``param_specs`` and a (conv state, SSM state) pair from
+    ``init_caches``. M-RoPE and the codebook embedding (built as specs
+    here: their configs are not registered in the port) are still
     refused, naming ROADMAP queue 1 item 9."""
     cfg = get_config("qwen2-moe-a2.7b").tiny()
     ssm = dataclasses.replace(cfg, pattern=(dataclasses.replace(
         cfg.pattern[0], mixer=SSMSpec(d_inner=256, d_state=16,
                                       head_dim=32)),))
-    for bad in (ssm,
-                dataclasses.replace(cfg, rope="mrope",
+    specs = param_specs(ssm)
+    for leaf in ("w_z", "w_x", "w_B", "w_C", "w_dt", "dt_bias", "A_log", "D",
+                 "conv_w", "conv_b", "norm", "w_out"):
+        assert f"blocks/p0/mixer/{leaf}" in specs, leaf
+    assert "blocks/p0/mixer/wq" not in specs
+    caches = TT.init_caches(ssm, 1, 8, OPTS_Q)
+    assert len(caches) == ssm.num_layers
+    conv, state = caches[0]
+    assert conv.shape == (1, 3, 256 + 2 * 16)
+    assert state.shape == (1, 8, 32, 16) and state.dtype == torch.float32
+    for bad in (dataclasses.replace(cfg, rope="mrope",
                                     mrope_sections=(4, 6, 6)),
                 dataclasses.replace(cfg, embed="musicgen", num_codebooks=4)):
         with pytest.raises(NotImplementedError, match="item 9"):
             param_specs(bad)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TT.init_caches(ssm, 1, 8, OPTS_Q)
