@@ -87,8 +87,10 @@ Phases, each printing one JSON line:
            the stream's host seconds, and a facade step with eight slots
            decoding beside the single scheduler's decode tick;
   families the sliding-window families: gemma2-2b and h2o-danube-3-4b tiny
-           on the CPU against the card; both at full width and depth
-           (random bf16 weights, int8 KV, cache_len 4352) answering four
+           on the CPU against the card; both at full width, danube at
+           full depth and gemma2 over 7 of its 13 blocks
+           (``FAMILY_GEMMA2_BLOCKS``; random bf16 weights, int8 KV,
+           cache_len 4352) answering four
            requests through LLMServer(backend="fused"), two of whose
            4160-token prompts wrap every 4096-slot ring: finish reasons,
            lengths, a repeat of the first run, K1 once a layer and
@@ -105,8 +107,9 @@ Phases, each printing one JSON line:
            by stage). The kernels phase holds K1 at danube's decode shape
            over a wrapped ring (``K1_STEPS["danube_step"]``);
   moe      the mixture-of-experts configs, served dropless: both tiny ones
-           on the CPU against the card; qwen2-moe-a2.7b at full width and
-           depth (random bf16 weights, int8 KV) through
+           on the CPU against the card; qwen2-moe-a2.7b at full width over
+           12 of its 24 blocks (``MOE_QWEN2_BLOCKS``; random bf16
+           weights, int8 KV) through
            LLMServer(backend="fused") (A: four requests of 512, 512, 128
            and 128 tokens, as the families phase checks them, K1 and k
            routed pairs a token and layer, none dropped; a decode step
@@ -126,15 +129,17 @@ Phases, each printing one JSON line:
            qwen2-moe's expert and router products (``K7_MOE``);
   gqa      the grouped- and multi-query configs: internlm2-20b (G 6) and
            granite-34b (G 48) at small widths with those group sizes on
-           the CPU against the card; internlm2-20b at full width and depth
-           (random bf16 weights, int8 KV) through LLMServer(backend=
+           the CPU against the card; internlm2-20b at full width over 24
+           of its 48 blocks (``GQA_INTERNLM2_BLOCKS``; random bf16
+           weights, int8 KV) through LLMServer(backend=
            "fused") (A: four requests, as the families phase checks them),
            the paged backend (B: eight requests, three forking a
            256-token prefix, chunked then packed; K2, K3, K4 counted by
            route; every step held to the fused path, packed to chunked)
            and the split backend at ℓ = 8 (C: K7 by route); granite-34b
-           the same, fused (D), paged chunked (E) and split (F: its
-           ungated GELU w_up through K7). The kernels phase holds K1 at
+           over its first 22 of 88 blocks (``GQA_GRANITE_BLOCKS``) the
+           same, fused (D), paged chunked (E) and split (F: its ungated
+           GELU w_up through K7). The kernels phase holds K1 at
            both decode steps (``K1_STEPS``), K2 to K4 at both group sizes
            (``GQA_GROUPS``) and K7 at granite's w_up (``K7_SLICE16``);
   ssm      the state-space configs: mamba2-780m tiny and jamba-v0.1-52b
@@ -148,9 +153,28 @@ Phases, each printing one JSON line:
            width over 2 of its 4 blocks fused (C: 1024, 1024, 256, 256
            tokens, K1 once an attention layer and step, MoE held by
            MOE_RULE) and split at ℓ = 8 (D). The kernels phase holds K7 at
-           mamba2's projections (``K7_SLICE16``).
+           mamba2's projections (``K7_SLICE16``);
+  modal    the vision-stub and codebook configs: qwen2-vl-2b (G 6 over 8
+           patch slots) and musicgen-medium at small widths on the CPU
+           against the card; qwen2-vl-2b at full width and depth (random
+           bf16 weights, int8 KV) through LLMServer(backend="fused") on
+           text (A, as the families phase checks it) and through the
+           Engine over 1,024 projected patch slots and 128 text tokens
+           (K1 counted, the int8 steps within the reference's bound of an
+           unquantized prefill's, K1 equal to its plain version, the
+           decode step beside its byte bound), the paged backend (B:
+           ``_dense_paged``, chunked then packed; K2, K3, K4 at K 2, G 6)
+           and the split backend at ℓ = 8 (C); musicgen-medium at full
+           width and depth through the Engine on (2, 512, 4) codebook
+           prompts (D, held as A's Engine run, K1 at head dim 64) and the
+           split engine at ℓ = 8 (E); the paged pool's dense-gather route
+           (``paged_prefill_kernel=False``) on four of B's requests held
+           to K3's streams (F). The kernels phase holds K1 at both decode
+           steps (``K1_STEPS``), K2 to K4 at K 2, G 6 (``GQA_GROUPS``) and
+           K7 at both configs' edge widths (``K7_SLICE16``).
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
+Every phase's line carries ``phase_s`` and ``part_s`` (its seconds, and
+its parts'). Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Without a CUDA card, or without the repository's ``src/``
 beside this file, it exits non-zero at once.
@@ -171,7 +195,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed",
           "split", "spec", "service", "disagg", "families", "moe", "gqa",
-          "ssm")
+          "ssm", "modal")
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -266,6 +290,21 @@ class Timer:
 # ------------------------------------------------------------------ phases
 
 
+def _mark(ctx, part: str) -> None:
+    """End a part of the running phase: its seconds since the phase began,
+    or since the last mark, go under ``part`` in the phase's ``part_s``."""
+    now = time.perf_counter()
+    ctx["part_s"][part] = now - ctx["part_t0"]
+    ctx["part_t0"] = now
+
+
+def _times(ctx) -> dict:
+    """The running phase's seconds so far (``phase_s``) and its marked
+    parts' (``part_s``), for its report."""
+    return {"phase_s": time.perf_counter() - ctx["phase_t0"],
+            "part_s": dict(ctx["part_s"])}
+
+
 def phase_env(ctx) -> None:
     import torch
     from repro_torch.kernels import build
@@ -276,10 +315,11 @@ def phase_env(ctx) -> None:
     for name in names:
         build.load(name)
     build_s = time.perf_counter() - t0
+    _mark(ctx, "build")
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in build.BUILD_LOG.items()}
-    emit({"phase": "env", "nvidia_smi": ctx["smi"],
+    emit({"phase": "env", **_times(ctx), "nvidia_smi": ctx["smi"],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
           "build_s": build_s, "kernels_built": names, "ptxas": ptxas})
@@ -306,19 +346,24 @@ def _decode_inputs(torch, b, kh, g, hd, s, fill, qdtype, gen, device,
 # to 191), the split run's longest row (160 live slots),
 # h2o-danube-3-4b's decode step over a 4096-slot ring that has wrapped,
 # qwen3-moe-235b-a22b's (64 heads on 4 kv heads: 16 query heads a kv head),
-# internlm2-20b's (48 on 8: G 6, groups of 4 and 2) and granite-34b's (48
-# on 1: G 48, twelve groups of 4 reading the same slots)
+# internlm2-20b's (48 on 8: G 6, groups of 4 and 2), granite-34b's (48
+# on 1: G 48, twelve groups of 4 reading the same slots), qwen2-vl-2b's in
+# the modal phase (12 on 2: G 6; 1,024 patch slots, 128 text tokens and 16
+# new: 1,168 slots padded to 1,536) and musicgen-medium's (24 on 24 at head
+# dim 64; 512 + 32 tokens)
 K1_STEPS = {"serve_step": (2, 32, 1, 128, 1024, 192),
             "split_step": (1, 32, 1, 128, 1024, 160),
             "danube_step": (2, 8, 4, 120, 4096, 4096),
             "qwen3_step": (2, 4, 16, 128, 1024, 1024),
             "internlm2_step": (2, 8, 6, 128, 1024, 1024),
-            "granite_step": (2, 1, 48, 128, 1024, 1024)}
+            "granite_step": (2, 1, 48, 128, 1024, 1024),
+            "qwen2vl_step": (2, 2, 6, 128, 1536, 1168),
+            "musicgen_step": (2, 24, 1, 64, 1024, 544)}
 # the ring steps' q_pos: slot t holds the p = t (mod W) in (q_pos - W, q_pos]
 K1_RING_Q_POS = {"danube_step": 4223}
 # the steps held to the plain version in f32 and bf16 q before their timing
 K1_HELD_STEPS = ("danube_step", "qwen3_step", "internlm2_step",
-                 "granite_step")
+                 "granite_step", "qwen2vl_step", "musicgen_step")
 
 
 def ring_positions(torch, b, s, w, q_pos, device):
@@ -1182,13 +1227,22 @@ K7_MOE = {"expert_up": (1, 2048, 1408, "bfloat16"),
 K7_MOE_EXPERTS = 4  # experts in the code matrix an expert view is cut from
 # the edge's decode products of the GQA/MQA and state-space configs, held
 # and timed as K7_MOE's (one expert: the whole code matrix): granite-34b's
-# ungated w_up, and mamba2-780m's w_z and w_x (N d_inner), w_B and w_C
-# (N d_state), w_dt (N 48 heads, no multiple of 16) and w_out
+# ungated w_up, mamba2-780m's w_z and w_x (N d_inner), w_B and w_C
+# (N d_state), w_dt (N 48 heads, no multiple of 16) and w_out; the modal
+# phase's qwen2-vl-2b (wq and wo at 1536, wk and wv at 256, w_gate and w_up
+# at 8960, w_down) and musicgen-medium (its four attention products at
+# 1536, the ungated GELU's w_up at 6144, w_down)
 K7_SLICE16 = {"granite_w_up": (1, 6144, 24576, "bfloat16"),
               "mamba2_w_z": (1, 1536, 3072, "bfloat16"),
               "mamba2_w_B": (1, 1536, 128, "bfloat16"),
               "mamba2_w_dt": (1, 1536, 48, "bfloat16"),
-              "mamba2_w_out": (1, 3072, 1536, "bfloat16")}
+              "mamba2_w_out": (1, 3072, 1536, "bfloat16"),
+              "qwen2vl_wq": (1, 1536, 1536, "bfloat16"),
+              "qwen2vl_wk": (1, 1536, 256, "bfloat16"),
+              "qwen2vl_w_up": (1, 1536, 8960, "bfloat16"),
+              "qwen2vl_w_down": (1, 8960, 1536, "bfloat16"),
+              "musicgen_w_up": (1, 1536, 6144, "bfloat16"),
+              "musicgen_w_down": (1, 6144, 1536, "bfloat16")}
 # K7's device functions (csrc/dequant_matmul.cu), as a profile names them
 K7_DEVICE_NAMES = ("gemm_kernel", "gemv_kernel", "gemv16_kernel",
                    "splitk_reduce_kernel", "tc_gemm_kernel",
@@ -1753,7 +1807,7 @@ def _graph_replay(ctx) -> dict:
 # kv head, G 48) group sizes, hd 128, at the main path's shapes: the paged
 # decode tick's rows (``_kernel_k2``'s serve shape), the chunk call's rows
 # (``_kernel_k3``'s) and the packed tick (``VARLEN_MAIN``)
-GQA_GROUPS = {"internlm2": (8, 6), "granite": (1, 48)}
+GQA_GROUPS = {"internlm2": (8, 6), "granite": (1, 48), "qwen2vl": (2, 6)}
 
 
 def _expand_heads(t, g, dim):
@@ -1934,20 +1988,24 @@ def _kernel_groups(ctx) -> dict:
 
 
 def phase_kernels(ctx) -> None:
-    emit({"phase": "kernels", "nvidia_smi": ctx["smi"],
-          "decode_attention": _kernel_k1(ctx),
-          "paged_decode_attention": _kernel_k2(ctx),
-          "paged_decode_attention_verify": _k2_verify(ctx),
-          "paged_prefill_attention": _kernel_k3(ctx),
-          "varlen_attention": _kernel_k4(ctx),
-          "tabq_ts_encode": _kernel_k5_k6(ctx),
-          "dequant_matmul": _kernel_k7(ctx),
-          "gqa_groups": _kernel_groups(ctx),
-          "cuda_graph": _graph_replay(ctx)})
+    parts = {}
+    for key, fn in (("decode_attention", _kernel_k1),
+                    ("paged_decode_attention", _kernel_k2),
+                    ("paged_decode_attention_verify", _k2_verify),
+                    ("paged_prefill_attention", _kernel_k3),
+                    ("varlen_attention", _kernel_k4),
+                    ("tabq_ts_encode", _kernel_k5_k6),
+                    ("dequant_matmul", _kernel_k7),
+                    ("gqa_groups", _kernel_groups),
+                    ("cuda_graph", _graph_replay)):
+        parts[key] = fn(ctx)
+        _mark(ctx, key)
+    emit({"phase": "kernels", **_times(ctx), "nvidia_smi": ctx["smi"],
+          **parts})
 
 
 def _greedy_stepwise(params, cfg, prompts, n, opts, cache_len, device,
-                     routes=None):
+                     routes=None, patches=None):
     """Greedy decoding through prefill/decode_step: tokens (B, n) and the
     logits each token was drawn from, (B, n, V), both numpy; with an
     active ``routes`` (:class:`_Routes`), also a route record: each
@@ -1955,13 +2013,16 @@ def _greedy_stepwise(params, cfg, prompts, n, opts, cache_len, device,
     gaps ``gap`` (B, n, L), and the prefill's choices at every prompt
     position ``prompt`` (L, B, S, k), and the int8 KV codes written, by
     position: ``codes`` (B, slots, L·2·K·hd), from the final caches (an
-    int8 cache without rings)."""
+    int8 cache without rings). ``patches`` feed the vision stub; codebook
+    prompts (B, S, K) give tokens (B, n, K) and logits (B, n, K, V)."""
     import torch
     from repro_torch.models.transformer import decode_step, prefill
 
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts, device=device)
-        logits, caches = prefill(params, cfg, tokens, cache_len, opts)
+        logits, caches = prefill(params, cfg, tokens, cache_len, opts,
+                                 None if patches is None else
+                                 torch.as_tensor(patches, device=device))
         if routes is not None:
             routes.keep(*tokens.shape)
         toks, lgs = [], []
@@ -1985,17 +2046,20 @@ def _greedy_stepwise(params, cfg, prompts, n, opts, cache_len, device,
 
 
 def _teacher_forced(params, cfg, prompts, forced, opts, cache_len, device,
-                    routes=None):
+                    routes=None, patches=None):
     """The logits (B, n, V) at each step when the decode is fed ``forced``
     (B, n) instead of its own argmax; with an active ``routes``, also the
-    route record of :func:`_greedy_stepwise`."""
+    route record of :func:`_greedy_stepwise`; ``patches`` and codebooks as
+    there."""
     import numpy as np
     import torch
     from repro_torch.models.transformer import decode_step, prefill
 
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts, device=device)
-        logits, caches = prefill(params, cfg, tokens, cache_len, opts)
+        logits, caches = prefill(params, cfg, tokens, cache_len, opts,
+                                 None if patches is None else
+                                 torch.as_tensor(patches, device=device))
         if routes is not None:
             routes.keep(*tokens.shape)
         lgs = [logits.cpu().numpy()]
@@ -2263,13 +2327,15 @@ def phase_model(ctx) -> None:
     n, cache_len = 24, 64
     want, want_lg = _greedy_stepwise(cpu, cfg, prompts, n, opts, cache_len,
                                      "cpu")
+    _mark(ctx, "cpu")
     got_lg = _teacher_forced(card, cfg, prompts, want, opts, cache_len,
                              device)
     rel = float(np.abs(got_lg - want_lg).max() / np.abs(want_lg).max())
     got = Engine(cfg, card, opts, cache_len=cache_len,
                  device=device).generate(prompts, n).tokens[:, 12:]
     ok, compared = _margin_agreement(got, want, want_lg, MODEL_REL)
-    emit({"phase": "model", "config": cfg.name, "steps": n,
+    _mark(ctx, "card")
+    emit({"phase": "model", **_times(ctx), "config": cfg.name, "steps": n,
           "max_rel_logit_err": rel, "tol": MODEL_REL,
           "tokens_compared": compared, "tokens_equal_all": bool(
               np.array_equal(got, want)), "ok": ok and rel <= MODEL_REL})
@@ -2303,15 +2369,25 @@ def phase_vehicle(ctx) -> None:
     rids = [srv.submit(p, SamplingParams(max_tokens=half)) for p in prompts]
     outs = srv.run()
     got = np.stack([outs[r].tokens for r in rids])
+    _mark(ctx, "serve")
     want, want_lg = _greedy_stepwise(params, cfg, prompts, half, opts, 64,
                                      "cpu")
     ok, compared = _margin_agreement(got, want, want_lg, MODEL_REL)
     acc = float(np.mean(got == prefix))
-    emit({"phase": "vehicle", "requests": len(rids), "copy_accuracy": acc,
+    _mark(ctx, "cpu")
+    emit({"phase": "vehicle", **_times(ctx),
+          "requests": len(rids), "copy_accuracy": acc,
           "cpu_copy_accuracy": float(np.mean(want == prefix)),
           "tokens_compared": compared, "ok": ok})
     if not ok:
         raise SystemExit("vehicle: the card's tokens differ from the CPU's")
+
+
+# the profiled calls of a full-width step, tick or split stage in every
+# phase: one profiled call of these eager steps costs a second or more of
+# host time, and the device time a call is steady (it was 5 in the
+# serve, paged, packed, split, spec and disagg phases; PERF.md)
+STEP_PROFILE_N = 2
 
 
 def _device_profile(torch, fn, n: int) -> tuple:
@@ -2402,6 +2478,7 @@ def phase_serve(ctx) -> None:
     stop = int(first[1].tokens[10])
     stop_at = list(first[1].tokens).index(stop) + 1
 
+    _mark(ctx, "first_run")
     decode_steps = (64 - 1) + (64 - 1)  # two length groups, 64 tokens each
     da.decode_attention.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2426,6 +2503,7 @@ def phase_serve(ctx) -> None:
         "launches": launches["decode_attention"]
         == cfg.num_layers * decode_steps}
 
+    _mark(ctx, "main_run")
     # the engine's loop (prefill, decode steps, greedy and seeded sampling)
     # makes no host sync: CUDA sync-debug mode raises on any
     b = 2
@@ -2444,6 +2522,7 @@ def phase_serve(ctx) -> None:
             torch.cuda.set_sync_debug_mode("default")
     checks["no_host_sync_in_loop"] = True
 
+    _mark(ctx, "no_sync_loop")
     # decode step time at the first group's shape (B = 2, 128-token prompt)
     with torch.inference_mode():
         logits, caches = prefill(params, cfg, toks, cache_len, opts)
@@ -2453,14 +2532,16 @@ def phase_serve(ctx) -> None:
         # host included: the host issues about 1,000 kernels per step
         step_ms = ctx["timer"]({"step": step}, iters=20,
                                device_only=False)["step"]
-        device_ms, rows = _device_profile(torch, step, 5)
+        device_ms, rows = _device_profile(torch, step, STEP_PROFILE_N)
     bw, _ = peak_rates(ctx["device_name"])
     weight_bytes = sum(t.numel() * t.element_size() for k, t in params.items()
                        if k != "embed") + b * cfg.d_model * 2
     m = cfg.pattern[0].mixer
     cache_bytes = cfg.num_layers * b * m.num_kv_heads * cache_len * (
         2 * m.head_dim + 8)
-    emit({"phase": "serve", "config": cfg.name, "params": n_params,
+    _mark(ctx, "step_timing")
+    emit({"phase": "serve", **_times(ctx),
+          "config": cfg.name, "params": n_params,
           "dtype": "bfloat16", "kv": "int8", "cache_len": cache_len,
           "init_s": init_s, "requests": len(outs), "finish_reasons": reasons,
           "generated": lengths, "stop_token": stop,
@@ -2731,6 +2812,7 @@ def phase_paged(ctx) -> None:
     from repro_torch.serving.scheduler import Scheduler
 
     tiny = _paged_tiny(ctx)
+    _mark(ctx, "tiny")
     device = ctx["device"]
     cfg = get_config("llama2-7b")  # full width and depth
     opts = RuntimeOpts(quantized_kv=True)
@@ -2760,6 +2842,7 @@ def phase_paged(ctx) -> None:
     stop = int(first[3].tokens[10])
     stop_at = list(first[3].tokens).index(stop) + 1
 
+    _mark(ctx, "first_run")
     # the first run's greedy streams (not the seeded request 4) against the
     # dense (fused) path on the same card, fed the same tokens: logits
     # within PAGED_REL of the largest one, and tokens equal under the margin
@@ -2770,6 +2853,7 @@ def phase_paged(ctx) -> None:
         {i: PAGED_REL for i in greedy}, device)
     del rec
 
+    _mark(ctx, "against_dense_bf16")
     # the same traffic on f32 weights (the same draws): rows prefilled in
     # one chunk hold the dense path to MODEL_REL; rows whose prefill reads
     # int8 history (later chunks, the fork of request 2) to HISTORY_REL
@@ -2785,6 +2869,7 @@ def phase_paged(ctx) -> None:
     del params32, first32, rec32
     gc.collect()
 
+    _mark(ctx, "against_dense_f32")
     for fn in (da.decode_attention, pda.paged_decode_attention,
                ppa.paged_prefill_attention):
         fn.launches = 0
@@ -2840,6 +2925,7 @@ def phase_paged(ctx) -> None:
         "tokens_in_vocab": all(int(o.tokens.min()) >= 0 and int(
             o.tokens.max()) < cfg.vocab_size for o in outs)}
 
+    _mark(ctx, "main_run")
     # a decode tick with every slot decoding (128-token prompts), host
     # included, and its device-busy time
     tick = Scheduler(cfg, params, opts, **pool_kw)
@@ -2848,7 +2934,8 @@ def phase_paged(ctx) -> None:
     tick.step()  # every prompt in one chunk, first tokens sampled
     tick_ms = ctx["timer"]({"tick": tick._decode_tick}, iters=20,
                            device_only=False)["tick"]
-    device_ms, top = _device_profile(torch, tick._decode_tick, 5)
+    device_ms, top = _device_profile(torch, tick._decode_tick,
+                                     STEP_PROFILE_N)
     # K2 in the tick by each route, in turns (split, single pass, split):
     # the tick's 64-page table takes the split route; the single-pass one is
     # forced by standing in for route() (every row fits one split)
@@ -2858,7 +2945,8 @@ def phase_paged(ctx) -> None:
         pda.route = lambda hd, page, nb, way=way: way
         try:
             k2_routes_in_tick[way].append(_kernel_share(_device_profile(
-                torch, tick._decode_tick, 5)[1], K2_DEVICE_NAMES)["ms"])
+                torch, tick._decode_tick, STEP_PROFILE_N)[1],
+                K2_DEVICE_NAMES)["ms"])
         finally:
             pda.route = taken
     for rid in range(8):
@@ -2866,7 +2954,8 @@ def phase_paged(ctx) -> None:
 
     delivered = sum(lengths)
     computed = st.slot_ticks + len(prompts)  # decode rows + first tokens
-    emit({"phase": "paged", "tiny": tiny, "config": cfg.name,
+    _mark(ctx, "tick")
+    emit({"phase": "paged", **_times(ctx), "tiny": tiny, "config": cfg.name,
           "pool": {"num_pages": 513, "page_size": 16, "max_slots": 8,
                    "max_seq_len": 1024, "prefill_chunk": sched.prefill_chunk,
                    "page_bytes": sched.pool.page_bytes()},
@@ -3018,6 +3107,7 @@ def phase_packed(ctx) -> None:
     from repro_torch.serving.scheduler import Scheduler
 
     tiny = _packed_tiny(ctx)
+    _mark(ctx, "tiny")
     device = ctx["device"]
     cfg = get_config("llama2-7b")  # full width and depth
     opts = RuntimeOpts(quantized_kv=True)
@@ -3048,6 +3138,7 @@ def phase_packed(ctx) -> None:
     stop = int(first[3].tokens[10])
     stop_at = list(first[3].tokens).index(stop) + 1
 
+    _mark(ctx, "first_run")
     # the same traffic on f32 weights against the dense path fed the same
     # tokens: rows prefilled in one piece to MODEL_REL, rows whose prefill
     # reads int8 history (a later piece, or the fork of request 2) to
@@ -3069,6 +3160,7 @@ def phase_packed(ctx) -> None:
     del params32, first32, rec32
     gc.collect()
 
+    _mark(ctx, "against_dense_f32")
     # reserve admission, 513 pages: the main path's run
     kernels = {"decode_attention": da.decode_attention,
                "paged_decode_attention": pda.paged_decode_attention,
@@ -3142,6 +3234,7 @@ def phase_packed(ctx) -> None:
     del sched
     gc.collect()
 
+    _mark(ctx, "reserve_run")
     # lazy growth on a pool between the first eight requests' admission
     # pages (prompt + 1 token) and their worst case, the fork's shared
     # full pages counted once: decode growth must preempt
@@ -3181,6 +3274,7 @@ def phase_packed(ctx) -> None:
         del sched_l, rec_l
         gc.collect()
 
+    _mark(ctx, "lazy_growth")
     # one tick with seven slots decoding (128-token prompts) and the eighth
     # in flight with a 256-token continuation chunk over 256 tokens of
     # history, host included, packed (one K4 call per layer) beside chunked
@@ -3213,8 +3307,8 @@ def phase_packed(ctx) -> None:
     sch_c, tick_c = armed("chunked")
     ms = ctx["timer"]({"packed": tick_p, "chunked": tick_c}, iters=20,
                       device_only=False)
-    dev_p, top_p = _device_profile(torch, tick_p, 5)
-    dev_c, top_c = _device_profile(torch, tick_c, 5)
+    dev_p, top_p = _device_profile(torch, tick_p, STEP_PROFILE_N)
+    dev_c, top_c = _device_profile(torch, tick_c, STEP_PROFILE_N)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
@@ -3235,7 +3329,8 @@ def phase_packed(ctx) -> None:
     del sch_p, sch_c, tick_p, tick_c
     gc.collect()
 
-    emit({"phase": "packed", "tiny": tiny, "config": cfg.name,
+    _mark(ctx, "ticks")
+    emit({"phase": "packed", **_times(ctx), "tiny": tiny, "config": cfg.name,
           "pool": {"page_size": page, "max_slots": slots,
                    "max_seq_len": 1024, "prefill_chunk": 256,
                    "token_budget": budget},
@@ -3357,7 +3452,8 @@ def _payloads_identical(held, opsc) -> dict:
     return {"payloads": len(held), "tokens": tokens, "identical": same}
 
 
-def _split_stages(ctx, eng, opts, prompt, cache_len, profile_n=5) -> dict:
+def _split_stages(ctx, eng, opts, prompt, cache_len,
+                  profile_n=STEP_PROFILE_N) -> dict:
     """One split decode step at B = 1 after ``prompt`` (1, S), by stage:
     edge (the front layers: K7 and K1), payload (TS + TAB-Q and the
     reconstruction, with the host sync that reads its bits), cloud (the
@@ -3422,6 +3518,7 @@ def phase_split(ctx) -> None:
     from repro_torch.serving.split_engine import SplitEngine
 
     tiny = _split_tiny(ctx)
+    _mark(ctx, "tiny")
     device = ctx["device"]
     cfg = get_config("llama2-7b")  # full width and depth
     opts = RuntimeOpts(quantized_kv=True)
@@ -3464,6 +3561,7 @@ def phase_split(ctx) -> None:
     stop = int(first[1].tokens[10])
     stop_at = list(first[1].tokens).index(stop) + 1
 
+    _mark(ctx, "first_run")
     kernels = {"decode_attention": da.decode_attention,
                "tabq_quantize": tq.tabq_quantize,
                "tabq_adaptive": tq.tabq_adaptive, "ts_encode": tsm.ts_encode,
@@ -3519,6 +3617,7 @@ def phase_split(ctx) -> None:
         == cfg.num_layers * decodes,
         "no_early_exit": all(s.early_exits == 0 for s in stats)}
 
+    _mark(ctx, "main_run")
     # with a full-precision front and no compression, each stream is the
     # Engine's on that prompt alone, bit for bit (logprobs too)
     srv16 = LLMServer(cfg, params, opts, backend="split",
@@ -3541,6 +3640,7 @@ def phase_split(ctx) -> None:
     del srv16, eng16, engine, outs16
     gc.collect()
 
+    _mark(ctx, "uncompressed_fp_front")
     # four edge devices with a 64-token shared prefix: the paged cloud (K3
     # reads the prefix on rows 1+, K2 decodes) held to the dense cloud.
     # Uncompressed: with TS + TAB-Q the shared run would encode row 0 alone
@@ -3577,6 +3677,7 @@ def phase_split(ctx) -> None:
     checks["shared_prefix_ships_less"] = \
         st_paged.uplink_bits_measured < st_dense.uplink_bits_measured
 
+    _mark(ctx, "paged_cloud")
     # I_kv = 0, short: the stateless cloud re-runs its 24 layers over the
     # whole received history every step; held to the I_kv = 1 engine
     ikv0 = SplitEngine(cfg, params, OPSCConfig(
@@ -3596,6 +3697,7 @@ def phase_split(ctx) -> None:
         < st_ikv1.uplink_bits_eq3
     gc.collect()
 
+    _mark(ctx, "ikv0")
     # one decode step at B = 1 after a 128-token prompt, by stage
     nfront = eng.split_block
     by_stage = _split_stages(ctx, eng, opts, prompts[0][None], 1024)
@@ -3614,7 +3716,8 @@ def phase_split(ctx) -> None:
         + params["lm_head"].numel() * 2
     step_bound_ms = (eng.edge_weight_bytes() + cloud_bytes) / bw * 1e3
 
-    emit({"phase": "split", "tiny": tiny, "config": cfg.name,
+    _mark(ctx, "stages")
+    emit({"phase": "split", **_times(ctx), "tiny": tiny, "config": cfg.name,
           "opsc": vars(opsc), "kv": "int8", "cache_len": 1024,
           "prompt_lens": list(SPLIT_LENS), "finish_reasons": reasons,
           "generated": lengths, "stop_token": stop, "launches": launches,
@@ -3837,7 +3940,8 @@ def _verify_tick_profile(ctx, cfg, params, opts, pool_kw, rng) -> dict:
                / calls[n] for n, t in ticks.items()}
     out = {}
     for n, t in ticks.items():
-        device_ms, top = _device_profile(torch, t._decode_tick, 5)
+        device_ms, top = _device_profile(torch, t._decode_tick,
+                                         STEP_PROFILE_N)
         out[n] = {"host_included_ms": ms[n], "device_busy_ms": device_ms,
                   "idle_share": 1 - device_ms / ms[n],
                   "tokens_a_tick": emitted[n],
@@ -3991,6 +4095,7 @@ def phase_spec(ctx) -> None:
 
     device = ctx["device"]
     vehicle = _spec_vehicle(ctx)
+    _mark(ctx, "vehicle")
     cfg = get_config("llama2-7b")  # full width and depth
     opts = RuntimeOpts(quantized_kv=True)
     params, _ = _llama7b_params(ctx)
@@ -4001,8 +4106,10 @@ def phase_spec(ctx) -> None:
     sched = _spec_scheduler(ctx, cfg, params, opts, prompts, SPEC_MAX_TOKENS,
                             pool_kw, PAGED_REL)
     gc.collect()
+    _mark(ctx, "scheduler")
     tick = _verify_tick_profile(ctx, cfg, params, opts, pool_kw, rng)
     gc.collect()
+    _mark(ctx, "verify_tick")
     split_prompts = np.stack(_spec_prompts(
         cfg.vocab_size, rng, SPEC_SPLIT_ROWS, SPEC_SPLIT_LEN,
         SPEC_SPLIT_LEN))
@@ -4010,13 +4117,15 @@ def phase_spec(ctx) -> None:
         split_layer=SPLIT_LAYER, qw_front=4), split_prompts,
         SPEC_SPLIT_TOKENS, device, pool_pages=32)
     gc.collect()
+    _mark(ctx, "split")
     torch.cuda.synchronize()
     checks = {f"vehicle_{k}": v for k, v in vehicle["checks"].items()}
     for name, part in (("scheduler", sched), ("split", split)):
         for sub, row in part.items():
             checks.update({f"{name}_{sub}_{k}": v
                            for k, v in row["checks"].items()})
-    emit({"phase": "spec", "config": cfg.name, "speculate_k": SPEC_K,
+    emit({"phase": "spec", **_times(ctx),
+          "config": cfg.name, "speculate_k": SPEC_K,
           "prompt_lens": [len(p) for p in prompts],
           "max_tokens": SPEC_MAX_TOKENS,
           "pool": {k: v for k, v in pool_kw.items() if k != "device"},
@@ -4238,6 +4347,7 @@ def phase_service(ctx) -> None:
     del ref
     gc.collect()
 
+    _mark(ctx, "reference")
     # the service: AsyncLLMServer over LLMServer(backend="paged",
     # auto_prefix=True, telemetry=Tracer()) behind ServingHTTPServer
     tracer = Tracer()
@@ -4319,12 +4429,16 @@ def phase_service(ctx) -> None:
     del engine, http, srv, sched, outputs
     gc.collect()
 
+    _mark(ctx, "traffic")
     tick = _traced_tick(ctx, cfg, params, opts, pool_kw, rng)
     gc.collect()
+    _mark(ctx, "traced_tick")
     fused = _fused_traced(cfg, params, opts, device)
     checks["fused_bit_identical_tracer_on_off"] = fused["bit_identical"]
     gc.collect()
-    emit({"phase": "service", "config": cfg.name, "nvidia_smi": ctx["smi"],
+    _mark(ctx, "fused_traced")
+    emit({"phase": "service", **_times(ctx),
+          "config": cfg.name, "nvidia_smi": ctx["smi"],
           "pool": {k: v for k, v in pool_kw.items() if k != "device"},
           "clients": len(prompts) + 1,
           "nonstreaming": list(SERVICE_NONSTREAM),
@@ -4451,8 +4565,9 @@ def _facade_step_timing(ctx, cfg, params, opts, pool_kw) -> dict:
     ms = ctx["timer"]({"facade_step": ds.step,
                        "single_decode_tick": single._decode_tick},
                       iters=20, device_only=False)
-    dev_ds, top_ds = _device_profile(torch, ds.step, 5)
-    dev_single, _ = _device_profile(torch, single._decode_tick, 5)
+    dev_ds, top_ds = _device_profile(torch, ds.step, STEP_PROFILE_N)
+    dev_single, _ = _device_profile(torch, single._decode_tick,
+                                    STEP_PROFILE_N)
     out = {"facade_step_ms": ms["facade_step"],
            "single_decode_tick_ms": ms["single_decode_tick"],
            "facade_step_device_ms": dev_ds,
@@ -4622,9 +4737,12 @@ def phase_disagg(ctx) -> None:
         del run, ds, tracer, pre, dec
         gc.collect()
 
+    _mark(ctx, "runs")
     step = _facade_step_timing(ctx, cfg, params, opts, pool_kw)
     gc.collect()
-    emit({"phase": "disagg", "config": cfg.name, "nvidia_smi": ctx["smi"],
+    _mark(ctx, "step_timing")
+    emit({"phase": "disagg", **_times(ctx),
+          "config": cfg.name, "nvidia_smi": ctx["smi"],
           "pool": {k: v for k, v in pool_kw.items() if k != "device"},
           "runs": runs, "step": step, "checks": checks,
           "ok": all(checks.values())})
@@ -4646,11 +4764,11 @@ FAMILY_TF_STEPS = 8  # decode steps held to the unquantized prefill
 # test_quantized_kv_decode_close)
 INT8_BOUND = 0.08
 FAMILY_SPLIT_LAYER = 8  # ℓ of h2o-danube-3-4b's 24 layers
-# the profiled calls of a full-width step (or split stage) in the families,
-# moe, gqa and ssm phases: one profiled call of these eager steps costs a
-# second or more of host time, and the device time a call is steady
-STEP_PROFILE_N = 2
 FAMILY_TINY = ("gemma2-2b-tiny", "h2o-danube-3-4b-tiny")
+# gemma2-2b over its first 7 of 13 blocks (14 of 26 layers, windowed and
+# global alternating): full depth was measured (PERF.md); cut for
+# the whole script's time, as the moe and gqa phases' configs are
+FAMILY_GEMMA2_BLOCKS = 7
 
 
 def _family_params(ctx, name, blocks=None) -> tuple:
@@ -4971,8 +5089,7 @@ def _family_fused(ctx, name, weights=None, lens=FAMILY_LENS,
             len(moe_layers) * ffn.num_experts - step_moe["experts"])
     else:
         weight_read = weight_bytes
-    read = weight_read - (0 if cfg.tie_embeddings else
-                          params["embed"].numel() * 2)
+    read = weight_read - _unread_bytes(params)
     for c, ls in zip(caches, layers):
         m = ls.mixer
         if m.kind == "ssm":
@@ -5287,17 +5404,24 @@ def _family_tiny(ctx, name, opts_kw=None, cfg=None) -> dict:
 
 
 def phase_families(ctx) -> None:
+    from repro_torch.configs import get_config
+
     t0 = time.perf_counter()
     timed, part_s = _timed_parts(ctx)
     tiny = {name: timed(name, _family_tiny, name) for name in FAMILY_TINY}
-    fused = {name: timed(name, _family_fused, name)
-             for name in ("h2o-danube-3-4b", "gemma2-2b")}
+    fused = {"h2o-danube-3-4b": timed("h2o-danube-3-4b", _family_fused,
+                                      "h2o-danube-3-4b"),
+             "gemma2-2b": timed("gemma2-2b", _family_fused, "gemma2-2b",
+                                _family_params(ctx, "gemma2-2b",
+                                               FAMILY_GEMMA2_BLOCKS))}
     split = timed("split", _family_split)
     checks = {f"tiny_{k}": v["ok"] for k, v in tiny.items()}
     for part, res in (("A", fused["h2o-danube-3-4b"]),
                       ("B", fused["gemma2-2b"]), ("C", split)):
         checks.update({f"{part}_{k}": v for k, v in res["checks"].items()})
     emit({"phase": "families", "nvidia_smi": ctx["smi"], "tiny": tiny,
+          "gemma2_blocks": [FAMILY_GEMMA2_BLOCKS,
+                            get_config("gemma2-2b").num_blocks],
           "A_danube_fused": fused["h2o-danube-3-4b"],
           "B_gemma2_fused": fused["gemma2-2b"], "C_danube_split": split,
           "phase_s": time.perf_counter() - t0, "part_s": part_s,
@@ -5308,11 +5432,16 @@ def phase_families(ctx) -> None:
                          f"{[k for k, v in checks.items() if not v]}")
 
 
-# the mixture-of-experts configs: qwen2-moe-a2.7b at full width and depth,
+# the mixture-of-experts configs: qwen2-moe-a2.7b at full width (12 of 24
+# blocks; full depth is measured in PERF.md),
 # qwen3-moe-235b-a22b at full width over its first 4 of 94 blocks (all of
 # them are 470 GB of bf16); both served dropless, as the reference serves
 MOE_OPTS = dict(moe_capacity_factor=0.0)
 MOE_QWEN3_BLOCKS = 4
+# qwen2-moe-a2.7b over its first 12 of 24 blocks: full depth was measured
+# (PERF.md), and the whole script must finish well inside its 1,200 s
+# limit on a slow host too (one measured run took 1.35 × as long)
+MOE_QWEN2_BLOCKS = 12
 MOE_FUSED_LENS = (512, 512, 128, 128)  # A: qwen2-moe through "fused"
 MOE_FUSED_CACHE_LEN = 640
 MOE_QWEN3_LENS = (256, 256, 64, 64)  # D: qwen3-moe, fused then packed
@@ -5463,11 +5592,15 @@ def _moe_paged(ctx, weights, lens, max_new, prefix, forks, modes) -> dict:
 
 
 def phase_moe(ctx) -> None:
+    from repro_torch.configs import get_config
+
+    qwen2_blocks = get_config("qwen2-moe-a2.7b").num_blocks
     t0 = time.perf_counter()
     timed, part_s = _timed_parts(ctx)
     tiny = {name: timed(name, _family_tiny, name, MOE_OPTS)
             for name in MOE_TINY}
-    qwen2 = timed("init_qwen2", _family_params, "qwen2-moe-a2.7b")
+    qwen2 = timed("init_qwen2", _family_params, "qwen2-moe-a2.7b",
+                  MOE_QWEN2_BLOCKS)
     a = timed("A", _family_fused, "qwen2-moe-a2.7b", qwen2,
               lens=MOE_FUSED_LENS, cache_len=MOE_FUSED_CACHE_LEN,
               opts_kw=MOE_OPTS)
@@ -5491,6 +5624,7 @@ def phase_moe(ctx) -> None:
                       ("D", d_packed)):
         checks.update({f"{part}_{k}": v for k, v in res["checks"].items()})
     emit({"phase": "moe", "nvidia_smi": ctx["smi"], "tiny": tiny,
+          "qwen2_moe_blocks": [MOE_QWEN2_BLOCKS, qwen2_blocks],
           "A_qwen2_moe_fused": a, "B_qwen2_moe_paged": b,
           "C_qwen2_moe_split": c, "D_qwen3_moe_fused": d,
           "D_qwen3_moe_packed": d_packed,
@@ -5503,7 +5637,7 @@ def phase_moe(ctx) -> None:
 
 # the GQA/MQA configs (ROADMAP queue 1 item 9.1): internlm2-20b (48 query
 # heads on 8 kv heads: G 6) and granite-34b (48 on 1: G 48, an ungated GELU
-# MLP) at full width and depth, random bf16 weights, int8 KV
+# MLP) at full width (the depths below), random bf16 weights, int8 KV
 GQA_FUSED_LENS = (512, 512, 128, 128)
 GQA_FUSED_CACHE_LEN = 640
 GQA_MAX_TOKENS = (16, 16, 16, 16)
@@ -5514,6 +5648,12 @@ GQA_PAGED_PREFIX = 256
 GQA_PAGED_FORKS = (5, 6, 7)
 GQA_PAGED_MAX_TOKENS = 16
 GQA_SPLIT_MAX_TOKENS = 8  # the split runs: the split phase's prompts
+# granite-34b runs over its first 22 of 88 blocks (16.8 of 67.3 GB of bf16
+# weights) and internlm2-20b over 24 of 48: both depths were measured
+# (PERF.md), and the modal phase needs the seconds within the
+# script's 1,200 s limit (on a slow host too)
+GQA_GRANITE_BLOCKS = 22
+GQA_INTERNLM2_BLOCKS = 24
 
 
 def _small_config(name, blocks=2):
@@ -5522,7 +5662,9 @@ def _small_config(name, blocks=2):
     d_state 16, chunk 8; 4 experts top-2 of d_ff 64) over ``blocks`` of
     its whole pattern (``tiny()`` keeps two layer kinds: jamba's has no
     attention layer) with its full-width query heads a kv head (``tiny()``
-    gives internlm2 G 2 and granite G 4): 2 kv heads below G 12, else 1."""
+    gives internlm2 G 2, granite G 4 and qwen2-vl G 2): 2 kv heads below
+    G 12, else 1; the vision stub as ``tiny()`` cuts it (M-RoPE sections
+    (4, 6, 6), 8 patches of width 64)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5546,9 +5688,11 @@ def _small_config(name, blocks=2):
     pattern = tuple(dataclasses.replace(ls, mixer=mixer(ls.mixer),
                                         ffn=ffn(ls.ffn))
                     for ls in cfg.pattern)
+    vlm = dict(mrope_sections=(4, 6, 6), num_patches=8, d_vision=64) \
+        if cfg.embed == "vlm" else {}
     return dataclasses.replace(cfg, name=name + "-small", d_model=128,
                                vocab_size=256, pattern=pattern,
-                               num_blocks=blocks)
+                               num_blocks=blocks, **vlm)
 
 
 def _dense_paged(ctx, weights, modes) -> dict:
@@ -5718,6 +5862,8 @@ def _phase_verdict(name, parts, checks) -> None:
 
 
 def phase_gqa(ctx) -> None:
+    from repro_torch.configs import get_config
+
     t0 = time.perf_counter()
     timed, part_s = _timed_parts(ctx)
     # granite-34b's 67.3 GB of bf16 weights and its split's codes leave no
@@ -5727,7 +5873,8 @@ def phase_gqa(ctx) -> None:
     _free_weights()
     tiny = {name: timed(name, _family_tiny, name, cfg=_small_config(name))
             for name in ("internlm2-20b", "granite-34b")}
-    internlm2 = timed("init_internlm2", _family_params, "internlm2-20b")
+    internlm2 = timed("init_internlm2", _family_params, "internlm2-20b",
+                      GQA_INTERNLM2_BLOCKS)
     a = timed("A", _family_fused, "internlm2-20b", internlm2,
               lens=GQA_FUSED_LENS, cache_len=GQA_FUSED_CACHE_LEN,
               max_tokens=GQA_MAX_TOKENS)
@@ -5736,7 +5883,8 @@ def phase_gqa(ctx) -> None:
               n_new=GQA_SPLIT_MAX_TOKENS)
     del internlm2
     _free_weights()
-    granite = timed("init_granite", _family_params, "granite-34b")
+    granite = timed("init_granite", _family_params, "granite-34b",
+                    GQA_GRANITE_BLOCKS)
     d = timed("D", _family_fused, "granite-34b", granite,
               lens=GQA_FUSED_LENS, cache_len=GQA_FUSED_CACHE_LEN,
               max_tokens=GQA_MAX_TOKENS)
@@ -5747,6 +5895,10 @@ def phase_gqa(ctx) -> None:
     _free_weights()
     checks = {f"tiny_{k}": v["ok"] for k, v in tiny.items()}
     report = {"phase": "gqa", "nvidia_smi": ctx["smi"], "tiny": tiny,
+              "granite_blocks": [GQA_GRANITE_BLOCKS,
+                                 get_config("granite-34b").num_blocks],
+              "internlm2_blocks": [GQA_INTERNLM2_BLOCKS,
+                                   get_config("internlm2-20b").num_blocks],
               "A_internlm2_fused": a, "B_internlm2_paged": b,
               "C_internlm2_split": c, "D_granite_fused": d,
               "E_granite_paged": e, "F_granite_split": f,
@@ -5925,6 +6077,447 @@ def phase_ssm(ctx) -> None:
         emit(report)
 
 
+# the vision-stub and codebook configs (ROADMAP queue 1 items 9.3 and 9.4):
+# qwen2-vl-2b and musicgen-medium at full width and depth, random bf16
+# weights, int8 KV. A: qwen2-vl's text prompts through the fused backend
+# as the families phase checks them, then the Engine over 1,024 projected
+# patch slots and 128 text tokens; B: the paged backend (``GQA_PAGED_*``),
+# chunked then packed; C: the split at l = 8; D: musicgen through the
+# Engine on (B, S, 4) codebook prompts; E: its split; F: the dense-gather
+# route (``paged_prefill_kernel=False``) on some of B's requests
+MODAL_FUSED_LENS = (512, 512, 128, 128)
+MODAL_FUSED_CACHE_LEN = 640
+MODAL_MAX_TOKENS = (16, 16, 16, 16)
+MODAL_TEXT = 128  # A: text tokens after qwen2-vl's 1,024 patch slots
+MODAL_VLM_NEW = 16
+MODAL_MUSIC_LEN = 512  # D: musicgen's prompts (2, 512, 4)
+MODAL_MUSIC_NEW = 32
+MODAL_SPLIT_LEN = 96  # E: musicgen's split prompts (2, 96, 4)
+MODAL_SPLIT_NEW = 8
+MODAL_GATHER_REQUESTS = (0, 2, 5, 6)  # F: two long prompts, two forks
+MODAL_TINY = ("qwen2-vl-2b", "musicgen-medium")
+
+
+def _unread_bytes(params) -> int:
+    """Bytes of the weights a decode step does not read in full: the
+    embedding beside an untied head (the step gathers B of its rows;
+    qwen2-vl's head is untied under ``tie_embeddings=True``) and the vision
+    stub's projector (read by a prefill with patches only)."""
+    n = 0
+    for key in ("embed", "w_proj"):
+        if key in params and (key == "w_proj" or "lm_head" in params):
+            n += params[key].numel() * params[key].element_size()
+    return n
+
+
+def _modal_inputs(cfg, b, s, rng):
+    """Prompts (B, S), or (B, S, K) on a codebook config, and the vision
+    stub's patch embeddings (B, num_patches, d_vision) f32 (None without
+    one), from ``rng``."""
+    import numpy as np
+
+    shape = (b, s) + ((cfg.num_codebooks,) if cfg.num_codebooks > 1
+                      else ())
+    prompts = rng.integers(0, cfg.vocab_size, shape)
+    patches = None
+    if cfg.embed == "vlm":
+        patches = rng.normal(size=(b, cfg.num_patches, cfg.d_vision)) \
+            .astype(np.float32)
+    return prompts, patches
+
+
+def _modal_tiny(ctx, name) -> dict:
+    """The config at small widths with its full-width group (``_small_config``:
+    qwen2-vl G 6 over 8 patch slots; musicgen's codebooks and sinusoidal
+    positions), f32 weights, int8 KV, 20-token prompts (qwen2-vl's first 8
+    rows projected patches): greedy on the CPU (plain versions) against the
+    card (kernels) fed the same tokens, logits within MODEL_REL; the card's
+    Engine tokens under the margin rule, each codebook a row."""
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import Engine
+
+    device = ctx["device"]
+    cfg = _small_config(name)
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    card = {k: v.to(device) for k, v in cpu.items()}
+    prompts, patches = _modal_inputs(cfg, 3, 20, np.random.default_rng(0))
+    n, cache_len = 24, 64
+    want, want_lg = _greedy_stepwise(cpu, cfg, prompts, n, opts, cache_len,
+                                     "cpu", patches=patches)
+    got_lg = _teacher_forced(card, cfg, prompts, want, opts, cache_len,
+                             device, patches=patches)
+    rel = float(np.abs(got_lg - want_lg).max() / np.abs(want_lg).max())
+    got = Engine(cfg, card, opts, cache_len=cache_len, device=device) \
+        .generate(prompts, n, patches=patches).tokens[:, 20:]
+    if cfg.num_codebooks > 1:  # each (row, codebook) a row of the rule
+        k, v = cfg.num_codebooks, cfg.vocab_size
+        got, want = (t.transpose(0, 2, 1).reshape(-1, n) for t in (got, want))
+        want_lg = want_lg.transpose(0, 2, 1, 3).reshape(-1, n, v)
+        assert got.shape[0] == 3 * k
+    ok, compared = _margin_agreement(got, want, want_lg, MODEL_REL)
+    return {"config": cfg.name, "groups": cfg.pattern[0].mixer.num_heads
+            // cfg.pattern[0].mixer.num_kv_heads, "steps": n,
+            "max_rel_logit_err": rel, "tol": MODEL_REL,
+            "tokens_compared": compared, "ok": ok and rel <= MODEL_REL}
+
+
+def _modal_engine(ctx, weights, prompts, n_new, patches=None) -> dict:
+    """``Engine.generate`` at full width (``weights`` (cfg, params,
+    seconds); B 2) over ``prompts`` (B, S) with the vision stub's
+    ``patches``, or codebook prompts (B, S, K): K1's counter set to 0 just
+    before the timed run and read just after (once a layer and decode
+    step); tokens (B, S + n_new[, K]) in the vocabulary, the prompt kept, a
+    repeat equal; row 0's first FAMILY_TF_STEPS decode steps fed the
+    Engine's tokens, bit for bit the Engine's argmax, within the
+    reference's int8 bound of an unquantized prefill's (patches included);
+    K1 equal to its plain version on the last step's calls. Timed: the
+    prefill, a decode step at B 2 (host included; device busy) beside the
+    bytes it must read."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import (RuntimeOpts, decode_step,
+                                                prefill)
+    from repro_torch.serving.engine import Engine
+
+    device = ctx["device"]
+    cfg, params, _ = weights
+    opts = RuntimeOpts(quantized_kv=True)
+    b, s = prompts.shape[:2]
+    cache_len = s + n_new
+    eng = Engine(cfg, params, opts, cache_len=cache_len, device=device)
+    first = eng.generate(prompts, n_new, patches=patches)
+    da.decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, n_new, patches=patches)
+    wall_s = time.perf_counter() - t0
+    launches = da.decode_attention.launches
+    gen = res.tokens[:, s:]
+    checks = {
+        "shape": res.tokens.shape == (b, s + n_new) + prompts.shape[2:]
+        and res.logprobs.shape == (b, n_new) + prompts.shape[2:],
+        "prompt_kept": bool(np.array_equal(res.tokens[:, :s], prompts)),
+        "tokens_in_vocab": int(gen.min()) >= 0
+        and int(gen.max()) < cfg.vocab_size,
+        "logprobs_finite": bool(np.isfinite(res.logprobs).all()
+                                and (res.logprobs <= 0).all()),
+        "same_as_first_run": bool(np.array_equal(res.tokens, first.tokens)),
+        "k1_launches": launches == cfg.num_layers * (n_new - 1)}
+    del eng, first
+    steps = min(FAMILY_TF_STEPS, n_new - 1)
+    plain = RuntimeOpts(quantized_kv=False)
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts, device=device)
+        forced = torch.as_tensor(gen, device=device)
+        pt = None if patches is None else torch.as_tensor(patches,
+                                                          device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, cfg, toks, cache_len, opts, pt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        stepped = []
+        for t in range(steps):
+            logits, caches = decode_step(params, cfg, forced[:, t:t + 1],
+                                         caches, s + t, opts)
+            stepped.append(logits.float().cpu())
+        step_tok = np.stack([lg.argmax(-1).numpy() for lg in stepped], 1)
+        checks["steps_equal_engine_tokens"] = bool(np.array_equal(
+            step_tok, gen[:, 1:steps + 1]))
+        tf_rel = []
+        for j in range(1, steps + 1):
+            full = torch.cat([toks[:1], forced[:1, :j]], dim=1)
+            ref, _ = prefill(params, cfg, full, None, plain,
+                             None if pt is None else pt[:1])
+            ref = ref.float().cpu()
+            tf_rel.append(float((stepped[j - 1][:1] - ref).abs().max()
+                                / ref.abs().max()))
+        checks["int8_within_reference_bound"] = max(tf_rel) < INT8_BOUND
+        # the last generated token fed at the last position, every layer's
+        # K1 call recorded
+        q_pos = s + n_new - 1
+        nxt = forced[:, n_new - 1:]
+        pos = torch.tensor(q_pos, dtype=torch.int32, device=device)
+        seen, real = [], ops.decode_attention
+
+        def record(*args):
+            seen.append(args)
+            return real(*args)
+
+        ops.decode_attention = record
+        try:
+            decode_step(params, cfg, nxt, caches, pos, opts)
+        finally:
+            ops.decode_attention = real
+        checks["k1_calls_last_step"] = len(seen) == cfg.num_layers
+        k1_err = max(float((da.decode_attention(*a)
+                            - da.decode_attention_ref(*a)).abs().max())
+                     for a in seen)
+        checks["k1_equals_plain_on_caches"] = k1_err <= ATOL
+        step = lambda: decode_step(params, cfg, nxt, caches, pos, opts)  # noqa: E731
+        step_ms = ctx["timer"]({"step": step}, iters=20,
+                               device_only=False)["step"]
+        device_ms, rows = _device_profile(torch, step, STEP_PROFILE_N)
+    bw, _ = peak_rates(ctx["device_name"])
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    read = weight_bytes - _unread_bytes(params)
+    for c, ls in zip(caches, cfg.pattern * cfg.num_blocks):
+        m = ls.mixer
+        read += b * min(c.pos.shape[1], q_pos + 1) * (
+            m.num_kv_heads * (2 * m.head_dim + 8) + 4)
+    out = {"config": cfg.name, "prompt": list(prompts.shape),
+           "patches": None if patches is None else list(patches.shape),
+           "new": n_new, "cache_len": cache_len, "k1_launches": launches,
+           "wall_s": wall_s, "tokens_per_s": b * n_new / wall_s,
+           "prefill_s": prefill_s, "int8_rel_err_per_step": tf_rel,
+           "int8_bound": INT8_BOUND, "k1_max_abs_err_on_caches": k1_err,
+           "decode_step_b2": {
+               "q_pos": q_pos, "host_included_ms": step_ms,
+               "device_busy_ms": device_ms,
+               "idle_share": 1 - device_ms / step_ms, "bytes_read": read,
+               "bound_ms": read / bw * 1e3,
+               "gemm_in_step": _kernel_share(rows, GEMM_DEVICE_NAMES),
+               "k1_in_step": _kernel_share(rows, K1_DEVICE_NAMES),
+               "profile_top": rows[:8]},
+           "checks": checks}
+    del caches, seen
+    gc.collect()
+    return out
+
+
+def _codebook_split(ctx, weights) -> dict:
+    """musicgen at full width through ``SplitEngine`` at l =
+    FAMILY_SPLIT_LAYER with the paper's OPSC defaults on (2,
+    MODAL_SPLIT_LEN, 4) prompts, MODAL_SPLIT_NEW tokens (LLMServer takes
+    1-D prompts, so the engine is driven directly), the counters set to 0
+    just before the run and read just after: K1 once a layer and decode
+    step, K5 and K6 once a payload, K7 once an edge projection and payload;
+    tokens (B, S + n, 4); the payloads held to their plain versions; an
+    uncompressed full-precision split equal to the Engine bit for bit; one
+    decode step by stage."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.opsc import OPSCConfig
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import tabq_quantize as tq
+    from repro_torch.kernels import ts_mask as tsm
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.split_engine import SplitEngine
+
+    device = ctx["device"]
+    cfg, params, _ = weights
+    opts = RuntimeOpts(quantized_kv=True)
+    opsc = OPSCConfig(split_layer=FAMILY_SPLIT_LAYER, qw_front=4)
+    prompts, _ = _modal_inputs(cfg, 2, MODAL_SPLIT_LEN,
+                               np.random.default_rng(14))
+    n_new, cache_len = MODAL_SPLIT_NEW, MODAL_SPLIT_LEN + MODAL_SPLIT_NEW
+    eng = SplitEngine(cfg, params, opsc, opts=opts, cache_len=cache_len,
+                      device=device)
+    held = []
+
+    def compress(h):  # keeps the first payloads' hidden states
+        if len(held) < 4:
+            held.append(h.detach().clone())
+        return SplitEngine._compress(eng, h)
+
+    eng._compress = compress
+    kernels = {"decode_attention": da.decode_attention,
+               "tabq_adaptive": tq.tabq_adaptive, "ts_encode": tsm.ts_encode,
+               "dequant_matmul": dm.dequant_matmul}
+    for fn in kernels.values():
+        fn.launches = 0
+    k7_routes = dm.dequant_matmul.route_launches
+    k7_routes.update(dict.fromkeys(k7_routes, 0))
+    t0 = time.perf_counter()
+    toks, stats = eng.generate(prompts, n_new)
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    k7_routes = dict(k7_routes)
+    del eng._compress
+    payloads = _payloads_identical(held, opsc)
+    blocks = opsc.split_layer // len(cfg.pattern)
+    checks = {
+        "shape": toks.shape == (2, MODAL_SPLIT_LEN + n_new, 4),
+        "tokens_in_vocab": int(toks.min()) >= 0
+        and int(toks.max()) < cfg.vocab_size,
+        "payloads_identical_to_plain": payloads["identical"],
+        "k1_launches": launches["decode_attention"]
+        == cfg.num_layers * (n_new - 1),
+        "k5_k6_launches": launches["tabq_adaptive"] == launches["ts_encode"]
+        == n_new,
+        "k7_launches": launches["dequant_matmul"]
+        == _k7_per_edge_block(cfg) * blocks * n_new,
+        "no_early_exit": stats.early_exits == 0}
+    by_stage = _split_stages(ctx, eng, opts, prompts[:1], cache_len,
+                             STEP_PROFILE_N)
+    edge_bytes = eng.edge_weight_bytes()
+    del eng, held
+    gc.collect()
+    full = SplitEngine(cfg, params, OPSCConfig(
+        split_layer=FAMILY_SPLIT_LAYER, qw_front=16), opts=opts,
+        cache_len=cache_len, device=device)
+    t16, _ = full.generate(prompts, n_new, compress=False)
+    del full
+    want = Engine(cfg, params, opts, cache_len=cache_len,
+                  device=device).generate(prompts, n_new)
+    checks["uncompressed_fp_front_equals_engine"] = bool(
+        np.array_equal(t16, want.tokens))
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage_ms, device_ms = by_stage["host_included_ms"], \
+        by_stage["device_busy_ms"]
+    return {"config": cfg.name, "opsc": vars(opsc),
+            "prompt": list(prompts.shape), "new": n_new, "wall_s": wall_s,
+            "launches": launches, "k7_routes": k7_routes,
+            "payload_check": payloads,
+            "uplink_bits_measured": stats.uplink_bits_measured,
+            "edge_weight_bytes": edge_bytes,
+            "decode_step_b1": {
+                "host_included_ms": stage_ms, "device_busy_ms": device_ms,
+                "decode_payload_bits": by_stage["bits"],
+                "k7_in_edge": _kernel_share(by_stage["profiles"]["edge"],
+                                            K7_DEVICE_NAMES),
+                "profile_top": by_stage["top"][:8]},
+            "checks": checks}
+
+
+def _gather_route(ctx, weights) -> dict:
+    """The paged pool's dense-gather route at full width: some of
+    ``_dense_paged``'s requests (``MODAL_GATHER_REQUESTS``: two long
+    prompts and two forks of the 256-token prefix) through
+    LLMServer(backend="paged") chunked, first with K3 (the default), then
+    with ``RuntimeOpts(paged_prefill_kernel=False)``, which gathers the
+    pool dense into ``chunked_attention`` for every continuation chunk and
+    fork; the counters set to 0 just before each run and read just after
+    (K3 once a layer and chunk call in the first, never in the second; K2
+    once a layer and decode step in both); the second's streams held to
+    the first's step by step within PAGED_REL (``_moe_hold`` with no route
+    record), no page left."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.serving.api import LLMServer
+
+    device = ctx["device"]
+    cfg, params, _ = weights
+    rng = np.random.default_rng(26)  # _dense_paged's requests
+    shared = rng.integers(0, cfg.vocab_size, (GQA_PAGED_PREFIX,))
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in GQA_PAGED_LENS]
+    for i in GQA_PAGED_FORKS:
+        prompts[i][:GQA_PAGED_PREFIX] = shared
+    L = cfg.num_layers
+    runs, out, checks = [], {}, {}
+    for kernel in (True, False):
+        opts = RuntimeOpts(quantized_kv=True, paged_prefill_kernel=kernel)
+        srv = LLMServer(cfg, params, opts, backend="paged",
+                        tick_mode="chunked", num_pages=513, page_size=16,
+                        max_slots=8, max_seq_len=1024, prefill_chunk=256,
+                        device=device)
+        sched = srv.backend.scheduler
+        rec = _record_logits(sched)
+        for fn in (pda.paged_decode_attention, ppa.paged_prefill_attention):
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [srv.submit(prompts[i], SamplingParams(
+            max_tokens=GQA_PAGED_MAX_TOKENS,
+            **(dict(prefix_key="shared", prefix_len=GQA_PAGED_PREFIX)
+               if i in GQA_PAGED_FORKS else {})))
+            for i in MODAL_GATHER_REQUESTS]
+        outs = srv.run()
+        wall_s = time.perf_counter() - t0
+        st = sched.stats
+        k2, k3 = (pda.paged_decode_attention.launches,
+                  ppa.paged_prefill_attention.launches)
+        name = "k3" if kernel else "dense_gather"
+        checks[f"{name}_k2_launches"] = k2 == L * st.steps > 0
+        checks[f"{name}_k3_launches"] = (
+            k3 == L * st.shared_prefill_calls > 0 if kernel else k3 == 0)
+        checks[f"{name}_chunk_calls"] = st.shared_prefill_calls > 0
+        checks[f"{name}_pool_reclaimed"] = sched.pool.pages_in_use == 0
+        outs = [outs[r] for r in rids]
+        runs.append((outs, rec))
+        out[name] = {"wall_s": wall_s, "decode_steps": st.steps,
+                     "shared_prefill_calls": st.shared_prefill_calls,
+                     "prefix_forks": st.prefix_forks, "k2_launches": k2,
+                     "k3_launches": k3}
+        del srv, sched
+    (want, want_rec), (got, got_rec) = runs
+    rows = []
+    for w, g in zip(want, got):
+        wl = np.stack(want_rec[w.rid])
+        rows.append({"err": np.abs(np.stack(got_rec[g.rid]) - wl).max(-1)
+                     / np.abs(wl).max(), "margin": _margins(wl),
+                     "got": g.tokens, "want": w.tokens})
+    report = _moe_hold(rows, PAGED_REL, True, 1)
+    checks["dense_gather_equals_k3_step_rule"] = report["ok"]
+    out["vs_k3"] = dict(report, bit_identical_rows=[
+        bool(np.array_equal(w.tokens, g.tokens)) for w, g in zip(want, got)])
+    return {"config": cfg.name, "requests": list(MODAL_GATHER_REQUESTS),
+            "tol": PAGED_REL, "runs": out, "checks": checks}
+
+
+def phase_modal(ctx) -> None:
+    import numpy as np
+
+    t0 = time.perf_counter()
+    timed, part_s = _timed_parts(ctx)
+    tiny = {name: timed(f"{name}-small", _modal_tiny, name)
+            for name in MODAL_TINY}
+    vlm = timed("init_qwen2_vl", _family_params, "qwen2-vl-2b")
+    a = timed("A", _family_fused, "qwen2-vl-2b", vlm,
+              lens=MODAL_FUSED_LENS, cache_len=MODAL_FUSED_CACHE_LEN,
+              max_tokens=MODAL_MAX_TOKENS)
+    cfg = vlm[0]
+    prompts, patches = _modal_inputs(cfg, 2, cfg.num_patches + MODAL_TEXT,
+                                     np.random.default_rng(27))
+    a_patches = timed("A_patches", _modal_engine, vlm, prompts,
+                      MODAL_VLM_NEW, patches)
+    b = timed("B", _dense_paged, vlm, ("chunked", "packed"))
+    c = timed("C", _family_split, "qwen2-vl-2b", vlm,
+              n_new=GQA_SPLIT_MAX_TOKENS)
+    f = timed("F", _gather_route, vlm)
+    del vlm
+    _free_weights()
+    music = timed("init_musicgen", _family_params, "musicgen-medium")
+    prompts, _ = _modal_inputs(music[0], 2, MODAL_MUSIC_LEN,
+                               np.random.default_rng(28))
+    d = timed("D", _modal_engine, music, prompts, MODAL_MUSIC_NEW)
+    e = timed("E", _codebook_split, music)
+    del music
+    _free_weights()
+    checks = {f"tiny_{k}": v["ok"] for k, v in tiny.items()}
+    report = {"phase": "modal", "nvidia_smi": ctx["smi"], "tiny": tiny,
+              "A_qwen2_vl_fused": a, "A_qwen2_vl_patches": a_patches,
+              "B_qwen2_vl_paged": b, "C_qwen2_vl_split": c,
+              "D_musicgen_engine": d, "E_musicgen_split": e,
+              "F_dense_gather": f,
+              "phase_s": time.perf_counter() - t0, "part_s": part_s,
+              "checks": checks}
+    try:
+        _phase_verdict("modal", (("A", a), ("A_patches", a_patches),
+                                 ("B", b), ("C", c), ("D", d), ("E", e),
+                                 ("F", f)), checks)
+    finally:
+        report["ok"] = all(checks.values())
+        emit(report)
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -5960,9 +6553,12 @@ def main(argv=None) -> int:
                "packed": phase_packed, "split": phase_split,
                "spec": phase_spec, "service": phase_service,
                "disagg": phase_disagg, "families": phase_families,
-               "moe": phase_moe, "gqa": phase_gqa, "ssm": phase_ssm}
+               "moe": phase_moe, "gqa": phase_gqa, "ssm": phase_ssm,
+               "modal": phase_modal}
     for name in PHASES:
         if name in phases:
+            ctx["phase_t0"] = ctx["part_t0"] = time.perf_counter()
+            ctx["part_s"] = {}
             runners[name](ctx)
     if phases != list(PHASES):
         return 0  # a subset is a debugging run: no summary, no verdict

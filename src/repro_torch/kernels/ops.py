@@ -67,8 +67,14 @@ def varlen_attention(q, k_codes, k_scale, v_codes, v_scale, pool_pos,
     return _va.varlen_attention(*args, rows)
 
 
+# K4's plain version on any device: the packed tick's route only under
+# RuntimeOpts(paged_prefill_kernel=False), as the reference takes its dense
+# oracle there; never a stand-in for a kernel that failed
+varlen_attention_plain = _va.varlen_attention_ref
 segment_start = _va.segment_start
 segment_rows = _va.segment_rows
+gather_pages = _pda.gather_pages
+first_call_position = _ppa.first_call_position
 
 
 def tabq_quantize(x, bits: int):

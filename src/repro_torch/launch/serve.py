@@ -9,7 +9,9 @@ of ``repro/launch/serve.py``).
 ``--arch`` takes any config of ``repro_torch.configs`` (llama2-7b,
 llama2-13b, gemma2-2b, h2o-danube-3-4b, qwen2-moe-a2.7b,
 qwen3-moe-235b-a22b, internlm2-20b, granite-34b, mamba2-780m,
-jamba-v0.1-52b); ``--split-layer`` is snapped to a pattern boundary
+jamba-v0.1-52b, qwen2-vl-2b, served on text prompts as the reference's
+launcher serves it, and musicgen-medium, whose prompts are (B, S, 4)
+codebook tokens); ``--split-layer`` is snapped to a pattern boundary
 (gemma2's pattern is two layers, jamba's eight). Mixture-of-experts layers
 route dropless (``moe_capacity_factor=0.0``), as the reference serves
 them. ``--num-blocks`` keeps the first blocks of a config too deep for one
@@ -71,8 +73,10 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device=device)
     rng = np.random.default_rng(0)
-    prompts = rng.integers(0, cfg.vocab_size,
-                           (args.batch, args.prompt_len)).astype(np.int32)
+    shape = (args.batch, args.prompt_len)
+    if cfg.embed == "musicgen":  # one token stream a codebook
+        shape += (cfg.num_codebooks,)
+    prompts = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
     cache_len = args.prompt_len + args.new
 
     if args.split:

@@ -1,10 +1,11 @@
-"""Model building blocks (port of ``repro/models/layers.py``, the llama,
-gemma2 and qwen3 paths): RMSNorm, rotary embeddings, the KV caches and their
-int8 writes (sliding-window layers into a ring), position-masked prefill
-attention with windows and logit soft caps, int8-KV decode attention
-through the CUDA kernels (dense and paged), prefill attention through the
-paged pool, token-packed varlen attention, the attention layer (with
-QK-norm) and the (gated) MLP.
+"""Model building blocks (port of ``repro/models/layers.py``): RMSNorm,
+rotary embeddings (M-RoPE's per-axis bands too), the sinusoidal absolute
+embedding, the KV caches and their int8 writes (sliding-window layers into
+a ring), position-masked prefill attention with windows and logit soft
+caps, int8-KV decode attention through the CUDA kernels (dense and paged),
+prefill attention through the paged pool (or the pool gathered dense),
+token-packed varlen attention, the attention layer (with QK-norm) and the
+(gated) MLP.
 
 Caches come in three layouts, as in the reference:
   * fp (bf16/f32): token-major (B, S, K, hd), read by ``chunked_attention``;
@@ -70,6 +71,38 @@ def rope_table(positions: torch.Tensor, dim: int, theta: float = 10000.0):
     freqs = 1.0 / (theta ** exps)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_tables(positions_thw: torch.Tensor, dim: int, sections: tuple,
+                 theta: float = 10000.0):
+    """Qwen2-VL's M-RoPE (the reference's ``mrope_tables``):
+    ``positions_thw`` (3, B, S) temporal, height and width ids;
+    ``sections`` splits the dim//2 frequencies into one band an axis, e.g.
+    (16, 24, 24). Returns (cos, sin) (B, S, dim//2) f32, band a taking its
+    angles from axis a's ids."""
+    assert sum(sections) == dim // 2
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions_thw.device) / dim
+    freqs = 1.0 / (theta ** exps)
+    cos, sin, start = [], [], 0
+    for axis, sec in enumerate(sections):
+        ang = positions_thw[axis].float()[..., None] \
+            * freqs[start:start + sec]
+        cos.append(torch.cos(ang))
+        sin.append(torch.sin(ang))
+        start += sec
+    return torch.cat(cos, -1), torch.cat(sin, -1)
+
+
+def sinusoidal_embedding(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """The classic absolute embedding (MusicGen): positions (...) →
+    (..., dim) f32, sines then cosines of ``dim // 2`` frequencies
+    ``10000^(-i / (dim // 2))``."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -346,27 +379,61 @@ def quantized_decode_attention(q, cache: KVCache, spec, q_positions, pos, *,
                              kv_chunk=kv_chunk)
 
 
-def paged_prefill_attention(q, cache: PagedKVCache, k_fresh, v_fresh,
-                            q_positions):
+def _gather_dense_kv(cache: PagedKVCache):
+    """The pool gathered dense through the block table and dequantized
+    (the reference's ``_gather_dense_kv``): (k, v) (R, S_pool, K, hd) f32
+    token-major, and kv_pos (R, S_pool)."""
+    bt = cache.block_table
+    kd, vd = ops.gather_pages(cache.k, bt), ops.gather_pages(cache.v, bt)
+    ks = ops.gather_pages(cache.k_scale, bt)  # (R, K, Sp)
+    vs = ops.gather_pages(cache.v_scale, bt)
+    k = (kd.float() * ks[..., None]).transpose(1, 2)
+    v = (vd.float() * vs[..., None]).transpose(1, 2)
+    return k, v, ops.gather_pages(cache.pos, bt)
+
+
+def paged_prefill_attention(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
+                            q_positions, *, q_chunk: int = 1024,
+                            kv_chunk: int = 1024, use_kernel: bool = True):
     """Prefill attention THROUGH the paged pool (continuation chunks and
     shared-prefix forks): each row attends its pool history, masked to
     stored positions below its first in-call position, plus the call's
     fresh k/v (R, S, K, hd) at full precision, causally by ``q_positions``
     (R, S). ``cache`` is the post-update pool. q (R, S, H, hd) is read in
     place as (R, S, K, G, hd) by ``kernels.ops.paged_prefill_attention``
-    (the CUDA kernel on the card, its plain version on the CPU). The
-    reference's dense-gather fallback serves softcap and window layers,
-    which the port refuses before this point; it is not ported."""
-    b, s, h, hd = q.shape
-    kh = cache.k.shape[1]
-    out = ops.paged_prefill_attention(
-        q.reshape(b, s, kh, h // kh, hd), cache.k, cache.k_scale, cache.v,
-        cache.v_scale, cache.pos, cache.block_table, q_positions,
-        k_fresh, v_fresh)
-    return out.reshape(b, s, h, hd).to(q.dtype)
+    (the CUDA kernel on the card, its plain version on the CPU).
+
+    A soft-capped or windowed layer, or ``use_kernel=False``
+    (``RuntimeOpts.paged_prefill_kernel``), takes the reference's
+    dense-gather route instead: the pool gathered dense and dequantized
+    (:func:`_gather_dense_kv`), the fresh keys appended, then
+    :func:`chunked_attention` with the layer's window and cap. Only the
+    option or the layer's spec chooses that route, never a kernel's
+    failure."""
+    if use_kernel and spec.attn_softcap is None \
+            and spec.sliding_window is None:
+        b, s, h, hd = q.shape
+        kh = cache.k.shape[1]
+        out = ops.paged_prefill_attention(
+            q.reshape(b, s, kh, h // kh, hd), cache.k, cache.k_scale,
+            cache.v, cache.v_scale, cache.pos, cache.block_table,
+            q_positions, k_fresh, v_fresh)
+        return out.reshape(b, s, h, hd).to(q.dtype)
+    k_hist, v_hist, hist_pos = _gather_dense_kv(cache)
+    start = ops.first_call_position(q_positions)  # (R,) history bound
+    hist_pos = torch.where(hist_pos < start[:, None], hist_pos, -1)
+    k = torch.cat([k_hist, k_fresh.float()], dim=1)
+    v = torch.cat([v_hist, v_fresh.float()], dim=1)
+    kv_pos = torch.cat([hist_pos, q_positions.to(hist_pos.dtype)], dim=1)
+    return chunked_attention(q, k, v, q_positions, kv_pos,
+                             window=spec.sliding_window,
+                             softcap=spec.attn_softcap, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
 
 
-def paged_decode_attention_layer(q, cache: PagedKVCache, q_positions):
+def paged_decode_attention_layer(q, cache: PagedKVCache, spec, q_positions,
+                                 *, q_chunk: int = 1024,
+                                 kv_chunk: int = 1024):
     """Decode-time attention through the paged pool, ``cache`` being the
     post-update pool: every key, the call's own included, is read back
     from the pool's int8 codes (``kernels.ops.paged_decode_attention``,
@@ -379,8 +446,17 @@ def paged_decode_attention_layer(q, cache: PagedKVCache, q_positions):
     S sequential decode steps reads (the burst was written first, and
     quantization is per token). A bound of -1 (a free slot, a left pad)
     gives zeros. The reference gathers the pool dense for S > 1 and runs
-    ``chunked_attention``; K2 reads each row's pages once per column."""
+    ``chunked_attention``; K2 reads each row's pages once per column.
+    A soft-capped layer takes the reference's dense-gather route at any
+    S: the pool gathered dense (:func:`_gather_dense_kv`), then
+    :func:`chunked_attention` with the layer's cap."""
     b, s, h, hd = q.shape
+    if spec.attn_softcap is not None:
+        k, v, kv_pos = _gather_dense_kv(cache)
+        return chunked_attention(q, k, v, q_positions, kv_pos,
+                                 window=spec.sliding_window,
+                                 softcap=spec.attn_softcap, q_chunk=q_chunk,
+                                 kv_chunk=kv_chunk)
     kh = cache.k.shape[1]
     bt = cache.block_table
     if s > 1:
@@ -418,7 +494,8 @@ def packed_layout(positions: torch.Tensor, slots: torch.Tensor,
 
 
 def varlen_attention_layer(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
-                           q_positions, packed: PackedLayout):
+                           q_positions, packed: PackedLayout, *,
+                           use_kernel: bool = True):
     """Token-packed VARLEN attention through the pool, the packed tick's
     route: ONE flat batch (batch dim 1) whose tokens span many requests,
     q (1, T, H, hd), per-token ``q_positions`` (1, T) and the buffer's
@@ -429,8 +506,11 @@ def varlen_attention_layer(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
     post-update pool. The operands go to ``kernels.ops.varlen_attention``
     (the CUDA kernel on the card, its plain version on the CPU) as
     (K, T, ...) views of the model's tensors, and the result comes back as
-    a view too: nothing is transposed in memory. Softcapped and windowed layers have no varlen route (the
-    reference refuses them too)."""
+    a view too: nothing is transposed in memory. ``use_kernel=False``
+    (``RuntimeOpts.paged_prefill_kernel``) takes the kernel's plain
+    version on any device, as the reference takes its dense oracle.
+    Softcapped and windowed layers have no varlen route (the reference
+    refuses them too)."""
     if spec.attn_softcap is not None or spec.sliding_window is not None:
         raise NotImplementedError(
             "the token-packed varlen path requires kernel-eligible "
@@ -440,10 +520,11 @@ def varlen_attention_layer(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
     qk = q.reshape(t, kh, h // kh, hd).transpose(0, 1)  # (K, T, G, hd)
     kf = k_fresh.reshape(t, kh, hd).transpose(0, 1)  # (K, T, hd)
     vf = v_fresh.reshape(t, kh, hd).transpose(0, 1)
-    out = ops.varlen_attention(
-        qk, cache.k, cache.k_scale, cache.v, cache.v_scale, cache.pos,
-        cache.block_table, q_positions.reshape(-1).to(torch.int32),
-        packed.slots.reshape(-1), packed.start, kf, vf, packed.rows)
+    args = (qk, cache.k, cache.k_scale, cache.v, cache.v_scale, cache.pos,
+            cache.block_table, q_positions.reshape(-1).to(torch.int32),
+            packed.slots.reshape(-1), packed.start, kf, vf)
+    out = ops.varlen_attention(*args, packed.rows) if use_kernel \
+        else ops.varlen_attention_plain(*args)
     return out.transpose(0, 1).reshape(b, t, h, hd).to(q.dtype)
 
 
@@ -463,7 +544,8 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
                     cache: KVCache | PagedKVCache | None, pos, q_positions,
                     q_chunk: int = 1024, kv_chunk: int = 1024,
                     decode: bool = False, attend_cache: bool = False,
-                    packed: PackedLayout | None = None):
+                    packed: PackedLayout | None = None,
+                    prefill_kernel: bool = True):
     """One attention layer (the reference's dense and paged branches).
     During prefill the cache is written and attention runs over the fresh
     k/v; with ``decode=True`` attention reads the cache (for S > 1, the
@@ -474,7 +556,11 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
     (:func:`paged_prefill_attention`); with a ``packed`` layout the call
     is one flat token-packed batch (B = 1), written through the
     segment-aware scatter and attended through
-    :func:`varlen_attention_layer`.
+    :func:`varlen_attention_layer`. ``prefill_kernel=False``
+    (``RuntimeOpts.paged_prefill_kernel``) sends the paged prefill and the
+    packed call to their plain routes (the dense gather, K4's plain
+    version); a soft-capped layer gathers the pool dense for its paged
+    prefill and decode whatever the option.
 
     The layout's ``quant_rows`` (the reference's ``quant_fresh`` mask, as
     row indices) name rows whose fresh k/v are attended through the int8
@@ -496,12 +582,6 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     if isinstance(cache, PagedKVCache):
-        if spec.attn_softcap is not None and packed is None:
-            # the reference gathers the pool dense for these
-            # (_gather_dense_kv); the pool itself refuses windows
-            raise NotImplementedError(
-                "soft-capped attention through the paged pool is not "
-                "ported yet (ROADMAP queue 1, item 9: _gather_dense_kv)")
         paged_cache_update(cache, k, v, q_positions,
                            slots=None if packed is None else packed.slots)
         if packed is not None:
@@ -510,13 +590,20 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
             if rows is not None and rows.numel():
                 k_att, v_att = (_dequant_rows(t, rows) for t in (k, v))
             out = varlen_attention_layer(q, cache, k_att, v_att, spec,
-                                         q_positions, packed)
+                                         q_positions, packed,
+                                         use_kernel=prefill_kernel)
         elif decode:
-            out = paged_decode_attention_layer(q, cache, q_positions)
+            out = paged_decode_attention_layer(q, cache, spec, q_positions,
+                                               q_chunk=q_chunk,
+                                               kv_chunk=kv_chunk)
         elif attend_cache:
-            out = paged_prefill_attention(q, cache, k, v, q_positions)
+            out = paged_prefill_attention(q, cache, k, v, spec, q_positions,
+                                          q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                          use_kernel=prefill_kernel)
         else:
             out = chunked_attention(q, k, v, q_positions, q_positions,
+                                    window=spec.sliding_window,
+                                    softcap=spec.attn_softcap,
                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
         return matmul(out.reshape(b, s, h * hd), params["wo"]), cache
     attn_kw = dict(window=spec.sliding_window, softcap=spec.attn_softcap,

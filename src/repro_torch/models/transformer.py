@@ -1,14 +1,19 @@
-"""Model assembly (port of ``repro/models/transformer.py``, the llama,
-gemma2, mixture-of-experts and state-space paths): a decoder of
+"""Model assembly (port of ``repro/models/transformer.py``): a decoder of
 ``len(pattern) × num_blocks`` layers whose parameters are stacked per
 pattern position; a layer's mixer is attention or a Mamba-2 block
 (:mod:`repro_torch.models.ssm`), its ffn a (gated) MLP, the
 mixture-of-experts layer of :mod:`repro_torch.models.moe` for an
 ``MoESpec`` (routed with ``RuntimeOpts.moe_capacity_factor`` and
 ``moe_groups``; its auxiliary loss is dropped, as the reference's serving
-paths drop it), or none (mamba2). Entry points:
+paths drop it), or none (mamba2). The embedding is a token table, the
+sum of K codebook tables (musicgen: tokens (B, S, K), logits (..., K, V)),
+or a token table whose first ``num_patches`` rows the vision stub's
+projected patches replace (qwen2-vl); positions are RoPE, M-RoPE
+(qwen2-vl's three-axis ids), sinusoidal (added to the embedding) or none.
+Entry points:
 
-  prefill(params, cfg, tokens, cache_len, opts)      → (last_logits, caches)
+  prefill(params, cfg, tokens, cache_len, opts, patches)
+                                                     → (last_logits, caches)
   decode_step(params, cfg, tokens, caches, pos, opts)→ (logits, caches)
 
 and, over the paged pool (``serving.kv_pool.PagedKVPool.device_caches``):
@@ -59,6 +64,11 @@ class RuntimeOpts:
     # the SSM recurrent state's storage dtype (compute stays f32): bf16
     # halves a Mamba layer's decode state
     ssm_state_dtype: str = "float32"
+    # route continuation chunks and forks through kernel K3 and the packed
+    # tick through K4; False takes the reference's plain routes instead
+    # (the pool gathered dense into chunked_attention, K4's plain version):
+    # the baseline the reference's chunked-prefill benchmark measures
+    paged_prefill_kernel: bool = True
 
 
 def layer_params(cfg: ArchConfig, params: dict, blocks=None) -> list:
@@ -129,33 +139,84 @@ def make_positions(cfg: ArchConfig, b: int, s: int, device=None):
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
+def make_mrope_positions(cfg: ArchConfig, positions: torch.Tensor):
+    """Qwen2-VL's M-RoPE ids (3, B, S) from sequence positions (B, S)
+    (the reference's ``make_mrope_positions``). The first ``num_patches``
+    positions are the patches of a √P × √P grid: t = 0 and (h, w) their
+    grid cell. Text continues past the grid: all three ids are
+    ``p - P + √P``. The ids depend only on the absolute position, so
+    prefill and decode agree. A pad's position -1 counts as a patch, at
+    cell (√P - 1, √P - 1): floor division and a non-negative remainder, as
+    jnp's ``//`` and ``%`` give them."""
+    p = cfg.num_patches
+    grid = max(math.isqrt(max(p, 1)), 1)
+    is_patch = positions < p
+    text = positions - p + grid
+    rows = torch.div(positions, grid, rounding_mode="floor")
+    return torch.stack([
+        torch.where(is_patch, torch.zeros_like(text), text),
+        torch.where(is_patch, torch.remainder(rows, grid), text),
+        torch.where(is_patch, torch.remainder(positions, grid), text)])
+
+
 def rope_tables(cfg: ArchConfig, positions: torch.Tensor):
     """(cos, sin) for the pattern's attention head_dim, or None when the
     config has no attention layer or no rotary positions (``rope="none"``:
-    jamba, mamba2)."""
+    jamba, mamba2; ``"sinusoidal"``: musicgen, whose positions are added
+    to the embedding). M-RoPE (qwen2-vl) gives per-row tables (B, S,
+    hd/2) from :func:`make_mrope_positions`."""
     attn = [ls.mixer for ls in cfg.pattern if isinstance(ls.mixer, AttnSpec)]
-    if not attn or cfg.rope == "none":
+    if not attn or cfg.rope in ("none", "sinusoidal"):
         return None
-    return L.rope_table(positions, attn[0].head_dim, cfg.rope_theta)
+    hd = attn[0].head_dim
+    if cfg.rope == "mrope":
+        return L.mrope_tables(make_mrope_positions(cfg, positions), hd,
+                              cfg.mrope_sections, cfg.rope_theta)
+    return L.rope_table(positions, hd, cfg.rope_theta)
 
 
-def embed_inputs(cfg: ArchConfig, params: dict, tokens: torch.Tensor):
-    """Token embedding (B, S) → (B, S, D) in the embedding's dtype; with
-    ``embed_scale`` (gemma) times √d_model, rounded to that dtype first as
-    the reference's weakly typed product does."""
-    x = F.embedding(tokens, params["embed"])
+def embed_inputs(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+                 patches: torch.Tensor | None = None,
+                 positions: torch.Tensor | None = None):
+    """The embedded inputs (B, S, D) in the embedding's dtype (the
+    reference's ``embed_inputs``). ``tokens`` are (B, S) ids, or (B, S, K)
+    on a codebook config (musicgen), whose K embeddings are summed in
+    codebook order. On the vision stub (``embed="vlm"``) ``patches``
+    (B, P, d_vision) are projected by ``w_proj`` and replace the first
+    ``num_patches`` rows. With ``embed_scale`` (gemma) the result is
+    multiplied by √d_model, rounded to its dtype first as the reference's
+    weakly typed product is; with sinusoidal positions (musicgen) the
+    embedding of ``positions`` (B, S), cast to that dtype, is added
+    last."""
+    emb = params["embed"]
+    if cfg.embed == "musicgen":
+        x = F.embedding(tokens[..., 0], emb[0])
+        for k in range(1, cfg.num_codebooks):
+            x = x + F.embedding(tokens[..., k], emb[k])
+    else:
+        x = F.embedding(tokens, emb)
+    if cfg.embed == "vlm" and patches is not None:
+        proj = patches.to(x.dtype) @ params["w_proj"]  # (B, P, D)
+        x = torch.cat([proj, x[:, cfg.num_patches:]], dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
+    if cfg.rope == "sinusoidal" and positions is not None:
+        x = x + L.sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
     return x
 
 
 def apply_head(cfg: ArchConfig, params: dict, x: torch.Tensor):
     """Final norm and head (the embedding's transpose when tied); the
-    logits are f32, soft-capped by ``final_softcap`` (gemma2)."""
+    logits are f32, soft-capped by ``final_softcap`` (gemma2), and on a
+    codebook config (..., K, V)."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     w = params["lm_head"] if "lm_head" in params else params["embed"].T
-    return L.soft_cap((x @ w).float(), cfg.final_softcap)
+    logits = L.soft_cap((x @ w).float(), cfg.final_softcap)
+    if cfg.num_codebooks > 1:
+        logits = logits.reshape(*logits.shape[:-1], cfg.num_codebooks,
+                                cfg.vocab_size)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +233,7 @@ def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
             p["mixer"], h, ls.mixer, rope_cs=rope_cs, cache=cache, pos=pos,
             q_positions=q_positions, q_chunk=opts.q_chunk,
             kv_chunk=opts.kv_chunk, decode=decode, attend_cache=attend_cache,
-            packed=packed)
+            packed=packed, prefill_kernel=opts.paged_prefill_kernel)
     else:
         conv_state, ssm_state = cache
         out, (conv, state) = ssm_layer(p["mixer"], h, ls.mixer,
@@ -208,12 +269,16 @@ def _apply_layers(cfg, params, x, caches, *, q_positions, pos,
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
-            cache_len: int | None = None, opts: RuntimeOpts = RuntimeOpts()):
-    """Process the prompt (B, S): last-position logits (B, V) f32 and the
-    filled caches (``cache_len`` slots, default S)."""
-    b, s = tokens.shape
+            cache_len: int | None = None, opts: RuntimeOpts = RuntimeOpts(),
+            patches: torch.Tensor | None = None):
+    """Process the prompt (B, S), or (B, S, K) on a codebook config:
+    last-position logits (B, V) f32, (B, K, V) with codebooks, and the
+    filled caches (``cache_len`` slots, default S). ``patches``
+    (B, num_patches, d_vision) feed the vision stub's projector
+    (:func:`embed_inputs`)."""
+    b, s = tokens.shape[:2]
     positions = make_positions(cfg, b, s, device=tokens.device)
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, patches, positions)
     caches = init_caches(cfg, b, cache_len or s, opts, tokens.device)
     x = _apply_layers(cfg, params, x, caches, q_positions=positions, pos=0,
                       opts=opts, decode=False)
@@ -222,13 +287,14 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 caches: list, pos, opts: RuntimeOpts = RuntimeOpts()):
-    """One autoregressive step: ``tokens`` (B, 1); ``pos`` the absolute
-    position being written, a 0-d int32 tensor on the device (or an int).
-    Writes the caches in place; returns (logits (B, V) f32, caches)."""
+    """One autoregressive step: ``tokens`` (B, 1), or (B, 1, K) on a
+    codebook config; ``pos`` the absolute position being written, a 0-d
+    int32 tensor on the device (or an int). Writes the caches in place;
+    returns (logits (B, V) f32, or (B, K, V), caches)."""
     b = tokens.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     positions = pos.reshape(1, 1).expand(b, 1)
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, None, positions)
     x = _apply_layers(cfg, params, x, caches, q_positions=positions, pos=pos,
                       opts=opts, decode=True)
     return apply_head(cfg, params, x)[:, 0], caches
@@ -243,7 +309,7 @@ def _paged_forward(params, cfg, tokens, caches, positions, opts, *,
                    decode: bool, attend_cache: bool = False,
                    every_column: bool = False):
     positions = positions.to(torch.int32)
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, None, positions.clamp(min=0))
     x = _apply_layers(cfg, params, x, caches, q_positions=positions, pos=0,
                       opts=opts, decode=decode, attend_cache=attend_cache)
     if every_column:
@@ -332,7 +398,7 @@ def packed_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     work list, :func:`layers.packed_layout`) is computed once here for
     every layer. Returns (logits (R, V) f32, caches)."""
     positions = positions.to(torch.int32)
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, None, positions.clamp(min=0))
     packed = L.packed_layout(positions, slots, caches[0].block_table.shape[0],
                              quant_rows)
     x = _apply_layers(cfg, params, x, caches, q_positions=positions, pos=0,

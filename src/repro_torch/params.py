@@ -3,8 +3,12 @@ pytree's paths joined by ``/`` (the keys of the reference's ``arrays.npz``
 checkpoints), with every block leaf stacked over ``num_blocks`` on its
 leading axis, as in ``repro/models/transformer.py:98-121``:
 
-  embed (V, D)   final_norm (D,)   lm_head (D, V)  [untied configs; a
-                                                   tied one reads embed.T]
+  embed (V, D), or (K, V, D) for K codebooks (musicgen)
+  final_norm (D,)
+  lm_head (D, V·K)   unless tied: a config whose ``tie_embeddings`` holds
+                     and whose embedding is ``"token"`` reads embed.T
+                     (qwen2-vl's ``"vlm"`` embedding keeps its own head)
+  w_proj (d_vision, D)                    [the vision stub's projector]
   blocks/p{i}/ln1, ln2                    (nb, D)
   blocks/p{i}/mixer/wq, wk, wv            (nb, D, H·hd | K·hd)
   blocks/p{i}/mixer/wo                    (nb, H·hd, D)
@@ -74,18 +78,17 @@ def param_specs(cfg: ArchConfig) -> dict:
     """``{key: (shape, init scale)}``; a scale of None means ones (norms),
     0.0 zeros (the SSM's biases and ``A_log``). The scales are the
     reference's: embed and head ×0.02, projections ×1/√d_in
-    (``layers.py:658-672,775-783``, ``ssm.py:22-41``)."""
-    if cfg.embed != "token" or cfg.num_codebooks != 1 \
-            or cfg.rope not in ("rope", "none"):
-        raise NotImplementedError(f"{cfg.name}: only the token embedding, "
-                                  f"RoPE and no positions are ported "
-                                  f"(ROADMAP queue 1, item 9: M-RoPE, "
-                                  f"sinusoidal positions, the codebook and "
-                                  f"vision embeddings)")
+    (``layers.py:658-672,775-783``, ``ssm.py:22-41``, ``transformer.py:
+    101-113`` for the codebook embedding, the projector and the head)."""
     d, v, nb = cfg.d_model, cfg.vocab_size, cfg.num_blocks
-    specs = {"embed": ((v, d), 0.02), "final_norm": ((d,), None)}
-    if not cfg.tie_embeddings:
-        specs["lm_head"] = ((d, v), 0.02)
+    k = cfg.num_codebooks
+    specs = {"embed": ((k, v, d) if cfg.embed == "musicgen" else (v, d),
+                       0.02)}
+    if cfg.embed == "vlm":
+        specs["w_proj"] = ((cfg.d_vision, d), 1.0 / math.sqrt(cfg.d_vision))
+    specs["final_norm"] = ((d,), None)
+    if not (cfg.tie_embeddings and cfg.embed == "token"):
+        specs["lm_head"] = ((d, v * k), 0.02)
     for i, ls in enumerate(cfg.pattern):
         m, f = ls.mixer, ls.ffn
         if not isinstance(m, (AttnSpec, SSMSpec)) or not (

@@ -98,6 +98,11 @@ end's tick thread); a second thread entering ``step`` mid-tick raises
 from another thread by a single consumer: ``_emit_lock`` makes the appends
 atomic with the drain's swap.
 
+A codebook config (musicgen) is refused up front with ``ValueError``: a
+request here is one token stream. The vision stub (qwen2-vl) serves text
+only, its M-RoPE ids taken from each token's absolute position, as the
+reference's paged entry points take them.
+
 Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
 (ROADMAP queue 1, item 8, the sharded deployment).
 """
@@ -324,6 +329,14 @@ class Scheduler:
         if mesh is not None:
             raise NotImplementedError(f"{_NOT_PORTED['mesh']} is not "
                                       f"ported yet")
+        if cfg.num_codebooks > 1:
+            # the reference takes the config and fails inside its first
+            # tick, once submit has flattened a (S, K) prompt
+            raise ValueError(
+                f"{cfg.name}: the paged scheduler serves one token stream "
+                f"a request; a config of {cfg.num_codebooks} codebooks "
+                f"takes (B, S, {cfg.num_codebooks}) prompts through Engine "
+                f"or SplitEngine")
         if prefill_chunk == "auto":
             ladder = AUTO_CHUNK_LADDER
         elif isinstance(prefill_chunk, (tuple, list)):

@@ -41,8 +41,11 @@ The ported configs run on the dense clouds: the llama family, the
 sliding-window families (gemma2-2b, h2o-danube-3-4b), whose edge and cloud
 caches keep a ring per windowed layer, the mixture-of-experts families
 (qwen2-moe-a2.7b, qwen3-moe-235b-a22b), the grouped- and multi-query
-configs (internlm2-20b, granite-34b) and the state-space ones
-(mamba2-780m, jamba-v0.1-52b), whose Mamba-2 layers carry a recurrent
+configs (internlm2-20b, granite-34b), the vision stub qwen2-vl-2b (text
+only, as the reference's split serves it: no patches cross), musicgen-medium
+(codebook prompts (B, S, 4), greedy, no speculation, as the reference's)
+and the state-space ones (mamba2-780m, jamba-v0.1-52b), whose Mamba-2
+layers carry a recurrent
 state on both sides of the split and whose edge runs their projections
 through K7 (``conv_w`` as its dequantized codes). The paged cloud refuses
 windows and SSM layers, as the reference's pool does, and so does
@@ -225,14 +228,18 @@ class SplitEngine:
         return ar[None].expand(b, s)
 
     def _edge_front(self, tokens, caches, pos, decode: bool):
-        """Blocks [0, split) over ``tokens`` (B, S) written at ``pos``:
-        the split-layer hidden states (B, S, D)."""
-        b, s = tokens.shape
-        x = embed_inputs(self.cfg, self.edge_params, tokens)
+        """Blocks [0, split) over ``tokens`` (B, S), or (B, S, K) on a
+        codebook config, written at ``pos``: the split-layer hidden states
+        (B, S, D). The embedding takes the positions ``pos ..`` too
+        (musicgen adds their sinusoidal embedding); it takes no patches:
+        the split serves the vision stub's config on text only, as the
+        reference's does."""
+        b, s = tokens.shape[:2]
+        positions = self._positions(b, s, pos)
+        x = embed_inputs(self.cfg, self.edge_params, tokens, None, positions)
         return _apply_layers(self.cfg, self.edge_params, x, caches,
-                             q_positions=self._positions(b, s, pos), pos=pos,
-                             opts=self.opts, decode=decode,
-                             blocks=(0, self.split_block))
+                             q_positions=positions, pos=pos, opts=self.opts,
+                             decode=decode, blocks=(0, self.split_block))
 
     def _cloud_back(self, h, caches, pos, decode: bool, positions=None,
                     attend_cache: bool = False, tail: int | None = None):
@@ -368,10 +375,12 @@ class SplitEngine:
     def generate(self, prompts, max_new_tokens: int, compress: bool = True,
                  shared_prefix_len: int = 0, sampling=None,
                  with_logprobs: bool = False, speculate_k: int = 0) -> tuple:
-        """Split-computing generation over ``prompts`` (B, S) int. Returns
-        (tokens (B, S + generated), SplitStats), or with
-        ``with_logprobs=True`` also (B, generated) f32 logprobs of each
-        emitted token under the raw cloud-head distribution.
+        """Split-computing generation over ``prompts`` (B, S) int, or
+        (B, S, K) on a codebook config (musicgen). Returns (tokens
+        (B, S + generated[, K]), SplitStats), or with ``with_logprobs=True``
+        also (B, generated[, K]) f32 logprobs of each emitted token under
+        the raw cloud-head distribution. Codebook prompts take greedy
+        sampling only and no ``speculate_k``, as the reference's.
 
         ``sampling``: one ``SamplingParams`` for every row or a list of B;
         None or all-greedy rows take the exact argmax. The sampler is
@@ -415,17 +424,26 @@ class SplitEngine:
                 "its earlier columns still attend")
         cfg, opts, dev = self.cfg, self.opts, self.device
         prompts = np.asarray(prompts)
-        if prompts.ndim != 2:
-            raise ValueError(f"prompts must be (B, S) token ids, got shape "
+        k = cfg.num_codebooks
+        if prompts.ndim != (2 if k == 1 else 3) or (
+                k > 1 and prompts.shape[2] != k):
+            want = "(B, S)" if k == 1 else f"(B, S, {k}) codebook"
+            raise ValueError(f"prompts must be {want} token ids, got shape "
                              f"{prompts.shape}")
-        b, s = prompts.shape
+        b, s = prompts.shape[:2]
         if s + max_new_tokens > self.cache_len:
             raise ValueError(f"prompt {s} + max_new_tokens {max_new_tokens} "
                              f"exceeds cache_len {self.cache_len}")
+        if speculate_k and k > 1:
+            raise NotImplementedError(
+                "speculate_k needs (B, S) token prompts")
         tokens = torch.as_tensor(prompts, device=dev)
         stats = SplitStats()
         splist = broadcast_params(
             SamplingParams() if sampling is None else sampling, b)
+        if k > 1 and not all(p.greedy for p in splist):
+            raise NotImplementedError(
+                "non-greedy sampling needs (B, S) token prompts")
         sample = make_sampler(splist, cfg.vocab_size, dev)
 
         nfront = self.split_block
@@ -526,9 +544,10 @@ class SplitEngine:
         h_buf = torch.zeros((b, self.cache_len, h.shape[2]), dtype=h.dtype,
                             device=dev)
         h_buf[:, :s] = h
-        tok_buf = torch.empty((b, max_new_tokens), dtype=tokens.dtype,
+        rest = tuple(tokens.shape[2:])  # (K,) with codebooks
+        tok_buf = torch.empty((b, max_new_tokens) + rest, dtype=tokens.dtype,
                               device=dev)
-        lp_buf = torch.empty((b, max_new_tokens), dtype=torch.float32,
+        lp_buf = torch.empty((b, max_new_tokens) + rest, dtype=torch.float32,
                              device=dev)
         t = torch.zeros((), dtype=torch.int32, device=dev)
         n_hist, n_out, i_kv, pos = s, 0, self.opsc.i_kv, s

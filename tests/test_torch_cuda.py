@@ -829,6 +829,11 @@ K1_SHAPES = {
     # internlm2-20b's (48 heads on 8) and granite-34b's (48 on 1) steps
     "internlm2_g6": (2, 8, 6, 128, 1024, 700, None, None),
     "granite_g48": (2, 1, 48, 128, 1024, 700, None, None),
+    # qwen2-vl-2b's decode step (12 heads on 2; 1,024 patch slots and 128
+    # text tokens, 16 new: cache_len 1,168 padded to 1,536) and
+    # musicgen-medium's (24 heads on 24 at head dim 64; 512 + 32 tokens)
+    "qwen2vl_g6": (2, 2, 6, 128, 1536, 1167, None, None),
+    "musicgen_hd64": (2, 24, 1, 64, 1024, 543, None, None),
 }
 
 
@@ -1730,3 +1735,76 @@ def test_ssm_decode_step_on_card_matches_cpu(cuda_device, name):
     eng = [Engine(cfg, p, opts, cache_len=32, device=d).generate(
         prompts, 8).tokens for p, d in ((cpu, "cpu"), (card, cuda_device))]
     np.testing.assert_array_equal(eng[0], eng[1])
+
+
+def test_decode_attention_at_the_modal_steps_replays_from_a_cuda_graph(
+        cuda_device):
+    """K1 at qwen2-vl-2b's (K 2, G 6, hd 128) and musicgen-medium's (K 24,
+    G 1, hd 64) decode shapes captured in CUDA graphs: each replay equals
+    the eager call bit for bit, and the eager call its plain version
+    within 1e-4."""
+    for name in ("qwen2vl_g6", "musicgen_hd64"):
+        args, q_pos = _k1_case(cuda_device, name, torch.bfloat16)
+        eager = da.decode_attention(*args, q_pos)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(
+            eager.cpu().numpy(),
+            da.decode_attention_ref(*args, q_pos).cpu().numpy(), rtol=0,
+            atol=1e-4)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            da.decode_attention(*args, q_pos)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = da.decode_attention(*args, q_pos)
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager), name
+
+
+@pytest.mark.parametrize("name", ["qwen2-vl-2b", "musicgen-medium"])
+def test_modal_configs_on_card_match_cpu(cuda_device, name):
+    """The tiny vision-stub and codebook configs in f32, int8 KV: a
+    20-token prefill (qwen2-vl's first 8 rows its projected patches;
+    musicgen's (B, S, 4) codebooks and sinusoidal positions) and 6 decode
+    steps fed the same tokens on the card against the CPU, logits within
+    1e-3 of their largest; greedy ``Engine`` tokens equal (qwen2-vl with
+    patches, musicgen (B, S + 8, 4)), K1 once a layer and decode step."""
+    from repro_torch.models.transformer import decode_step, prefill
+
+    cfg = get_config(name).tiny()
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    card = {k: v.to(cuda_device) for k, v in cpu.items()}
+    rng = np.random.default_rng(4)
+    shape = (2, 26) + ((4,) if cfg.num_codebooks > 1 else ())
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+    patches = None
+    if cfg.embed == "vlm":
+        patches = torch.from_numpy(rng.normal(size=(
+            2, cfg.num_patches, cfg.d_vision)).astype(np.float32))
+    runs = []
+    for params, dev in ((cpu, "cpu"), (card, cuda_device)):
+        t = toks.to(dev)
+        pt = None if patches is None else patches.to(dev)
+        with torch.inference_mode():
+            lg, caches = prefill(params, cfg, t[:, :20], 32, opts, pt)
+            out = [lg.cpu()]
+            for p in range(20, 26):
+                lg, caches = decode_step(params, cfg, t[:, p:p + 1], caches,
+                                         p, opts)
+                out.append(lg.cpu())
+        runs.append(torch.stack(out))
+    want, got = runs
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
+    prompts = toks[:, :20].numpy()
+    before = da.decode_attention.launches
+    eng = [Engine(cfg, p, opts, cache_len=32, device=d).generate(
+        prompts, 8, patches=None if patches is None else patches.numpy())
+        for p, d in ((card, cuda_device), (cpu, "cpu"))]
+    assert da.decode_attention.launches - before == cfg.num_layers * 7
+    np.testing.assert_array_equal(eng[0].tokens, eng[1].tokens)
+    assert eng[0].tokens.shape == (2, 28) + shape[2:]

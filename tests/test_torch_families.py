@@ -491,9 +491,10 @@ def test_qk_norm_still_names_item_9():
     """QK-norm is ported now (qwen3-moe; tests/test_torch_moe.py holds it
     to the reference): a windowed config with ``qk_norm`` gets q_norm and
     k_norm leaves, and its attention layer applies them (norms of 2 scale
-    q and k by 2). What item 9 still names on such a config is the rest of
-    the item: the same config with M-RoPE is refused naming item 9, and
-    the refusal no longer speaks of QK-norm."""
+    q and k by 2). The rest of item 9 is ported too: the same config with
+    M-RoPE gets the same leaves (M-RoPE adds none), and its rotary tables
+    are per row (B, S, hd/2), bands (4, 6, 6) of the three position
+    axes."""
     cfg = get_config("h2o-danube-3-4b").tiny()
     spec = dataclasses.replace(cfg.pattern[0].mixer, qk_norm=True)
     qk = dataclasses.replace(cfg, pattern=(dataclasses.replace(
@@ -520,9 +521,9 @@ def test_qk_norm_still_names_item_9():
     plain = dataclasses.replace(spec, qk_norm=False)
     assert not torch.allclose(run(p, spec), run(p, plain))
     mrope = dataclasses.replace(qk, rope="mrope", mrope_sections=(4, 6, 6))
-    with pytest.raises(NotImplementedError, match="item 9") as refused:
-        param_specs(mrope)
-    assert "qk" not in str(refused.value).lower()
+    assert param_specs(mrope) == specs
+    cos, sin = TT.rope_tables(mrope, pos.expand(2, 3))
+    assert cos.shape == sin.shape == (2, 3, spec.head_dim // 2)
 
 
 def test_init_caches_size_rings_and_global_caches():

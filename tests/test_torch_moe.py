@@ -525,9 +525,10 @@ def test_refusals_that_stay_name_item_9():
     """A state-space mixer is now ported: an SSM spec in place of the
     attention (built here from a MoE config) gets the Mamba-2 mixer's
     leaves from ``param_specs`` and a (conv state, SSM state) pair from
-    ``init_caches``. M-RoPE and the codebook embedding (built as specs
-    here: their configs are not registered in the port) are still
-    refused, naming ROADMAP queue 1 item 9."""
+    ``init_caches``. M-RoPE and the codebook embedding, the rest of
+    ROADMAP queue 1 item 9, are ported now (built as specs here from the
+    MoE config): M-RoPE adds no leaf, and four codebooks give a (4, V, D)
+    embedding and an untied (D, 4·V) head."""
     cfg = get_config("qwen2-moe-a2.7b").tiny()
     ssm = dataclasses.replace(cfg, pattern=(dataclasses.replace(
         cfg.pattern[0], mixer=SSMSpec(d_inner=256, d_state=16,
@@ -542,8 +543,14 @@ def test_refusals_that_stay_name_item_9():
     conv, state = caches[0]
     assert conv.shape == (1, 3, 256 + 2 * 16)
     assert state.shape == (1, 8, 32, 16) and state.dtype == torch.float32
-    for bad in (dataclasses.replace(cfg, rope="mrope",
-                                    mrope_sections=(4, 6, 6)),
-                dataclasses.replace(cfg, embed="musicgen", num_codebooks=4)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            param_specs(bad)
+    base = param_specs(cfg)
+    assert param_specs(dataclasses.replace(
+        cfg, rope="mrope", mrope_sections=(4, 6, 6))) == base
+    codebooks = param_specs(dataclasses.replace(cfg, embed="musicgen",
+                                                num_codebooks=4))
+    d, v = cfg.d_model, cfg.vocab_size
+    assert codebooks["embed"] == ((4, v, d), 0.02)
+    assert codebooks["lm_head"] == ((d, 4 * v), 0.02)
+    assert {k: x for k, x in codebooks.items()
+            if k not in ("embed", "lm_head")} == {
+        k: x for k, x in base.items() if k not in ("embed", "lm_head")}

@@ -242,12 +242,14 @@ def test_paged_attention_layers_match_jax():
     want = JL.paged_prefill_attention(jnp.asarray(q), jc, jnp.asarray(kf),
                                       jnp.asarray(vf), spec,
                                       jnp.asarray(q_pos))
-    got = TL.paged_prefill_attention(_t(q), tc, _t(kf), _t(vf), _t(q_pos))
+    got = TL.paged_prefill_attention(_t(q), tc, _t(kf), _t(vf), spec,
+                                     _t(q_pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     dec_pos = np.asarray([[13], [-1], [5]], np.int32)
     want = JL.paged_decode_attention_layer(jnp.asarray(q[:, -1:]), jc, spec,
                                            jnp.asarray(dec_pos))
-    got = TL.paged_decode_attention_layer(_t(q[:, -1:]), tc, _t(dec_pos))
+    got = TL.paged_decode_attention_layer(_t(q[:, -1:]), tc, spec,
+                                          _t(dec_pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     # S = 2, the speculative verify: each column one K2 query row (the
     # plain version here) against the reference's dense gather and
@@ -255,7 +257,8 @@ def test_paged_attention_layers_match_jax():
     ver_pos = np.ascontiguousarray(q_pos[:, -2:])
     want = JL.paged_decode_attention_layer(jnp.asarray(q[:, -2:]), jc, spec,
                                            jnp.asarray(ver_pos))
-    got = TL.paged_decode_attention_layer(_t(q[:, -2:]), tc, _t(ver_pos))
+    got = TL.paged_decode_attention_layer(_t(q[:, -2:]), tc, spec,
+                                          _t(ver_pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
