@@ -11,16 +11,27 @@ Phases, each printing one JSON line:
   kernels  every kernel against its plain PyTorch version on the card at
            the main path's shapes and at edge shapes, with the tolerance
            stated, and at the main path's shape its time beside its bound,
-           the plain version's time and a library call's time;
+           the plain version's time and a library call's time; K7 also on
+           int16 codes at 12 and 15 bits (``K7_WIDE_BITS``: the GEMV at
+           M <= 4, the CUDA cores above), timed at w_up beside x @ W and
+           the int8 kernel;
   model    llama2-7b tiny run greedily on the CPU (plain path) and on the
            card (kernel path): logits and tokens must agree;
   vehicle  the committed induction checkpoint served through
            LLMServer(backend="fused") on the card: copy accuracy, and
-           tokens equal to the CPU run's;
+           tokens equal to the CPU run's; then Eq. 8's planner
+           (examples/split_inference_torch.py) on the card and on the
+           CPU, each in a process of its own: every candidate's copy
+           accuracy and the chosen solution equal (a candidate that parts
+           is excused only by the margin rule), within its own memory
+           budget and accuracy drop;
   serve    llama2-7b at full width (random bf16 weights, int8 KV cache)
            answering four requests through LLMServer(backend="fused");
            every kernel launch counter is set to 0 just before this run
-           and read just after;
+           and read just after; then the same Engine with act_bits 8 (the
+           uniform activation quantization): K1 counted, its logits'
+           distance from the run without it, its decode step, and the
+           tiny f32 model with act_bits on the card against the CPU;
   paged    llama2-7b tiny through the paged Scheduler on the CPU (plain
            versions) and on the card (kernels), then llama2-7b at full
            width (the serve phase's weights) answering ten requests
@@ -48,7 +59,11 @@ Phases, each printing one JSON line:
            its payloads held to the plain versions'; a full-precision,
            uncompressed split held to the Engine bit for bit; a paged cloud
            with a shared prefix and the stateless I_kv = 0 cloud held to the
-           dense cloud; one decode step timed by stage;
+           dense cloud; the front at 12 bits (int16 codes through K7,
+           counted by route and code width with the counters set to 0
+           just before and read just after) held to the 16-bit front,
+           its edge bytes beside Eq. 1 and its decode step by stage; one
+           decode step timed by stage;
   spec     speculative decoding: llama2-7b at full width through the paged
            Scheduler (the paged phase's pool) at speculate_k 3 in chunked
            and packed ticks, against the same requests at speculate_k 0
@@ -147,9 +162,10 @@ Phases, each printing one JSON line:
            against the card; mamba2-780m on f32 weights at full width and
            depth, the step recurrence held to the chunked prefill and a
            bf16 recurrent state to the f32 one; mamba2-780m on bf16
-           weights through the fused backend (A: requests of 4160, 4160,
-           256 and 256 tokens, K1 never) and the split backend at ℓ = 8
-           (B: K5, K6, K7 on the SSM projections); jamba-v0.1-52b at full
+           weights over 24 of its 48 blocks (``SSM_MAMBA2_BLOCKS``)
+           through the fused backend (A: requests of 4160, 4160, 256 and
+           256 tokens, K1 never) and the split backend at ℓ = 8 (B: K5,
+           K6, K7 on the SSM projections); jamba-v0.1-52b at full
            width over 2 of its 4 blocks fused (C: 1024, 1024, 256, 256
            tokens, K1 once an attention layer and step, MoE held by
            MOE_RULE) and split at ℓ = 8 (D). The kernels phase holds K7 at
@@ -1243,6 +1259,12 @@ K7_SLICE16 = {"granite_w_up": (1, 6144, 24576, "bfloat16"),
               "qwen2vl_w_down": (1, 8960, 1536, "bfloat16"),
               "musicgen_w_up": (1, 1536, 6144, "bfloat16"),
               "musicgen_w_down": (1, 6144, 1536, "bfloat16")}
+# K7 on int16 codes (OPSC fronts of 9 to 15 bits): the code widths it is
+# held at over K7_CHECKS' shapes (GEMV at M <= 4, the CUDA cores above,
+# never the tensor cores), and the M it is timed at on w_up's shape beside
+# its byte bound (2 bytes a code), x @ W in bf16 and the int8 kernel
+K7_WIDE_BITS = (12, 15)
+K7_WIDE_TIMED_M = (1, 128)
 # K7's device functions (csrc/dequant_matmul.cu), as a profile names them
 K7_DEVICE_NAMES = ("gemm_kernel", "gemv_kernel", "gemv16_kernel",
                    "splitk_reduce_kernel", "tc_gemm_kernel",
@@ -1669,6 +1691,8 @@ def _kernel_k7(ctx) -> dict:
             "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations"}
 
+    wide = _kernel_k7_wide(ctx, gen, codes, scale)
+    worst = max(worst, wide["max_abs_err"])
     nbytes, bound_ms, bound_by = bound(1)
     ctx["kernels"]["dequant_matmul"] = {
         "name": "dequant_matmul", "route": "cuda",
@@ -1688,14 +1712,102 @@ def _kernel_k7(ctx) -> dict:
             "bound_by")} for name, r in moe.items()},
         "slice16": {name: {key: r[key] for key in (
             "route", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")} for name, r in slice16.items()}}
-    return {"checks": checks, "tol_rel_to_abs_sum": K7_REL,
+            "bound_by")} for name, r in slice16.items()},
+        "int16": {"checks": len(wide["checks"]),
+                  "max_abs_err": wide["max_abs_err"], "launches": None,
+                  "timed": {str(m): {key: r[key] for key in (
+                      "route", "kernel_ms", "plain_ms", "library_ms",
+                      "int8_ms", "bound_ms", "bound_by")}
+                      for m, r in wide["timed"].items()}}}
+    return {"checks": checks, "tol_rel_to_abs_sum": K7_REL, "int16": wide,
             "main_shape": [m, k, n], "bytes": nbytes, "bound_ms": bound_ms,
             "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
             "library_ms": ms["library"],
             "achieved_GBps": nbytes / ms["kernel"] / 1e6,
             "gemv": gemv, "prefill": prefill, "moe": moe,
             "slice16": slice16}
+
+
+def _kernel_k7_wide(ctx, gen, codes8, scale8) -> dict:
+    """K7 on int16 codes at ``K7_WIDE_BITS`` against its plain version on
+    ``K7_CHECKS``' shapes, f32 and bf16 x, within K7_REL of |x| @ |codes|
+    times the scale, on the GEMV at M <= 4 and the CUDA cores above; w_up's
+    product timed at ``K7_WIDE_TIMED_M`` beside its plain version, the byte
+    bound (2 bytes a code; the operations counted at the bf16 tensor cores'
+    rate for two int8 planes, ROADMAP queue 2's design), x @ W over the
+    dequantized bf16 weight (the same bytes) and the int8 kernel on
+    ``codes8``, w_up's int8 codes."""
+    import torch
+    from repro_torch.kernels import dequant_matmul as dm
+
+    device = ctx["device"]
+    checks, worst = [], 0.0
+    routes = dm.dequant_matmul.route_launches
+    for bits in K7_WIDE_BITS:
+        qmax = 2 ** (bits - 1) - 1
+        for m, k, n in K7_CHECKS:
+            codes = torch.randint(-qmax, qmax + 1, (k, n), generator=gen,
+                                  device=device, dtype=torch.int16)
+            scale = (torch.rand((n,), generator=gen, device=device) * 0.01
+                     + 1e-4) / qmax
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, k), generator=gen, device=device).to(
+                    dtype)
+                before = dict(routes)
+                got = dm.dequant_matmul(x, codes, scale)
+                way = next(r for r in routes if routes[r] != before[r])
+                want = dm.dequant_matmul_ref(x, codes, scale)
+                bound = float((x.float().abs() @ codes.float().abs()
+                               * scale).max())
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                ok = bool(torch.isfinite(got).all()) and err <= \
+                    K7_REL * bound and way == (
+                        "gemv" if m <= dm.GEMV_MAX_M else "cuda_cores")
+                checks.append({"bits": bits, "m_k_n": [m, k, n],
+                               "x_dtype": str(dtype)[6:], "route": way,
+                               "rel_err": err / bound, "max_abs_err": err,
+                               "ok": ok})
+                worst = max(worst, err)
+                if not ok:
+                    emit({"phase": "kernels", "dequant_matmul_int16": checks})
+                    raise SystemExit(f"dequant_matmul int16 disagrees: "
+                                     f"{checks[-1]}")
+
+    bw, _ = peak_rates(ctx["device_name"])
+    _, k, n = K7_MAIN
+    qmax = 2 ** (K7_WIDE_BITS[0] - 1) - 1
+    codes = torch.randint(-qmax, qmax + 1, (k, n), generator=gen,
+                          device=device, dtype=torch.int16)
+    scale = (torch.rand((n,), generator=gen, device=device) * 0.01
+             + 1e-4) / qmax
+    w = (codes.float() * scale).to(torch.bfloat16)  # the reference's weight
+    timed = {}
+    for m in K7_WIDE_TIMED_M:
+        x = torch.randn((m, k), generator=gen, device=device).to(
+            torch.bfloat16)
+        ms = ctx["timer"]({
+            "kernel": lambda x=x: dm.dequant_matmul(x, codes, scale),
+            "plain": lambda x=x: dm.dequant_matmul_ref(x, codes, scale),
+            "library": lambda x=x: x @ w,
+            "int8": lambda x=x: dm.dequant_matmul(x, codes8, scale8)},
+            iters=20)
+        nbytes = m * k * 2 + k * n * 2 + n * 4 + m * n * 4
+        b_ms = nbytes / bw * 1e3
+        o_ms = 2 * 2 * m * n * k / BF16_PEAK * 1e3  # two int8 planes
+        timed[m] = {"route": dm.route(m, n, k, x.dtype, x.data_ptr(),
+                                      codes.data_ptr(), scale.data_ptr(),
+                                      code_dtype=torch.int16),
+                    "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+                    "library_ms": ms["library"], "int8_ms": ms["int8"],
+                    "bytes": nbytes, "bound_ms": max(b_ms, o_ms),
+                    "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                    "f32_cuda_core_ops_ms": 2 * m * n * k
+                    / peak_rates(ctx["device_name"])[1] * 1e3,
+                    "achieved_GBps": nbytes / ms["kernel"] / 1e6}
+    return {"bits": list(K7_WIDE_BITS), "checks": checks,
+            "max_abs_err": worst, "tol_rel_to_abs_sum": K7_REL,
+            "timed": timed}
 
 
 def _graph_replay(ctx) -> dict:
@@ -2343,12 +2455,63 @@ def phase_model(ctx) -> None:
         raise SystemExit("model: the card disagrees with the CPU run")
 
 
+def _planner_run(device: str) -> dict:
+    """``examples/split_inference_torch.py`` (Eq. 8's planner on the
+    committed induction vehicle, then the solution deployed) in a process
+    of its own on ``device`` ("cuda" is its default): its report, the
+    JSON of its last line."""
+    res = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples",
+                                      "split_inference_torch.py"),
+         *(["--device", device] if device != "cuda" else [])],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if res.returncode != 0:
+        raise SystemExit(f"vehicle: the planner failed on {device}:\n"
+                         f"{res.stdout[-2000:]}{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _planner_parted(cfg, params, prompts, card, cpu, device) -> list:
+    """The candidates whose copy accuracy differs between the card's and
+    the CPU's planner runs, each re-run on both devices with its cloud
+    logits recorded: a candidate is excused only where its tokens agree
+    by the margin rule of the CPU's logits at SPLIT_TINY_REL."""
+    import numpy as np
+    from repro_torch.core.opsc import OPSCConfig
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.serving.split_engine import SplitEngine
+
+    want = {(c["split_layer"], c["qw_front"]): c["accuracy"]
+            for c in cpu["candidates"]}
+    parted = []
+    for c in card["candidates"]:
+        key = (c["split_layer"], c["qw_front"])
+        if c["accuracy"] == want.get(key):
+            continue
+        opsc = OPSCConfig(split_layer=key[0], qw_front=key[1])
+        runs = []
+        for dev in ("cpu", device):
+            eng = SplitEngine(cfg, params, opsc, opts=RuntimeOpts(
+                q_chunk=64, kv_chunk=64, moe_capacity_factor=0.0),
+                cache_len=128, device=dev)
+            rec = _record_cloud_logits(eng)
+            toks, _ = eng.generate(prompts, 16)
+            runs.append((toks[:, prompts.shape[1]:], np.stack(rec, 1)))
+        ok, compared = _margin_agreement(runs[1][0], runs[0][0], runs[0][1],
+                                         SPLIT_TINY_REL)
+        parted.append({"split_layer": key[0], "qw_front": key[1],
+                       "accuracy_card_cpu": [c["accuracy"], want.get(key)],
+                       "tokens_compared": compared, "excused": ok})
+    return parted
+
+
 def phase_vehicle(ctx) -> None:
     import dataclasses
 
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.sampling import SamplingParams
+    from repro_torch.data.pipeline import induction_batch
     from repro_torch.models.transformer import RuntimeOpts
     from repro_torch.params import load_npz_checkpoint
     from repro_torch.serving.api import LLMServer
@@ -2361,9 +2524,9 @@ def phase_vehicle(ctx) -> None:
     params = load_npz_checkpoint(
         os.path.join(ROOT, "experiments", "vehicles", "induction"))
     half, vocab = 16, 64
-    rng = np.random.default_rng(0)  # data/pipeline.py: [prefix][SEP][prefix]
-    prefix = rng.integers(0, vocab - 1, (16, half))
-    prompts = np.concatenate([prefix, np.full((16, 1), vocab - 1)], axis=1)
+    tokens, _ = induction_batch(np.random.default_rng(0), 16, 2 * half + 1,
+                                vocab)  # [prefix][SEP][prefix]
+    prefix, prompts = tokens[:, :half], tokens[:, :half + 1]
     srv = LLMServer(cfg, params, opts, backend="fused", cache_len=64,
                     device=device)
     rids = [srv.submit(p, SamplingParams(max_tokens=half)) for p in prompts]
@@ -2375,12 +2538,47 @@ def phase_vehicle(ctx) -> None:
     ok, compared = _margin_agreement(got, want, want_lg, MODEL_REL)
     acc = float(np.mean(got == prefix))
     _mark(ctx, "cpu")
+
+    # Eq. 8's planner (the example) on the card and on the CPU
+    card, cpu = _planner_run("cuda"), _planner_run("cpu")
+    _mark(ctx, "planner")
+    # the example's planner prompts: seed 0's 32 rows, the first 8
+    ex_tokens, _ = induction_batch(np.random.default_rng(0), 32,
+                                   2 * half + 1, vocab)
+    planner_prompts = ex_tokens[:8, :half + 1]
+    parted = _planner_parted(cfg, params, planner_prompts, card, cpu, device)
+    sol = card["solution"]
+    checks = {
+        "fused_card_equals_cpu": ok,
+        "planner_candidates": len(card["candidates"])
+        == len(cpu["candidates"]) == 6,
+        "planner_candidates_agree": all(p["excused"] for p in parted),
+        # the chosen configuration, Ψ and memory; its accuracy too, unless
+        # its candidate parted and the margin rule excused it
+        "planner_solution_equals_cpu": all(
+            sol[k] == cpu["solution"][k]
+            for k in ("config", "psi", "memory_bytes")) and (
+            sol["accuracy"] == cpu["solution"]["accuracy"] or any(
+                (p["split_layer"], p["qw_front"]) == (
+                    sol["config"]["split_layer"],
+                    sol["config"]["qw_front"]) for p in parted)),
+        "planner_solution_in_budget": sol["memory_bytes"]
+        <= card["budget_bytes"],
+        "planner_solution_within_drop": sol["accuracy"]
+        >= card["base_accuracy"] - card["accuracy_drop"],
+        "planner_base_accuracy_equals_cpu": card["base_accuracy"]
+        == cpu["base_accuracy"]}
+    _mark(ctx, "planner_held")
     emit({"phase": "vehicle", **_times(ctx),
           "requests": len(rids), "copy_accuracy": acc,
           "cpu_copy_accuracy": float(np.mean(want == prefix)),
-          "tokens_compared": compared, "ok": ok})
-    if not ok:
-        raise SystemExit("vehicle: the card's tokens differ from the CPU's")
+          "tokens_compared": compared,
+          "planner": {"card": card, "cpu_solution": cpu["solution"],
+                      "cpu_candidates": cpu["candidates"],
+                      "parted_candidates": parted},
+          "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise SystemExit(f"vehicle: failed checks {checks}")
 
 
 # the profiled calls of a full-width step, tick or split stage in every
@@ -2436,6 +2634,93 @@ def _llama7b_params(ctx) -> tuple:
         torch.cuda.synchronize()
         ctx["params_7b"] = (params, time.perf_counter() - t0)
     return ctx["params_7b"]
+
+
+# the uniform activation quantization baseline (RuntimeOpts.act_bits): its
+# width, the decode steps its full-width run is held over, and the tiny
+# f32 run's bound, card against CPU: AIQ's codes land a step apart where
+# the two devices' f32 sums differ in the last bit, as TAB-Q's do in the
+# split (SPLIT_TINY_REL)
+ACT_BITS = 8
+ACT_NEW = 16
+ACT_TINY_REL = 2e-2
+
+
+def _serve_act_bits(ctx, cfg, params, prompts, cache_len) -> dict:
+    """llama2-7b at full width through the fused ``Engine`` with act_bits
+    (``ACT_BITS``): greedy for ``ACT_NEW`` tokens with the K1 counter set
+    to 0 just before and read just after; its logits teacher-forced on the
+    run without act_bits, their largest distance from that run's relative
+    to its largest logit; a decode step with the host and busy; and the
+    tiny f32 model with act_bits on the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.transformer import (RuntimeOpts, decode_step,
+                                                prefill)
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import Engine
+
+    device = ctx["device"]
+    plain = RuntimeOpts(quantized_kv=True)
+    opts = RuntimeOpts(quantized_kv=True, act_bits=ACT_BITS)
+    s = prompts.shape[1]
+    da.decode_attention.launches = 0
+    out = Engine(cfg, params, opts, cache_len=cache_len,
+                 device=device).generate(prompts, ACT_NEW)
+    k1 = da.decode_attention.launches
+    want, want_lg = _greedy_stepwise(params, cfg, prompts, ACT_NEW, plain,
+                                     cache_len, device)
+    got_lg = _teacher_forced(params, cfg, prompts, want, opts, cache_len,
+                             device)
+    dist = float(np.abs(got_lg - want_lg).max() / np.abs(want_lg).max())
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts, device=device)
+        logits, caches = prefill(params, cfg, toks, cache_len, opts)
+        nxt = logits.argmax(-1)[:, None]
+        pos = torch.tensor(s, dtype=torch.int32, device=device)
+        step = lambda: decode_step(params, cfg, nxt, caches, pos, opts)  # noqa: E731
+        step_ms = ctx["timer"]({"step": step}, iters=20,
+                               device_only=False)["step"]
+        busy_ms, rows = _device_profile(torch, step, STEP_PROFILE_N)
+
+    tiny = get_config("llama2-7b-tiny")
+    t_opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True,
+                         act_bits=ACT_BITS)
+    cpu = init_params(tiny, torch.Generator().manual_seed(0))
+    card = {k: v.to(device) for k, v in cpu.items()}
+    t_prompts = np.random.default_rng(0).integers(0, tiny.vocab_size, (3, 12))
+    t_want, t_want_lg = _greedy_stepwise(cpu, tiny, t_prompts, 24, t_opts, 64,
+                                         "cpu")
+    t_got_lg = _teacher_forced(card, tiny, t_prompts, t_want, t_opts, 64,
+                               device)
+    t_rel = float(np.abs(t_got_lg - t_want_lg).max()
+                  / np.abs(t_want_lg).max())
+    t_got = Engine(tiny, card, t_opts, cache_len=64,
+                   device=device).generate(t_prompts, 24).tokens[:, 12:]
+    t_ok, t_compared = _margin_agreement(t_got, t_want, t_want_lg,
+                                         ACT_TINY_REL)
+    gen = out.tokens[:, s:]
+    checks = {
+        "act_bits_tokens_in_vocab": int(gen.min()) >= 0
+        and int(gen.max()) < cfg.vocab_size,
+        "act_bits_logits_finite": bool(np.isfinite(got_lg).all()),
+        "act_bits_moves_logits": dist > 0,
+        "act_bits_k1_launches": k1 == cfg.num_layers * (ACT_NEW - 1),
+        "act_bits_tiny_card_equals_cpu": t_ok and t_rel <= ACT_TINY_REL}
+    return {"act_bits": ACT_BITS, "batch": int(prompts.shape[0]),
+            "new_tokens": ACT_NEW, "k1_launches": k1,
+            "max_rel_logit_distance_from_plain": dist,
+            "tokens_equal_plain": bool(np.array_equal(gen, want)),
+            "decode_step_ms": step_ms, "profile_device_ms_per_step": busy_ms,
+            "idle_share": 1 - busy_ms / step_ms,
+            "profile_top": rows[:6],
+            "tiny": {"max_rel_logit_err": t_rel, "tol": ACT_TINY_REL,
+                     "tokens_compared": t_compared,
+                     "tokens_equal_all": bool(np.array_equal(t_got,
+                                                             t_want))},
+            "checks": checks}
 
 
 def phase_serve(ctx) -> None:
@@ -2540,6 +2825,9 @@ def phase_serve(ctx) -> None:
     cache_bytes = cfg.num_layers * b * m.num_kv_heads * cache_len * (
         2 * m.head_dim + 8)
     _mark(ctx, "step_timing")
+    act = _serve_act_bits(ctx, cfg, params, np.stack(prompts[:2]), cache_len)
+    checks.update(act.pop("checks"))
+    _mark(ctx, "act_bits")
     emit({"phase": "serve", **_times(ctx),
           "config": cfg.name, "params": n_params,
           "dtype": "bfloat16", "kv": "int8", "cache_len": cache_len,
@@ -2553,7 +2841,7 @@ def phase_serve(ctx) -> None:
           "decode_step_bound_ms": (weight_bytes + cache_bytes) / bw * 1e3,
           "profile_device_ms_per_step": device_ms,
           "k1_in_step": _kernel_share(rows, K1_DEVICE_NAMES),
-          "profile_top": rows[:8],
+          "profile_top": rows[:8], "act_bits": act,
           "max_memory_allocated": peak, "checks": checks,
           "ok": all(checks.values())})
     if not all(checks.values()):
@@ -3352,6 +3640,8 @@ SPLIT_LAYER = 8  # ℓ
 SPLIT_LENS = (128, 128, 96, 96)
 SPLIT_MAX_TOKENS = 32
 SPLIT_SHARED_PREFIX = 64  # four whole 16-token pages
+SPLIT_WIDE_BITS = 12  # the int16-code front, held to the 16-bit one
+SPLIT_WIDE_NEW = 16  # its new tokens on the shared-prefix run's 4 rows
 
 
 def _record_cloud_logits(eng) -> list:
@@ -3496,6 +3786,91 @@ def _split_stages(ctx, eng, opts, prompt, cache_len,
     return {"host_included_ms": stage_ms, "device_busy_ms": device_ms,
             "profiles": profiles, "top": top, "bits": bits,
             "edge_prefill": prefill}
+
+
+def _split_wide_front(ctx, cfg, params, opts, base, blen, kernels) -> dict:
+    """OPSC's front at ``SPLIT_WIDE_BITS`` (int16 codes through K7: the GEMV
+    at decode, the CUDA cores on the prefill) on the rows ``base`` (B,
+    blen), uncompressed, with every launch counter set to 0 just before the
+    run and read just after; its tokens (margin rule) and cloud logits held
+    to the 16-bit front's within PAGED_REL; its edge bytes beside Eq. 1's
+    count; one decode step at B 1 by stage. Returns the report with its
+    ``checks``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.opsc import OPSCConfig
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.serving.split_engine import SplitEngine
+
+    common = dict(opts=opts, cache_len=1024, device=ctx["device"])
+    opsc = OPSCConfig(split_layer=SPLIT_LAYER, qw_front=SPLIT_WIDE_BITS)
+    eng = SplitEngine(cfg, params, opsc, **common)
+    rec = _record_cloud_logits(eng)
+    for fn in kernels.values():
+        fn.launches = 0
+    routes, widths = (dm.dequant_matmul.route_launches,
+                      dm.dequant_matmul.code_launches)
+    routes.update(dict.fromkeys(routes, 0))
+    widths.update(dict.fromkeys(widths, 0))
+    toks, _ = eng.generate(base, SPLIT_WIDE_NEW, compress=False)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    routes, widths = dict(routes), dict(widths)
+    got_lg = np.stack(rec, 1)
+    if "dequant_matmul" in ctx["kernels"]:
+        ctx["kernels"]["dequant_matmul"]["int16"]["launches"] = \
+            widths["int16"]
+    full = SplitEngine(cfg, params, OPSCConfig(split_layer=SPLIT_LAYER,
+                                               qw_front=16), **common)
+    rec16 = _record_cloud_logits(full)
+    toks16, _ = full.generate(base, SPLIT_WIDE_NEW, compress=False)
+    del full
+    held = _logits_agree(toks[:, blen:], toks16[:, blen:], got_lg,
+                         np.stack(rec16, 1), PAGED_REL)
+
+    products = 7 * SPLIT_LAYER  # the edge's projections: 7 a layer
+    edge = {k: v for k, v in eng.edge_params.items()
+            if isinstance(v, QuantizedTensor)}
+    front = sum(params[k][:eng.split_block].numel() for k in params
+                if k.startswith("blocks/"))
+    edge_bytes = eng.edge_weight_bytes()
+    by_stage = _split_stages(ctx, eng, opts, base[:1], 1024)
+    del eng
+    checks = {
+        "wide_edge_holds_int16_codes": len(edge) == 7 and all(
+            q.codes.dtype == torch.int16 for q in edge.values()),
+        "wide_k7_int16_launches": widths == {
+            "int8": 0, "int16": products * SPLIT_WIDE_NEW},
+        "wide_k7_routes": routes == {
+            "gemv": products * (SPLIT_WIDE_NEW - 1), "cuda_cores": products,
+            "tensor_cores": 0, "tensor_cores_large_m": 0},
+        "wide_k1_launches": launches["decode_attention"]
+        == cfg.num_layers * (SPLIT_WIDE_NEW - 1),
+        "wide_agrees_with_16_bit_front": held["ok"]}
+    stage_ms, device_ms = by_stage["host_included_ms"], \
+        by_stage["device_busy_ms"]
+    return {"qw_front": SPLIT_WIDE_BITS, "rows": int(base.shape[0]),
+            "prompt_len": blen, "new_tokens": SPLIT_WIDE_NEW,
+            "launches": launches, "k7_routes": routes, "k7_codes": widths,
+            "against_16_bit_front": held,
+            "edge_weight_bytes": edge_bytes,
+            "edge_weight_bytes_eq1": front * SPLIT_WIDE_BITS // 8,
+            "decode_step_b1": {
+                "host_included_ms": stage_ms, "device_busy_ms": device_ms,
+                "idle_share": {k: 1 - device_ms[k] / stage_ms[k]
+                               for k in stage_ms},
+                "gemv_in_step": _kernel_share(by_stage["top"],
+                                              GEMV_DEVICE_NAMES),
+                "gemv_in_edge": _kernel_share(by_stage["profiles"]["edge"],
+                                              GEMV_DEVICE_NAMES),
+                "profile_top": by_stage["top"][:8]},
+            "edge_prefill_96": {
+                "device_busy_ms": by_stage["edge_prefill"][0],
+                "k7_ms": sum(r["ms"] for r in by_stage["edge_prefill"][1]
+                             if any(k in r["kernel"]
+                                    for k in K7_DEVICE_NAMES))},
+            "checks": checks}
 
 
 def phase_split(ctx) -> None:
@@ -3698,6 +4073,11 @@ def phase_split(ctx) -> None:
     gc.collect()
 
     _mark(ctx, "ikv0")
+    wide = _split_wide_front(ctx, cfg, params, opts, base, blen, kernels)
+    checks.update(wide.pop("checks"))
+    gc.collect()
+
+    _mark(ctx, "wide_front")
     # one decode step at B = 1 after a 128-token prompt, by stage
     nfront = eng.split_block
     by_stage = _split_stages(ctx, eng, opts, prompts[0][None], 1024)
@@ -3746,6 +4126,7 @@ def phase_split(ctx) -> None:
           "ikv0": {"uplink_bits_eq3_ikv0_ikv1": [st_ikv0.uplink_bits_eq3,
                                                  st_ikv1.uplink_bits_eq3],
                    **ikv0_cmp},
+          "wide_front": wide,
           "decode_step_b1": {"host_included_ms": stage_ms,
                              "device_busy_ms": device_ms,
                              "idle_share": {k: 1 - device_ms[k] / stage_ms[k]
@@ -5913,9 +6294,13 @@ def phase_gqa(ctx) -> None:
 
 
 # the state-space configs (ROADMAP queue 1 item 9.2): mamba2-780m at full
-# width and depth; jamba-v0.1-52b at full width over 2 of its 4 blocks (16
-# of 32 layers: 2 attention, 14 Mamba-2, 8 MoE; all 4 blocks are 103 GB of
-# bf16), served dropless; random bf16 weights, int8 KV
+# width, its f32 holds at full depth, its bf16 runs (A, B) over 24 of its
+# 48 blocks (both measured at full depth in PRs 26 and 27; cut to make
+# room for the planner and the 12-bit split); jamba-v0.1-52b at full width
+# over 2 of its 4 blocks (16 of 32 layers: 2 attention, 14 Mamba-2, 8 MoE;
+# all 4 blocks are 103 GB of bf16), served dropless; random bf16 weights,
+# int8 KV
+SSM_MAMBA2_BLOCKS = 24
 SSM_JAMBA_BLOCKS = 2
 SSM_JAMBA_LENS = (1024, 1024, 256, 256)
 SSM_JAMBA_CACHE_LEN = 1152
@@ -6044,7 +6429,8 @@ def phase_ssm(ctx) -> None:
                 dict(MOE_OPTS, **tiny_kw),
                 cfg=_small_config("jamba-v0.1-52b"))}
     holds = timed("f32_holds", _ssm_f32_holds)
-    mamba = timed("init_mamba2", _family_params, "mamba2-780m")
+    mamba = timed("init_mamba2", _family_params, "mamba2-780m",
+                  SSM_MAMBA2_BLOCKS)
     # on bf16 weights the state integrates each step's rounding
     # differences: the step-against-prefill comparison is reported here and
     # held on f32 weights (_ssm_f32_holds)

@@ -1,5 +1,5 @@
-// Int8-weight matrix product (W8A16/W8A32) for Hopper (sm_90a): the OPSC
-// front segment's projections.
+// Integer-weight matrix product (W8A16/W8A32, and W16 codes for OPSC's 9- to
+// 15-bit fronts) for Hopper (sm_90a): the OPSC front segment's projections.
 //
 // Replaces the Pallas TPU kernel repro/kernels/dequant_matmul.py
 // (dequant_matmul, pallas_call at line 52). Python wrapper, route choice,
@@ -7,7 +7,7 @@
 // repro_torch/kernels/dequant_matmul.py.
 //
 //   x      (M, K)  f32 or bf16
-//   codes  (K, N)  int8    symmetric weight codes
+//   codes  (K, N)  int8    symmetric weight codes (int16 from 9 bits)
 //   scale  (N,)    f32     one scale per output channel
 //   out    (M, N)  f32     (x @ codes) * scale, summed in f32
 //
@@ -69,6 +69,13 @@
 //  * other M > 4 (f32 x, a ragged N or K, an unaligned base): the tiled
 //    CUDA-core product, 64x64 outputs a block, K in steps of 16 staged in
 //    shared memory as f32, 4x4 outputs a thread.
+//
+// int16 codes (dequant_matmul16_launch) take the two GEMVs and the CUDA-core
+// product, templated on the code type: a 16-byte load holds 8 codes (a
+// gemv16_kernel block covers 256 columns), an 8-byte one 4; each code widens
+// to f32 exactly (a code above 256 in magnitude does not fit bf16, so the
+// tensor-core kernels take int8 codes only). The summation order, the
+// tickets and the split-K workspace are the int8 route's.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -90,10 +97,10 @@ __device__ __forceinline__ float load(const void* x, int bf16, size_t i) {
               : reinterpret_cast<const float*>(x)[i];
 }
 
-template <int VEC, int MT>
+template <typename T, int VEC, int MT>
 __global__ void __launch_bounds__(kGemvThreads)
 gemv_kernel(const void* __restrict__ x, int x_bf16,
-            const int8_t* __restrict__ codes, const float* __restrict__ scale,
+            const T* __restrict__ codes, const float* __restrict__ scale,
             float* __restrict__ out, float* __restrict__ partial, int M,
             int N, int K, int k_chunk) {
   constexpr int COLS = 32 * VEC;
@@ -112,12 +119,12 @@ gemv_kernel(const void* __restrict__ x, int x_bf16,
     for (int j = 0; j < VEC; ++j) acc[m][j] = 0.f;
 
   for (int k = k_begin + warp; k < k_end; k += kGemvWarps) {
-    const int8_t* crow = codes + (size_t)k * N;
+    const T* crow = codes + (size_t)k * N;
     float w[VEC];
-    if (VEC == 8) {
+    if (VEC * sizeof(T) == 8) {  // one 8-byte load of VEC codes
       int2 v = make_int2(0, 0);
       if (n0 < N) v = *reinterpret_cast<const int2*>(crow + n0);
-      const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+      const T* b = reinterpret_cast<const T*>(&v);
 #pragma unroll
       for (int j = 0; j < VEC; ++j) w[j] = (float)b[j];
     } else {
@@ -164,7 +171,6 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
 
 // ---- the decode GEMV on 16-byte aligned codes (see the note at the top)
 
-constexpr int kGemvCols = 512;  // columns a block: 16 a lane
 // code rows a warp loads before using them: 4 at one row of x, 8 at four
 // (where the FMAs on a row take four times as long)
 template <int MT>
@@ -172,9 +178,9 @@ constexpr int gemv_unroll() { return MT == 1 ? 4 : 8; }
 // the staged x rows and the warps' sums stay within the static limit
 constexpr int kGemvSmemMax = 48 * 1024;
 
-// 16 codes by one read-only load that does not allocate in L1: each code
-// byte is read once
-__device__ __forceinline__ uint4 ld_codes16(const int8_t* p) {
+// 16 bytes of codes by one read-only load that does not allocate in L1:
+// each code byte is read once
+__device__ __forceinline__ uint4 ld_codes16(const void* p) {
   uint4 v;
   asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
@@ -182,33 +188,68 @@ __device__ __forceinline__ uint4 ld_codes16(const int8_t* p) {
   return v;
 }
 
-// Block (blockIdx.x, blockIdx.y, blockIdx.z) = (512-column tile, K range
-// of k_chunk rows, tile of MT rows of x). Warp w takes rows pass * PASS +
-// w * U + u of its range (u = 0 .. U - 1) for every pass, summed in that
-// order with fmaf. ``tickets`` holds one zeroed int a (column tile, row
-// tile) when gridDim.y > 1.
-template <int MT, int U>
+// two int16 codes to f32, exactly: c ^ 0x8000 = c + 32768 as 16 bits, put
+// as the low mantissa bits of 2^23, gives 2^23 + c + 32768
+__device__ __forceinline__ void widen2(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80008000u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7610)) - 8421376.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7632)) - 8421376.f;
+}
+
+// a 16-byte load's codes to f32: 16 int8 or 8 int16
+template <typename T>
+__device__ __forceinline__ void widen_load(const uint4& v, float* w) {
+  if constexpr (sizeof(T) == 1) {
+    widen4(v.x, w);
+    widen4(v.y, w + 4);
+    widen4(v.z, w + 8);
+    widen4(v.w, w + 12);
+  } else {
+    widen2(v.x, w);
+    widen2(v.y, w + 2);
+    widen2(v.z, w + 4);
+    widen2(v.w, w + 6);
+  }
+}
+
+// codes a lane takes with one 16-byte load, and the columns of a block
+template <typename T>
+__host__ __device__ constexpr int gemv16_vec() {
+  return 16 / (int)sizeof(T);
+}
+template <typename T>
+__host__ __device__ constexpr int gemv16_cols() {
+  return 32 * gemv16_vec<T>();
+}
+
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) = (column tile of 512 int8
+// or 256 int16 codes, K range of k_chunk rows, tile of MT rows of x). Warp
+// w takes rows pass * PASS + w * U + u of its range (u = 0 .. U - 1) for
+// every pass, summed in that order with fmaf. ``tickets`` holds one zeroed
+// int a (column tile, row tile) when gridDim.y > 1.
+template <typename T, int MT, int U>
 __global__ void __launch_bounds__(kGemvThreads, MT == 1 ? 2 : 1)
 gemv16_kernel(const void* __restrict__ x, int x_bf16,
-              const int8_t* __restrict__ codes,
+              const T* __restrict__ codes,
               const float* __restrict__ scale, float* __restrict__ out,
               float* __restrict__ partial, int* __restrict__ tickets, int M,
               int N, int K, int k_chunk) {
   constexpr int PASS = kGemvWarps * U;
+  constexpr int V = gemv16_vec<T>(), COLS = gemv16_cols<T>();
   extern __shared__ __align__(16) float gemv_smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_base = blockIdx.x * kGemvCols, n0 = n_base + lane * 16;
+  const int n_base = blockIdx.x * COLS, n0 = n_base + lane * V;
   const int m0 = blockIdx.z * MT;
   const int split = blockIdx.y, splits = gridDim.y;
   const int k_begin = split * k_chunk;
   const int n_rows = min(K, k_begin + k_chunk) - k_begin;
   const int passes = (k_chunk + PASS - 1) / PASS;
   float* xs = gemv_smem;                 // [passes * PASS][MT]
-  float* red = xs + passes * PASS * MT;  // [MT][16][32]: column lane*16+j
+  float* red = xs + passes * PASS * MT;  // [MT][V][32]: column lane*V+j
 
-  // N % 16 == 0: a lane's 16 columns are all in or all out
+  // N % V == 0: a lane's V columns are all in or all out
   const bool col_ok = n0 < N;
-  const int8_t* crow = codes + (size_t)k_begin * N + n0;
+  const T* crow = codes + (size_t)k_begin * N + n0;
   auto fetch = [&](uint4 (&v)[U], int pass) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -228,11 +269,11 @@ gemv16_kernel(const void* __restrict__ x, int x_bf16,
   }
   __syncthreads();
 
-  float acc[MT][16];
+  float acc[MT][V];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 16; ++j) acc[m][j] = 0.f;
+    for (int j = 0; j < V; ++j) acc[m][j] = 0.f;
 
   for (int p = 0; p < passes; ++p) {
     uint4 nxt[U];
@@ -240,11 +281,8 @@ gemv16_kernel(const void* __restrict__ x, int x_bf16,
     const float* xp = xs + (p * PASS + warp * U) * MT;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float w[16];
-      widen4(cur[u].x, w);
-      widen4(cur[u].y, w + 4);
-      widen4(cur[u].z, w + 8);
-      widen4(cur[u].w, w + 12);
+      float w[V];
+      widen_load<T>(cur[u], w);
       float xv[MT];
       if constexpr (MT == 4) {
         const float4 t = *reinterpret_cast<const float4*>(xp + u * MT);
@@ -259,7 +297,7 @@ gemv16_kernel(const void* __restrict__ x, int x_bf16,
 #pragma unroll
       for (int m = 0; m < MT; ++m)
 #pragma unroll
-        for (int j = 0; j < 16; ++j) acc[m][j] = fmaf(xv[m], w[j], acc[m][j]);
+        for (int j = 0; j < V; ++j) acc[m][j] = fmaf(xv[m], w[j], acc[m][j]);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) cur[u] = nxt[u];
@@ -272,8 +310,8 @@ gemv16_kernel(const void* __restrict__ x, int x_bf16,
 #pragma unroll
       for (int m = 0; m < MT; ++m)
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          float& r = red[(m * 16 + j) * 32 + lane];
+        for (int j = 0; j < V; ++j) {
+          float& r = red[(m * V + j) * 32 + lane];
           r = w == 0 ? acc[m][j] : r + acc[m][j];
         }
     }
@@ -283,15 +321,15 @@ gemv16_kernel(const void* __restrict__ x, int x_bf16,
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       if (m0 + m >= M) continue;
-      float s[16];
+      float s[V];
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        s[j] = red[(m * 16 + j) * 32 + lane] + acc[m][j];
+      for (int j = 0; j < V; ++j)
+        s[j] = red[(m * V + j) * 32 + lane] + acc[m][j];
       float* dst = splits == 1
                        ? out + (size_t)(m0 + m) * N + n0
                        : partial + ((size_t)split * M + m0 + m) * N + n0;
 #pragma unroll
-      for (int j = 0; j < 16; j += 4) {
+      for (int j = 0; j < V; j += 4) {
         float4 v = make_float4(s[j], s[j + 1], s[j + 2], s[j + 3]);
         if (splits == 1) {
           const float4 sc = *reinterpret_cast<const float4*>(scale + n0 + j);
@@ -317,7 +355,7 @@ gemv16_kernel(const void* __restrict__ x, int x_bf16,
   __threadfence();
   // each thread's outputs, the loads of RANGES ranges in flight at a time
   // (within the registers that keep two blocks an SM at one row of x)
-  constexpr int PER = MT * kGemvCols / kGemvThreads;
+  constexpr int PER = MT * COLS / kGemvThreads;
   constexpr int RANGES = 32 / PER;
   size_t at[PER];
   bool ok[PER];
@@ -325,7 +363,7 @@ gemv16_kernel(const void* __restrict__ x, int x_bf16,
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int e = threadIdx.x + i * kGemvThreads;
-    const int m = e / kGemvCols, n = n_base + e % kGemvCols;
+    const int m = e / COLS, n = n_base + e % COLS;
     ok[i] = m0 + m < M && n < N;
     at[i] = (size_t)(m0 + m) * N + n;
     s[i] = 0.f;
@@ -352,9 +390,10 @@ gemv16_kernel(const void* __restrict__ x, int x_bf16,
   if (threadIdx.x == 0) tickets[tile] = 0;  // ready for the next call
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_kernel(const void* __restrict__ x, int x_bf16,
-            const int8_t* __restrict__ codes, const float* __restrict__ scale,
+            const T* __restrict__ codes, const float* __restrict__ scale,
             float* __restrict__ out, int M, int N, int K) {
   // k-major tiles; the +1 keeps the transposed x stores free of bank
   // conflicts
@@ -1060,13 +1099,13 @@ cudaError_t launch_reduce(const float* partial, const float* scale,
   return cudaGetLastError();
 }
 
-template <int VEC, int MT>
-cudaError_t launch_gemv(const void* x, int x_bf16, const int8_t* codes,
+template <typename T, int VEC, int MT>
+cudaError_t launch_gemv(const void* x, int x_bf16, const T* codes,
                         const float* scale, float* out, float* partial, int M,
                         int N, int K, int splits, cudaStream_t st) {
   const int k_chunk = (K + splits - 1) / splits;
   const dim3 grid((N + 32 * VEC - 1) / (32 * VEC), splits, (M + MT - 1) / MT);
-  gemv_kernel<VEC, MT><<<grid, kGemvThreads, 0, st>>>(
+  gemv_kernel<T, VEC, MT><<<grid, kGemvThreads, 0, st>>>(
       x, x_bf16, codes, scale, out, splits > 1 ? partial : nullptr, M, N, K,
       k_chunk);
   cudaError_t err = cudaGetLastError();
@@ -1074,18 +1113,19 @@ cudaError_t launch_gemv(const void* x, int x_bf16, const int8_t* codes,
   return launch_reduce(partial, scale, out, splits, M, N, st);
 }
 
-template <int MT>
-cudaError_t launch_gemv16(const void* x, int x_bf16, const int8_t* codes,
+template <typename T, int MT>
+cudaError_t launch_gemv16(const void* x, int x_bf16, const T* codes,
                           const float* scale, float* out, float* partial,
                           int* tickets, int M, int N, int K, int splits,
                           cudaStream_t st) {
   constexpr int U = gemv_unroll<MT>(), PASS = kGemvWarps * U;
+  constexpr int COLS = gemv16_cols<T>();
   const int k_chunk = (K + splits - 1) / splits;
   const int rows = (k_chunk + PASS - 1) / PASS * PASS;
-  const size_t bytes = ((size_t)rows * MT + MT * kGemvCols) * sizeof(float);
+  const size_t bytes = ((size_t)rows * MT + MT * COLS) * sizeof(float);
   if (bytes > kGemvSmemMax) return cudaErrorInvalidValue;
-  const dim3 grid((N + kGemvCols - 1) / kGemvCols, splits, (M + MT - 1) / MT);
-  gemv16_kernel<MT, U><<<grid, kGemvThreads, bytes, st>>>(
+  const dim3 grid((N + COLS - 1) / COLS, splits, (M + MT - 1) / MT);
+  gemv16_kernel<T, MT, U><<<grid, kGemvThreads, bytes, st>>>(
       x, x_bf16, codes, scale, out, splits > 1 ? partial : nullptr,
       splits > 1 ? tickets : nullptr, M, N, K, k_chunk);
   return cudaGetLastError();
@@ -1152,26 +1192,30 @@ cudaError_t launch_large(const CUtensorMap (&maps)[2], const LargeArgs& a) {
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// ``vec`` is 16 (N and the codes' address 16-byte aligned), 8 (8-byte) or
-// 1; ``mt`` 1 or 4 rows of x a GEMV block (M <= 4), 0 for the tiled kernel;
-// ``splits`` K ranges of the GEMV, with ``partial`` a (splits, M, N) f32
-// workspace when splits > 1, and for vec 16 also ``tickets``: one int a
-// (512-column tile, tile of mt rows), zero before the call and after it.
-extern "C" int dequant_matmul_launch(const void* x, int x_bf16,
-                                     const void* codes, const void* scale,
-                                     void* out, void* partial, void* tickets,
-                                     int M, int N, int K, int vec, int mt,
-                                     int splits, void* stream) {
+// The GEMVs and the CUDA-core product on codes of type T. ``vec`` is the
+// codes a lane loads at once: 16 bytes of them (N and the codes' and the
+// scale's addresses 16-byte aligned: gemv16_kernel), 8 bytes (N and the
+// codes' address 8-byte aligned) or one code; ``mt`` 1 or 4 rows of x a
+// GEMV block (M <= 4), 0 for the tiled kernel; ``splits`` K ranges of the
+// GEMV, with ``partial`` a (splits, M, N) f32 workspace when splits > 1,
+// and for gemv16_kernel also ``tickets``: one int a (column tile, tile of
+// mt rows), zero before the call and after it.
+template <typename T>
+int launch_codes(const void* x, int x_bf16, const void* codes,
+                 const void* scale, void* out, void* partial, void* tickets,
+                 int M, int N, int K, int vec, int mt, int splits,
+                 void* stream) {
+  constexpr int V16 = gemv16_vec<T>(), V8 = 8 / (int)sizeof(T);
   if (M < 1 || N < 1 || K < 1 || splits < 1 || splits > K ||
       (splits > 1 && partial == nullptr) ||
-      (vec != 16 && vec != 8 && vec != 1) ||
-      (vec == 16 && (N % 16 || (uintptr_t)codes % 16 || (uintptr_t)scale % 16 ||
-                     (splits > 1 && tickets == nullptr))))
+      (vec != V16 && vec != V8 && vec != 1) ||
+      (vec == V16 && (N % V16 || (uintptr_t)codes % 16 ||
+                      (uintptr_t)scale % 16 ||
+                      (splits > 1 && tickets == nullptr))) ||
+      (vec == V8 && (N % V8 || (uintptr_t)codes % 8)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* c = static_cast<const int8_t*>(codes);
+  const T* c = static_cast<const T*>(codes);
   const float* s = static_cast<const float*>(scale);
   float* o = static_cast<float*>(out);
   float* p = static_cast<float*>(partial);
@@ -1179,30 +1223,55 @@ extern "C" int dequant_matmul_launch(const void* x, int x_bf16,
   if (mt == 0) {
     if ((M + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
     const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    gemm_kernel<<<grid, kGemmThreads, 0, st>>>(x, x_bf16, c, s, o, M, N, K);
+    gemm_kernel<T><<<grid, kGemmThreads, 0, st>>>(x, x_bf16, c, s, o, M, N,
+                                                  K);
     return (int)cudaGetLastError();
   }
   if (splits > 65535) return (int)cudaErrorInvalidValue;
-  if (vec == 16) {
+  if (vec == V16) {
     if (mt == 1 && M == 1)
-      return (int)launch_gemv16<1>(x, x_bf16, c, s, o, p, t, M, N, K, splits,
-                                   st);
+      return (int)launch_gemv16<T, 1>(x, x_bf16, c, s, o, p, t, M, N, K,
+                                      splits, st);
     if (mt == 4 && M <= 4)
-      return (int)launch_gemv16<4>(x, x_bf16, c, s, o, p, t, M, N, K, splits,
-                                   st);
+      return (int)launch_gemv16<T, 4>(x, x_bf16, c, s, o, p, t, M, N, K,
+                                      splits, st);
     return (int)cudaErrorInvalidValue;
   }
   if (mt == 1 && M == 1)
-    return vec == 8 ? (int)launch_gemv<8, 1>(x, x_bf16, c, s, o, p, M, N, K,
-                                             splits, st)
-                    : (int)launch_gemv<1, 1>(x, x_bf16, c, s, o, p, M, N, K,
-                                             splits, st);
+    return vec == V8 ? (int)launch_gemv<T, V8, 1>(x, x_bf16, c, s, o, p, M,
+                                                  N, K, splits, st)
+                     : (int)launch_gemv<T, 1, 1>(x, x_bf16, c, s, o, p, M, N,
+                                                 K, splits, st);
   if (mt == 4 && M <= 4)
-    return vec == 8 ? (int)launch_gemv<8, 4>(x, x_bf16, c, s, o, p, M, N, K,
-                                             splits, st)
-                    : (int)launch_gemv<1, 4>(x, x_bf16, c, s, o, p, M, N, K,
-                                             splits, st);
+    return vec == V8 ? (int)launch_gemv<T, V8, 4>(x, x_bf16, c, s, o, p, M,
+                                                  N, K, splits, st)
+                     : (int)launch_gemv<T, 1, 4>(x, x_bf16, c, s, o, p, M, N,
+                                                 K, splits, st);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// int8 codes (K, N): the GEMVs and the CUDA-core product (launch_codes).
+extern "C" int dequant_matmul_launch(const void* x, int x_bf16,
+                                     const void* codes, const void* scale,
+                                     void* out, void* partial, void* tickets,
+                                     int M, int N, int K, int vec, int mt,
+                                     int splits, void* stream) {
+  return launch_codes<int8_t>(x, x_bf16, codes, scale, out, partial, tickets,
+                              M, N, K, vec, mt, splits, stream);
+}
+
+// int16 codes (K, N), the same kernels and arguments: ``vec`` 8 (16-byte
+// loads), 4 (8-byte) or 1.
+extern "C" int dequant_matmul16_launch(const void* x, int x_bf16,
+                                       const void* codes, const void* scale,
+                                       void* out, void* partial,
+                                       void* tickets, int M, int N, int K,
+                                       int vec, int mt, int splits,
+                                       void* stream) {
+  return launch_codes<int16_t>(x, x_bf16, codes, scale, out, partial,
+                               tickets, M, N, K, vec, mt, splits, stream);
 }
 
 // The tensor-core product: ``splits`` K ranges of ``k_chunk`` rows (a

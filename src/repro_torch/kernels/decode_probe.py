@@ -103,7 +103,7 @@ _FETCH_NEXT = "    fetch(nxt, p + 1);  // zeros past the range: no load\n"
 _NEXT_TO_CUR = """#pragma unroll
     for (int u = 0; u < U; ++u) cur[u] = nxt[u];
 """
-_FMA = "        for (int j = 0; j < 16; ++j) acc[m][j] = fmaf(xv[m], w[j], acc[m][j]);"
+_FMA = "        for (int j = 0; j < V; ++j) acc[m][j] = fmaf(xv[m], w[j], acc[m][j]);"
 
 
 def gemv_variants(src: str) -> dict:

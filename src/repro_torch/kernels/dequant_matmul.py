@@ -1,12 +1,13 @@
-"""Int8-weight matrix product (the OPSC front segment's projections): the
-CUDA kernels' wrapper, its route choice and launch counts, and its plain
-PyTorch version.
+"""Integer-weight matrix product (the OPSC front segment's projections):
+the CUDA kernels' wrapper, its route choice and launch counts, and its
+plain PyTorch version.
 
 The kernels (``csrc/dequant_matmul.cu``) replace the Pallas TPU kernel
-``repro/kernels/dequant_matmul.py::dequant_matmul``:
+``repro/kernels/dequant_matmul.py::dequant_matmul``, which widens any
+integer tile to f32:
 
   x      (M, K)  f32 or bf16
-  codes  (K, N)  int8   symmetric weight codes
+  codes  (K, N)  int8 symmetric weight codes, or int16 (9 to 15 bits)
   scale  (N,)    f32    one scale per output channel
   out    (M, N)  f32    (x @ codes) * scale, summed in f32
 
@@ -41,6 +42,12 @@ alignment before the launch:
   * ``"cuda_cores"`` (any other M > 4: f32 x, a ragged N or K): the tiled
     product on the CUDA cores.
 
+int16 codes take the GEMV (M ≤ 4, ``gemv16_kernel`` at 8 codes a 16-byte
+load where N % 8 == 0 and the bases are aligned) and the CUDA cores
+(M > 4): a code above 256 in magnitude does not widen to bf16 exactly, so
+the tensor-core kernels take int8 codes only. ``code_launches`` counts
+launches by the codes' dtype.
+
 A split product writes its K ranges' partial sums to a (splits, M, N) f32
 workspace the wrapper allocates, and they are added in a fixed order (by a
 second kernel, or in ``gemv16_kernel`` by the block that takes a column
@@ -70,7 +77,6 @@ GEMV_BLOCKS_PER_SM = {1: 2, GEMV_MAX_M: 1}
 # range is cut to fit (``gemv16_kernel``: with the warps' sums, under the
 # 48 KB a block has without an opt-in)
 GEMV_STAGED_X = 32 * 1024
-GEMV16_COLS = 512  # columns a ``gemv16_kernel`` block covers
 # the tensor-core kernel's rows of x and columns of out a block, its K
 # step, and the blocks that fit on an SM (``tc_gemm_kernel``: 97 KB of
 # shared memory, at most 128 registers a thread)
@@ -92,18 +98,22 @@ LARGE_TILE_ROWS = {2: (96, 104, 128), 1: (96, 104, 128, 200, 256)}
 LARGE_STEP_US = {1: (0.314, 0.00209), 2: (0.674, 0.00253)}
 REDUCE_BYTES_PER_US, REDUCE_LAUNCH_US = 2.5e6, 3.0
 ROUTES = ("gemv", "tensor_cores_large_m", "tensor_cores", "cuda_cores")
+# the codes' dtypes the kernels take, by the name ``code_launches`` counts
+CODE_DTYPES = {torch.int8: "int8", torch.int16: "int16"}
 
 
 def dequant_matmul_ref(x: torch.Tensor, codes: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version (``repro/kernels/ref.py::dequant_matmul_ref``):
-    (x @ codes) * scale in f32."""
+    (x @ codes) * scale in f32 (exact widening of int8 and int16 codes)."""
     return (x.float() @ codes.float()) * scale
 
 
 @functools.cache
-def _launcher():
-    fn = build.load("dequant_matmul").dequant_matmul_launch
+def _launcher(code_bytes: int):
+    lib = build.load("dequant_matmul")
+    fn = lib.dequant_matmul_launch if code_bytes == 1 \
+        else lib.dequant_matmul16_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
@@ -133,24 +143,31 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def gemv_vec(n: int, codes_address: int, scale_address: int) -> int:
-    """Codes a GEMV lane loads at once: 16 where N and the bases of the
-    codes and the scale allow 16-byte loads (``gemv16_kernel``), else 8
-    where N and the codes allow 8-byte loads, else 1 (``gemv_kernel``)."""
-    if n % 16 == 0 and codes_address % 16 == 0 and scale_address % 16 == 0:
-        return 16
-    return 8 if n % 8 == 0 and codes_address % 8 == 0 else 1
+def gemv_vec(n: int, codes_address: int, scale_address: int,
+             code_bytes: int = 1) -> int:
+    """Codes a GEMV lane loads at once, for codes of ``code_bytes`` bytes:
+    16 bytes of them (16 int8 or 8 int16 codes) where N and the bases of
+    the codes and the scale allow 16-byte loads (``gemv16_kernel``), else
+    8 bytes where N and the codes allow 8-byte loads, else 1
+    (``gemv_kernel``)."""
+    wide = 16 // code_bytes
+    if n % wide == 0 and codes_address % 16 == 0 and scale_address % 16 == 0:
+        return wide
+    half = 8 // code_bytes
+    return half if n % half == 0 and codes_address % 8 == 0 else 1
 
 
-def gemv_plan(m: int, n: int, k: int, vec: int, sms: int) -> tuple:
+def gemv_plan(m: int, n: int, k: int, vec: int, sms: int,
+              code_bytes: int = 1) -> tuple:
     """(rows of x a block, K ranges) of the GEMV for an (m, k) x (k, n)
-    product: enough K ranges for about ``GEMV_BLOCKS_PER_SM`` blocks an
-    SM (two for the older 8-byte and 1-byte kernel), each at least
-    ``MIN_SPLIT_ROWS`` rows of codes, and each short enough that its rows
-    of x fit in ``GEMV_STAGED_X`` bytes."""
+    product with ``vec`` codes of ``code_bytes`` bytes a lane load: enough
+    K ranges for about ``GEMV_BLOCKS_PER_SM`` blocks an SM (two for the
+    older 8-byte and 1-byte kernel), each at least ``MIN_SPLIT_ROWS`` rows
+    of codes, and each short enough that its rows of x fit in
+    ``GEMV_STAGED_X`` bytes."""
     mt = 1 if m == 1 else GEMV_MAX_M
-    cols = GEMV16_COLS if vec == 16 else 32 * vec
-    per_sm = GEMV_BLOCKS_PER_SM[mt] if vec == 16 else 2
+    cols = 32 * vec  # a block's columns: 32 lanes of vec codes
+    per_sm = GEMV_BLOCKS_PER_SM[mt] if vec * code_bytes == 16 else 2
     blocks = -(-n // cols) * -(-m // mt)
     splits = max(1, min(-(-per_sm * sms // blocks), k // MIN_SPLIT_ROWS),
                  -(-k // (GEMV_STAGED_X // (4 * mt))))
@@ -202,14 +219,16 @@ def large_plan(m: int, n: int, k: int, sms: int) -> tuple:
     return best[1]
 
 
-def route(m: int, n: int, k: int, x_dtype: torch.dtype,
-          *addresses: int) -> str:
+def route(m: int, n: int, k: int, x_dtype: torch.dtype, *addresses: int,
+          code_dtype: torch.dtype = torch.int8) -> str:
     """The kernel an (m, k) x (k, n) product takes (one of ``ROUTES``),
-    from its shape, x's dtype and the base addresses of x, codes and scale:
-    by shape, not a fallback (a launch that fails raises)."""
+    from its shape, x's and the codes' dtypes and the base addresses of x,
+    codes and scale: by shape, not a fallback (a launch that fails
+    raises). int16 codes never take the tensor cores."""
     if m <= GEMV_MAX_M:
         return "gemv"
-    if x_dtype == torch.bfloat16 and n % 16 == 0 and k % 8 == 0 \
+    if code_dtype == torch.int8 and x_dtype == torch.bfloat16 \
+            and n % 16 == 0 and k % 8 == 0 \
             and all(a % 16 == 0 for a in addresses):
         return "tensor_cores_large_m" if m >= LARGE_M_MIN else "tensor_cores"
     return "cuda_cores"
@@ -219,8 +238,9 @@ def dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (shapes in the module
     docstring). Raises on any input the kernel does not take; there is no
-    fallback. Adds one to ``dequant_matmul.launches`` per call and to the
-    route's count in ``dequant_matmul.route_launches``."""
+    fallback. Adds one to ``dequant_matmul.launches`` per call, to the
+    route's count in ``dequant_matmul.route_launches`` and to the codes'
+    dtype's in ``dequant_matmul.code_launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"dequant_matmul launches a CUDA kernel; x is on "
                          f"{x.device} (use kernels.ops for CPU tensors)")
@@ -231,7 +251,7 @@ def dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
     m, k = x.shape
     n = codes.shape[1]
     want = {"x": (x, (torch.float32, torch.bfloat16), (m, k)),
-            "codes": (codes, (torch.int8,), (k, n)),
+            "codes": (codes, tuple(CODE_DTYPES), (k, n)),
             "scale": (scale, (torch.float32,), (n,))}
     for name, (t, dtypes, shape) in want.items():
         if t.device != x.device:
@@ -245,7 +265,8 @@ def dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     way = route(m, n, k, x.dtype, x.data_ptr(), codes.data_ptr(),
-                scale.data_ptr())
+                scale.data_ptr(), code_dtype=codes.dtype)
+    code_bytes = codes.element_size()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     sms = _sm_count(x.device.index or 0)
     splits, partial = 1, None
@@ -271,18 +292,18 @@ def dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
                 None if partial is None else partial.data_ptr(), m, n, k,
                 splits, chunk, stream)
         else:
-            vec = gemv_vec(n, codes.data_ptr(), scale.data_ptr())
+            vec = gemv_vec(n, codes.data_ptr(), scale.data_ptr(), code_bytes)
             mt, tickets = 0, None
             if way == "gemv":
-                mt, splits = gemv_plan(m, n, k, vec, sms)
+                mt, splits = gemv_plan(m, n, k, vec, sms, code_bytes)
                 if splits > 1:
                     partial = torch.empty((splits, m, n),
                                           dtype=torch.float32,
                                           device=x.device)
-                    if vec == 16:
-                        tiles = -(-n // GEMV16_COLS) * -(-m // mt)
+                    if vec * code_bytes == 16:
+                        tiles = -(-n // (32 * vec)) * -(-m // mt)
                         tickets = _tickets(x.device, stream, tiles)
-            err = _launcher()(
+            err = _launcher(code_bytes)(
                 x.data_ptr(), int(x.dtype == torch.bfloat16),
                 codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
                 None if partial is None else partial.data_ptr(),
@@ -293,8 +314,10 @@ def dequant_matmul(x: torch.Tensor, codes: torch.Tensor,
                            f"CUDA error {err}")
     dequant_matmul.launches += 1
     dequant_matmul.route_launches[way] += 1
+    dequant_matmul.code_launches[CODE_DTYPES[codes.dtype]] += 1
     return out
 
 
 dequant_matmul.launches = 0
 dequant_matmul.route_launches = dict.fromkeys(ROUTES, 0)
+dequant_matmul.code_launches = dict.fromkeys(CODE_DTYPES.values(), 0)

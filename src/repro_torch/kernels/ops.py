@@ -103,8 +103,8 @@ def ts_encode(x, tau: float, capacity: int):
 
 
 def dequant_matmul(x, codes, scale):
-    """x (M, K) times int8 codes (K, N) with per-output-channel scales →
-    (M, N) f32; see :mod:`repro_torch.kernels.dequant_matmul`."""
+    """x (M, K) times int8 or int16 codes (K, N) with per-output-channel
+    scales → (M, N) f32; see :mod:`repro_torch.kernels.dequant_matmul`."""
     fn = _dm.dequant_matmul_ref if x.device.type == "cpu" \
         else _dm.dequant_matmul
     return fn(x, codes, scale)

@@ -15,9 +15,9 @@ Caches come in three layouts, as in the reference:
     page-major (P, K, page, hd) codes addressed through block tables.
 
 Shapes: activations (B, S, D); q/k/v (B, S, H|K, hd). Weights keep the
-reference's ``x @ W`` layout, W (d_in, d_out); a weight held as int8 codes
-with per-output-channel scales (``core.quant.QuantizedTensor``, the split
-engine's edge segment) goes through the int8-weight kernel K7
+reference's ``x @ W`` layout, W (d_in, d_out); a weight held as int8 or int16
+codes with per-output-channel scales (``core.quant.QuantizedTensor``, the
+split engine's edge segment) goes through the integer-weight kernel K7
 (:func:`matmul`).
 """
 
@@ -39,10 +39,11 @@ NEG_INF = -1e30
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` for x (..., d_in). A dense ``w`` (d_in, d_out) is a plain
-    product; a :class:`QuantizedTensor` of int8 codes (d_in, d_out) with one
-    scale per output column goes through ``kernels.ops.dequant_matmul``
-    (K7 on the card, its plain version on the CPU), summed in f32 and cast
-    back to x's dtype. The dequantized weight is never built."""
+    product; a :class:`QuantizedTensor` of codes (d_in, d_out) with one
+    scale per output column (int8 codes up to 8 bits, int16 from 9 to 15)
+    goes through ``kernels.ops.dequant_matmul`` (K7 on the card, its plain
+    version on the CPU), summed in f32 and cast back to x's dtype. The
+    dequantized weight is never built."""
     if not isinstance(w, QuantizedTensor):
         return x @ w
     k, n = w.codes.shape

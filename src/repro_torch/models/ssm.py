@@ -9,8 +9,8 @@ compute in f32, the causal depthwise conv in x's dtype and the softplus of
 
 The reference's module reaches no Pallas kernel, so this one is plain
 PyTorch and launches no kernel of its own: its projections go through
-``layers.matmul``, which takes the split edge's int8 codes to the
-int8-weight kernel K7; the edge's quantized ``conv_w`` is used as its
+``layers.matmul``, which takes the split edge's integer codes to the
+integer-weight kernel K7; the edge's quantized ``conv_w`` is used as its
 dequantized values, as the reference fake-quantizes it.
 
 Shapes: x (B, S, H, P); dt (B, S, H); A (H,); B/C (B, S, N) (one group,

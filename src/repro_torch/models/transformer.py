@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, AttnSpec, MoESpec
+from repro_torch.core.quant import aiq, aiq_dequant
 from repro_torch.kernels.decode_attention import padded_cache_len
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_layer
@@ -69,6 +70,10 @@ class RuntimeOpts:
     # (the pool gathered dense into chunked_attention, K4's plain version):
     # the baseline the reference's chunked-prefill benchmark measures
     paged_prefill_kernel: bool = True
+    # the uniform activation quantization baseline: every layer's output
+    # through AIQ at this many bits per token and back (the paper's method
+    # quantizes activations only at the split); None disables
+    act_bits: int | None = None
 
 
 def layer_params(cfg: ArchConfig, params: dict, blocks=None) -> list:
@@ -242,15 +247,25 @@ def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
         conv_state.copy_(conv)  # stored back in the caches' dtypes
         ssm_state.copy_(state)
     x = x + out
-    if ls.ffn is None:  # a mixer-only layer (mamba2)
-        return x, cache
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    if isinstance(ls.ffn, MoESpec):
-        out, _ = moe_layer(p["ffn"], h, ls.ffn, opts.moe_capacity_factor,
-                           opts.moe_groups)
-    else:
-        out = L.mlp_layer(p["ffn"], h, ls.ffn.activation)
-    return x + out, cache
+    if ls.ffn is not None:  # else a mixer-only layer (mamba2)
+        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        if isinstance(ls.ffn, MoESpec):
+            out, _ = moe_layer(p["ffn"], h, ls.ffn, opts.moe_capacity_factor,
+                               opts.moe_groups)
+        else:
+            out = L.mlp_layer(p["ffn"], h, ls.ffn.activation)
+        x = x + out
+    if opts.act_bits is not None:
+        x = _fake_quant_tokens(x, opts.act_bits)
+    return x, cache
+
+
+def _fake_quant_tokens(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """AIQ per token at ``bits`` and back (``RuntimeOpts.act_bits``), over
+    the (tokens, D) f32 view, cast back to x's dtype."""
+    flat = x.reshape(-1, x.shape[-1]).float()
+    codes, s, z = aiq(flat, bits, dim=-1)
+    return aiq_dequant(codes, s, z).reshape(x.shape).to(x.dtype)
 
 
 def _apply_layers(cfg, params, x, caches, *, q_positions, pos,

@@ -2,9 +2,10 @@
 ``repro/serving/split_engine.py``.
 
 The model is cut at OPSC's split point. The *edge* runs blocks [0, split)
-with its weights held as int8 codes and per-output-channel scales at
-``Q_w1`` bits (OPSC's front segment; every projection goes through the
-int8-weight kernel K7, and the dequantized weights never exist). The
+with its weights held as integer codes (int8 up to 8 bits, int16 from 9 to
+15) and per-output-channel scales at ``Q_w1`` bits (OPSC's front segment;
+every projection goes through the integer-weight kernel K7, and the
+dequantized weights never exist). The
 *cloud* runs blocks [split, L) at full precision. The split-layer hidden
 state crosses as a TS + TAB-Q payload (``core.payload``: kernels K6 and
 K5); its measured bit count drives the ε-outage channel model, and
@@ -94,27 +95,27 @@ def slice_blocks(params: dict, lo: int, hi: int) -> dict:
 def quantize_front_blocks(params: dict, bits: int) -> dict:
     """OPSC front-segment weights: every stacked (nb, ..., d_out) leaf of
     three or more axes of ``params`` becomes a :class:`QuantizedTensor` of
-    int8 codes (nb, ∏ middle axes, d_out) with one scale per block and
-    output column (``quantize_sym`` over the middle axes, the reference's
+    codes (nb, ∏ middle axes, d_out) with one scale per block and output
+    column (``quantize_sym`` over the middle axes, the reference's
     ``_fake_quant_blocks`` without the dequantization: an expert weight's
     scales are shared by its experts); norms and the embedding stay as
-    they are. ``bits`` ≥ 16 keeps the full
+    they are. The codes are int8 up to 8 bits and int16 from 9 to 15:
+    ``quantize_sym`` gives the reference's int32 carrier there, narrowed
+    exactly (|c| ≤ 2^14 - 1). They are computed in the weight's dtype, as
+    the reference's are, so a bf16 weight's 12-bit code carries no more
+    than bf16's 8 significant bits. ``bits`` ≥ 16 keeps the full
     precision weights (the paper's high-precision segment). Each block is
     quantized on its own into the codes, so the temporaries are one
     block's, not the whole leaf's (granite-34b's eight-block ``w_up`` is
     2.4 GB of bf16)."""
     if bits >= 16:
         return params
-    if bits > 8:
-        raise NotImplementedError(
-            f"qw_front={bits}: codes wider than int8 need an int16-code "
-            f"route for K7, which takes int8 (ROADMAP queue 1, item 10, "
-            f"what the split path left out)")
+    carrier = torch.int8 if bits <= 8 else torch.int16
     out = dict(params)
     for key, x in params.items():
         if key.startswith("blocks/") and x.dim() >= 3:
             flat = x.reshape(x.shape[0], -1, x.shape[-1])
-            codes = torch.empty(flat.shape, dtype=torch.int8,
+            codes = torch.empty(flat.shape, dtype=carrier,
                                 device=x.device)
             scale = torch.empty((flat.shape[0], 1, flat.shape[-1]),
                                 dtype=torch.float32, device=x.device)
@@ -168,8 +169,8 @@ class SplitEngine:
                  telemetry=None, device=None):
         """The paper's split system on ``device`` (``cuda`` unless the
         caller names another; raises with no card): edge blocks [0, split)
-        as int8 codes at ``opsc.qw_front`` bits (full precision at 16 or
-        more), cloud blocks [split, L) at full precision, a TS + TAB-Q
+        as int8 or int16 codes at ``opsc.qw_front`` bits (full precision
+        at 16 or more), cloud blocks [split, L) at full precision, a TS + TAB-Q
         payload between them. ``params`` is the flat dict of
         :mod:`repro_torch.params`.
 
@@ -209,8 +210,8 @@ class SplitEngine:
 
     def edge_weight_bytes(self) -> int:
         """Device bytes of the edge segment's block weights: when quantized,
-        the int8 codes (one byte a code at any ``qw_front``; OPSC's Eq. 1
-        counts ``qw_front`` bits) and their f32 scales."""
+        the codes (one byte a code up to 8 bits, two from 9 to 15; OPSC's
+        Eq. 1 counts ``qw_front`` bits) and their f32 scales."""
         total = 0
         for k, v in self.edge_params.items():
             if k.startswith("blocks/"):

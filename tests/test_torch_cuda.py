@@ -1808,3 +1808,120 @@ def test_modal_configs_on_card_match_cpu(cuda_device, name):
     assert da.decode_attention.launches - before == cfg.num_layers * 7
     np.testing.assert_array_equal(eng[0].tokens, eng[1].tokens)
     assert eng[0].tokens.shape == (2, 28) + shape[2:]
+
+
+# ----------------------------------------- K7 on int16 codes (9-15 bits)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (1, 4096, 11008),
+                                   (1, 11008, 4096), (4, 4096, 11008),
+                                   (1, 2048, 60), (3, 100, 17),
+                                   (4, 200, 84), (96, 4096, 4096),
+                                   (96, 130, 50), (96, 11008, 4096)])
+def test_dequant_matmul_int16_codes_match_plain_version(cuda_device, dtype,
+                                                        m, k, n):
+    """K7 on 12-bit codes in int16: the GEMV up to 4 rows (``gemv16_kernel``
+    at 8 codes a 16-byte load; 8-byte and 1-code loads for a ragged N such
+    as qwen2-moe's router, N 60), the CUDA cores above, never the tensor
+    cores; within 1e-5 of |x| @ |codes| * scale of the plain version, two
+    calls bit-identical, counted by route and by code width."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        cuda_device, getattr(torch, dtype))
+    codes = torch.from_numpy(rng.integers(-2047, 2048, (k, n)).astype(
+        np.int16)).to(cuda_device)
+    scale = torch.from_numpy(rng.uniform(1e-5, 1e-3, (n,)).astype(
+        np.float32)).to(cuda_device)
+    routes = dict(dm.dequant_matmul.route_launches)
+    widths = dict(dm.dequant_matmul.code_launches)
+    got = ops.dequant_matmul(x, codes, scale)
+    again = dm.dequant_matmul(x, codes, scale)
+    routes["gemv" if m <= dm.GEMV_MAX_M else "cuda_cores"] += 2
+    widths["int16"] += 2
+    assert dm.dequant_matmul.route_launches == routes
+    assert dm.dequant_matmul.code_launches == widths
+    want = dm.dequant_matmul_ref(x, codes, scale)
+    bound = (x.float().abs() @ codes.float().abs() * scale).max()
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(bound)
+    assert torch.equal(got, again)
+
+
+def test_dequant_matmul_refuses_codes_of_other_widths(cuda_device):
+    """Codes other than int8 and int16 are refused, and never widened or
+    handed to the plain version: no launch is counted."""
+    x = torch.zeros((1, 64), device=cuda_device)
+    scale = torch.ones(8, device=cuda_device)
+    before = dm.dequant_matmul.launches
+    for dtype in (torch.int32, torch.uint8, torch.float16):
+        with pytest.raises(ValueError):
+            dm.dequant_matmul(x, torch.zeros((64, 8), dtype=dtype,
+                                             device=cuda_device), scale)
+    assert dm.dequant_matmul.launches == before
+
+
+def test_int16_gemv_replays_from_a_cuda_graph(cuda_device):
+    """The int16 GEMV at w_up (split K, tickets), captured in a CUDA graph:
+    each replay equals the eager call bit for bit."""
+    rng = np.random.default_rng(28)
+    x = torch.from_numpy(rng.normal(size=(1, 4096)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    codes = torch.from_numpy(rng.integers(-2047, 2048, (4096, 11008)).astype(
+        np.int16)).to(cuda_device)
+    scale = torch.from_numpy(rng.uniform(1e-6, 1e-4, (11008,)).astype(
+        np.float32)).to(cuda_device)
+    assert dm.gemv_plan(1, 11008, 4096, 8, dm._sm_count(0), 2)[1] > 1
+    eager = dm.dequant_matmul(x, codes, scale)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dm.dequant_matmul(x, codes, scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dm.dequant_matmul(x, codes, scale)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_split_engine_wide_front_on_card_matches_cpu(cuda_device):
+    """llama2-7b tiny in f32 through the split engine at qw_front 12 (int16
+    codes, TS + TAB-Q, int8 KV): the card's tokens and uplink bits equal
+    the CPU run's, and every K7 launch takes int16 codes."""
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
+    opsc = OPSCConfig(split_layer=1, qw_front=12, tau=0.5)
+    want, wst = SplitEngine(cfg, params, opsc, opts=opts, cache_len=32,
+                            device="cpu").generate(prompts, 6)
+    widths = dict(dm.dequant_matmul.code_launches)
+    got, gst = SplitEngine(cfg, params, opsc, opts=opts, cache_len=32,
+                           device=cuda_device).generate(prompts, 6)
+    np.testing.assert_array_equal(got, want)
+    assert gst.uplink_bits_measured == wst.uplink_bits_measured
+    assert dm.dequant_matmul.code_launches["int16"] \
+        - widths["int16"] == 7 * 6
+    assert dm.dequant_matmul.code_launches["int8"] == widths["int8"]
+
+
+def test_engine_act_bits_on_card_matches_cpu(cuda_device):
+    """The uniform activation quantization (act_bits 8, int8 KV) on the
+    tiny llama in f32: the card's greedy tokens equal the CPU's and the
+    logprobs agree within 5e-3 (an AIQ or KV code may land a step apart
+    where the two devices' f32 sums differ in the last bit)."""
+    cfg = get_config("llama2-7b-tiny")
+    opts = RuntimeOpts(q_chunk=16, kv_chunk=16, quantized_kv=True,
+                       act_bits=8)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 10))
+    want = Engine(cfg, params, opts, cache_len=32,
+                  device="cpu").generate(prompts, 8)
+    got = Engine(cfg, params, opts, cache_len=32,
+                 device=cuda_device).generate(prompts, 8)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.logprobs, want.logprobs, rtol=1e-4,
+                               atol=5e-3)

@@ -289,8 +289,8 @@ def test_port_imports_nothing_of_jax():
         "for name in mods:\n"
         "    __import__(name)\n"
         "assert {'repro_torch.serving.async_engine', "
-        "'repro_torch.serving.http', 'repro_torch.serving.telemetry'} "
-        "<= set(mods)\n"
+        "'repro_torch.serving.http', 'repro_torch.serving.telemetry', "
+        "'repro_torch.data.pipeline'} <= set(mods)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len(mods), bad)\n"

@@ -251,7 +251,8 @@ def test_split_shared_cloud_prefix(tiny_model):
 def test_split_edge_weights_are_int8_codes(tiny_model):
     """The edge holds int8 codes and per-output-channel scales for its
     seven projections (norms and embedding as they were); at 16 bits it
-    holds the bridged weights themselves."""
+    holds the bridged weights themselves; from 9 to 15 bits int16 codes,
+    which ``edge_weight_bytes`` counts at two bytes a code."""
     cfg, _, params = tiny_model
     eng = SplitEngine(cfg, params, OPSCConfig(split_layer=1, qw_front=4),
                       opts=OPTS, device="cpu")
@@ -265,9 +266,16 @@ def test_split_edge_weights_are_int8_codes(tiny_model):
     full = SplitEngine(cfg, params, OPSCConfig(split_layer=1, qw_front=16),
                        opts=OPTS, device="cpu")
     assert full.edge_weight_bytes() > 3 * eng.edge_weight_bytes()
-    with pytest.raises(NotImplementedError):
-        SplitEngine(cfg, params, OPSCConfig(split_layer=1, qw_front=12),
-                    opts=OPTS, device="cpu")
+    wide = SplitEngine(cfg, params, OPSCConfig(split_layer=1, qw_front=12),
+                       opts=OPTS, device="cpu")
+    wide_q = {k: v for k, v in wide.edge_params.items()
+              if isinstance(v, QuantizedTensor)}
+    assert wide_q.keys() == quant.keys()
+    for k, q in wide_q.items():
+        assert q.codes.dtype == torch.int16
+        assert int(q.codes.abs().max()) <= 2047
+    extra = sum(q.codes.numel() for q in wide_q.values())
+    assert wide.edge_weight_bytes() == eng.edge_weight_bytes() + extra
 
 
 def test_split_refusals(tiny_model):
