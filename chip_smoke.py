@@ -123,7 +123,7 @@ Phases, each printing one JSON line:
            over a wrapped ring (``K1_STEPS["danube_step"]``);
   moe      the mixture-of-experts configs, served dropless: both tiny ones
            on the CPU against the card; qwen2-moe-a2.7b at full width over
-           12 of its 24 blocks (``MOE_QWEN2_BLOCKS``; random bf16
+           10 of its 24 blocks (``MOE_QWEN2_BLOCKS``; random bf16
            weights, int8 KV) through
            LLMServer(backend="fused") (A: four requests of 512, 512, 128
            and 128 tokens, as the families phase checks them, K1 and k
@@ -144,7 +144,7 @@ Phases, each printing one JSON line:
            qwen2-moe's expert and router products (``K7_MOE``);
   gqa      the grouped- and multi-query configs: internlm2-20b (G 6) and
            granite-34b (G 48) at small widths with those group sizes on
-           the CPU against the card; internlm2-20b at full width over 24
+           the CPU against the card; internlm2-20b at full width over 16
            of its 48 blocks (``GQA_INTERNLM2_BLOCKS``; random bf16
            weights, int8 KV) through LLMServer(backend=
            "fused") (A: four requests, as the families phase checks them),
@@ -152,7 +152,7 @@ Phases, each printing one JSON line:
            256-token prefix, chunked then packed; K2, K3, K4 counted by
            route; every step held to the fused path, packed to chunked)
            and the split backend at ℓ = 8 (C: K7 by route); granite-34b
-           over its first 22 of 88 blocks (``GQA_GRANITE_BLOCKS``) the
+           over its first 16 of 88 blocks (``GQA_GRANITE_BLOCKS``) the
            same, fused (D), paged chunked (E) and split (F: its ungated
            GELU w_up through K7). The kernels phase holds K1 at
            both decode steps (``K1_STEPS``), K2 to K4 at both group sizes
@@ -162,7 +162,7 @@ Phases, each printing one JSON line:
            against the card; mamba2-780m on f32 weights at full width and
            depth, the step recurrence held to the chunked prefill and a
            bf16 recurrent state to the f32 one; mamba2-780m on bf16
-           weights over 24 of its 48 blocks (``SSM_MAMBA2_BLOCKS``)
+           weights over 16 of its 48 blocks (``SSM_MAMBA2_BLOCKS``)
            through the fused backend (A: requests of 4160, 4160, 256 and
            256 tokens, K1 never) and the split backend at ℓ = 8 (B: K5,
            K6, K7 on the SSM projections); jamba-v0.1-52b at full
@@ -172,8 +172,9 @@ Phases, each printing one JSON line:
            mamba2's projections (``K7_SLICE16``);
   modal    the vision-stub and codebook configs: qwen2-vl-2b (G 6 over 8
            patch slots) and musicgen-medium at small widths on the CPU
-           against the card; qwen2-vl-2b at full width and depth (random
-           bf16 weights, int8 KV) through LLMServer(backend="fused") on
+           against the card; qwen2-vl-2b at full width over 16 of its 28
+           blocks (``MODAL_QWEN2_VL_BLOCKS``; random bf16 weights, int8
+           KV) through LLMServer(backend="fused") on
            text (A, as the families phase checks it) and through the
            Engine over 1,024 projected patch slots and 128 text tokens
            (K1 counted, the int8 steps within the reference's bound of an
@@ -181,13 +182,29 @@ Phases, each printing one JSON line:
            decode step beside its byte bound), the paged backend (B:
            ``_dense_paged``, chunked then packed; K2, K3, K4 at K 2, G 6)
            and the split backend at ℓ = 8 (C); musicgen-medium at full
-           width and depth through the Engine on (2, 512, 4) codebook
+           width over 24 of its 48 blocks (``MODAL_MUSICGEN_BLOCKS``)
+           through the Engine on (2, 512, 4) codebook
            prompts (D, held as A's Engine run, K1 at head dim 64) and the
            split engine at ℓ = 8 (E); the paged pool's dense-gather route
            (``paged_prefill_kernel=False``) on four of B's requests held
            to K3's streams (F). The kernels phase holds K1 at both decode
            steps (``K1_STEPS``), K2 to K4 at K 2, G 6 (``GQA_GROUPS``) and
-           K7 at both configs' edge widths (``K7_SLICE16``).
+           K7 at both configs' edge widths (``K7_SLICE16``);
+  train    training: llama2-7b at full width over 4 of its 32 blocks
+           (f32 weights and AdamW state, 17 GB) through
+           ``repro_torch.launch.train.main`` (A: batch 4 × 512, accum 2,
+           remat, 8 steps on the Zipf-Markov corpus; each step's loss,
+           grad norm, lr, host-clock ms, device span and, in a second
+           run, its profiled device-busy ms; tokens/s, peak memory); one
+           step over 1 block on the card against the CPU on a 64-token
+           batch (B: the loss and every leaf's gradient, remat on against
+           off, accum 1 against 2); the induction vehicle trained from the
+           port's init (C: 250 steps, CE below 0.7 × its first, its
+           checkpoint read back bit for bit, copy accuracy through the
+           int8-KV Engine beside the committed vehicle's); the
+           straight-through codec on a (128, 4096) payload (D: one launch
+           of K6 and of K5, the forward bit for bit the CPU's, the
+           backward the upstream gradient).
 
 Every phase's line carries ``phase_s`` and ``part_s`` (its seconds, and
 its parts'). Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -211,7 +228,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed",
           "split", "spec", "service", "disagg", "families", "moe", "gqa",
-          "ssm", "modal")
+          "ssm", "modal", "train")
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -2597,6 +2614,12 @@ def _device_profile(torch, fn, n: int) -> tuple:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+    return _profile_rows(torch, prof, n)
+
+
+def _profile_rows(torch, prof, n: int = 1) -> tuple:
+    """(device-busy ms per call, the device kernels by time per call,
+    largest first) of a stopped profiler over ``n`` calls."""
     rows = []  # device kernels only: CPU ops would count their kernels again
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -5819,10 +5842,11 @@ def phase_families(ctx) -> None:
 # them are 470 GB of bf16); both served dropless, as the reference serves
 MOE_OPTS = dict(moe_capacity_factor=0.0)
 MOE_QWEN3_BLOCKS = 4
-# qwen2-moe-a2.7b over its first 12 of 24 blocks: full depth was measured
+# qwen2-moe-a2.7b over its first 10 of 24 blocks: full depth was measured
 # (PERF.md), and the whole script must finish well inside its 1,200 s
-# limit on a slow host too (one measured run took 1.35 × as long)
-MOE_QWEN2_BLOCKS = 12
+# limit on a slow host too (one measured run took 1.35 × as long); 12
+# until the train phase came
+MOE_QWEN2_BLOCKS = 10
 MOE_FUSED_LENS = (512, 512, 128, 128)  # A: qwen2-moe through "fused"
 MOE_FUSED_CACHE_LEN = 640
 MOE_QWEN3_LENS = (256, 256, 64, 64)  # D: qwen3-moe, fused then packed
@@ -6029,12 +6053,13 @@ GQA_PAGED_PREFIX = 256
 GQA_PAGED_FORKS = (5, 6, 7)
 GQA_PAGED_MAX_TOKENS = 16
 GQA_SPLIT_MAX_TOKENS = 8  # the split runs: the split phase's prompts
-# granite-34b runs over its first 22 of 88 blocks (16.8 of 67.3 GB of bf16
-# weights) and internlm2-20b over 24 of 48: both depths were measured
-# (PERF.md), and the modal phase needs the seconds within the
-# script's 1,200 s limit (on a slow host too)
-GQA_GRANITE_BLOCKS = 22
-GQA_INTERNLM2_BLOCKS = 24
+# granite-34b runs over its first 16 of 88 blocks (12.2 of 67.3 GB of bf16
+# weights) and internlm2-20b over 16 of 48: both depths were measured
+# (PERF.md), and the modal and train phases need the seconds within the
+# script's 1,200 s limit (on a slow host too); 22 and 24 before the train
+# phase came
+GQA_GRANITE_BLOCKS = 16
+GQA_INTERNLM2_BLOCKS = 16
 
 
 def _small_config(name, blocks=2):
@@ -6294,13 +6319,14 @@ def phase_gqa(ctx) -> None:
 
 
 # the state-space configs (ROADMAP queue 1 item 9.2): mamba2-780m at full
-# width, its f32 holds at full depth, its bf16 runs (A, B) over 24 of its
-# 48 blocks (both measured at full depth in PRs 26 and 27; cut to make
-# room for the planner and the 12-bit split); jamba-v0.1-52b at full width
+# width, its f32 holds at full depth, its bf16 runs (A, B) over 16 of its
+# 48 blocks (both measured at full depth in PRs 26 and 27; cut to 24 to
+# make room for the planner and the 12-bit split, to 16 for the train
+# phase); jamba-v0.1-52b at full width
 # over 2 of its 4 blocks (16 of 32 layers: 2 attention, 14 Mamba-2, 8 MoE;
 # all 4 blocks are 103 GB of bf16), served dropless; random bf16 weights,
 # int8 KV
-SSM_MAMBA2_BLOCKS = 24
+SSM_MAMBA2_BLOCKS = 16
 SSM_JAMBA_BLOCKS = 2
 SSM_JAMBA_LENS = (1024, 1024, 256, 256)
 SSM_JAMBA_CACHE_LEN = 1152
@@ -6464,8 +6490,8 @@ def phase_ssm(ctx) -> None:
 
 
 # the vision-stub and codebook configs (ROADMAP queue 1 items 9.3 and 9.4):
-# qwen2-vl-2b and musicgen-medium at full width and depth, random bf16
-# weights, int8 KV. A: qwen2-vl's text prompts through the fused backend
+# qwen2-vl-2b and musicgen-medium at full width (over ``MODAL_*_BLOCKS``),
+# random bf16 weights, int8 KV. A: qwen2-vl's text prompts through the fused backend
 # as the families phase checks them, then the Engine over 1,024 projected
 # patch slots and 128 text tokens; B: the paged backend (``GQA_PAGED_*``),
 # chunked then packed; C: the split at l = 8; D: musicgen through the
@@ -6482,6 +6508,11 @@ MODAL_SPLIT_LEN = 96  # E: musicgen's split prompts (2, 96, 4)
 MODAL_SPLIT_NEW = 8
 MODAL_GATHER_REQUESTS = (0, 2, 5, 6)  # F: two long prompts, two forks
 MODAL_TINY = ("qwen2-vl-2b", "musicgen-medium")
+# qwen2-vl-2b over its first 16 of 28 blocks and musicgen-medium over 24 of
+# 48: both were measured at full depth (PERF.md, PR 27's and 28's runs);
+# cut in PR 29 to make room for the train phase
+MODAL_QWEN2_VL_BLOCKS = 16
+MODAL_MUSICGEN_BLOCKS = 24
 
 
 def _unread_bytes(params) -> int:
@@ -6865,7 +6896,8 @@ def phase_modal(ctx) -> None:
     timed, part_s = _timed_parts(ctx)
     tiny = {name: timed(f"{name}-small", _modal_tiny, name)
             for name in MODAL_TINY}
-    vlm = timed("init_qwen2_vl", _family_params, "qwen2-vl-2b")
+    vlm = timed("init_qwen2_vl", _family_params, "qwen2-vl-2b",
+                MODAL_QWEN2_VL_BLOCKS)
     a = timed("A", _family_fused, "qwen2-vl-2b", vlm,
               lens=MODAL_FUSED_LENS, cache_len=MODAL_FUSED_CACHE_LEN,
               max_tokens=MODAL_MAX_TOKENS)
@@ -6880,7 +6912,8 @@ def phase_modal(ctx) -> None:
     f = timed("F", _gather_route, vlm)
     del vlm
     _free_weights()
-    music = timed("init_musicgen", _family_params, "musicgen-medium")
+    music = timed("init_musicgen", _family_params, "musicgen-medium",
+                  MODAL_MUSICGEN_BLOCKS)
     prompts, _ = _modal_inputs(music[0], 2, MODAL_MUSIC_LEN,
                                np.random.default_rng(28))
     d = timed("D", _modal_engine, music, prompts, MODAL_MUSIC_NEW)
@@ -6901,6 +6934,316 @@ def phase_modal(ctx) -> None:
                                  ("F", f)), checks)
     finally:
         report["ok"] = all(checks.values())
+        emit(report)
+
+
+# the train phase: run A, the launcher at full width (llama2-7b's first 4
+# of 32 blocks: f32 weights, grads and AdamW's two moments of its 1.07 B
+# parameters are 17 GB, all 32 blocks' 108 GB would not fit the card);
+# run B, one step at full width over 1 block, card against CPU, on a
+# 64-token batch; run C, the induction vehicle trained from the port's
+# init (``benchmarks/common.py``'s settings); run D, the straight-through
+# codec at a 128-token prefill payload
+TRAIN_ARGV = ("--arch", "llama2-7b", "--num-blocks", "4", "--batch", "4",
+              "--seq", "512", "--accum", "2", "--steps", "8")
+# run A's steps profiled, each on its own (a profiled step's host time
+# grows by about 1%; its profile's processing, about 1.5 s, falls between
+# steps)
+TRAIN_PROFILED = (1, 7)
+TRAIN_B_BATCH = (2, 32)  # run B: 64 tokens, two rows for accum 2
+TRAIN_VEHICLE = dict(vocab=64, blocks=4, batch=32, seq=33, steps=250,
+                     lr=3e-3, warmup=20)
+TRAIN_STE_SHAPE = (128, 4096)
+# tests/test_torch_train_families.py's bars: loss relative, and a leaf's
+# gradient against the largest entry of that leaf
+TRAIN_LOSS_REL = 2e-6
+TRAIN_GRAD_REL = 5e-5
+
+
+def _flag(argv, name) -> int:
+    """The integer value of ``name``'s last occurrence in ``argv``."""
+    return int(argv[len(argv) - argv[::-1].index(name)])
+
+
+def _leaf_err(got: dict, want: dict) -> tuple:
+    """(the worst leaf, its largest |got - want| over its largest |want|)."""
+    errs = {}
+    for k, w in want.items():
+        w = w.float().cpu()
+        g = got[k].float().cpu()
+        errs[k] = float((g - w).abs().max() / max(float(w.abs().max()),
+                                                  1e-30))
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def _step_grads(params, cfg, batch, opts) -> tuple:
+    """(loss, {key: grad}) of ``train_loop.loss_fn`` on ``batch``."""
+    import torch
+    from repro_torch.training.train_loop import loss_fn
+
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss, _ = loss_fn(leaves, cfg, batch, opts)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss), dict(zip(leaves, grads))
+
+
+def _train_launcher(ctx) -> dict:
+    """Run A: ``launch.train.main`` at full width. Each step's host-clock
+    ms and its device span (CUDA events recorded as the step starts and
+    after its readback); the steps of ``TRAIN_PROFILED`` each profiled on
+    their own (device-busy ms, idle share; the last one's kernels);
+    tokens/s and the peak memory. Step 0 follows the launcher's setup and
+    carries the first calls' costs."""
+    import math
+
+    import torch
+    from repro_torch.launch import train as launcher
+
+    argv = list(TRAIN_ARGV)
+    tokens = _flag(argv, "--batch") * _flag(argv, "--seq")
+    n = _flag(argv, "--steps")
+    starts, ends, busy = [None] * n, [None] * n, [None] * n
+    prof, rows = [None], []
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def on_step(i, row):
+        ends[i] = event()
+        if prof[0] is not None:
+            prof[0].stop()
+            busy[i], rows[:] = _profile_rows(torch, prof[0])
+            prof[0] = None
+        if i + 1 in TRAIN_PROFILED:
+            prof[0] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof[0].start()
+        if i + 1 < n:
+            starts[i + 1] = event()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = launcher.main(argv, on_step=on_step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    steps = [{"step": i, "loss": h["loss"], "grad_norm": h["grad_norm"],
+              "lr": h["lr"], "host_ms": h["host_ms"],
+              "device_span_ms": None if starts[i] is None
+              else starts[i].elapsed_time(ends[i]),
+              "tokens_per_s": tokens / (h["host_ms"] / 1e3),
+              "busy_ms": busy[i],
+              "idle_share": None if busy[i] is None
+              else 1 - busy[i] / h["host_ms"]}
+             for i, h in enumerate(hist)]
+    checks = {"steps": len(hist) == n,
+              "finite": all(math.isfinite(h["loss"])
+                            and math.isfinite(h["grad_norm"]) for h in hist),
+              "profiled": all(busy[i] is not None and busy[i] > 0
+                              for i in TRAIN_PROFILED)}
+    return {"argv": argv, "tokens_per_step": tokens, "steps": steps,
+            "peak_gb": peak / 1e9, "last_step_kernels": rows[:12],
+            "checks": checks}
+
+
+def _train_card_cpu(ctx) -> dict:
+    """Run B: llama2-7b at full width over 1 block, f32 weights drawn on the
+    card from seed 0 and copied to the CPU: one 64-token batch's loss and
+    every leaf's gradient on the card against the CPU's, remat on against
+    off on the card, and one train step with accum 1 against accum 2 (the
+    reference test's bars: loss within 1e-4, parameters within 5e-3)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ZipfMarkov, make_batch
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.params import init_params
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+
+    device = ctx["device"]
+    cfg = dataclasses.replace(get_config("llama2-7b"), num_blocks=1)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(1),
+                         device=device)
+    b, s = TRAIN_B_BATCH
+    corpus = ZipfMarkov(cfg.vocab_size, branching=8, seed=0)
+    host = make_batch(corpus.sample(np.random.default_rng(2), b, s))
+    on = {dev: {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+          for dev in (device, "cpu")}
+    opts = RuntimeOpts(q_chunk=s, kv_chunk=s, remat=True)
+    loss_card, g_card = _step_grads(params, cfg, on[device], opts)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    loss_cpu, g_cpu = _step_grads(cpu_params, cfg, on["cpu"], opts)
+    del cpu_params
+    _mark(ctx, "B_cpu")
+    worst, err = _leaf_err(g_card, g_cpu)
+    del g_cpu
+    loss_off, g_off = _step_grads(params, cfg, on[device],
+                                  dataclasses.replace(opts, remat=False))
+    remat_worst, remat_err = _leaf_err(g_off, g_card)
+    remat_bits = all(torch.equal(g_off[k], g_card[k]) for k in g_card)
+    del g_off, g_card
+    state = adamw_init(params)
+    out = {}
+    for accum in (1, 2):
+        tc = TrainConfig(AdamWConfig(lr=1e-2, warmup_steps=0,
+                                     total_steps=10), accum_steps=accum)
+        out[accum] = make_train_step(cfg, tc, opts)(params, state, on[device])
+    (p1, _, m1), (p2, _, m2) = out[1], out[2]
+    accum_dp = max(float((p1[k] - p2[k]).abs().max()) for k in p1)
+    accum_loss = (float(m1["loss"]), float(m2["loss"]))
+    del out, p1, p2
+    checks = {
+        "loss_card_cpu": abs(loss_card - loss_cpu)
+        <= TRAIN_LOSS_REL * abs(loss_cpu),
+        "grads_card_cpu": err <= TRAIN_GRAD_REL,
+        "remat_loss": loss_off == loss_card,
+        "remat_grads": remat_err <= TRAIN_GRAD_REL,
+        "accum_loss": abs(accum_loss[0] - accum_loss[1])
+        <= 1e-4 * abs(accum_loss[0]),
+        "accum_params": accum_dp < 5e-3}
+    return {"config": cfg.name, "blocks": 1, "batch": [b, s],
+            "loss_card": loss_card, "loss_cpu": loss_cpu,
+            "grad_worst_leaf": worst, "grad_worst_rel": err,
+            "remat_worst_leaf": remat_worst, "remat_worst_rel": remat_err,
+            "remat_grads_bit_equal": remat_bits,
+            "accum_1_2_loss": list(accum_loss),
+            "accum_1_2_max_param_diff": accum_dp,
+            "tol": {"loss_rel": TRAIN_LOSS_REL, "grad_rel": TRAIN_GRAD_REL},
+            "checks": checks}
+
+
+def _copy_accuracy(cfg, params, device) -> tuple:
+    """(copy accuracy of 16 seed-0 induction prompts greedily through the
+    int8-KV ``Engine``, K1's launches)."""
+    import numpy as np
+    from repro_torch.data.pipeline import induction_batch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.serving.engine import Engine
+
+    half = TRAIN_VEHICLE["seq"] // 2
+    tokens, _ = induction_batch(np.random.default_rng(0), 16,
+                                TRAIN_VEHICLE["seq"], cfg.vocab_size)
+    eng = Engine(cfg, params, RuntimeOpts(q_chunk=64, kv_chunk=64,
+                                          quantized_kv=True),
+                 cache_len=64, device=device)
+    da.decode_attention.launches = 0
+    out = eng.generate(tokens[:, :half + 1].astype(np.int32), half).tokens
+    return (float(np.mean(out[:, half + 1:] == tokens[:, :half])),
+            da.decode_attention.launches)
+
+
+def _train_vehicle(ctx) -> dict:
+    """Run C: the induction vehicle trained on the card from the port's
+    seed-0 init, its checkpoint written and read back through
+    ``restore_checkpoint`` and ``params.load_npz_checkpoint``, and its copy
+    accuracy through the int8-KV Engine beside the committed vehicle's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import induction_loader
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.params import load_npz_checkpoint
+    from repro_torch.training.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, train
+
+    device, v = ctx["device"], TRAIN_VEHICLE
+    cfg = dataclasses.replace(get_config("llama2-7b").tiny(),
+                              vocab_size=v["vocab"], num_blocks=v["blocks"])
+    loader = induction_loader(v["vocab"], batch=v["batch"], seq=v["seq"],
+                              num_batches=v["steps"])
+    tc = TrainConfig(AdamWConfig(lr=v["lr"], warmup_steps=v["warmup"],
+                                 total_steps=v["steps"]))
+    t0 = time.perf_counter()
+    params, _, hist = train(cfg, loader, tc, RuntimeOpts(
+        q_chunk=64, kv_chunk=64, remat=False, moe_capacity_factor=0.0),
+        log_every=10 ** 9, device=device)
+    train_s = time.perf_counter() - t0
+    path = os.path.join(ROOT, "build", "train_vehicle")
+    save_checkpoint(path, params, step=v["steps"])
+    restored, step = restore_checkpoint(
+        path, {k: torch.zeros_like(t) for k, t in params.items()})
+    loaded = load_npz_checkpoint(path, device)
+    acc, k1 = _copy_accuracy(cfg, params, device)
+    committed, _ = _copy_accuracy(cfg, load_npz_checkpoint(
+        os.path.join(ROOT, "experiments", "vehicles", "induction")), device)
+    first, last = hist[0]["ce"], hist[-1]["ce"]
+    checks = {"ce_falls": last < 0.7 * first,
+              "restore_bits": step == v["steps"] and all(
+                  torch.equal(restored[k], t) for k, t in params.items()),
+              "load_npz_bits": set(loaded) == set(params) and all(
+                  torch.equal(loaded[k], t) for k, t in params.items()),
+              "k1_launched": k1 > 0}
+    return {**v, "ce_first": first, "ce_last": last,
+            "train_s": train_s,
+            "step_host_ms_median": statistics.median(
+                h["host_ms"] for h in hist),
+            "copy_accuracy": acc, "committed_copy_accuracy": committed,
+            "k1_launches": k1, "checks": checks}
+
+
+def _train_ste(ctx) -> dict:
+    """Run D: ``encode_decode_ste`` on a (128, 4096) f32 payload with
+    outliers at the OPSC defaults: its forward on the card (K6, then K5)
+    bit for bit the CPU's plain composition, its backward exactly the
+    upstream gradient, one launch of each kernel; its forward timed."""
+    import torch
+    from repro_torch.core.payload import encode_decode_ste
+    from repro_torch.kernels import tabq_quantize as tq
+    from repro_torch.kernels import ts_mask as tsm
+
+    device = ctx["device"]
+    gen = torch.Generator(device=device).manual_seed(7)
+    t, d = TRAIN_STE_SHAPE
+    x = _activations(torch, gen, t, d, torch.float32, device,
+                     outliers=t * d // 512).requires_grad_()
+    kw = dict(tau=5.0, delta=0.2, max_bits=8)
+    tsm.ts_encode.launches = tq.tabq_adaptive.launches = 0
+    tq.tabq_quantize.launches = 0
+    out = encode_decode_ste(x, **kw)
+    launches = {"ts_encode": tsm.ts_encode.launches,
+                "tabq_adaptive": tq.tabq_adaptive.launches,
+                "tabq_quantize": tq.tabq_quantize.launches}
+    want = encode_decode_ste(x.detach().cpu(), **kw)
+    upstream = torch.randn((t, d), generator=gen, device=device)
+    (grad,) = torch.autograd.grad(out, x, upstream)
+    timed = ctx["timer"]({"ste": lambda: encode_decode_ste(x, **kw)},
+                         iters=10)
+    checks = {"forward_bits": torch.equal(out.detach().cpu(), want),
+              "backward_identity": torch.equal(grad, upstream),
+              "launches": launches == {"ts_encode": 1, "tabq_adaptive": 1,
+                                       "tabq_quantize": 0}}
+    return {"shape": [t, d], **kw, "launches": launches,
+            "max_abs_err": float((out.detach().cpu() - want).abs().max()),
+            "forward_ms": timed["ste"], "checks": checks}
+
+
+def phase_train(ctx) -> None:
+    import torch
+
+    parts = []
+    for name, fn in (("A", _train_launcher), ("B", _train_card_cpu),
+                     ("C", _train_vehicle), ("D", _train_ste)):
+        parts.append((name, fn(ctx)))
+        _mark(ctx, name)
+        _free_weights()
+    checks = {}
+    report = {"phase": "train", **_times(ctx), **dict(parts),
+              "device_memory_gb": torch.cuda.get_device_properties(
+                  0).total_memory / 1e9}
+    try:
+        _phase_verdict("train", parts, checks)
+    finally:
+        report.update(checks=checks, ok=all(checks.values()))
         emit(report)
 
 
@@ -6940,7 +7283,7 @@ def main(argv=None) -> int:
                "spec": phase_spec, "service": phase_service,
                "disagg": phase_disagg, "families": phase_families,
                "moe": phase_moe, "gqa": phase_gqa, "ssm": phase_ssm,
-               "modal": phase_modal}
+               "modal": phase_modal, "train": phase_train}
     for name in PHASES:
         if name in phases:
             ctx["phase_t0"] = ctx["part_t0"] = time.perf_counter()

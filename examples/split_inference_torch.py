@@ -1,11 +1,13 @@
 """End-to-end split-computing inference on the PyTorch port: the paper's
 full system (§2), steps 2 to 4 of ``examples/split_inference.py``.
 
-1. Load the committed induction vehicle (``experiments/vehicles/
-   induction``: llama2-7b tiny with a vocabulary of 64 and 4 blocks,
-   trained on the copy task ``[prefix][SEP][prefix]``). Training the
-   vehicle on the port waits for ROADMAP queue 1 item 11 (training and
-   data): until then the example plans on the committed weights.
+1. The induction vehicle: llama2-7b tiny with a vocabulary of 64 and 4
+   blocks, trained on the copy task ``[prefix][SEP][prefix]``. By default
+   the committed one (``experiments/vehicles/induction``); with
+   ``--steps N`` (N > 0) the port trains it first, as step 1 of
+   ``examples/split_inference.py`` does (batch 32, seq 33, AdamW at lr
+   3e-3 with 20 warmup steps, from the port's seed-0 init), and plans on
+   the weights it trained.
 2. Solve the unified optimization (Eq. 8) for the split point and the
    front and back bits under an edge memory budget of 0.9 of the model's
    parameters in bytes, with copy accuracy as the constraint (a drop of
@@ -20,7 +22,7 @@ A candidate's copy accuracy depends only on (ℓ, ``qw_front``): the split
 engine reads ``qa_front`` and ``qa_back`` only in Eq. 3's uplink
 accounting, so the accuracy function is memoized by that pair.
 
-  python examples/split_inference_torch.py [--device cpu]
+  python examples/split_inference_torch.py [--steps 250] [--device cpu]
 
 Without ``--device`` it runs on the card (``cuda``) and raises without
 one.
@@ -44,11 +46,14 @@ from repro_torch.core.channel import ChannelConfig, optimal_rate  # noqa: E402
 from repro_torch.core.opsc import OPSCConfig  # noqa: E402
 from repro_torch.core.split_optimizer import (SplitSearchSpace,  # noqa: E402
                                               optimize_split)
-from repro_torch.data.pipeline import induction_batch  # noqa: E402
+from repro_torch.data.pipeline import (induction_batch,  # noqa: E402
+                                       induction_loader)
 from repro_torch.models.transformer import RuntimeOpts  # noqa: E402
 from repro_torch.params import load_npz_checkpoint  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.split_engine import SplitEngine  # noqa: E402
+from repro_torch.training.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.training.train_loop import TrainConfig, train  # noqa: E402
 
 OPTS = RuntimeOpts(q_chunk=64, kv_chunk=64, moe_capacity_factor=0.0)
 VEHICLE = os.path.join(ROOT, "experiments", "vehicles", "induction")
@@ -64,6 +69,21 @@ def vehicle_config():
     4 blocks (4 layers, so 3 split candidates)."""
     return dataclasses.replace(get_config("llama2-7b").tiny(),
                                vocab_size=64, num_blocks=4)
+
+
+def train_vehicle(cfg, steps: int, device=None) -> tuple:
+    """The vehicle trained on the port for ``steps`` steps of 32 copy
+    sequences of 33 tokens (``examples/split_inference.py``'s step 1):
+    (params, history)."""
+    loader = induction_loader(cfg.vocab_size, batch=32, seq=SEQ,
+                              num_batches=steps)
+    tc = TrainConfig(AdamWConfig(lr=3e-3, warmup_steps=20,
+                                 total_steps=steps))
+    params, _, hist = train(cfg, loader, tc,
+                            dataclasses.replace(OPTS, remat=False),
+                            log_every=50, device=device)
+    print(f"[split] trained: ce {hist[0]['ce']:.3f} → {hist[-1]['ce']:.3f}")
+    return params, hist
 
 
 def copy_prompts(vocab: int, n: int = PROMPTS, seed: int = 0) -> np.ndarray:
@@ -132,10 +152,19 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="train the vehicle for this many steps first "
+                         "(default 0: the committed vehicle)")
     args = ap.parse_args(argv)
 
     cfg = vehicle_config()
-    params = load_npz_checkpoint(VEHICLE)
+    training = None
+    if args.steps > 0:
+        params, hist = train_vehicle(cfg, args.steps, args.device)
+        training = {"steps": args.steps, "ce_first": hist[0]["ce"],
+                    "ce_last": hist[-1]["ce"]}
+    else:
+        params = load_npz_checkpoint(VEHICLE)
     prompts = copy_prompts(cfg.vocab_size)
     planned = plan(cfg, params, prompts, args.device)
     base_acc, sol = planned["base_accuracy"], planned["solution"]
@@ -165,6 +194,7 @@ def main(argv=None) -> dict:
                         "scored_by_solver": (ell, qw) in planned["scored"]}
                        for (ell, qw), a in sorted(
                            planned["accuracies"].items())],
+        "training": training,
         "base_accuracy": base_acc, "split_accuracy": split_acc,
         "uplink_bits_measured": stats.uplink_bits_measured,
         "uplink_bits_eq3": stats.uplink_bits_eq3,

@@ -5,8 +5,8 @@ Payload accounting is the paper's: T_above is CSR-accounted, T_below is
 per-token adaptive bits plus a per-token scale, zero and bit-width
 sideband. ``entropy_bound_bits`` gives the Shannon bound of an rANS pass
 over the codes (the analytical stand-in for the paper's DietGPU stage).
-The straight-through ``encode_decode_ste`` belongs to training and is not
-ported yet (ROADMAP queue 1, item 11, training and data).
+``encode_decode_ste`` puts the codec inside a training graph: its forward
+is the codec's round trip, its gradient the identity.
 """
 
 from __future__ import annotations
@@ -50,6 +50,28 @@ def encode(t: torch.Tensor, *, tau: float = 5.0, delta: float = 0.2,
 def decode(p: Payload) -> torch.Tensor:
     """Eq. (7): dequantize T_below, reinstate T_above."""
     return reconstruct(p.below.dequantize(), p.above)
+
+
+class _StraightThrough(torch.autograd.Function):
+    """Forward: the codec's round trip (TS then TAB-Q, and back); on the
+    card K6 and K5. Backward: the upstream gradient, unchanged."""
+
+    @staticmethod
+    def forward(ctx, t, kw):
+        out = decode(encode(t.detach(), **kw))
+        # the reference's t + stop_gradient(out - t): the same f32 rounding
+        return t + (out - t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def encode_decode_ste(t: torch.Tensor, **kw) -> torch.Tensor:
+    """Straight-through encode→decode of ``t`` (tokens, D) f32, with
+    :func:`encode`'s keywords: the round trip's values, the identity's
+    gradient."""
+    return _StraightThrough.apply(t, kw)
 
 
 def entropy_bound_bits(q: TabQResult, n_bins: int = 256) -> float:

@@ -27,6 +27,8 @@ Expert parallelism (the reference's ``moe_layer_ep`` under
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -39,10 +41,23 @@ from repro_torch.models.layers import matmul, mlp_layer
 # gated MLP over an expert's kept rows: its weights are read)
 STATS = dict.fromkeys(("calls", "host_syncs", "pairs", "dropped",
                        "experts"), 0)
+# calls under ``uncounted()`` (a block's recompute in the backward pass
+# under ``RuntimeOpts.remat``) leave STATS as they are
+_UNCOUNTED = [0]
 
 
 def reset_stats() -> None:
     STATS.update(dict.fromkeys(STATS, 0))
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Calls inside this context are not counted in ``STATS``."""
+    _UNCOUNTED[0] += 1
+    try:
+        yield
+    finally:
+        _UNCOUNTED[0] -= 1
 
 
 def capacity(tokens: int, spec, capacity_factor: float) -> int:
@@ -140,11 +155,12 @@ def moe_layer(params, x: torch.Tensor, spec, capacity_factor: float = 1.25,
         y = y + mlp_layer(params["shared"], xt, "silu")
     aux = e * torch.sum(f_e * p_e) / k
 
-    STATS["calls"] += 1
-    STATS["host_syncs"] += 1
-    STATS["pairs"] += t * k
-    STATS["dropped"] += t * k - kept
-    STATS["experts"] += sum(1 for n in counts[:e] if n)
+    if not _UNCOUNTED[0]:
+        STATS["calls"] += 1
+        STATS["host_syncs"] += 1
+        STATS["pairs"] += t * k
+        STATS["dropped"] += t * k - kept
+        STATS["experts"] += sum(1 for n in counts[:e] if n)
     return y.reshape(b, s, d), aux
 
 

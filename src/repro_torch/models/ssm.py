@@ -70,7 +70,12 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int, initial_state=None):
     cb = torch.einsum("bzin,bzjn->bzij", cc, bc)  # (B, nc, q, q)
     decay = cs[:, :, :, None, :] - cs[:, :, None, :, :]  # (B, nc, i, j, H)
     mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    l_mat = torch.where(mask[None, None, :, :, None], torch.exp(decay),
+    mask = mask[None, None, :, :, None]
+    # above the diagonal decay > 0 and exp may overflow; the reference's
+    # where(mask, exp(decay), 0) then gives 0·inf = NaN in the backward.
+    # Masking the exponent first keeps the forward's bits and the grads
+    # finite
+    l_mat = torch.where(mask, torch.exp(torch.where(mask, decay, 0.0)),
                         decay.new_zeros(()))
     scores = cb[..., None] * l_mat * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bzijh,bzjhp->bzihp", scores, xc)

@@ -4,14 +4,16 @@ pattern position; a layer's mixer is attention or a Mamba-2 block
 (:mod:`repro_torch.models.ssm`), its ffn a (gated) MLP, the
 mixture-of-experts layer of :mod:`repro_torch.models.moe` for an
 ``MoESpec`` (routed with ``RuntimeOpts.moe_capacity_factor`` and
-``moe_groups``; its auxiliary loss is dropped, as the reference's serving
-paths drop it), or none (mamba2). The embedding is a token table, the
-sum of K codebook tables (musicgen: tokens (B, S, K), logits (..., K, V)),
-or a token table whose first ``num_patches`` rows the vision stub's
-projected patches replace (qwen2-vl); positions are RoPE, M-RoPE
-(qwen2-vl's three-axis ids), sinusoidal (added to the embedding) or none.
+``moe_groups``; its auxiliary loss reaches :func:`forward_train` and is
+dropped by the serving paths, as the reference's drop it), or none
+(mamba2). The embedding is a token table, the sum of K codebook tables
+(musicgen: tokens (B, S, K), logits (..., K, V)), or a token table whose
+first ``num_patches`` rows the vision stub's projected patches replace
+(qwen2-vl); positions are RoPE, M-RoPE (qwen2-vl's three-axis ids),
+sinusoidal (added to the embedding) or none.
 Entry points:
 
+  forward_train(params, cfg, tokens, patches, opts)  → (logits, aux)
   prefill(params, cfg, tokens, cache_len, opts, patches)
                                                      → (last_logits, caches)
   decode_step(params, cfg, tokens, caches, pos, opts)→ (logits, caches)
@@ -28,10 +30,11 @@ and, over the paged pool (``serving.kv_pool.PagedKVPool.device_caches``):
 ``caches`` is a list with one entry per layer, in depth order (the
 reference stacks them over blocks instead): a ``KVCache`` (or
 ``PagedKVCache``) for an attention layer, a ``(conv_state, ssm_state)``
-pair for a Mamba-2 layer (the paged pool refuses those). Every entry point
-writes the caches in place; an SSM state is stored back in its own dtypes
-(``RuntimeOpts.cache_dtype`` for the conv state, ``ssm_state_dtype`` for
-the recurrent state). Everything runs on the device of ``tokens``.
+pair for a Mamba-2 layer (the paged pool refuses those). Every serving
+entry point writes the caches in place; an SSM state is stored back in
+its own dtypes (``RuntimeOpts.cache_dtype`` for the conv state,
+``ssm_state_dtype`` for the recurrent state). Everything runs on the
+device of ``tokens``.
 """
 
 from __future__ import annotations
@@ -41,12 +44,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, AttnSpec, MoESpec
 from repro_torch.core.quant import aiq, aiq_dequant
 from repro_torch.kernels.decode_attention import padded_cache_len
 from repro_torch.models import layers as L
-from repro_torch.models.moe import moe_layer
+from repro_torch.models.moe import moe_layer, uncounted
 from repro_torch.models.ssm import ssm_layer
 
 
@@ -74,6 +78,10 @@ class RuntimeOpts:
     # through AIQ at this many bits per token and back (the paper's method
     # quantizes activations only at the split); None disables
     act_bits: int | None = None
+    # recompute each block's activations in the backward pass
+    # (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` over
+    # its block scan); only :func:`forward_train` reads it
+    remat: bool = True
 
 
 def layer_params(cfg: ArchConfig, params: dict, blocks=None) -> list:
@@ -232,7 +240,12 @@ def apply_head(cfg: ArchConfig, params: dict, x: torch.Tensor):
 def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
                  opts: RuntimeOpts, decode: bool, attend_cache: bool = False,
                  packed: L.PackedLayout | None = None):
+    """One layer over x: (x, cache, the MoE layer's auxiliary loss, a 0-d
+    f32 tensor, or None without one). ``cache`` may be None (training): an
+    attention layer then attends the fresh k/v, a Mamba-2 layer starts
+    from zero states and keeps none."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    aux = None
     if isinstance(ls.mixer, AttnSpec):
         out, cache = L.attention_layer(
             p["mixer"], h, ls.mixer, rope_cs=rope_cs, cache=cache, pos=pos,
@@ -240,24 +253,25 @@ def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
             kv_chunk=opts.kv_chunk, decode=decode, attend_cache=attend_cache,
             packed=packed, prefill_kernel=opts.paged_prefill_kernel)
     else:
-        conv_state, ssm_state = cache
+        conv_state, ssm_state = cache if cache is not None else (None, None)
         out, (conv, state) = ssm_layer(p["mixer"], h, ls.mixer,
                                        conv_state=conv_state,
                                        ssm_state=ssm_state, decode=decode)
-        conv_state.copy_(conv)  # stored back in the caches' dtypes
-        ssm_state.copy_(state)
+        if cache is not None:  # stored back in the caches' dtypes
+            conv_state.copy_(conv)
+            ssm_state.copy_(state)
     x = x + out
     if ls.ffn is not None:  # else a mixer-only layer (mamba2)
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         if isinstance(ls.ffn, MoESpec):
-            out, _ = moe_layer(p["ffn"], h, ls.ffn, opts.moe_capacity_factor,
-                               opts.moe_groups)
+            out, aux = moe_layer(p["ffn"], h, ls.ffn, opts.moe_capacity_factor,
+                                 opts.moe_groups)
         else:
             out = L.mlp_layer(p["ffn"], h, ls.ffn.activation)
         x = x + out
     if opts.act_bits is not None:
         x = _fake_quant_tokens(x, opts.act_bits)
-    return x, cache
+    return x, cache, aux
 
 
 def _fake_quant_tokens(x: torch.Tensor, bits: int) -> torch.Tensor:
@@ -275,12 +289,68 @@ def _apply_layers(cfg, params, x, caches, *, q_positions, pos,
     ``x``; ``caches`` holds one cache per layer of those blocks."""
     rope_cs = rope_tables(cfg, q_positions)
     for li, (ls, p) in enumerate(layer_params(cfg, params, blocks)):
-        x, caches[li] = _apply_layer(cfg, ls, p, x, rope_cs=rope_cs,
-                                     q_positions=q_positions,
-                                     cache=caches[li], pos=pos, opts=opts,
-                                     decode=decode, attend_cache=attend_cache,
-                                     packed=packed)
+        x, caches[li], _ = _apply_layer(
+            cfg, ls, p, x, rope_cs=rope_cs, q_positions=q_positions,
+            cache=caches[li], pos=pos, opts=opts, decode=decode,
+            attend_cache=attend_cache, packed=packed)
     return x
+
+
+def _train_block(cfg, layers, x, aux, rope_cs, positions, opts):
+    """One block's layers with no cache: (x, aux plus their MoE aux
+    losses, summed in layer order as the reference's scan body sums
+    them)."""
+    for ls, p in layers:
+        x, _, a = _apply_layer(cfg, ls, p, x, rope_cs=rope_cs,
+                               q_positions=positions, cache=None, pos=None,
+                               opts=opts, decode=False)
+        if a is not None:  # the reference adds an exact 0 here
+            aux = aux + a
+    return x, aux
+
+
+def _counted_once(fn):
+    """``fn`` whose calls after the first (a checkpoint's recompute) run
+    under ``moe.uncounted()``."""
+    calls = []
+
+    def run(*args):
+        calls.append(None)
+        if len(calls) == 1:
+            return fn(*args)
+        with uncounted():
+            return fn(*args)
+
+    return run
+
+
+def forward_train(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                  patches: torch.Tensor | None = None,
+                  opts: RuntimeOpts = RuntimeOpts()):
+    """The training forward (the reference's ``forward_train``): every
+    position of ``tokens`` (B, S), or (B, S, K) on a codebook config,
+    through every block with no cache; returns (logits (B, S, V) f32, or
+    (B, S, K, V), the summed MoE auxiliary loss, a 0-d f32 tensor).
+    ``patches`` feed the vision stub as in :func:`prefill`. With
+    ``opts.remat`` each block runs under ``torch.utils.checkpoint``: its
+    activations are recomputed in the backward pass, where ``moe.STATS``
+    do not count its MoE layers again. Differentiable in ``params``."""
+    b, s = tokens.shape[:2]
+    positions = make_positions(cfg, b, s, device=tokens.device)
+    x = embed_inputs(cfg, params, tokens, patches, positions)
+    rope_cs = rope_tables(cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    layers = layer_params(cfg, params)
+    n = len(cfg.pattern)
+    for i in range(cfg.num_blocks):
+        args = (cfg, layers[i * n:(i + 1) * n], x, aux, rope_cs, positions,
+                opts)
+        if opts.remat:
+            x, aux = checkpoint(_counted_once(_train_block), *args,
+                                use_reentrant=False)
+        else:
+            x, aux = _train_block(*args)
+    return apply_head(cfg, params, x), aux
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,

@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.configs.base import (ArchConfig, AttnSpec, MLPSpec, MoESpec,
                                       SSMSpec)
+from repro_torch.training.optimizer import AdamWState
 
 # leaves kept in f32 whatever the model's dtype: the router, whose logits
 # the reference computes in f32 (``moe.py:30``), and the SSM's step bias,
@@ -169,9 +170,14 @@ def _flatten(tree, prefix: str = "") -> dict:
 
 
 def _to_tensor(a) -> torch.Tensor:
+    """An array as a tensor, bit for bit. bf16 comes as ml_dtypes' numpy
+    dtype, or as two-byte ``V2`` items: numpy has no bf16 of its own, so
+    ``np.savez`` stores a bf16 array's bits as those
+    (``training/checkpoint.py``)."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits as torch's
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()
+                                ).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
 
 
@@ -200,9 +206,28 @@ def to_jax_params(params: dict) -> dict:
     return tree
 
 
+def from_jax_opt_state(state, device=None):
+    """The reference's ``AdamWState`` (``mu``, ``nu`` pytrees shaped as the
+    parameters, ``count``) → the port's
+    :class:`~repro_torch.training.optimizer.AdamWState`, bit for bit."""
+    mu, nu, count = state
+    return AdamWState(from_jax_params(mu, device), from_jax_params(nu, device),
+                      _to_tensor(count).to(device, torch.int32))
+
+
+def to_jax_opt_state(state) -> tuple:
+    """The port's ``AdamWState`` → ``(mu, nu, count)`` as numpy, nested as
+    the reference's: ``repro.training.optimizer.AdamWState(*result)`` is
+    the reference's state, bit for bit."""
+    mu, nu, count = state
+    return (to_jax_params(mu), to_jax_params(nu),
+            np.asarray(count.detach().cpu().numpy(), np.int32))
+
+
 def load_npz_checkpoint(path: str, device=None) -> dict:
-    """Parameters of a reference checkpoint (``training/checkpoint.py``
-    format), read from its ``arrays.npz`` with numpy alone; ``path`` is the
+    """Parameters of a checkpoint of either package
+    (``training/checkpoint.py`` format), read from its ``arrays.npz`` with
+    numpy alone; ``path`` is the
     checkpoint directory or the ``.npz`` file. ``meta.msgpack`` holds
     nothing the arrays lack and is not read."""
     if os.path.isdir(path):

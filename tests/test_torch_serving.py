@@ -290,7 +290,10 @@ def test_port_imports_nothing_of_jax():
         "    __import__(name)\n"
         "assert {'repro_torch.serving.async_engine', "
         "'repro_torch.serving.http', 'repro_torch.serving.telemetry', "
-        "'repro_torch.data.pipeline'} <= set(mods)\n"
+        "'repro_torch.data.pipeline', 'repro_torch.training.optimizer', "
+        "'repro_torch.training.train_loop', "
+        "'repro_torch.training.checkpoint', 'repro_torch.launch.train'} "
+        "<= set(mods)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len(mods), bad)\n"
