@@ -101,10 +101,25 @@ Phases, each printing one JSON line:
            and K2's verify rows in B); TTFT beside the single scheduler's,
            the stream's host seconds, and a facade step with eight slots
            decoding beside the single scheduler's decode tick;
+  sharded  the sharded deployment (one rank a process over
+           torch.distributed, a ("kv", "model") mesh): A, llama2-7b at full
+           width and depth through LLMServer(deployment="sharded") on the
+           (1, 1) mesh of one NCCL rank, the paged phase's ten requests,
+           chunked and packed, token for token the single scheduler's
+           streams; B, four gloo ranks sharing the card on the (2, 2) mesh
+           (pages over two ranks, 16 kv heads a rank), llama2-7b over 8 of
+           32 blocks, four requests, chunked and packed, token for token
+           the unsharded scheduler's on the card; K2 to K4 counted in every
+           rank (counters set to 0 just before each run and read just
+           after), each rank's pool bytes, the pools drained. The kernels
+           phase holds K2, K3 and K4 on each head group of the (2, 2)
+           mesh's split against the all-heads call bit for bit
+           (``HEAD_GROUPS``);
   families the sliding-window families: gemma2-2b and h2o-danube-3-4b tiny
-           on the CPU against the card; both at full width, danube at
-           full depth and gemma2 over 7 of its 13 blocks
-           (``FAMILY_GEMMA2_BLOCKS``; random bf16 weights, int8 KV,
+           on the CPU against the card; both at full width, danube over
+           16 of its 24 blocks and gemma2 over 5 of its 13
+           (``FAMILY_DANUBE_BLOCKS``, ``FAMILY_GEMMA2_BLOCKS``; random bf16
+           weights, int8 KV,
            cache_len 4352) answering four
            requests through LLMServer(backend="fused"), two of whose
            4160-token prompts wrap every 4096-slot ring: finish reasons,
@@ -144,7 +159,7 @@ Phases, each printing one JSON line:
            qwen2-moe's expert and router products (``K7_MOE``);
   gqa      the grouped- and multi-query configs: internlm2-20b (G 6) and
            granite-34b (G 48) at small widths with those group sizes on
-           the CPU against the card; internlm2-20b at full width over 16
+           the CPU against the card; internlm2-20b at full width over 12
            of its 48 blocks (``GQA_INTERNLM2_BLOCKS``; random bf16
            weights, int8 KV) through LLMServer(backend=
            "fused") (A: four requests, as the families phase checks them),
@@ -152,7 +167,7 @@ Phases, each printing one JSON line:
            256-token prefix, chunked then packed; K2, K3, K4 counted by
            route; every step held to the fused path, packed to chunked)
            and the split backend at ℓ = 8 (C: K7 by route); granite-34b
-           over its first 16 of 88 blocks (``GQA_GRANITE_BLOCKS``) the
+           over its first 12 of 88 blocks (``GQA_GRANITE_BLOCKS``) the
            same, fused (D), paged chunked (E) and split (F: its ungated
            GELU w_up through K7). The kernels phase holds K1 at
            both decode steps (``K1_STEPS``), K2 to K4 at both group sizes
@@ -162,7 +177,7 @@ Phases, each printing one JSON line:
            against the card; mamba2-780m on f32 weights at full width and
            depth, the step recurrence held to the chunked prefill and a
            bf16 recurrent state to the f32 one; mamba2-780m on bf16
-           weights over 16 of its 48 blocks (``SSM_MAMBA2_BLOCKS``)
+           weights over 12 of its 48 blocks (``SSM_MAMBA2_BLOCKS``)
            through the fused backend (A: requests of 4160, 4160, 256 and
            256 tokens, K1 never) and the split backend at ℓ = 8 (B: K5,
            K6, K7 on the SSM projections); jamba-v0.1-52b at full
@@ -172,7 +187,7 @@ Phases, each printing one JSON line:
            mamba2's projections (``K7_SLICE16``);
   modal    the vision-stub and codebook configs: qwen2-vl-2b (G 6 over 8
            patch slots) and musicgen-medium at small widths on the CPU
-           against the card; qwen2-vl-2b at full width over 16 of its 28
+           against the card; qwen2-vl-2b at full width over 12 of its 28
            blocks (``MODAL_QWEN2_VL_BLOCKS``; random bf16 weights, int8
            KV) through LLMServer(backend="fused") on
            text (A, as the families phase checks it) and through the
@@ -182,7 +197,7 @@ Phases, each printing one JSON line:
            decode step beside its byte bound), the paged backend (B:
            ``_dense_paged``, chunked then packed; K2, K3, K4 at K 2, G 6)
            and the split backend at ℓ = 8 (C); musicgen-medium at full
-           width over 24 of its 48 blocks (``MODAL_MUSICGEN_BLOCKS``)
+           width over 16 of its 48 blocks (``MODAL_MUSICGEN_BLOCKS``)
            through the Engine on (2, 512, 4) codebook
            prompts (D, held as A's Engine run, K1 at head dim 64) and the
            split engine at ℓ = 8 (E); the paged pool's dense-gather route
@@ -227,8 +242,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed",
-          "split", "spec", "service", "disagg", "families", "moe", "gqa",
-          "ssm", "modal", "train")
+          "split", "spec", "service", "disagg", "sharded", "families", "moe",
+          "gqa", "ssm", "modal", "train")
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -2116,6 +2131,194 @@ def _kernel_groups(ctx) -> dict:
     return out
 
 
+# the sharded deployment's head split at llama2-7b: the (2, 2) mesh's
+# "model" dim of four ranks, 16 of the 32 kv heads a rank
+HEAD_GROUPS = 2
+
+
+def _route_delta(fn, call):
+    """``call()``'s result and the routes it added to ``fn``'s
+    ``route_launches``."""
+    before = dict(fn.route_launches)
+    out = call()
+    return out, {k: v - before[k] for k, v in fn.route_launches.items()
+                 if v != before[k]}
+
+
+def _kernel_head_groups(ctx) -> dict:
+    """K2, K3 and K4 at llama2-7b's main-path shapes (bf16 q, K 32, hd
+    128) on each head group of a ``HEAD_GROUPS``-way split, called as the
+    sharded layers call them: K2's and K3's q and fresh k/v sliced to
+    contiguous tensors, K4's q and fresh k/v as head slices of the packed
+    step's (T, K, ...) views, every pool leaf sliced to a contiguous copy.
+    Each group's output must equal the same rows of the all-heads call bit
+    for bit, by the same route. Then the all-heads call and one group's
+    timed in turns, with the group's plain version and SDPA over its
+    dequantized bf16 K/V, each call beside its bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import varlen_attention as va
+
+    device = ctx["device"]
+    rng = np.random.default_rng(32)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kh, g, hd, page, nb = 32, 1, 128, 16, 64
+    kl = kh // HEAD_GROUPS
+    heads = lambda t, dim, off: t.narrow(dim, off, kl).contiguous()
+    pool_of = lambda pool, off: [heads(t, 1, off) for t in pool[:4]] \
+        + list(pool[4:])
+
+    def dequant(codes, scale, bt):  # (R, K, nb·page, hd) bf16
+        return (pda.gather_pages(codes, bt).float()
+                * pda.gather_pages(scale, bt)[..., None]).to(torch.bfloat16)
+
+    calls = {}
+
+    # K2: the paged decode tick's eight rows
+    toks = [1024, 700, 301, 64, 17, 1, 0, 500]
+    pool = _paged_pool(torch, rng, kh, hd, page, nb, toks, device)
+    q_pos = torch.tensor([n - 1 for n in toks], dtype=torch.int32,
+                         device=device)
+    q = torch.randn((len(toks), kh, g, hd), device=device).to(torch.bfloat16)
+    pages = sum(min(-(-n // page), nb) for n in toks)
+
+    def k2_bytes(k):
+        return (len(toks) * k * g * hd * 6 + pages * (k * page * (2 * hd + 8)
+                + page * 4) + len(toks) * (nb + 1) * 4)
+
+    def k2_library(args):
+        qg, kc, ks, vc, vs, pos, bt, qp = args
+        kv_pos = pda.gather_pages(pos, bt)
+        mask = ((kv_pos >= 0) & (kv_pos <= qp[:, None]))[:, None, None, :]
+        kd, vd = dequant(kc, ks, bt), dequant(vc, vs, bt)
+        return lambda: sdpa(qg, kd, vd, attn_mask=mask)
+
+    calls["paged_decode_attention"] = (
+        pda.paged_decode_attention, pda.paged_decode_attention_ref, 1,
+        lambda off: (heads(q, 1, off), *pool_of(pool, off), q_pos),
+        (q, *pool, q_pos), k2_bytes, 4 * g * hd * sum(toks), False,
+        k2_library)
+
+    # K3: the chunk call (two continuation chunks, a fork, five pads)
+    rows = [(256, 256), None, (512, 88), None, (200, 150), None, None, None]
+    s = 256
+    a3 = _prefill_inputs(torch, rng, len(rows), s, kh, g, hd, page, nb,
+                         rows, torch.bfloat16, device)
+    start3 = ppa.first_call_position(a3[7])
+    live = [x for x in rows if x is not None]
+    pairs = sum(n * h + n * (n + 1) // 2 for h, n in live)
+    p3 = sum(min(-(-h // page), nb) for h, _ in live)
+
+    def k3_bytes(k):
+        return (sum(n for _, n in live) * k * (g + 2) * hd * 2 + p3 * (
+            k * page * (2 * hd + 8) + page * 4) + a3[6].numel() * 4
+            + a3[7].numel() * 4 + len(rows) * 4
+            + a3[0].numel() // kh * k * 4)
+
+    def k3_library(args):
+        qg, kc, ks, vc, vs, pos, bt, qp, start, kf, vf = args
+        hist = pda.gather_pages(pos, bt)
+        kv_pos = torch.cat([torch.where(hist < start[:, None], hist, -1),
+                            qp], dim=1)
+        k_all = torch.cat([dequant(kc, ks, bt), kf.transpose(1, 2)], dim=2)
+        v_all = torch.cat([dequant(vc, vs, bt), vf.transpose(1, 2)], dim=2)
+        ql = qg.permute(0, 2, 3, 1, 4).reshape(len(rows), kl * g, s, hd)
+        mask = ((kv_pos[:, None, :] >= 0)
+                & (kv_pos[:, None, :] <= qp[:, :, None]))[:, None]
+        return lambda: sdpa(ql, k_all, v_all, attn_mask=mask)
+
+    calls["paged_prefill_attention"] = (
+        ppa.paged_prefill_attention, ppa.paged_prefill_attention_ref, 2,
+        lambda off: (heads(a3[0], 2, off), *pool_of(a3[1:7], off), a3[7],
+                     start3, heads(a3[8], 2, off), heads(a3[9], 2, off)),
+        (*a3[:8], start3, *a3[8:]), k3_bytes, 4 * hd * g * pairs, True,
+        k3_library)
+
+    # K4: the packed tick; q and fresh k/v laid out as the packed step
+    # hands them over, (K, T, ...) views of (T, K, ...) tensors
+    m = VARLEN_MAIN
+    a4 = list(_varlen_inputs(torch, rng, m["segs"], kh, g, hd, page, nb,
+                             m["pad"], torch.bfloat16, device))
+    for i in (0, 9, 10):
+        a4[i] = a4[i].transpose(0, 1).contiguous().transpose(0, 1)
+    nr = len(m["segs"])
+    start4 = va.segment_start(a4[7], a4[8], nr)
+    work = va.segment_rows(a4[8], nr)
+    fresh = [(h, n) for h, n in m["segs"] if n]
+    pairs4 = sum(n * h + n * (n + 1) // 2 for h, n in fresh)
+    p4 = sum(min(-(-h // page), nb) for h, _ in fresh)
+
+    def k4_bytes(k):
+        return (sum(n for _, n in fresh) * k * (g + 2) * hd * 2 + p4 * (
+            k * page * (2 * hd + 8) + page * 4) + a4[6].numel() * 4
+            + 2 * a4[7].numel() * 4 + nr * 4 + a4[0].numel() // kh * k * 4)
+
+    def k4_library(args):
+        qg, kc, ks, vc, vs, pos, bt, qp, slot, start, kf, vf = args[:12]
+        tt = qg.shape[1]
+        hist = pda.gather_pages(pos, bt)
+        sp = hist.shape[1]
+        ok_hist = (hist >= 0) & (hist < start[:, None])
+        own = slot[:, None] == torch.arange(nr, device=device)
+        fresh_ok = ((slot[None, :] == slot[:, None]) & (slot[None, :] >= 0)
+                    & (qp[None, :] <= qp[:, None]) & (qp[None, :] >= 0))
+        mask = torch.cat([(own[:, :, None] & ok_hist[None]).reshape(
+            tt, nr * sp), fresh_ok], dim=1)
+        k_all = torch.cat([dequant(kc, ks, bt).transpose(0, 1).reshape(
+            kl, nr * sp, hd), kf], dim=1)[None]
+        v_all = torch.cat([dequant(vc, vs, bt).transpose(0, 1).reshape(
+            kl, nr * sp, hd), vf], dim=1)[None]
+        ql = qg.permute(0, 2, 1, 3).reshape(1, kl * g, tt, hd)
+        return lambda: sdpa(ql, k_all, v_all, attn_mask=mask)
+
+    calls["varlen_attention"] = (
+        va.varlen_attention, va.varlen_attention_ref, 0,
+        lambda off: (a4[0].narrow(0, off, kl), *pool_of(a4[1:7], off),
+                     a4[7], a4[8], start4, a4[9].narrow(0, off, kl),
+                     a4[10].narrow(0, off, kl), work),
+        (*a4[:9], start4, *a4[9:], work), k4_bytes, 4 * hd * g * pairs4,
+        True, k4_library)
+
+    out = {}
+    for name, (fn, ref, dim, group_args, full_args, nbytes, flops_a_head,
+               bf16, library) in calls.items():
+        full, full_route = _route_delta(fn, lambda: fn(*full_args))
+        groups = []
+        for off in range(0, kh, kl):
+            args = group_args(off)
+            part, route = _route_delta(fn, lambda: fn(*args))
+            groups.append({"heads": [off, off + kl], "route": route,
+                           "bit_for_bit": bool(torch.equal(
+                               part, full.narrow(dim, off, kl)))})
+        ok = all(gr["bit_for_bit"] and gr["route"] == full_route
+                 for gr in groups)
+        if not ok:
+            emit({"phase": "kernels", "head_groups": {name: groups}})
+            raise SystemExit(f"{name} on a head group differs from the "
+                             f"all-heads call: {groups}")
+        one = group_args(0)
+        plain_args = one[:12] if name == "varlen_attention" else one
+        err = float((fn(*one) - ref(*plain_args)).abs().max())
+        t = ctx["timer"]({"all_heads": lambda: fn(*full_args),
+                          "one_group": lambda: fn(*one),
+                          "one_group_plain": lambda: ref(*plain_args),
+                          "one_group_library": library(one)}, iters=20)
+        out[name] = {
+            "heads": kh, "group_heads": kl, "route": full_route,
+            "groups": groups, "ok": ok, "one_group_max_abs_err": err,
+            **{f"{k}_ms": v for k, v in t.items()},
+            "all_heads_bound": attention_bound(
+                ctx, nbytes(kh), flops_a_head * kh, bf16),
+            "one_group_bound": attention_bound(
+                ctx, nbytes(kl), flops_a_head * kl, bf16)}
+        if err > ATOL:
+            raise SystemExit(f"{name} on a head group: {err} from its "
+                             f"plain version")
+    return out
+
+
 def phase_kernels(ctx) -> None:
     parts = {}
     for key, fn in (("decode_attention", _kernel_k1),
@@ -2126,6 +2329,7 @@ def phase_kernels(ctx) -> None:
                     ("tabq_ts_encode", _kernel_k5_k6),
                     ("dequant_matmul", _kernel_k7),
                     ("gqa_groups", _kernel_groups),
+                    ("head_groups", _kernel_head_groups),
                     ("cuda_graph", _graph_replay)):
         parts[key] = fn(ctx)
         _mark(ctx, key)
@@ -2904,9 +3108,9 @@ def _record_logits(sched, routes=None) -> dict:
     rec, last = {}, {}
     orig_sample, orig_emit = sched._sample, sched._emit
     orig_verify, orig_burst = sched._verify_tick, sched._emit_burst
-    forwards = ("paged_prefill", "paged_prefill_shared",
-                "paged_decode_step", "packed_step")
-    real_fwd = {f: getattr(scheduler_mod, f) for f in forwards}
+    # the scheduler's step functions (the sharded deployment's under a
+    # mesh); the verify step carries no routes (speculation is excluded)
+    real_fwd = dict(sched._steps)
 
     def routed(name):
         def call(params, cfg, tokens, *args, **kw):
@@ -2914,7 +3118,7 @@ def _record_logits(sched, routes=None) -> dict:
             out = real_fwd[name](params, cfg, tokens, *args, **kw)
             sel, gap = routes.take()
             r, t = tokens.shape
-            at = (args[3].cpu().numpy() if name == "packed_step"
+            at = (args[3].cpu().numpy() if name == "packed"
                   else np.arange(r) * t + t - 1)
             last["routes"] = (sel[:, at], gap[:, at])
             return out
@@ -2964,10 +3168,10 @@ def _record_logits(sched, routes=None) -> dict:
     sched._sample, sched._emit = sample, emit
     sched._verify_tick, sched._emit_burst = verify_tick, emit_burst
     if routes is not None:
-        for f in forwards:
-            setattr(scheduler_mod, f, routed(f))
-        routes.undo.append(lambda: [setattr(scheduler_mod, f, fn)
-                                    for f, fn in real_fwd.items()])
+        sched._steps = {**real_fwd, **{
+            f: routed(f) for f in ("prefill", "prefill_shared", "decode",
+                                   "packed")}}
+        routes.undo.append(lambda: setattr(sched, "_steps", real_fwd))
     return rec
 
 
@@ -5155,6 +5359,239 @@ def phase_disagg(ctx) -> None:
                          f"{[k for k, v in checks.items() if not v]}")
 
 
+# ------------------------------------------------------------ the sharded
+
+# run B: four gloo ranks sharing the card, each with a copy of llama2-7b
+# over its first 8 of 32 blocks (3.8 GB of bf16 weights), four requests
+# through a pool each rank stores half of (33 of 66 pages, 35.7 MB); every
+# tick gathers the pool through the host, so a small pool and few tokens
+# keep the run to seconds
+SHARDED_B_RANKS = 4
+SHARDED_B_BLOCKS = 8
+SHARDED_B_LENS = (320, 200, 96, 64)
+SHARDED_B_MAX_TOKENS = (16, 8, 16, 8)
+SHARDED_B_POOL = dict(num_pages=65, page_size=16, max_slots=4,
+                      max_seq_len=512, prefill_chunk=128)
+SHARDED_MODES = ("chunked", "packed")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _paged_kernels() -> dict:
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import varlen_attention as va
+
+    return {"paged_decode_attention": pda.paged_decode_attention,
+            "paged_prefill_attention": ppa.paged_prefill_attention,
+            "varlen_attention": va.varlen_attention}
+
+
+def _sharded_serve(cfg, params, opts, pool_kw, mode, mesh, requests,
+                   device) -> dict:
+    """``requests`` [(prompt, SamplingParams)] through ``LLMServer(
+    deployment="sharded")`` (``mesh`` None: the unsharded scheduler) in
+    ``mode``, the K2 to K4 counters set to 0 just before and read just
+    after: tokens, launches, the scheduler's counts, the pool's gauges and
+    the host seconds of the run."""
+    import torch
+    from repro_torch.serving.api import LLMServer
+
+    kw = dict(deployment="sharded", mesh=mesh) if mesh is not None else {}
+    srv = LLMServer(cfg, params, opts, backend="paged", tick_mode=mode,
+                    device=device, **kw, **pool_kw)
+    kernels = _paged_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    rids = [srv.submit(p, sp) for p, sp in requests]
+    outs = srv.run()
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    sched = srv.backend.scheduler
+    st = sched.stats
+    return {"tokens": [[int(t) for t in outs[r].tokens] for r in rids],
+            "launches": {n: fn.launches for n, fn in kernels.items()},
+            "steps": st.steps, "shared_prefill_calls":
+            st.shared_prefill_calls, "packed_ticks": st.packed_ticks,
+            "ticks": sched._tick, "gauges": sched.pool.gauges(),
+            "swap_bytes": sched.pool.swap_bytes, "wall_s": wall}
+
+
+def _sharded_b_requests(cfg) -> list:
+    import numpy as np
+    from repro_torch.core.sampling import SamplingParams
+
+    rng = np.random.default_rng(32)
+    return [(rng.integers(0, cfg.vocab_size, (n,)),
+             SamplingParams(max_tokens=m))
+            for n, m in zip(SHARDED_B_LENS, SHARDED_B_MAX_TOKENS)]
+
+
+def _sharded_b_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("llama2-7b"),
+                               num_blocks=SHARDED_B_BLOCKS)
+
+
+def _sharded_b_rank(rank: int, world: int, device_name: str) -> dict:
+    """One rank of run B (``launch.ranks.run_ranks`` starts it under
+    gloo): the weights drawn on the card from seed 0, the mesh over the
+    default group, both tick modes."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.params import init_params
+
+    torch.set_num_threads(2)
+    device = torch.device(device_name)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    cfg = _sharded_b_config()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         torch.bfloat16, device)
+    mesh = make_serving_mesh(cfg.pattern[0].mixer.num_kv_heads)
+    out = {"mesh": list(mesh.shape), "setup_s": time.perf_counter() - t0,
+           "runs": {}}
+    for mode in SHARDED_MODES:
+        out["runs"][mode] = _sharded_serve(
+            cfg, params, RuntimeOpts(quantized_kv=True), SHARDED_B_POOL,
+            mode, mesh, _sharded_b_requests(cfg), device)
+    return out
+
+
+def _sharded_checks(run, layers, mode) -> dict:
+    """The launches of K2 and K3 (chunked) or K4 (packed) equal to one a
+    layer and call; the pool drained."""
+    n = run["launches"]
+    if mode == "chunked":
+        c = {"k2_launches": n["paged_decode_attention"]
+             == layers * run["steps"] > 0,
+             "k3_launches": n["paged_prefill_attention"]
+             == layers * run["shared_prefill_calls"] > 0}
+    else:
+        c = {"k4_launches": n["varlen_attention"]
+             == layers * run["packed_ticks"] > 0}
+    c["pool_drained"] = run["gauges"]["pages_in_use"] == 0 \
+        and run["swap_bytes"] == 0
+    return c
+
+
+def phase_sharded(ctx) -> None:
+    """The sharded deployment on the card. A: llama2-7b at full width and
+    depth through ``LLMServer(deployment="sharded")`` on the (1, 1) mesh
+    of one NCCL rank (this process), the paged phase's ten requests,
+    chunked and packed, held token for token to the single scheduler's
+    streams (the paged and packed phases' runs). B: four gloo ranks
+    sharing the card on the (2, 2) mesh (pages over two ranks, 16 kv heads
+    a rank), llama2-7b over 8 of its 32 blocks, four requests, chunked and
+    packed, held token for token to the unsharded scheduler on the card at
+    the same depth. Each rank's pool bytes, K2 to K4 launches (counters set
+    to 0 just before each run and read just after) and seconds."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.params import init_params
+
+    device = ctx["device"]
+    opts = RuntimeOpts(quantized_kv=True)
+    checks, runs = {}, {}
+
+    # A: one NCCL rank, the (1, 1) mesh, full depth
+    cfg = get_config("llama2-7b")
+    params, _ = _llama7b_params(ctx)
+    pool_kw = dict(num_pages=513, page_size=16, max_slots=8,
+                   max_seq_len=1024, prefill_chunk=256)
+    prompts, sampling, _ = _ten_requests(cfg)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_serving_mesh(cfg.pattern[0].mixer.num_kv_heads)
+        for mode in SHARDED_MODES:
+            single = _single_streams(ctx, cfg, params, opts,
+                                     dict(pool_kw, device=device), mode)
+            reqs = [(p, sampling(i, (single["stop"],)))
+                    for i, p in enumerate(prompts)]
+            run = _sharded_serve(cfg, params, opts, pool_kw, mode, mesh,
+                                 reqs, device)
+            want = [[int(t) for t in o.tokens] for o in single["outs"]]
+            c = _sharded_checks(run, cfg.num_layers, mode)
+            c["streams_equal_single"] = run["tokens"] == want
+            checks.update({f"A_{mode}_{k}": v for k, v in c.items()})
+            for n, v in run["launches"].items():
+                ctx["launches"][n] = ctx["launches"].get(n, 0) + v
+            runs[f"A_{mode}"] = {k: v for k, v in run.items()
+                                 if k != "tokens"}
+            runs[f"A_{mode}"]["mesh"] = list(mesh.shape)
+            gc.collect()
+    finally:
+        dist.destroy_process_group()
+    _mark(ctx, "A_nccl_1x1")
+
+    # B: four gloo ranks sharing the card, (2, 2) mesh, 8 of 32 blocks
+    cfg_b = _sharded_b_config()
+    params_b = init_params(cfg_b, torch.Generator(device=device).manual_seed(
+        0), torch.bfloat16, device)
+    reqs_b = _sharded_b_requests(cfg_b)
+    single_b = {mode: _sharded_serve(cfg_b, params_b, opts, SHARDED_B_POOL,
+                                     mode, None, reqs_b, device)
+                for mode in SHARDED_MODES}
+    del params_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mark(ctx, "B_unsharded")
+    # the ranks share this process's card, named with its index
+    rank_device = torch.device("cuda", torch.cuda.current_device()) \
+        if device.type == "cuda" else device
+    ranks = run_ranks(_sharded_b_rank, SHARDED_B_RANKS, backend="gloo",
+                      workdir=os.path.join(ROOT, "build", "sharded_ranks"),
+                      args=(str(rank_device),), timeout=600)
+    _mark(ctx, "B_gloo_2x2")
+    for mode in SHARDED_MODES:
+        want = single_b[mode]["tokens"]
+        c = {"ranks_mesh_2x2": all(r["mesh"] == [2, 2] for r in ranks),
+             "streams_equal_unsharded": all(
+                 r["runs"][mode]["tokens"] == want for r in ranks)}
+        for i, r in enumerate(ranks):
+            for k, v in _sharded_checks(r["runs"][mode], cfg_b.num_layers,
+                                        mode).items():
+                c[f"rank{i}_{k}"] = v
+            g = r["runs"][mode]["gauges"]
+            c[f"rank{i}_stores_half_the_pages"] = \
+                2 * g["shard_device_bytes"] == g["pool_device_bytes"]
+        checks.update({f"B_{mode}_{k}": v for k, v in c.items()})
+        runs[f"B_{mode}"] = {
+            "unsharded": {k: v for k, v in single_b[mode].items()
+                          if k != "tokens"},
+            "ranks": [{"setup_s": r["setup_s"],
+                       **{k: v for k, v in r["runs"][mode].items()
+                          if k != "tokens"}} for r in ranks],
+            "tokens_compared": sum(len(t) for t in want)}
+    emit({"phase": "sharded", **_times(ctx), "config": cfg.name,
+          "nvidia_smi": ctx["smi"], "pool_A": pool_kw,
+          "pool_B": SHARDED_B_POOL, "blocks_B": SHARDED_B_BLOCKS,
+          "runs": runs, "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise SystemExit(f"sharded: failed checks "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
 # ----------------------------------------------------------- the families
 
 # the families phase's fused traffic (gemma2-2b and h2o-danube-3-4b at full
@@ -5167,12 +5604,14 @@ FAMILY_TF_STEPS = 8  # decode steps held to the unquantized prefill
 # relative to the largest logit (tests/test_arch_smoke.py::
 # test_quantized_kv_decode_close)
 INT8_BOUND = 0.08
-FAMILY_SPLIT_LAYER = 8  # ℓ of h2o-danube-3-4b's 24 layers
+FAMILY_SPLIT_LAYER = 8  # ℓ of h2o-danube-3-4b's layers
 FAMILY_TINY = ("gemma2-2b-tiny", "h2o-danube-3-4b-tiny")
-# gemma2-2b over its first 7 of 13 blocks (14 of 26 layers, windowed and
-# global alternating): full depth was measured (PERF.md); cut for
-# the whole script's time, as the moe and gqa phases' configs are
-FAMILY_GEMMA2_BLOCKS = 7
+# gemma2-2b over its first 5 of 13 blocks (10 of 26 layers, windowed and
+# global alternating) and h2o-danube-3-4b over 16 of its 24: full depth was
+# measured (PERF.md); cut for the whole script's time (7 and 24 until the
+# sharded phase came), as the moe and gqa phases' configs are
+FAMILY_GEMMA2_BLOCKS = 5
+FAMILY_DANUBE_BLOCKS = 16
 
 
 def _family_params(ctx, name, blocks=None) -> tuple:
@@ -5813,12 +6252,14 @@ def phase_families(ctx) -> None:
     t0 = time.perf_counter()
     timed, part_s = _timed_parts(ctx)
     tiny = {name: timed(name, _family_tiny, name) for name in FAMILY_TINY}
+    danube = _family_params(ctx, "h2o-danube-3-4b", FAMILY_DANUBE_BLOCKS)
     fused = {"h2o-danube-3-4b": timed("h2o-danube-3-4b", _family_fused,
-                                      "h2o-danube-3-4b"),
+                                      "h2o-danube-3-4b", danube),
              "gemma2-2b": timed("gemma2-2b", _family_fused, "gemma2-2b",
                                 _family_params(ctx, "gemma2-2b",
                                                FAMILY_GEMMA2_BLOCKS))}
-    split = timed("split", _family_split)
+    split = timed("split", _family_split, weights=danube)
+    del danube
     checks = {f"tiny_{k}": v["ok"] for k, v in tiny.items()}
     for part, res in (("A", fused["h2o-danube-3-4b"]),
                       ("B", fused["gemma2-2b"]), ("C", split)):
@@ -5826,6 +6267,8 @@ def phase_families(ctx) -> None:
     emit({"phase": "families", "nvidia_smi": ctx["smi"], "tiny": tiny,
           "gemma2_blocks": [FAMILY_GEMMA2_BLOCKS,
                             get_config("gemma2-2b").num_blocks],
+          "danube_blocks": [FAMILY_DANUBE_BLOCKS,
+                            get_config("h2o-danube-3-4b").num_blocks],
           "A_danube_fused": fused["h2o-danube-3-4b"],
           "B_gemma2_fused": fused["gemma2-2b"], "C_danube_split": split,
           "phase_s": time.perf_counter() - t0, "part_s": part_s,
@@ -6053,13 +6496,12 @@ GQA_PAGED_PREFIX = 256
 GQA_PAGED_FORKS = (5, 6, 7)
 GQA_PAGED_MAX_TOKENS = 16
 GQA_SPLIT_MAX_TOKENS = 8  # the split runs: the split phase's prompts
-# granite-34b runs over its first 16 of 88 blocks (12.2 of 67.3 GB of bf16
-# weights) and internlm2-20b over 16 of 48: both depths were measured
-# (PERF.md), and the modal and train phases need the seconds within the
-# script's 1,200 s limit (on a slow host too); 22 and 24 before the train
-# phase came
-GQA_GRANITE_BLOCKS = 16
-GQA_INTERNLM2_BLOCKS = 16
+# granite-34b runs over its first 12 of 88 blocks and internlm2-20b over 12
+# of 48: both depths were measured (PERF.md), and the later phases need the
+# seconds within the script's 1,200 s limit (on a slow host too); 22 and 24
+# before the train phase came, 16 before the sharded phase
+GQA_GRANITE_BLOCKS = 12
+GQA_INTERNLM2_BLOCKS = 12
 
 
 def _small_config(name, blocks=2):
@@ -6319,14 +6761,14 @@ def phase_gqa(ctx) -> None:
 
 
 # the state-space configs (ROADMAP queue 1 item 9.2): mamba2-780m at full
-# width, its f32 holds at full depth, its bf16 runs (A, B) over 16 of its
+# width, its f32 holds at full depth, its bf16 runs (A, B) over 12 of its
 # 48 blocks (both measured at full depth in PRs 26 and 27; cut to 24 to
 # make room for the planner and the 12-bit split, to 16 for the train
-# phase); jamba-v0.1-52b at full width
+# phase, to 12 for the sharded one); jamba-v0.1-52b at full width
 # over 2 of its 4 blocks (16 of 32 layers: 2 attention, 14 Mamba-2, 8 MoE;
 # all 4 blocks are 103 GB of bf16), served dropless; random bf16 weights,
 # int8 KV
-SSM_MAMBA2_BLOCKS = 16
+SSM_MAMBA2_BLOCKS = 12
 SSM_JAMBA_BLOCKS = 2
 SSM_JAMBA_LENS = (1024, 1024, 256, 256)
 SSM_JAMBA_CACHE_LEN = 1152
@@ -6508,11 +6950,11 @@ MODAL_SPLIT_LEN = 96  # E: musicgen's split prompts (2, 96, 4)
 MODAL_SPLIT_NEW = 8
 MODAL_GATHER_REQUESTS = (0, 2, 5, 6)  # F: two long prompts, two forks
 MODAL_TINY = ("qwen2-vl-2b", "musicgen-medium")
-# qwen2-vl-2b over its first 16 of 28 blocks and musicgen-medium over 24 of
+# qwen2-vl-2b over its first 12 of 28 blocks and musicgen-medium over 16 of
 # 48: both were measured at full depth (PERF.md, PR 27's and 28's runs);
-# cut in PR 29 to make room for the train phase
-MODAL_QWEN2_VL_BLOCKS = 16
-MODAL_MUSICGEN_BLOCKS = 24
+# cut to make room for the train phase (16 and 24), then the sharded one
+MODAL_QWEN2_VL_BLOCKS = 12
+MODAL_MUSICGEN_BLOCKS = 16
 
 
 def _unread_bytes(params) -> int:
@@ -7281,7 +7723,8 @@ def main(argv=None) -> int:
                "serve": phase_serve, "paged": phase_paged,
                "packed": phase_packed, "split": phase_split,
                "spec": phase_spec, "service": phase_service,
-               "disagg": phase_disagg, "families": phase_families,
+               "disagg": phase_disagg, "sharded": phase_sharded,
+               "families": phase_families,
                "moe": phase_moe, "gqa": phase_gqa, "ssm": phase_ssm,
                "modal": phase_modal, "train": phase_train}
     for name in PHASES:

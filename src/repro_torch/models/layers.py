@@ -7,6 +7,13 @@ prefill attention through the paged pool (or the pool gathered dense),
 token-packed varlen attention, the attention layer (with QK-norm) and the
 (gated) MLP.
 
+Under the sharded deployment (``transformer.sharded_step_fns``) the three
+paged attention routes split the kv heads over the mesh's ``model`` dim
+(``head_axis``/``head_shards``): each rank walks the pages with its own
+head group, sliced to contiguous tensors where a kernel wants them, and
+an exact tiled all-gather (``launch.collectives.all_gather_tiled``) puts
+the heads back together, with no reduction.
+
 Caches come in three layouts, as in the reference:
   * fp (bf16/f32): token-major (B, S, K, hd), read by ``chunked_attention``;
   * int8-quantized: kv-head-major (B, K, S, hd) codes + per-(token, head)
@@ -29,10 +36,12 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.kernels import ops
+from repro_torch.launch.collectives import all_gather_tiled
 
 NEG_INF = -1e30
 
@@ -380,6 +389,28 @@ def quantized_decode_attention(q, cache: KVCache, spec, q_positions, pos, *,
                              kv_chunk=kv_chunk)
 
 
+def _head_shard(head_axis, head_shards: int, kh: int):
+    """This rank's kv-head group ``(offset, count)`` under the
+    ``RuntimeOpts.head_axis`` split, or None to run every head.
+    ``head_axis`` is the process group of the mesh's ``model`` dim, whose
+    rank r takes heads ``[r·kh/head_shards, (r+1)·kh/head_shards)``; the
+    split must divide ``kh`` (``transformer.sharded_step_fns`` checks
+    it)."""
+    if head_axis is None or head_shards <= 1 or kh % head_shards:
+        return None
+    kl = kh // head_shards
+    return dist.get_rank(head_axis) * kl, kl
+
+
+def _slice_cache_heads(cache: PagedKVCache, off: int, kl: int) -> PagedKVCache:
+    """The pool leaves' kv-head axis (axis 1 of the (P, K, page[, hd])
+    leaves) cut to one head group, as contiguous copies (the kernels take
+    contiguous leaves); positions and the block table are shared."""
+    sl = lambda a: a[:, off:off + kl].contiguous()
+    return PagedKVCache(sl(cache.k), sl(cache.v), sl(cache.k_scale),
+                        sl(cache.v_scale), cache.pos, cache.block_table)
+
+
 def _gather_dense_kv(cache: PagedKVCache):
     """The pool gathered dense through the block table and dequantized
     (the reference's ``_gather_dense_kv``): (k, v) (R, S_pool, K, hd) f32
@@ -395,7 +426,8 @@ def _gather_dense_kv(cache: PagedKVCache):
 
 def paged_prefill_attention(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
                             q_positions, *, q_chunk: int = 1024,
-                            kv_chunk: int = 1024, use_kernel: bool = True):
+                            kv_chunk: int = 1024, use_kernel: bool = True,
+                            head_axis=None, head_shards: int = 1):
     """Prefill attention THROUGH the paged pool (continuation chunks and
     shared-prefix forks): each row attends its pool history, masked to
     stored positions below its first in-call position, plus the call's
@@ -410,15 +442,26 @@ def paged_prefill_attention(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
     (:func:`_gather_dense_kv`), the fresh keys appended, then
     :func:`chunked_attention` with the layer's window and cap. Only the
     option or the layer's spec chooses that route, never a kernel's
-    failure."""
+    failure. Under a ``head_axis`` split the kernel route walks this
+    rank's head group (:func:`_head_shard`) and the groups' outputs are
+    gathered back, as the reference does; the dense-gather route runs
+    every head."""
     if use_kernel and spec.attn_softcap is None \
             and spec.sliding_window is None:
         b, s, h, hd = q.shape
         kh = cache.k.shape[1]
+        qk, kf, vf = q.reshape(b, s, kh, h // kh, hd), k_fresh, v_fresh
+        shard = _head_shard(head_axis, head_shards, kh)
+        if shard is not None:  # this rank walks the pages with its heads
+            off, kl = shard
+            qk, kf, vf = (t[:, :, off:off + kl].contiguous()
+                          for t in (qk, kf, vf))
+            cache = _slice_cache_heads(cache, off, kl)
         out = ops.paged_prefill_attention(
-            q.reshape(b, s, kh, h // kh, hd), cache.k, cache.k_scale,
-            cache.v, cache.v_scale, cache.pos, cache.block_table,
-            q_positions, k_fresh, v_fresh)
+            qk, cache.k, cache.k_scale, cache.v, cache.v_scale, cache.pos,
+            cache.block_table, q_positions, kf, vf)
+        if shard is not None:  # exact tiled reassembly, no reduction
+            out = all_gather_tiled(out, 2, head_axis)
         return out.reshape(b, s, h, hd).to(q.dtype)
     k_hist, v_hist, hist_pos = _gather_dense_kv(cache)
     start = ops.first_call_position(q_positions)  # (R,) history bound
@@ -434,7 +477,8 @@ def paged_prefill_attention(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
 
 def paged_decode_attention_layer(q, cache: PagedKVCache, spec, q_positions,
                                  *, q_chunk: int = 1024,
-                                 kv_chunk: int = 1024):
+                                 kv_chunk: int = 1024, head_axis=None,
+                                 head_shards: int = 1):
     """Decode-time attention through the paged pool, ``cache`` being the
     post-update pool: every key, the call's own included, is read back
     from the pool's int8 codes (``kernels.ops.paged_decode_attention``,
@@ -450,7 +494,9 @@ def paged_decode_attention_layer(q, cache: PagedKVCache, spec, q_positions,
     ``chunked_attention``; K2 reads each row's pages once per column.
     A soft-capped layer takes the reference's dense-gather route at any
     S: the pool gathered dense (:func:`_gather_dense_kv`), then
-    :func:`chunked_attention` with the layer's cap."""
+    :func:`chunked_attention` with the layer's cap. Under a ``head_axis``
+    split K2 walks this rank's head group and the groups' outputs are
+    gathered back (the dense-gather route runs every head)."""
     b, s, h, hd = q.shape
     if spec.attn_softcap is not None:
         k, v, kv_pos = _gather_dense_kv(cache)
@@ -462,10 +508,17 @@ def paged_decode_attention_layer(q, cache: PagedKVCache, spec, q_positions,
     bt = cache.block_table
     if s > 1:
         bt = bt.repeat_interleave(s, dim=0)
+    qh = q.reshape(b * s, kh, h // kh, hd)
+    shard = _head_shard(head_axis, head_shards, kh)
+    if shard is not None:  # this rank walks the pages with its heads
+        off, kl = shard
+        qh = qh[:, off:off + kl]
+        cache = _slice_cache_heads(cache, off, kl)
     out = ops.paged_decode_attention(
-        q.reshape(b * s, kh, h // kh, hd).contiguous(), cache.k,
-        cache.k_scale, cache.v, cache.v_scale, cache.pos, bt,
-        q_positions.reshape(-1).to(torch.int32).contiguous())
+        qh.contiguous(), cache.k, cache.k_scale, cache.v, cache.v_scale,
+        cache.pos, bt, q_positions.reshape(-1).to(torch.int32).contiguous())
+    if shard is not None:  # exact tiled reassembly, no reduction
+        out = all_gather_tiled(out, 1, head_axis)
     return out.reshape(b, s, h, hd).to(q.dtype)
 
 
@@ -496,7 +549,8 @@ def packed_layout(positions: torch.Tensor, slots: torch.Tensor,
 
 def varlen_attention_layer(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
                            q_positions, packed: PackedLayout, *,
-                           use_kernel: bool = True):
+                           use_kernel: bool = True, head_axis=None,
+                           head_shards: int = 1):
     """Token-packed VARLEN attention through the pool, the packed tick's
     route: ONE flat batch (batch dim 1) whose tokens span many requests,
     q (1, T, H, hd), per-token ``q_positions`` (1, T) and the buffer's
@@ -511,7 +565,9 @@ def varlen_attention_layer(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
     (``RuntimeOpts.paged_prefill_kernel``) takes the kernel's plain
     version on any device, as the reference takes its dense oracle.
     Softcapped and windowed layers have no varlen route (the reference
-    refuses them too)."""
+    refuses them too). Under a ``head_axis`` split this rank's head group
+    goes in, as (K/n, T, ...) views, and the groups' outputs are gathered
+    back along the head axis."""
     if spec.attn_softcap is not None or spec.sliding_window is not None:
         raise NotImplementedError(
             "the token-packed varlen path requires kernel-eligible "
@@ -521,11 +577,18 @@ def varlen_attention_layer(q, cache: PagedKVCache, k_fresh, v_fresh, spec,
     qk = q.reshape(t, kh, h // kh, hd).transpose(0, 1)  # (K, T, G, hd)
     kf = k_fresh.reshape(t, kh, hd).transpose(0, 1)  # (K, T, hd)
     vf = v_fresh.reshape(t, kh, hd).transpose(0, 1)
+    shard = _head_shard(head_axis, head_shards, kh)
+    if shard is not None:  # this rank walks the pages with its heads
+        off, kl = shard
+        qk, kf, vf = qk[off:off + kl], kf[off:off + kl], vf[off:off + kl]
+        cache = _slice_cache_heads(cache, off, kl)
     args = (qk, cache.k, cache.k_scale, cache.v, cache.v_scale, cache.pos,
             cache.block_table, q_positions.reshape(-1).to(torch.int32),
             packed.slots.reshape(-1), packed.start, kf, vf)
     out = ops.varlen_attention(*args, packed.rows) if use_kernel \
         else ops.varlen_attention_plain(*args)
+    if shard is not None:  # exact tiled reassembly, no reduction
+        out = all_gather_tiled(out, 0, head_axis)
     return out.transpose(0, 1).reshape(b, t, h, hd).to(q.dtype)
 
 
@@ -546,7 +609,8 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
                     q_chunk: int = 1024, kv_chunk: int = 1024,
                     decode: bool = False, attend_cache: bool = False,
                     packed: PackedLayout | None = None,
-                    prefill_kernel: bool = True):
+                    prefill_kernel: bool = True, head_axis=None,
+                    head_shards: int = 1):
     """One attention layer (the reference's dense and paged branches).
     During prefill the cache is written and attention runs over the fresh
     k/v; with ``decode=True`` attention reads the cache (for S > 1, the
@@ -561,7 +625,9 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
     (``RuntimeOpts.paged_prefill_kernel``) sends the paged prefill and the
     packed call to their plain routes (the dense gather, K4's plain
     version); a soft-capped layer gathers the pool dense for its paged
-    prefill and decode whatever the option.
+    prefill and decode whatever the option. ``head_axis``/``head_shards``
+    (``RuntimeOpts``) split the paged routes' kv heads over the mesh's
+    ``model`` dim.
 
     The layout's ``quant_rows`` (the reference's ``quant_fresh`` mask, as
     row indices) name rows whose fresh k/v are attended through the int8
@@ -583,6 +649,7 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     if isinstance(cache, PagedKVCache):
+        heads = dict(head_axis=head_axis, head_shards=head_shards)
         paged_cache_update(cache, k, v, q_positions,
                            slots=None if packed is None else packed.slots)
         if packed is not None:
@@ -592,15 +659,16 @@ def attention_layer(params, x: torch.Tensor, spec, *, rope_cs,
                 k_att, v_att = (_dequant_rows(t, rows) for t in (k, v))
             out = varlen_attention_layer(q, cache, k_att, v_att, spec,
                                          q_positions, packed,
-                                         use_kernel=prefill_kernel)
+                                         use_kernel=prefill_kernel,
+                                         **heads)
         elif decode:
             out = paged_decode_attention_layer(q, cache, spec, q_positions,
                                                q_chunk=q_chunk,
-                                               kv_chunk=kv_chunk)
+                                               kv_chunk=kv_chunk, **heads)
         elif attend_cache:
             out = paged_prefill_attention(q, cache, k, v, spec, q_positions,
                                           q_chunk=q_chunk, kv_chunk=kv_chunk,
-                                          use_kernel=prefill_kernel)
+                                          use_kernel=prefill_kernel, **heads)
         else:
             out = chunked_attention(q, k, v, q_positions, q_positions,
                                     window=spec.sliding_window,

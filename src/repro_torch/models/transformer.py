@@ -27,6 +27,9 @@ and, over the paged pool (``serving.kv_pool.PagedKVPool.device_caches``):
   packed_step(params, cfg, tokens, caches, positions, slots, logit_rows,
               opts, quant_rows)
 
+and :func:`sharded_step_fns`, those five over a ``("kv", "model")``
+serving mesh (``launch.mesh.make_serving_mesh``).
+
 ``caches`` is a list with one entry per layer, in depth order (the
 reference stacks them over blocks instead): a ``KVCache`` (or
 ``PagedKVCache``) for an attention layer, a ``(conv_state, ssm_state)``
@@ -82,6 +85,14 @@ class RuntimeOpts:
     # (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` over
     # its block scan); only :func:`forward_train` reads it
     remat: bool = True
+    # split the paged attention routes' kv heads over the serving mesh's
+    # "model" dim: head_axis is that dim's process group, head_shards its
+    # size (which must divide num_kv_heads). Each rank walks the pages with
+    # its own head group and an exact tiled all-gather puts the heads back
+    # together (no reduction, so greedy argmaxes stay bit-identical).
+    # Set by sharded_step_fns, never by callers directly
+    head_axis: object = None
+    head_shards: int = 1
 
 
 def layer_params(cfg: ArchConfig, params: dict, blocks=None) -> list:
@@ -251,7 +262,8 @@ def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
             p["mixer"], h, ls.mixer, rope_cs=rope_cs, cache=cache, pos=pos,
             q_positions=q_positions, q_chunk=opts.q_chunk,
             kv_chunk=opts.kv_chunk, decode=decode, attend_cache=attend_cache,
-            packed=packed, prefill_kernel=opts.paged_prefill_kernel)
+            packed=packed, prefill_kernel=opts.paged_prefill_kernel,
+            head_axis=opts.head_axis, head_shards=opts.head_shards)
     else:
         conv_state, ssm_state = cache if cache is not None else (None, None)
         out, (conv, state) = ssm_layer(p["mixer"], h, ls.mixer,
@@ -490,3 +502,108 @@ def packed_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                       opts=opts, decode=False, packed=packed)
     xl = x[0].index_select(0, logit_rows.long())  # (R, D)
     return apply_head(cfg, params, xl), caches
+
+
+# ---------------------------------------------------------------------------
+# The sharded deployment
+# ---------------------------------------------------------------------------
+
+
+def sharded_step_fns(cfg: ArchConfig, opts: RuntimeOpts, mesh) -> dict:
+    """The five paged entry points over a ``("kv", "model")`` serving mesh
+    (``launch.mesh.make_serving_mesh``; port of the reference's
+    ``sharded_step_fns``): ``{"prefill", "prefill_shared", "decode",
+    "packed", "verify"}``, each with the signature of
+    :func:`paged_prefill`, :func:`paged_prefill_shared`,
+    :func:`paged_decode_step`, :func:`packed_step` and
+    :func:`paged_verify_step`. Every rank of the mesh calls the same
+    function with the same arguments (SPMD); ``caches`` are this rank's
+    views of a mesh pool (``PagedKVPool(mesh=)``), whose leaves hold only
+    the rank's page shard.
+
+    Each call runs in three parts, all exact (pages and head outputs are
+    moved, never reduced):
+
+      1. every pool leaf is all-gathered over ``"kv"`` along its page axis,
+         so the rank walks the whole pool with the replicated block tables;
+      2. the step runs on the gathered pool, every dense part replicated
+         and attention's kv heads split over ``"model"``
+         (``RuntimeOpts.head_axis``: each rank's head group walks the
+         pages, the groups' outputs are gathered back); the step writes the
+         gathered pool in place, as every port step writes its pool;
+      3. the rank's own page shard is copied back out of the gathered
+         pool into its leaves.
+
+    Sampling stays outside, on the replicated logits. Greedy streams are
+    therefore bit-identical to the unsharded step functions'. Over a
+    ``kv`` dim of one, parts 1 and 3 are the identity and are skipped.
+    Raises ``ValueError`` when the ``model`` dim does not divide the
+    kv-head count."""
+    from repro_torch.launch.collectives import all_gather_tiled
+    from repro_torch.launch.mesh import check_serving_mesh, mesh_coords
+
+    check_serving_mesh(mesh)
+    base_opts = opts
+    coords = mesh_coords(mesh)
+    kv_rank, kv_size, kv_group = coords["kv"]
+    _, model_size, model_group = coords["model"]
+    heads = {m.num_kv_heads for ls in cfg.pattern
+             if isinstance(m := ls.mixer, AttnSpec)}
+    if any(kh % model_size for kh in heads):
+        raise ValueError(
+            f"the mesh's 'model' dim {model_size} must divide num_kv_heads "
+            f"{sorted(heads)} (make_serving_mesh only builds such meshes)")
+    heads_kw = dict(head_axis=model_group, head_shards=model_size) \
+        if model_size > 1 else {}
+
+    def gathered(caches):
+        if kv_size == 1:
+            return caches
+        return [L.PagedKVCache(*(all_gather_tiled(leaf, 0, kv_group)
+                                 for leaf in (c.k, c.v, c.k_scale,
+                                              c.v_scale, c.pos)),
+                               c.block_table) for c in caches]
+
+    def keep_own(caches, full):
+        if full is caches:
+            return
+        for c, f in zip(caches, full):
+            n = c.k.shape[0]
+            lo = kv_rank * n
+            for mine, leaf in ((c.k, f.k), (c.v, f.v),
+                               (c.k_scale, f.k_scale),
+                               (c.v_scale, f.v_scale), (c.pos, f.pos)):
+                mine.copy_(leaf[lo:lo + n])
+
+    def run(step, params, cfg, tokens, caches, args, opts, **kw):
+        full = gathered(caches)
+        logits, _ = step(params, cfg, tokens, full, *args,
+                         dataclasses.replace(opts, **heads_kw), **kw)
+        keep_own(caches, full)
+        return logits, caches
+
+    def prefill(params, cfg, tokens, caches, positions, opts=base_opts):
+        return run(paged_prefill, params, cfg, tokens, caches, (positions,),
+                   opts)
+
+    def prefill_shared(params, cfg, tokens, caches, positions,
+                       opts=base_opts):
+        return run(paged_prefill_shared, params, cfg, tokens, caches,
+                   (positions,), opts)
+
+    def decode(params, cfg, tokens, caches, pos, opts=base_opts):
+        return run(paged_decode_step, params, cfg, tokens, caches, (pos,),
+                   opts)
+
+    def packed(params, cfg, tokens, caches, positions, slots, logit_rows,
+               opts=base_opts, quant_rows=None):
+        return run(packed_step, params, cfg, tokens, caches,
+                   (positions, slots, logit_rows), opts,
+                   quant_rows=quant_rows)
+
+    def verify(params, cfg, tokens, caches, positions, opts=base_opts):
+        return run(paged_verify_step, params, cfg, tokens, caches,
+                   (positions,), opts)
+
+    return {"prefill": prefill, "prefill_shared": prefill_shared,
+            "decode": decode, "packed": packed, "verify": verify}

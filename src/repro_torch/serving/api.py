@@ -16,7 +16,9 @@ and wave ticks and reserve or lazy admission), ``"fused"``
 and ``"split"`` (:class:`SplitBackend`, over the paper's
 :class:`~repro_torch.serving.split_engine.SplitEngine`); the paged
 backend's ``deployment="disaggregated"`` splits it into a prefill and a
-decode replica joined by the page stream. Per request,
+decode replica joined by the page stream, and ``deployment="sharded"``
+makes it one rank of the sharded deployment (its pool's pages and
+attention's kv heads spread over a ``torch.distributed`` mesh). Per request,
 token events arrive strictly in position order; finish events carry
 ``token = -1``, ``index = len(generated)`` and the finish reason
 (``"stop"`` | ``"length"`` | ``"abort"`` | ``"deadline"``).
@@ -348,21 +350,35 @@ class PagedBackend(_RequestBook):
       (:class:`~repro_torch.serving.page_transport.DisaggregatedScheduler`);
       ``prefill_kwargs=`` and ``decode_kwargs=`` tune the two sides (their
       ``device=`` too);
-    * ``"sharded"`` is not ported yet and raises ``NotImplementedError``
-      (ROADMAP queue 1, item 8, the sharded deployment)."""
+    * ``"sharded"``: this rank's scheduler of the sharded deployment
+      (``Scheduler(mesh=)``: pool pages sharded over the mesh's ``"kv"``
+      dim, attention's kv heads over ``"model"``). Every rank builds the
+      same server and is given the same submissions. ``mesh=`` pins a
+      mesh; omitted, it is ``launch.mesh.make_serving_mesh`` over the
+      default process group, which the caller has initialized (else it
+      raises ``RuntimeError``). ``mesh=`` with another deployment raises
+      ``ValueError``."""
 
     def __init__(self, cfg, params, opts: RuntimeOpts = RuntimeOpts(), *,
                  telemetry=None, deployment: str = "fused",
                  **scheduler_kwargs):
         super().__init__()
         self.telemetry = telemetry
-        if deployment == "sharded":
-            raise NotImplementedError(
-                "deployment='sharded' is not ported yet (ROADMAP queue 1, "
-                "item 8, the sharded deployment)")
+        mesh = scheduler_kwargs.pop("mesh", None)
+        if mesh is not None and deployment != "sharded":
+            raise ValueError(f"mesh= requires deployment='sharded', not "
+                             f"{deployment!r}")
         if deployment == "fused":
             self.scheduler = Scheduler(cfg, params, opts,
                                        telemetry=telemetry,
+                                       **scheduler_kwargs)
+        elif deployment == "sharded":
+            if mesh is None:
+                from repro_torch.launch.mesh import make_serving_mesh
+
+                mesh = make_serving_mesh(cfg.pattern[0].mixer.num_kv_heads)
+            self.scheduler = Scheduler(cfg, params, opts,
+                                       telemetry=telemetry, mesh=mesh,
                                        **scheduler_kwargs)
         elif deployment == "disaggregated":
             self.scheduler = DisaggregatedScheduler(

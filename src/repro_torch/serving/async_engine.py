@@ -123,10 +123,19 @@ class AsyncLLMServer:
     ``max_queue_depth`` bounds admission (see :class:`AdmissionError`);
     ``idle_wait_s`` is how long the tick thread parks per wait when there
     is no work — it bounds submit→first-tick latency on an idle server.
+
+    A server of the sharded deployment raises ``NotImplementedError``: its
+    ranks must each be handed every request, and an asyncio front over
+    them is not ported yet (ROADMAP queue 1, item 8).
     """
 
     def __init__(self, server: LLMServer, *, max_queue_depth: int = 64,
                  idle_wait_s: float = 0.005):
+        if getattr(server.backend, "deployment", None) == "sharded":
+            raise NotImplementedError(
+                "AsyncLLMServer over deployment='sharded': one front over "
+                "the ranks of the sharded deployment is not ported yet "
+                "(ROADMAP queue 1, item 8, the sharded deployment's fronts)")
         self.server = server
         self.max_queue_depth = max_queue_depth
         self.idle_wait_s = idle_wait_s

@@ -42,8 +42,10 @@ its port, so that no client's first token waits on a compiler.
 :class:`~repro_torch.serving.api.LLMServer`: ``--deployment
 disaggregated`` serves through a prefill replica and a decode replica on
 the one device, joined by the page stream
-(``page_transport.DisaggregatedScheduler``); ``sharded`` is not ported yet
-and raises ``NotImplementedError`` naming its ROADMAP item.
+(``page_transport.DisaggregatedScheduler``). ``--deployment sharded``
+raises ``NotImplementedError``: one HTTP front over the ranks of the
+sharded deployment, each of which must be handed every request, is not
+ported yet (ROADMAP queue 1, item 8, the sharded deployment's fronts).
 """
 
 from __future__ import annotations
@@ -308,6 +310,12 @@ def _build_server(args):
     """A demo LLMServer on a tiny randomly initialized model on
     ``args.device`` — boots in seconds on the CPU; the serving layer under
     test is real."""
+    if args.deployment == "sharded":
+        raise NotImplementedError(
+            "--deployment sharded: one HTTP front over the ranks of the "
+            "sharded deployment is not ported yet (ROADMAP queue 1, item 8, "
+            "the sharded deployment's fronts); LLMServer(deployment="
+            "'sharded') serves one rank in process")
     import torch
 
     from repro_torch.configs import get_config

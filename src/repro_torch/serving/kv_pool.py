@@ -45,7 +45,18 @@ off the sender's.
 Speculation's rollback: :meth:`PagedKVPool.truncate` scrubs a rejected
 draft tail's positions and keeps its pages.
 
-Not ported yet: ``mesh=`` (sharded pools).
+The sharded deployment (``mesh=``, a ``("kv", "model")`` mesh from
+``launch.mesh.make_serving_mesh``): the page count is rounded up to a
+multiple of the ``kv`` dim's size n, and rank i of that dim stores the
+pages ``[i·P/n, (i+1)·P/n)`` of every layer, so its leaves are
+``(L, P/n, ...)``. The host allocator, refcounts and block tables are the
+same on every rank (every rank makes the same calls in the same order)
+and name GLOBAL page ids. A write to a page (a scrub, a copy-on-write
+copy, a restore) lands only on the rank that stores it; a read of pages
+(a copy-on-write source, a swap export, :meth:`PagedKVPool.gather_dense`)
+gathers them from their ranks exactly over the ``kv`` dim, so every rank
+gets the same bytes. Sharding changes where pages live, never which
+request owns them.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, AttnSpec
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels.paged_decode_attention import TRASH_PAGE
+from repro_torch.launch.collectives import all_gather_tiled
 from repro_torch.models.layers import PagedKVCache
 
 DEFAULT_PAGE_SIZE = 16
@@ -97,20 +109,29 @@ class PagedKVPool:
     ``num_blocks`` overrides ``cfg.num_blocks``, so a split engine's cloud
     pools only its own segment's layers. ``*_tokens``/``*_len`` arguments
     count TOKENS, ``*_pages`` count PAGES, ``*_bytes`` are device bytes
-    across every layer the pool covers."""
+    across every layer the pool covers. ``mesh=`` shards the pages over
+    the mesh's ``kv`` dim (the module docstring); ``num_pages`` then
+    counts the whole pool's pages, rounded up to a multiple of that dim's
+    size."""
 
     def __init__(self, cfg: ArchConfig, *, num_pages: int,
                  page_size: int = DEFAULT_PAGE_SIZE, max_requests: int,
                  max_seq_len: int | None = None, num_blocks: int | None = None,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("sharded pools (mesh=) are not ported "
-                                      "yet (ROADMAP queue 1, item 8, the "
-                                      "sharded deployment)")
         if page_size <= 0:
             raise ValueError(f"page_size must be positive, got {page_size}")
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
+        self.mesh = mesh
+        self.kv_rank, self.kv_size, self._kv_group = 0, 1, None
+        if mesh is not None:
+            from repro_torch.launch.mesh import check_serving_mesh, mesh_coords
+
+            check_serving_mesh(mesh)
+            self.kv_rank, self.kv_size, self._kv_group = \
+                mesh_coords(mesh)["kv"]
+            # the reference's rounding: extra pages enlarge the free list
+            num_pages = -(-num_pages // self.kv_size) * self.kv_size
         specs = []
         for ls in cfg.pattern:
             m = ls.mixer
@@ -140,14 +161,17 @@ class PagedKVPool:
         kh, hd = specs[0].num_kv_heads, specs[0].head_dim
         self.kv_heads, self.head_dim = kh, hd
 
-        shape = (self.num_layers, num_pages, kh, page_size)
+        # this rank's pages: the whole pool unless a mesh shards it
+        self.shard_pages = num_pages // self.kv_size
+        self._first_page = self.kv_rank * self.shard_pages
+        shape = (self.num_layers, self.shard_pages, kh, page_size)
         dev = self.device
         self.k = torch.zeros(shape + (hd,), dtype=torch.int8, device=dev)
         self.v = torch.zeros(shape + (hd,), dtype=torch.int8, device=dev)
         self.k_scale = torch.zeros(shape, dtype=torch.float32, device=dev)
         self.v_scale = torch.zeros(shape, dtype=torch.float32, device=dev)
-        self.pos = torch.full((self.num_layers, num_pages, page_size), -1,
-                              dtype=torch.int32, device=dev)
+        self.pos = torch.full((self.num_layers, self.shard_pages, page_size),
+                              -1, dtype=torch.int32, device=dev)
 
         # host allocator: LIFO free list (the most recently freed page is
         # reused first), trash page 0 excluded; refcounts 0 = free,
@@ -191,8 +215,8 @@ class PagedKVPool:
 
     def _decref(self, pages) -> None:
         """Drop one reference per page; pages reaching zero have their
-        positions scrubbed to -1 on the device (all layers, one op) and go
-        back on the free list."""
+        positions scrubbed to -1 on the device (all layers, one op, on the
+        rank that stores them) and go back on the free list."""
         dead = []
         for p in pages:
             p = int(p)
@@ -201,17 +225,66 @@ class PagedKVPool:
             if self.refcount[p] == 0:
                 dead.append(p)
         if dead:
-            self.pos[:, dead] = -1
+            _, local = self._own(dead)
+            if local:
+                self.pos[:, local] = -1
             self._free.extend(reversed(dead))
 
     def _copy_page(self, src: int, dst: int, keep_below: int) -> None:
         """Copy-on-write copy of page ``src`` → ``dst`` across every layer,
         keeping only stored positions < ``keep_below`` (the forker's own
-        history; another tenant's later tokens are scrubbed in the copy)."""
-        for leaf in (self.k, self.v, self.k_scale, self.v_scale):
-            leaf[:, dst] = leaf[:, src]
-        src_pos = self.pos[:, src]
-        self.pos[:, dst] = torch.where(src_pos < keep_below, src_pos, -1)
+        history; another tenant's later tokens are scrubbed in the copy).
+        Under a mesh ``src`` is read from the rank that stores it."""
+        *codes, src_pos = self._read_pages([src])
+        self._write_pages([dst], (*codes, torch.where(src_pos < keep_below,
+                                                      src_pos, -1)))
+
+    # ------------------------------------------------------- page placement
+
+    def _leaves(self) -> tuple:
+        return (self.k, self.v, self.k_scale, self.v_scale, self.pos)
+
+    def _own(self, pages) -> tuple:
+        """(indices into ``pages`` of the pages this rank stores, their
+        local ids in its leaves)."""
+        lo, n = self._first_page, self.shard_pages
+        mine = [(j, int(p) - lo) for j, p in enumerate(pages)
+                if lo <= int(p) < lo + n]
+        return [j for j, _ in mine], [q for _, q in mine]
+
+    def _read_pages(self, pages) -> tuple:
+        """The five leaves at the GLOBAL ``pages``, (L, n, ...) each on this
+        rank's device, wherever each page is stored: under a mesh each rank
+        puts the pages it stores into one exact all-gather a leaf over the
+        ``kv`` dim, and every rank takes each page from its owner's block
+        (every rank calls this with the same pages)."""
+        if self.kv_size == 1:
+            idx = to_device(np.asarray(pages, np.int64), self.device)
+            return tuple(leaf[:, idx] for leaf in self._leaves())
+        n = len(pages)
+        rows, local = self._own(pages)
+        owner = to_device(np.asarray(pages, np.int64) // self.shard_pages,
+                          self.device)
+        col = torch.arange(n, device=self.device)
+        out = []
+        for leaf in self._leaves():
+            buf = leaf.new_zeros((leaf.shape[0], n) + tuple(leaf.shape[2:]))
+            if rows:
+                buf[:, rows] = leaf[:, local]
+            g = all_gather_tiled(buf, 0, self._kv_group).reshape(
+                (self.kv_size,) + tuple(buf.shape))
+            out.append(g[owner, :, col].movedim(0, 1))
+        return tuple(out)
+
+    def _write_pages(self, pages, data) -> None:
+        """Write ``data`` (five (L, n, ...) leaves, on the host or the
+        device) to those of the GLOBAL ``pages`` that this rank stores."""
+        rows, local = self._own(pages)
+        if not rows:
+            return
+        idx = to_device(np.asarray(local, np.int64), self.device)
+        for leaf, saved in zip(self._leaves(), data):
+            leaf[:, idx] = saved[:, rows].to(self.device)
 
     def _write_need(self, length: int, have: int, boundary_shared: bool,
                     n_tokens: int):
@@ -410,8 +483,9 @@ class PagedKVPool:
                 f"truncate({slot}, {new_len}) would scrub shared page(s) "
                 f"{shared} (refcount > 1): CoW-shared prefixes are "
                 f"immutable")
-        if pages:
-            idx = to_device(np.asarray(pages, np.int64), self.device)
+        _, local = self._own(pages)
+        if local:  # the pages this rank stores
+            idx = to_device(np.asarray(local, np.int64), self.device)
             held = self.pos[:, idx]
             self.pos[:, idx] = torch.where(held >= new_len, -1, held)
         self.lengths[slot] = new_len
@@ -444,9 +518,7 @@ class PagedKVPool:
             f"cannot export {n} of slot {slot}'s {int(self.lengths[slot])}"
         pages = [int(p) for p in self.block_tables[slot][:self.pages_for(n)]]
         assert TRASH_PAGE not in pages, f"slot {slot} under-allocated"
-        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
-        data = tuple(leaf[:, idx].cpu() for leaf in
-                     (self.k, self.v, self.k_scale, self.v_scale, self.pos))
+        data = tuple(t.cpu() for t in self._read_pages(pages))
         snapshot = {"length": n, "data": data}
         self.swap_bytes += self.snapshot_bytes(snapshot)
         return snapshot
@@ -478,16 +550,15 @@ class PagedKVPool:
         snapshot: allocates fresh pages (plus ``reserve_tokens`` of
         headroom, in TOKENS) and writes the saved codes, scales and
         positions back, so every later decoded token is bit-identical to
-        the run that was never preempted. Returns the new slot; raises
+        the run that was never preempted (under a mesh each rank writes the
+        fresh pages it stores). Returns the new slot; raises
         ``PoolExhaustedError`` (changing nothing) when the pool cannot hold
         it yet."""
         n = int(snapshot["length"])
         slot = self.admit(n, reserve_tokens=reserve_tokens)
-        pages = [int(p) for p in self.block_tables[slot][:self.pages_for(n)]]
-        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
-        for leaf, saved in zip((self.k, self.v, self.k_scale, self.v_scale,
-                                self.pos), snapshot["data"]):
-            leaf[:, idx] = saved.to(self.device)
+        self._write_pages(
+            [int(p) for p in self.block_tables[slot][:self.pages_for(n)]],
+            snapshot["data"])
         self.lengths[slot] = n
         # the snapshot is consumed: its host bytes are no longer held
         self.swap_bytes -= self.snapshot_bytes(snapshot)
@@ -500,7 +571,9 @@ class PagedKVPool:
         """One :class:`~repro_torch.models.layers.PagedKVCache` per layer,
         views of the pool's tensors, with the CURRENT block tables of
         ``rows`` (default: every slot row) uploaded once and shared by all
-        layers (asynchronously: no stream sync)."""
+        layers (asynchronously: no stream sync). Under a mesh the views
+        hold this rank's page shard and the tables name global pages
+        (``transformer.sharded_step_fns`` takes such caches)."""
         bt = self.block_tables if rows is None else self.block_tables[rows]
         bt = to_device(bt, self.device)
         return [PagedKVCache(self.k[i], self.v[i], self.k_scale[i],
@@ -511,18 +584,15 @@ class PagedKVPool:
         """``slot``'s cache reassembled densely from its pages (tests):
         (k_codes, k_scale, v_codes, v_scale, pos), each with a leading
         layer axis: (L, K, nb·page, hd), (L, K, nb·page), …, (L, nb·page)."""
-        bt = torch.as_tensor(self.block_tables[slot], dtype=torch.long,
-                             device=self.device)
-
-        def g(leaf):  # (L, P, K, page, ...) → (L, K, nb·page, ...)
-            x = leaf[:, bt]  # (L, nb, K, page, ...) or (L, nb, page)
-            if leaf.dim() == 3:
+        def g(x):  # (L, nb, K, page, ...) → (L, K, nb·page, ...)
+            if x.dim() == 3:  # positions (L, nb, page)
                 return x.reshape(x.shape[0], -1)
             x = x.movedim(2, 1)
             return x.reshape(x.shape[0], x.shape[1], -1, *x.shape[4:])
 
-        return (g(self.k), g(self.k_scale), g(self.v), g(self.v_scale),
-                g(self.pos))
+        k, v, ks, vs, pos = self._read_pages(
+            [int(p) for p in self.block_tables[slot]])
+        return g(k), g(ks), g(v), g(vs), g(pos)
 
     # ----------------------------------------------------------- accounting
 
@@ -571,10 +641,20 @@ class PagedKVPool:
     def gauges(self) -> dict:
         """One consistent occupancy sample: page counts, the host bytes of
         swapped-out snapshots, occupancy and the page bytes resident on the
-        device."""
-        return {"pages_in_use": self.pages_in_use,
-                "pages_shared": self.pages_shared,
-                "pages_free": self.free_pages,
-                "swap_bytes": self.swap_bytes,
-                "occupancy": self.occupancy(),
-                "page_bytes_in_use": self.page_bytes_in_use()}
+        device, all over the whole pool. Under a mesh also this rank's
+        share: the pages in use it stores, their bytes, and the bytes of
+        its leaves beside the whole pool's."""
+        out = {"pages_in_use": self.pages_in_use,
+               "pages_shared": self.pages_shared,
+               "pages_free": self.free_pages,
+               "swap_bytes": self.swap_bytes,
+               "occupancy": self.occupancy(),
+               "page_bytes_in_use": self.page_bytes_in_use()}
+        if self.mesh is not None:
+            lo, n, pb = self._first_page, self.shard_pages, self.page_bytes()
+            shard = int(np.count_nonzero(self.refcount[lo:lo + n]))
+            out.update(shard_pages_in_use=shard,
+                       shard_page_bytes_in_use=shard * pb,
+                       shard_device_bytes=n * pb,
+                       pool_device_bytes=self.num_pages * pb)
+        return out

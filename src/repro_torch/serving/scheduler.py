@@ -103,8 +103,15 @@ request here is one token stream. The vision stub (qwen2-vl) serves text
 only, its M-RoPE ids taken from each token's absolute position, as the
 reference's paged entry points take them.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
-(ROADMAP queue 1, item 8, the sharded deployment).
+The sharded deployment (``mesh=``, a ``("kv", "model")`` mesh from
+``launch.mesh.make_serving_mesh``): one scheduler a rank, every rank
+given the same submissions and stepping in lockstep (SPMD). Every host
+decision here (admission, chunks, preemption, swap, forks, drafts) reads
+only host state that every rank holds alike, so the ranks agree without
+talking; the pool stores 1/kv of its pages a rank, and the five step
+functions are ``transformer.sharded_step_fns``' (the pool gathered over
+``"kv"``, kv heads split over ``"model"``, exactly), so every rank samples
+the unsharded scheduler's tokens.
 """
 
 from __future__ import annotations
@@ -124,7 +131,8 @@ from repro_torch.device import resolve_device, stream_sync, to_device
 from repro_torch.models.transformer import (RuntimeOpts, packed_step,
                                             paged_decode_step, paged_prefill,
                                             paged_prefill_shared,
-                                            paged_verify_step)
+                                            paged_verify_step,
+                                            sharded_step_fns)
 from repro_torch.serving.kv_pool import (DEFAULT_PAGE_SIZE, PagedKVPool,
                                          PoolExhaustedError)
 from repro_torch.serving.page_transport import HostSwapTransport
@@ -135,11 +143,6 @@ AUTO_CHUNK_LADDER = (64, 128, 256)
 
 # the operands of a free slot row: greedy, no filters, no bias
 _GREEDY = SamplingParams()
-
-_NOT_PORTED = {
-    "mesh": "mesh= (ROADMAP queue 1, item 8, the sharded deployment)",
-}
-
 
 @dataclasses.dataclass
 class Request:
@@ -301,7 +304,10 @@ class Scheduler:
     tick as it is without speculation. ``auto_prefix`` turns on automatic
     prefix detection (matches of at least ``auto_prefix_min`` tokens
     against the last ``auto_prefix_window`` prompts) and ``telemetry``
-    takes a ``Tracer`` (both in the module docstring).
+    takes a ``Tracer`` (both in the module docstring). ``mesh=`` makes this
+    scheduler one rank of the sharded deployment (the module docstring);
+    a ``mesh`` that is not a ``("kv", "model")`` ``DeviceMesh`` raises
+    ``TypeError``.
 
     Single-driver: ``submit``, ``abort`` and ``step`` must run on one
     thread; ``step`` raises ``RuntimeError`` when a second thread enters
@@ -326,9 +332,6 @@ class Scheduler:
                              f"{resume}")
         if speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
-        if mesh is not None:
-            raise NotImplementedError(f"{_NOT_PORTED['mesh']} is not "
-                                      f"ported yet")
         if cfg.num_codebooks > 1:
             # the reference takes the config and fails inside its first
             # tick, once submit has flattened a (S, K) prompt
@@ -351,7 +354,17 @@ class Scheduler:
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.pool = PagedKVPool(cfg, num_pages=num_pages, page_size=page_size,
                                 max_requests=max_slots,
-                                max_seq_len=max_seq_len, device=self.device)
+                                max_seq_len=max_seq_len, mesh=mesh,
+                                device=self.device)
+        # the five step functions: over a mesh, sharded_step_fns' (the pool
+        # checked the mesh); each has the unsharded one's signature
+        self.mesh = mesh
+        self._steps = sharded_step_fns(cfg, opts, mesh) \
+            if mesh is not None else {
+                "prefill": paged_prefill,
+                "prefill_shared": paged_prefill_shared,
+                "decode": paged_decode_step, "packed": packed_step,
+                "verify": paged_verify_step}
         self.max_slots = max_slots
         self.tick_mode = tick_mode
         self.lazy_growth = lazy_growth
@@ -815,7 +828,7 @@ class Scheduler:
         Returns (logits, its span's (t0, t1) with a tracer, else None)."""
         shared = kind in ("prefill_shared", "chunk_shared")
         self._register_shape(kind, *tokens.shape)
-        fn = paged_prefill_shared if shared else paged_prefill
+        fn = self._steps["prefill_shared" if shared else "prefill"]
         tel = self.telemetry
         t0 = tel.now() if tel is not None else None
         with torch.inference_mode():
@@ -1080,7 +1093,7 @@ class Scheduler:
             t[i] = len(st.generated)
         self._decode_spans(active)
         with torch.inference_mode():
-            logits, _ = paged_decode_step(
+            logits, _ = self._steps["decode"](
                 self.params, self.cfg, to_device(tokens, self.device),
                 self.pool.device_caches(), to_device(pos, self.device),
                 self.opts)
@@ -1132,7 +1145,7 @@ class Scheduler:
         dev = to_device(host, self.device)
         self._decode_spans(active)
         with torch.inference_mode():
-            logits, _ = paged_verify_step(
+            logits, _ = self._steps["verify"](
                 self.params, self.cfg, dev[:, :s], self.pool.device_caches(),
                 dev[:, s:2 * s], self.opts)
             idx = dev[:, 2 * s:3 * s].long()[:, :, None]
@@ -1236,7 +1249,7 @@ class Scheduler:
         self._decode_spans(decode_rows)
         t0 = tel.now() if tel is not None else None
         with torch.inference_mode():
-            logits, _ = packed_step(
+            logits, _ = self._steps["packed"](
                 self.params, self.cfg, to_device(tokens, dev),
                 self.pool.device_caches(), to_device(posn, dev),
                 to_device(slot_ids, dev), to_device(logit_rows, dev),

@@ -1979,3 +1979,161 @@ def test_encode_decode_ste_on_card(cuda_device):
     g = torch.randn((96, 4096), generator=gen, device=cuda_device)
     (grad,) = torch.autograd.grad(out, x, g)
     assert torch.equal(grad, g)
+
+
+# ---------------------------------------------------- the sharded deployment
+
+
+def _sharded_rank(rank, world, device_names, modes) -> dict:
+    """One rank of the sharded deployment on its card (``device_names`` by
+    rank): llama2-7b tiny from seed 0, the workload of
+    :func:`_sharded_jobs` through ``Scheduler(mesh=)`` in each mode, the K2
+    to K4 counters set to 0 just before each run and read just after."""
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    device = torch.device(device_names[rank])
+    torch.cuda.set_device(device)
+    cfg = get_config("llama2-7b-tiny")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    mesh = make_serving_mesh(cfg.pattern[0].mixer.num_kv_heads)
+    return {"mesh": tuple(mesh.shape),
+            "runs": {mode: _sharded_run(cfg, params, mode, device, mesh)
+                     for mode in modes}}
+
+
+def _sharded_jobs(cfg):
+    rng = np.random.default_rng(61)
+    return [(rng.integers(0, cfg.vocab_size, (n,)), m)
+            for n, m in ((11, 6), (23, 5), (6, 8), (17, 4))]
+
+
+def _sharded_run(cfg, params, mode, device, mesh=None) -> dict:
+    kernels = (pda.paged_decode_attention, ppa.paged_prefill_attention,
+               va.varlen_attention)
+    sched = Scheduler(cfg, params, RuntimeOpts(q_chunk=16, kv_chunk=16,
+                                               quantized_kv=True),
+                      num_pages=24, page_size=4, max_slots=3,
+                      prefill_chunk=8, lazy_growth=True, tick_mode=mode,
+                      device=device, mesh=mesh)
+    for fn in kernels:
+        fn.launches = 0
+    rids = [sched.submit(p, m) for p, m in _sharded_jobs(cfg)]
+    res = sched.run()
+    return {"tokens": [res[r].tolist() for r in rids],
+            "launches": [fn.launches for fn in kernels],
+            "pages_in_use": sched.pool.pages_in_use,
+            "evicted": sched.stats.evicted}
+
+
+def _sharded_on_cards(tmp_path, backend, device_names):
+    """The ranks' runs beside the unsharded scheduler's on the first
+    card."""
+    from repro_torch.launch.ranks import run_ranks
+
+    modes = ("chunked", "packed")
+    ranks = run_ranks(_sharded_rank, len(device_names), backend=backend,
+                      workdir=str(tmp_path), args=(device_names, modes),
+                      timeout=600)
+    cfg = get_config("llama2-7b-tiny")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    want = {mode: _sharded_run(cfg, params, mode,
+                               torch.device(device_names[0]))
+            for mode in modes}
+    for mode in modes:
+        for r in ranks:
+            run = r["runs"][mode]
+            assert run["tokens"] == want[mode]["tokens"], mode
+            assert run["pages_in_use"] == 0
+            k2, k3, k4 = run["launches"]
+            assert (k2 > 0 and k3 > 0) if mode == "chunked" else k4 > 0
+    return ranks
+
+
+def test_sharded_ranks_share_one_card(cuda_device, tmp_path):
+    """Four gloo ranks on one card (the (2, 2) mesh: pages over two ranks,
+    one of llama2-7b tiny's two kv heads a rank; gloo carries the CUDA
+    tensors through the host): the unsharded scheduler's streams, K2 and
+    K3 (chunked) and K4 (packed) launched in every rank."""
+    ranks = _sharded_on_cards(tmp_path, "gloo", ["cuda:0"] * 4)
+    assert all(r["mesh"] == (2, 2) for r in ranks)
+
+
+def test_sharded_nccl_ranks_on_two_cards(cuda_device, tmp_path):
+    """Two NCCL ranks, one a card (the (2, 1) mesh: each card stores half
+    the pages): the unsharded scheduler's streams on card 0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card: NCCL takes one rank a card")
+    ranks = _sharded_on_cards(tmp_path, "nccl", ["cuda:0", "cuda:1"])
+    assert all(r["mesh"] == (2, 1) for r in ranks)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K4"])
+def test_kernels_on_a_head_group_bit_for_bit(cuda_device, kernel):
+    """K2, K3 and K4 (bf16 q, hd 128) on each half of 8 kv heads, their
+    operands sliced as the sharded layers slice them: the same rows of
+    the all-heads call bit for bit, by the same route."""
+    rng = np.random.default_rng(62)
+    kh, g, hd, page, nb = 8, 2, 128, 16, 8
+    toks = [100, 37, 0, 128]
+    r = len(toks)
+
+    def dev(a, dtype=None):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+        return t if dtype is None else t.to(dtype)
+
+    pool_pos = np.full((r * nb + 1, page), -1, np.int32)
+    bt = np.arange(1, r * nb + 1, dtype=np.int32).reshape(r, nb)
+    for i, n in enumerate(toks):
+        for t in range(n):
+            pool_pos[bt[i, t // page], t % page] = t
+    p = r * nb + 1
+    pool = [dev(rng.integers(-127, 128, (p, kh, page, hd), dtype=np.int8)),
+            dev(rng.uniform(1e-3, 2e-2, (p, kh, page)).astype(np.float32)),
+            dev(rng.integers(-127, 128, (p, kh, page, hd), dtype=np.int8)),
+            dev(rng.uniform(1e-3, 2e-2, (p, kh, page)).astype(np.float32)),
+            dev(pool_pos), dev(bt)]
+    bf = torch.bfloat16
+    normal = lambda *shape: dev(rng.normal(size=shape).astype(np.float32),
+                                bf)
+    if kernel == "K2":
+        fn, dim = pda.paged_decode_attention, 1
+        q_pos = dev(np.array([n - 1 for n in toks], np.int32))
+        q = normal(r, kh, g, hd)
+        call = lambda q, leaves: fn(q, *leaves, *pool[4:], q_pos)
+        group = lambda t, off: t[:, off:off + kh // 2].contiguous()
+    elif kernel == "K3":
+        fn, dim, s = ppa.paged_prefill_attention, 2, 5
+        qp = dev((np.array(toks)[:, None] + np.arange(s)).astype(np.int32))
+        start = ppa.first_call_position(qp)
+        q, kf, vf = normal(r, s, kh, g, hd), normal(r, s, kh, hd), \
+            normal(r, s, kh, hd)
+        call = lambda q, leaves, kf=kf, vf=vf: fn(
+            q, *leaves, *pool[4:], qp, start, kf, vf)
+        group = lambda t, off: t[:, :, off:off + kh // 2].contiguous()
+    else:
+        fn, dim = va.varlen_attention, 0
+        slots = dev(np.array([0, 1, 1, 1, 3, -1], np.int32))
+        qp = dev(np.array([100, 37, 38, 39, 128, -1], np.int32))
+        start = va.segment_start(qp, slots, r)
+        t = 6
+        q = normal(t, kh, g, hd).transpose(0, 1)
+        kf, vf = normal(t, kh, hd).transpose(0, 1), \
+            normal(t, kh, hd).transpose(0, 1)
+        call = lambda q, leaves, kf=kf, vf=vf: fn(
+            q, *leaves, *pool[4:], qp, slots, start, kf, vf)
+        group = lambda t, off: t[off:off + kh // 2]
+    leaves = lambda off: [x[:, off:off + kh // 2].contiguous()
+                          for x in pool[:4]]
+    before = dict(fn.route_launches)
+    full = call(q, pool[:4])
+    full_route = {k: v - before[k] for k, v in fn.route_launches.items()}
+    for off in (0, kh // 2):
+        before = dict(fn.route_launches)
+        if kernel == "K2":
+            part = call(group(q, off), leaves(off))
+        else:
+            part = call(group(q, off), leaves(off), group(kf, off),
+                        group(vf, off))
+        route = {k: v - before[k] for k, v in fn.route_launches.items()}
+        assert route == full_route
+        assert torch.equal(part, full.narrow(dim, off, kh // 2)), off

@@ -315,8 +315,9 @@ def test_double_free_is_an_assert_and_bad_pools_raise():
                 CFG.pattern[0].mixer.__class__(4, 2, 32, sliding_window=8),
                 CFG.pattern[0].ffn),)}), num_pages=8, page_size=4,
             max_requests=1, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="item 8, the sharded deployment"):
+    # mesh= is ported (tests/test_torch_sharded.py): what is not a
+    # ("kv", "model") DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TP.PagedKVPool(CFG, num_pages=8, page_size=4, max_requests=1,
                        mesh=object(), device="cpu")
 

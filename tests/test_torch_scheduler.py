@@ -452,14 +452,14 @@ def test_streaming_order_and_release_paged(tiny_model):
 # tests are in tests/test_torch_packed.py), and so are speculation,
 # auto_prefix and telemetry: their cases now check that the keyword serves
 # (tests/test_torch_speculation.py, test_torch_async_serving.py and
-# test_torch_telemetry.py hold them to the reference); the cases keep their
-# ids, and the messages name the current ROADMAP queue-1 items
+# test_torch_telemetry.py hold them to the reference); mesh= is ported too
+# (tests/test_torch_sharded.py), and its case checks that what is not a
+# mesh is refused; the cases keep their ids
 @pytest.mark.parametrize("kw,item", [
     pytest.param(dict(speculate_k=2), None, id="kw3-6.3"),
     pytest.param(dict(auto_prefix=True, auto_prefix_min=4), None,
                  id="kw4-6.4"),
-    pytest.param(dict(mesh=object()), "item 8, the sharded deployment",
-                 id="kw5-item 9"),
+    pytest.param(dict(mesh=object()), "not a mesh", id="kw5-item 9"),
     pytest.param(dict(telemetry=True), None, id="kw6-item 7")])
 def test_scheduler_refuses_what_is_not_ported(tiny_model, kw, item):
     cfg, _, params = tiny_model
@@ -490,17 +490,19 @@ def test_scheduler_refuses_what_is_not_ported(tiny_model, kw, item):
             assert len(tracer.ticks) == sched._tick
             assert tracer.metrics_dict()["requests.finished"] == 2
         return
-    with pytest.raises(NotImplementedError, match=item):
+    assert item == "not a mesh"
+    with pytest.raises(TypeError, match="DeviceMesh"):
         _sched(cfg, params, **kw)
 
 
 def test_paged_backend_refuses_unported_deployments(tiny_model):
-    """``"sharded"`` raises naming its ROADMAP item; ``"disaggregated"``
-    serves the Engine's tokens through its two replicas; an unknown name
-    is a ``ValueError``."""
+    """``"sharded"`` without an initialized process group raises saying so
+    (it serves over one in tests/test_torch_sharded.py);
+    ``"disaggregated"`` serves the Engine's tokens through its two
+    replicas; an unknown name is a ``ValueError``."""
     cfg, _, params = tiny_model
-    with pytest.raises(NotImplementedError,
-                       match="item 8, the sharded deployment"):
+    with pytest.raises(RuntimeError,
+                       match="initialized default process group"):
         LLMServer(cfg, params, OPTS_Q, deployment="sharded", device="cpu")
     srv = _paged(cfg, params, deployment="disaggregated")
     prompt = np.arange(2, 9, dtype=np.int32)

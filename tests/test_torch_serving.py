@@ -212,12 +212,14 @@ def test_fused_backend_mixed_lengths_and_stop(tiny_model):
 
 
 def test_llm_server_refuses_unported_backends_and_bad_input(tiny_model):
-    """Every backend is ported; an unported deployment of the paged one is
-    refused, and so is a split backend without its OPSC config. The
-    default backend (``"paged"``) serves on the CPU when asked for it, and
-    so does a traced fused backend."""
+    """Every backend is ported; the sharded deployment of the paged one is
+    refused without an initialized process group (it serves over one in
+    tests/test_torch_sharded.py), and so is a split backend without its
+    OPSC config. The default backend (``"paged"``) serves on the CPU when
+    asked for it, and so does a traced fused backend."""
     cfg, _, params = tiny_model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError,
+                       match="initialized default process group"):
         LLMServer(cfg, params, OPTS_Q, deployment="sharded", device="cpu")
     with pytest.raises(ValueError, match="opsc"):
         LLMServer(cfg, params, OPTS_Q, backend="split", device="cpu")
@@ -292,7 +294,9 @@ def test_port_imports_nothing_of_jax():
         "'repro_torch.serving.http', 'repro_torch.serving.telemetry', "
         "'repro_torch.data.pipeline', 'repro_torch.training.optimizer', "
         "'repro_torch.training.train_loop', "
-        "'repro_torch.training.checkpoint', 'repro_torch.launch.train'} "
+        "'repro_torch.training.checkpoint', 'repro_torch.launch.train', "
+        "'repro_torch.launch.mesh', 'repro_torch.launch.collectives', "
+        "'repro_torch.launch.ranks'} "
         "<= set(mods)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
