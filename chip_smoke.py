@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, as a check of the port
     python3 chip_smoke.py --phases env,kernels,packed
+    python3 chip_smoke.py --phases env,train_mesh   # only when named
 
 Phases, each printing one JSON line:
 
@@ -117,7 +118,7 @@ Phases, each printing one JSON line:
            (``HEAD_GROUPS``);
   families the sliding-window families: gemma2-2b and h2o-danube-3-4b tiny
            on the CPU against the card; both at full width, danube over
-           16 of its 24 blocks and gemma2 over 5 of its 13
+           9 of its 24 blocks and gemma2 over 5 of its 13
            (``FAMILY_DANUBE_BLOCKS``, ``FAMILY_GEMMA2_BLOCKS``; random bf16
            weights, int8 KV,
            cache_len 4352) answering four
@@ -159,7 +160,7 @@ Phases, each printing one JSON line:
            qwen2-moe's expert and router products (``K7_MOE``);
   gqa      the grouped- and multi-query configs: internlm2-20b (G 6) and
            granite-34b (G 48) at small widths with those group sizes on
-           the CPU against the card; internlm2-20b at full width over 12
+           the CPU against the card; internlm2-20b at full width over 9
            of its 48 blocks (``GQA_INTERNLM2_BLOCKS``; random bf16
            weights, int8 KV) through LLMServer(backend=
            "fused") (A: four requests, as the families phase checks them),
@@ -167,7 +168,7 @@ Phases, each printing one JSON line:
            256-token prefix, chunked then packed; K2, K3, K4 counted by
            route; every step held to the fused path, packed to chunked)
            and the split backend at ℓ = 8 (C: K7 by route); granite-34b
-           over its first 12 of 88 blocks (``GQA_GRANITE_BLOCKS``) the
+           over its first 9 of 88 blocks (``GQA_GRANITE_BLOCKS``) the
            same, fused (D), paged chunked (E) and split (F: its ungated
            GELU w_up through K7). The kernels phase holds K1 at
            both decode steps (``K1_STEPS``), K2 to K4 at both group sizes
@@ -177,7 +178,7 @@ Phases, each printing one JSON line:
            against the card; mamba2-780m on f32 weights at full width and
            depth, the step recurrence held to the chunked prefill and a
            bf16 recurrent state to the f32 one; mamba2-780m on bf16
-           weights over 12 of its 48 blocks (``SSM_MAMBA2_BLOCKS``)
+           weights over 9 of its 48 blocks (``SSM_MAMBA2_BLOCKS``)
            through the fused backend (A: requests of 4160, 4160, 256 and
            256 tokens, K1 never) and the split backend at ℓ = 8 (B: K5,
            K6, K7 on the SSM projections); jamba-v0.1-52b at full
@@ -187,7 +188,7 @@ Phases, each printing one JSON line:
            mamba2's projections (``K7_SLICE16``);
   modal    the vision-stub and codebook configs: qwen2-vl-2b (G 6 over 8
            patch slots) and musicgen-medium at small widths on the CPU
-           against the card; qwen2-vl-2b at full width over 12 of its 28
+           against the card; qwen2-vl-2b at full width over 9 of its 28
            blocks (``MODAL_QWEN2_VL_BLOCKS``; random bf16 weights, int8
            KV) through LLMServer(backend="fused") on
            text (A, as the families phase checks it) and through the
@@ -197,7 +198,7 @@ Phases, each printing one JSON line:
            decode step beside its byte bound), the paged backend (B:
            ``_dense_paged``, chunked then packed; K2, K3, K4 at K 2, G 6)
            and the split backend at ℓ = 8 (C); musicgen-medium at full
-           width over 16 of its 48 blocks (``MODAL_MUSICGEN_BLOCKS``)
+           width over 9 of its 48 blocks (``MODAL_MUSICGEN_BLOCKS``)
            through the Engine on (2, 512, 4) codebook
            prompts (D, held as A's Engine run, K1 at head dim 64) and the
            split engine at ℓ = 8 (E); the paged pool's dense-gather route
@@ -219,7 +220,26 @@ Phases, each printing one JSON line:
            int8-KV Engine beside the committed vehicle's); the
            straight-through codec on a (128, 4096) payload (D: one launch
            of K6 and of K5, the forward bit for bit the CPU's, the
-           backward the upstream gradient).
+           backward the upstream gradient); the sharded training mesh
+           (``make_train_step(mesh=)``): E, run A's config, batches and
+           schedule for 3 steps over the (1, 1) mesh of one NCCL rank,
+           every metric and every parameter's SHA-256 after each step
+           bit for bit the unsharded steps' (which are run A's);
+  train_mesh  run only when named in ``--phases`` (``ON_REQUEST``): its
+           gloo ranks share the card and move every gathered weight
+           through the host, about three minutes that the whole script
+           cannot spare on a slow host within its limit. F, four
+           gloo ranks sharing the card on the (2, 2) mesh, llama2-7b
+           over 2 of its 32 blocks, batch 4 × 256, accum 2, 2 steps; G,
+           two gloo ranks on the (2, 1) mesh, qwen2-moe-a2.7b over 1 of
+           its 24 blocks, ``moe_groups`` 2, 2 steps, then ``moe_layer_ep``
+           on block 0's weights (FSDP) against ``moe_layer(groups=2)``
+           and the mean of the two halves' losses. Each step of F and G
+           is held to the unsharded step on the card from the same state
+           (the seed-0 draw, then the blocks the ranks wrote after the
+           step before, put together): metrics and parameters; each
+           rank's parameter and moment bytes equal the placement's share,
+           and each rank's peak is below the unsharded step's.
 
 Every phase's line carries ``phase_s`` and ``part_s`` (its seconds, and
 its parts'). Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -233,6 +253,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -244,6 +265,9 @@ SRC = os.path.join(ROOT, "src")
 PHASES = ("env", "kernels", "model", "vehicle", "serve", "paged", "packed",
           "split", "spec", "service", "disagg", "sharded", "families", "moe",
           "gqa", "ssm", "modal", "train")
+# phases that run only when --phases names them (not in a run with no
+# arguments): the training mesh's gloo ranks, F and G
+ON_REQUEST = ("train_mesh",)
 
 # kernel vs plain, q in f32 or bf16: both widen the same q to f32 exactly and
 # do the same f32 math, so they differ only in summation order
@@ -5607,11 +5631,12 @@ INT8_BOUND = 0.08
 FAMILY_SPLIT_LAYER = 8  # ℓ of h2o-danube-3-4b's layers
 FAMILY_TINY = ("gemma2-2b-tiny", "h2o-danube-3-4b-tiny")
 # gemma2-2b over its first 5 of 13 blocks (10 of 26 layers, windowed and
-# global alternating) and h2o-danube-3-4b over 16 of its 24: full depth was
-# measured (PERF.md); cut for the whole script's time (7 and 24 until the
-# sharded phase came), as the moe and gqa phases' configs are
+# global alternating) and h2o-danube-3-4b over 9 of its 24 (one layer past
+# FAMILY_SPLIT_LAYER): full depth was measured (PERF.md); cut for the whole
+# script's time (7 and 24 until the sharded phase came, danube 16 until
+# the train phase's mesh parts), as the moe and gqa phases' configs are
 FAMILY_GEMMA2_BLOCKS = 5
-FAMILY_DANUBE_BLOCKS = 16
+FAMILY_DANUBE_BLOCKS = 9
 
 
 def _family_params(ctx, name, blocks=None) -> tuple:
@@ -6499,9 +6524,10 @@ GQA_SPLIT_MAX_TOKENS = 8  # the split runs: the split phase's prompts
 # granite-34b runs over its first 12 of 88 blocks and internlm2-20b over 12
 # of 48: both depths were measured (PERF.md), and the later phases need the
 # seconds within the script's 1,200 s limit (on a slow host too); 22 and 24
-# before the train phase came, 16 before the sharded phase
-GQA_GRANITE_BLOCKS = 12
-GQA_INTERNLM2_BLOCKS = 12
+# before the train phase came, 16 before the sharded phase, 12 before the
+# train phase's mesh parts (9: one layer past FAMILY_SPLIT_LAYER)
+GQA_GRANITE_BLOCKS = 9
+GQA_INTERNLM2_BLOCKS = 9
 
 
 def _small_config(name, blocks=2):
@@ -6764,11 +6790,12 @@ def phase_gqa(ctx) -> None:
 # width, its f32 holds at full depth, its bf16 runs (A, B) over 12 of its
 # 48 blocks (both measured at full depth in PRs 26 and 27; cut to 24 to
 # make room for the planner and the 12-bit split, to 16 for the train
-# phase, to 12 for the sharded one); jamba-v0.1-52b at full width
+# phase, to 12 for the sharded one, to 9 for the train phase's mesh parts:
+# one layer past FAMILY_SPLIT_LAYER); jamba-v0.1-52b at full width
 # over 2 of its 4 blocks (16 of 32 layers: 2 attention, 14 Mamba-2, 8 MoE;
 # all 4 blocks are 103 GB of bf16), served dropless; random bf16 weights,
 # int8 KV
-SSM_MAMBA2_BLOCKS = 12
+SSM_MAMBA2_BLOCKS = 9
 SSM_JAMBA_BLOCKS = 2
 SSM_JAMBA_LENS = (1024, 1024, 256, 256)
 SSM_JAMBA_CACHE_LEN = 1152
@@ -6953,8 +6980,10 @@ MODAL_TINY = ("qwen2-vl-2b", "musicgen-medium")
 # qwen2-vl-2b over its first 12 of 28 blocks and musicgen-medium over 16 of
 # 48: both were measured at full depth (PERF.md, PR 27's and 28's runs);
 # cut to make room for the train phase (16 and 24), then the sharded one
-MODAL_QWEN2_VL_BLOCKS = 12
-MODAL_MUSICGEN_BLOCKS = 16
+# (12 and 16), then the train phase's mesh parts (9: one layer past
+# FAMILY_SPLIT_LAYER)
+MODAL_QWEN2_VL_BLOCKS = 9
+MODAL_MUSICGEN_BLOCKS = 9
 
 
 def _unread_bytes(params) -> int:
@@ -7669,21 +7698,498 @@ def _train_ste(ctx) -> dict:
             "forward_ms": timed["ste"], "checks": checks}
 
 
-def phase_train(ctx) -> None:
+# parts E to G: the sharded training mesh (launch.mesh.make_training_mesh,
+# launch.sharding, make_train_step(mesh=)). E: one NCCL rank on the (1, 1)
+# mesh at run A's shape for TRAIN_E_STEPS steps, bit for bit the unsharded
+# step; F: four gloo ranks sharing the card on the (2, 2) mesh; G: two
+# gloo ranks on the (2, 1) mesh over qwen2-moe-a2.7b's first block, then
+# moe_layer_ep on that block's weights. Each step of F and G is held to the
+# unsharded step from the same state at tests/test_torch_sharded_train.py's
+# bars (the parameters within 2 lr of that step)
+TRAIN_E_STEPS = 3
+TRAIN_F = dict(arch="llama2-7b", dims=(2, 2), blocks=2, batch=4, seq=256,
+               accum=2, steps=2, moe_groups=1, moe_cf=1.25)
+TRAIN_G = dict(arch="qwen2-moe-a2.7b", dims=(2, 1), blocks=1, batch=4,
+               seq=128, accum=1, steps=2, moe_groups=2, moe_cf=0.0,
+               ep=dict(seq=128, cf=1.25))
+TRAIN_MESH_LR = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+TRAIN_MESH_METRIC_REL = 2e-5
+TRAIN_MESH_PARAM_TIGHT = 1e-5
+TRAIN_MESH_PARAM_LOOSE_SHARE = 0.01
+TRAIN_EP_REL = 1e-4  # y against the largest |y|; the aux relative
+
+
+def _digests(params: dict) -> dict:
+    """Each leaf's SHA-256 over its bytes (hashed on host threads)."""
+    import concurrent.futures
+    import hashlib
+
+    host = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        return dict(zip(host, ex.map(
+            lambda a: hashlib.sha256(a.data).hexdigest(), host.values())))
+
+
+def _train_e(ctx, run_a) -> dict:
+    """Part E: run A's config, batches and schedule for TRAIN_E_STEPS
+    steps, unsharded and then over the (1, 1) mesh of one NCCL rank (this
+    process): each step's metrics and every parameter's SHA-256, bit for
+    bit; the unsharded steps' metrics are run A's."""
+    import dataclasses
+    import itertools
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ZipfMarkov, lm_loader
+    from repro_torch.device import to_device
+    from repro_torch.launch.mesh import make_training_mesh
+    from repro_torch.launch.sharding import TrainPlacement
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+
+    device, argv = ctx["device"], list(TRAIN_ARGV)
+    cfg = dataclasses.replace(get_config("llama2-7b"),
+                              num_blocks=_flag(argv, "--num-blocks"))
+    b, s, n = (_flag(argv, f) for f in ("--batch", "--seq", "--steps"))
+    opts = RuntimeOpts(q_chunk=min(1024, s), kv_chunk=min(1024, s),
+                       remat=True)
+    tc = TrainConfig(AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=n),
+                     accum_steps=_flag(argv, "--accum"))
+    batches = list(itertools.islice(lm_loader(
+        ZipfMarkov(cfg.vocab_size, branching=8, seed=0), b, s, n),
+        TRAIN_E_STEPS))
+
+    def run(mesh):
+        params, state = init_train_state(
+            cfg, torch.Generator(device=device).manual_seed(0),
+            device=device)
+        if mesh is not None:
+            place = TrainPlacement(cfg, mesh)
+            params, state = place.shard(params), place.shard(state)
+        step = make_train_step(cfg, tc, opts, mesh=mesh)
+        rows = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, {
+                k: to_device(v, device) for k, v in batch.items()})
+            row = {k: float(v) for k, v in m.items()}
+            row["host_ms"] = (time.perf_counter() - t0) * 1e3
+            row["digests"] = _digests(params)
+            rows.append(row)
+        del params, state
+        _free_weights()
+        return rows
+
+    plain = run(None)
+    _mark(ctx, "E_unsharded")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_training_mesh((1, 1))
+        meshed = run(mesh)
+    finally:
+        dist.destroy_process_group()
+    keys = ("loss", "ce", "aux", "grad_norm", "lr")
+    checks = {
+        "metrics_bits": all(p[k] == m[k] for p, m in zip(plain, meshed)
+                            for k in keys),
+        "digests_bits": all(p["digests"] == m["digests"]
+                            for p, m in zip(plain, meshed)),
+        "unsharded_is_run_a": all(
+            p[k] == a[k] for p, a in zip(plain, run_a["steps"])
+            for k in ("loss", "grad_norm", "lr"))}
+    return {"config": cfg.name, "mesh": [1, 1], "backend": "nccl",
+            "steps": [{k: v for k, v in r.items() if k != "digests"}
+                      for r in meshed],
+            "unsharded_host_ms": [r["host_ms"] for r in plain],
+            "leaves_hashed": len(plain[0]["digests"]), "checks": checks}
+
+
+def _mesh_config(spec):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(spec["arch"]),
+                               num_blocks=spec["blocks"])
+
+
+def _mesh_setup(spec):
+    """(config, TrainConfig, RuntimeOpts, batches) of a TRAIN_F/TRAIN_G
+    spec."""
+    from repro_torch.data.pipeline import ZipfMarkov, lm_loader
+    from repro_torch.models.transformer import RuntimeOpts
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig
+
+    cfg = _mesh_config(spec)
+    tc = TrainConfig(AdamWConfig(**TRAIN_MESH_LR),
+                     accum_steps=spec["accum"])
+    opts = RuntimeOpts(q_chunk=spec["seq"], kv_chunk=spec["seq"],
+                       remat=True, moe_groups=spec["moe_groups"],
+                       moe_capacity_factor=spec["moe_cf"])
+    batches = list(lm_loader(ZipfMarkov(cfg.vocab_size, branching=8,
+                                        seed=0),
+                             spec["batch"], spec["seq"], spec["steps"]))
+    return cfg, tc, opts, batches
+
+
+def _ep_inputs_on(spec, cfg, device):
+    """G's moe_layer_ep input: (2, seq, D) f32 from seed 5 on the card."""
     import torch
 
+    gen = torch.Generator(device=device).manual_seed(5)
+    return torch.randn((2, spec["ep"]["seq"], cfg.d_model), generator=gen,
+                       device=device)
+
+
+def _block_ffn(params) -> dict:
+    """Block 0's MoE leaves of a whole parameter dict, nested."""
+    out = {}
+    for k, v in params.items():
+        if k.startswith("blocks/p0/ffn/"):
+            name = k[len("blocks/p0/ffn/"):]
+            if name.startswith("shared/"):
+                out.setdefault("shared", {})[name[7:]] = v[0]
+            else:
+                out[name] = v[0]
+    return out
+
+
+def _block_file(work: str, rank: int, step: int) -> str:
+    return os.path.join(work, f"blocks_r{rank}_s{step}.pt")
+
+
+def _assemble(blocks: list, spec, dims: tuple, names: tuple):
+    """The whole leaf from every rank's block (in rank order) of a leaf
+    placed by ``spec`` on a training mesh of ``dims``: rank r sits at its
+    row-major coordinates, as ``make_training_mesh`` places it."""
+    import torch
+    from repro_torch.launch.sharding import entry_dims
+
+    sizes = dict(zip(names, dims))
+    cuts = [entry_dims(e) for e in spec]
+    first = blocks[0]
+    whole = torch.empty([n * math.prod(sizes[m] for m in c)
+                         for n, c in zip(first.shape, cuts)],
+                        dtype=first.dtype)
+    for r, b in enumerate(blocks):
+        at, rest = {}, r
+        for name, size in reversed(tuple(zip(names, dims))):
+            at[name], rest = rest % size, rest // size
+        index = []
+        for n, c in zip(b.shape, cuts):
+            i = 0
+            for m in c:
+                i = i * sizes[m] + at[m]
+            index.append(slice(i * n, (i + 1) * n))
+        whole[tuple(index)] = b
+    return whole
+
+
+def _assembled(work: str, step: int, world: int, specs: dict, dims: tuple,
+               moments: bool):
+    """(whole params, whole AdamWState or None) after ``step`` from the
+    blocks every rank wrote; the files are removed."""
+    import torch
+    from repro_torch.launch.mesh import TRAIN_DIMS
+    from repro_torch.training.optimizer import AdamWState
+
+    paths = [_block_file(work, r, step) for r in range(world)]
+    loaded = [torch.load(p, mmap=True) for p in paths]
+
+    def whole(group):
+        return {k: _assemble([f[group][k] for f in loaded], specs[k], dims,
+                             TRAIN_DIMS[len(dims)])
+                for k in loaded[0][group]}
+
+    params = whole("params")
+    state = AdamWState(whole("mu"), whole("nu"), loaded[0]["count"]) \
+        if moments else None
+    del loaded
+    for p in paths:
+        os.remove(p)
+    return params, state
+
+
+def _plain_step(step, params, state, batch, device, base: int) -> dict:
+    """The unsharded step from ``params`` and ``state`` (host or card): its
+    metrics, host ms, new parameters on the host, and its peak device
+    bytes over ``base`` (what was allocated before the state came onto the
+    card)."""
+    import torch
+    from repro_torch.training.optimizer import AdamWState
+
+    p = {k: v.to(device) for k, v in params.items()}
+    s = AdamWState({k: v.to(device) for k, v in state.mu.items()},
+                   {k: v.to(device) for k, v in state.nu.items()},
+                   state.count.to(device))
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    p, s, m = step(p, s, batch)
+    row = {k: float(v) for k, v in m.items()}
+    row["host_ms"] = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(device) - base
+    new = {k: v.cpu() for k, v in p.items()}
+    del p, s
+    return {"metrics": row, "params": new, "peak_bytes": peak}
+
+
+def _param_hold(got: dict, want: dict, device) -> dict:
+    """Largest |got − want| over the parameters, and how many entries
+    pass TRAIN_MESH_PARAM_TIGHT (compared on the card, a leaf at a
+    time)."""
+    worst, loose, total = 0.0, 0, 0
+    for k, w in want.items():
+        d = (got[k].to(device) - w.to(device)).abs()
+        worst = max(worst, float(d.max()))
+        loose += int((d > TRAIN_MESH_PARAM_TIGHT).sum())
+        total += d.numel()
+        del d
+    return {"max_abs_err": worst, "loose": loose, "counted": total}
+
+
+def _train_mesh_rank(rank: int, world: int, device_name: str, spec: dict,
+                     ep_want, work: str) -> dict:
+    """One rank of part F or G (``launch.ranks.run_ranks`` starts it under
+    gloo): the whole state drawn from seed 0 and cut, (G) moe_layer_ep on
+    block 0's whole weights cut as it takes them, then the sharded steps.
+    After each step the rank writes its blocks (and, but after the last
+    step, its moments' blocks) under ``work`` for the caller's holds.
+    Returns the rank's resident bytes, its peak over the steps, and each
+    step's metrics and host ms."""
+    import torch
+    from repro_torch.device import to_device
+    from repro_torch.launch.collectives import block_index
+    from repro_torch.launch.mesh import make_training_mesh
+    from repro_torch.launch.sharding import TrainPlacement
+    from repro_torch.models.moe import moe_layer_ep
+    from repro_torch.params import param_specs as shapes
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    torch.set_num_threads(2)
+    device = torch.device(device_name)
+    torch.cuda.set_device(device)
+    t_setup = time.perf_counter()
+    cfg, tc, opts, batches = _mesh_setup(spec)
+    mesh = make_training_mesh(spec["dims"])
+    place = TrainPlacement(cfg, mesh)
+    params, state = init_train_state(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    out = {"mesh": list(mesh.shape)}
+    if ep_want is not None:
+        ffn = _block_ffn(params)
+        idx, n = block_index(place.data)
+        cut = {"w_router": ffn["w_router"]}
+        for k, dim in (("w_gate", 1), ("w_up", 1), ("w_down", 2)):
+            cut[k] = ffn[k].chunk(n, dim)[idx].contiguous()
+        cut["shared"] = {k: v.chunk(n, 0)[idx].contiguous()
+                         for k, v in ffn["shared"].items()}
+        x = _ep_inputs_on(spec, cfg, device).chunk(n, 0)[idx]
+        with torch.no_grad():
+            y, aux = moe_layer_ep(cut, x, cfg.pattern[0].ffn, ("data",),
+                                  spec["ep"]["cf"], True, mesh=mesh)
+        want_y = torch.from_numpy(ep_want["y"]).chunk(n, 0)[idx]
+        out["ep"] = {"y_err": float((y.cpu() - want_y).abs().max()),
+                     "y_max": float(want_y.abs().max()),
+                     "aux": float(aux), "aux_want": ep_want["aux"],
+                     "aux_grouped": ep_want["aux_grouped"]}
+        del ffn, cut
+    params, state = place.shard(params), place.shard(state)
+    _free_weights()
+    whole = {k: v[0] for k, v in shapes(cfg).items()}
+    out["resident"] = {"params": place.resident_bytes(params),
+                       "moments": place.resident_bytes(state),
+                       "share": place.share_bytes(whole),
+                       "whole": sum(4 * math.prod(s)
+                                    for s in whole.values())}
+    out["setup_s"] = time.perf_counter() - t_setup
+    step = make_train_step(cfg, tc, opts, mesh=mesh)
+    rows, peak = [], 0
+    for i, batch in enumerate(batches):
+        batch = {k: to_device(v, device) for k, v in batch.items()}
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        row = {k: float(v) for k, v in m.items()}
+        row["host_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize(device)
+        peak = max(peak, torch.cuda.max_memory_allocated(device))
+        t0 = time.perf_counter()
+        blocks = {"params": {k: v.cpu() for k, v in params.items()}}
+        if i + 1 < len(batches):  # the next step's unsharded start
+            blocks.update(mu={k: v.cpu() for k, v in state.mu.items()},
+                          nu={k: v.cpu() for k, v in state.nu.items()},
+                          count=state.count.cpu())
+        torch.save(blocks, _block_file(work, rank, i))
+        del blocks
+        row["write_ms"] = (time.perf_counter() - t0) * 1e3
+        rows.append(row)
+    out.update(steps=rows, peak_bytes=peak)
+    return out
+
+
+def _train_mesh(ctx, spec, name) -> dict:
+    """Part F or G. Each step of the ranks is held against the unsharded
+    step on the card from the same state: step 1 from the seed-0 draw
+    (run here before the ranks, which draw the same), each later step
+    from the ranks' blocks after the step before, put together here from
+    the files they wrote. (G) moe_layer_ep is held to the unsharded
+    ``moe_layer`` on block 0 of the draw."""
+    import torch
+    from repro_torch.device import to_device
+    from repro_torch.launch.mesh import TRAIN_DIMS, AbstractMesh
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.launch.sharding import param_specs
+    from repro_torch.models.moe import moe_layer
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    device = ctx["device"]
+    cfg, tc, opts, batches = _mesh_setup(spec)
+    dims = tuple(spec["dims"])
+    batches = [{k: to_device(v, device) for k, v in b.items()}
+               for b in batches]
+    plain = make_train_step(cfg, tc, opts)
+    _free_weights()
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    params, state = init_train_state(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    ep_want = None
+    if "ep" in spec:
+        x = _ep_inputs_on(spec, cfg, device)
+        ffn, moe = _block_ffn(params), cfg.pattern[0].ffn
+        with torch.no_grad():
+            y, aux_grouped = moe_layer(ffn, x, moe, spec["ep"]["cf"],
+                                       groups=2)
+            own = [moe_layer(ffn, half, moe, spec["ep"]["cf"])[1]
+                   for half in x.chunk(2, 0)]
+        ep_want = {"y": y.cpu().numpy(), "aux_grouped": float(aux_grouped),
+                   "aux": float((own[0] + own[1]) / 2)}
+        del ffn, x, y, own
+    wants = [_plain_step(plain, params, state, batches[0], device, base)]
+    del params, state
+    _free_weights()
+    _mark(ctx, f"{name}_unsharded")
+    work = os.path.join(ROOT, "build", f"{name}_ranks")
+    os.makedirs(work, exist_ok=True)
+    rank_device = str(torch.device("cuda", torch.cuda.current_device()))
+    world = math.prod(dims)
+    ranks = run_ranks(_train_mesh_rank, world, backend="gloo",
+                      workdir=work, args=(rank_device, spec, ep_want, work),
+                      timeout=900)
+    _mark(ctx, f"{name}_ranks")
+    specs = param_specs(cfg, AbstractMesh(dims, TRAIN_DIMS[len(dims)]),
+                        fsdp=True)
+    held = []
+    for i in range(spec["steps"]):
+        more = i + 1 < spec["steps"]
+        got, state = _assembled(work, i, world, specs, dims, moments=more)
+        held.append(_param_hold(got, wants[i]["params"], device))
+        if more:  # the next step from the state the ranks hold
+            _free_weights()
+            torch.cuda.synchronize(device)
+            wants.append(_plain_step(plain, got, state, batches[i + 1],
+                                     device, torch.cuda.memory_allocated(
+                                         device)))
+        del got, state
+        _free_weights()
+    lr = [w["metrics"]["lr"] for w in wants]
+    for h, rate in zip(held, lr):
+        h["param_atol"] = 2 * rate
+    keys = ("loss", "ce", "aux", "grad_norm", "lr")
+    # every step at the bar, each from the state the ranks held before it
+    tight = [all(abs(g[k] - w["metrics"][k])
+                 <= TRAIN_MESH_METRIC_REL * abs(w["metrics"][k]) + 1e-7
+                 for k in keys)
+             for g, w in zip(ranks[0]["steps"], wants)]
+    plain_peak = max(w["peak_bytes"] for w in wants)
+    checks = {
+        "mesh": all(r["mesh"] == list(dims) for r in ranks),
+        "steps_held": len(held) == len(ranks[0]["steps"]) == spec["steps"],
+        "ranks_agree": all([{k: s[k] for k in keys} for s in r["steps"]]
+                           == [{k: s[k] for k in keys}
+                               for s in ranks[0]["steps"]] for r in ranks),
+        "metrics": all(tight),
+        "params_within_lr": all(h["max_abs_err"] <= h["param_atol"]
+                                for h in held),
+        "params_tight": all(h["loose"] <= TRAIN_MESH_PARAM_LOOSE_SHARE
+                            * h["counted"] for h in held),
+        "resident_is_share": all(
+            r["resident"]["params"] == r["resident"]["share"]
+            and r["resident"]["moments"] == 2 * r["resident"]["share"]
+            for r in ranks),
+        "peak_below_unsharded": all(r["peak_bytes"] < plain_peak
+                                    for r in ranks)}
+    if ep_want is not None:
+        checks["ep_y"] = all(r["ep"]["y_err"] <= TRAIN_EP_REL
+                             * r["ep"]["y_max"] for r in ranks)
+        checks["ep_aux_mean_of_ranks"] = all(
+            abs(r["ep"]["aux"] - ep_want["aux"])
+            <= TRAIN_EP_REL * ep_want["aux"] for r in ranks)
+    return {"config": cfg.name, **{k: v for k, v in spec.items()
+                                   if k != "arch"},
+            "backend": "gloo (ranks share the card)",
+            "unsharded": {"steps": [w["metrics"] for w in wants],
+                          "peak_gb": plain_peak / 1e9},
+            "ranks": [{"setup_s": r["setup_s"],
+                       "step_host_ms": [s["host_ms"] for s in r["steps"]],
+                       "write_ms": [s["write_ms"] for s in r["steps"]],
+                       "peak_gb": r["peak_bytes"] / 1e9,
+                       "params_gb": r["resident"]["params"] / 1e9,
+                       "moments_gb": r["resident"]["moments"] / 1e9,
+                       "share_gb": r["resident"]["share"] / 1e9,
+                       "whole_params_gb": r["resident"]["whole"] / 1e9,
+                       **({"ep": r["ep"]} if "ep" in r else {})}
+                      for r in ranks],
+            "metrics": ranks[0]["steps"], "metrics_tight": tight,
+            "params": held,
+            "tol": {"metric_rel": TRAIN_MESH_METRIC_REL,
+                    "param_tight": TRAIN_MESH_PARAM_TIGHT,
+                    "param_loose_share": TRAIN_MESH_PARAM_LOOSE_SHARE,
+                    "ep_rel": TRAIN_EP_REL},
+            "checks": checks}
+
+
+def phase_train(ctx) -> None:
     parts = []
     for name, fn in (("A", _train_launcher), ("B", _train_card_cpu),
-                     ("C", _train_vehicle), ("D", _train_ste)):
+                     ("C", _train_vehicle), ("D", _train_ste),
+                     ("E", lambda ctx: _train_e(ctx, parts[0][1]))):
         parts.append((name, fn(ctx)))
         _mark(ctx, name)
         _free_weights()
+    _emit_parts(ctx, "train", parts)
+
+
+def phase_train_mesh(ctx) -> None:
+    parts = []
+    for name, spec in (("F", TRAIN_F), ("G", TRAIN_G)):
+        parts.append((name, _train_mesh(ctx, spec, name)))
+        _mark(ctx, name)
+        _free_weights()
+    _emit_parts(ctx, "train_mesh", parts)
+
+
+def _emit_parts(ctx, phase: str, parts: list) -> None:
+    """The phase's line: its parts, times, the card; failed on any check."""
+    import torch
+
     checks = {}
-    report = {"phase": "train", **_times(ctx), **dict(parts),
+    report = {"phase": phase, **_times(ctx), "nvidia_smi": ctx["smi"],
+              **dict(parts),
               "device_memory_gb": torch.cuda.get_device_properties(
                   0).total_memory / 1e9}
     try:
-        _phase_verdict("train", parts, checks)
+        _phase_verdict(phase, parts, checks)
     finally:
         report.update(checks=checks, ok=all(checks.values()))
         emit(report)
@@ -7695,10 +8201,11 @@ def phase_train(ctx) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + ON_REQUEST))
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES + ON_REQUEST)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -7726,8 +8233,9 @@ def main(argv=None) -> int:
                "disagg": phase_disagg, "sharded": phase_sharded,
                "families": phase_families,
                "moe": phase_moe, "gqa": phase_gqa, "ssm": phase_ssm,
-               "modal": phase_modal, "train": phase_train}
-    for name in PHASES:
+               "modal": phase_modal, "train": phase_train,
+               "train_mesh": phase_train_mesh}
+    for name in PHASES + ON_REQUEST:
         if name in phases:
             ctx["phase_t0"] = ctx["part_t0"] = time.perf_counter()
             ctx["part_s"] = {}

@@ -21,8 +21,16 @@ own row of a (T·k, D) buffer (dropped pairs stay exact zeros) through a
 copy with unique indices, then the k rows of a token are summed: no
 atomics, so a run repeats its bits on the card.
 
-Expert parallelism (the reference's ``moe_layer_ep`` under
-``shard_map``) belongs to the sharded deployment and is not ported.
+On a training mesh (``launch.sharding``) the layer sees only this rank's
+rows of the microbatch (``data=``, the sharded train step's data dims):
+the token groups of the capacity rule are then each rank's own when their
+count is a multiple of the data size, and otherwise the rows of every
+data rank are gathered so that the rule runs over the whole microbatch,
+as the reference's over its global batch. Either way ``f_e`` and ``p_e``
+cover the whole microbatch before the loss's product.
+:func:`moe_layer_ep` is the reference's expert-parallel layer: each data
+rank routes its own tokens at its own capacity, and the loss is the mean
+of the ranks' losses.
 """
 
 from __future__ import annotations
@@ -93,21 +101,22 @@ def expert_weight(w, i: int, num_experts: int):
     return QuantizedTensor(codes, w.scale, w.bits, tuple(codes.shape))
 
 
-def moe_layer(params, x: torch.Tensor, spec, capacity_factor: float = 1.25,
-              groups: int = 1):
-    """x (B, S, D) → (out (B, S, D), aux loss, a 0-d f32 tensor), as the
-    reference's ``moe_layer``. ``groups`` > 1 applies the capacity rule
-    and the loss's means per group of T / groups consecutive tokens (1
-    when it does not divide T); every row of x is routed, pad rows too."""
-    b, s, d = x.shape
-    t = b * s
-    e, k = spec.num_experts, spec.top_k
+def _groups(groups: int, t: int) -> int:
+    """The reference's token groups for ``t`` tokens: at most ``t``, and
+    1 when they do not divide ``t``."""
     groups = max(1, min(groups, t))
-    if t % groups:
-        groups = 1
+    return 1 if t % groups else groups
+
+
+def _routed(params, xt: torch.Tensor, spec, capacity_factor: float,
+            groups: int):
+    """The routed experts over xt (T, D) in ``groups`` groups of
+    consecutive tokens: (y (T, D) without the shared expert, f_e (E,),
+    p_e (E,)), the loss's terms averaged over the groups."""
+    t, d = xt.shape
+    e, k = spec.num_experts, spec.top_k
     tg = t // groups
     cap = capacity(tg, spec, capacity_factor)
-    xt = x.reshape(t, d)
 
     logits = matmul(xt.float(), params["w_router"])  # (T, E) f32
     probs = torch.softmax(logits, dim=-1)
@@ -127,11 +136,11 @@ def moe_layer(params, x: torch.Tensor, spec, capacity_factor: float = 1.25,
     order = torch.sort(key, stable=True).indices
     kept = t * k - counts[e]
 
-    y = torch.zeros((t * k, d), dtype=x.dtype, device=x.device)
+    y = torch.zeros((t * k, d), dtype=xt.dtype, device=xt.device)
     if kept:
         pairs = order[:kept]
         rows = xt.index_select(0, pairs // k)
-        out = torch.empty((kept, d), dtype=x.dtype, device=x.device)
+        out = torch.empty((kept, d), dtype=xt.dtype, device=xt.device)
         start = 0
         for i, n in enumerate(counts[:e]):
             if not n:
@@ -141,7 +150,7 @@ def moe_layer(params, x: torch.Tensor, spec, capacity_factor: float = 1.25,
             out[start:start + n] = mlp_layer(w, rows[start:start + n],
                                              "silu")
             start += n
-        g = gate.reshape(-1).index_select(0, pairs).to(x.dtype)
+        g = gate.reshape(-1).index_select(0, pairs).to(xt.dtype)
         y.index_copy_(0, pairs, out * g[:, None])
     y = y.reshape(t, k, d).sum(dim=1)
 
@@ -151,9 +160,6 @@ def moe_layer(params, x: torch.Tensor, spec, capacity_factor: float = 1.25,
         f_e, p_e = f_e.mean(0), p_e.mean(0)
     else:
         f_e, p_e = f_e[0], p_e[0]
-    if "shared" in params:
-        y = y + mlp_layer(params["shared"], xt, "silu")
-    aux = e * torch.sum(f_e * p_e) / k
 
     if not _UNCOUNTED[0]:
         STATS["calls"] += 1
@@ -161,11 +167,106 @@ def moe_layer(params, x: torch.Tensor, spec, capacity_factor: float = 1.25,
         STATS["pairs"] += t * k
         STATS["dropped"] += t * k - kept
         STATS["experts"] += sum(1 for n in counts[:e] if n)
+    return y, f_e, p_e
+
+
+def _aux(f_e, p_e, spec) -> torch.Tensor:
+    """The Switch-style load-balance loss, ``E · Σ f_e p_e / k``."""
+    return spec.num_experts * torch.sum(f_e * p_e) / spec.top_k
+
+
+def moe_layer(params, x: torch.Tensor, spec, capacity_factor: float = 1.25,
+              groups: int = 1, data=None):
+    """x (B, S, D) → (out (B, S, D), aux loss, a 0-d f32 tensor), as the
+    reference's ``moe_layer``. ``groups`` > 1 applies the capacity rule
+    and the loss's means per group of T / groups consecutive tokens (1
+    when it does not divide T); every row of x is routed, pad rows too.
+
+    ``data`` (a tuple of ``launch.collectives.Axis``, set by the sharded
+    train step through ``forward_train(data=)``) says that x holds only
+    this rank's block of rows of a microbatch split over those dims; the
+    result is then the rank's rows of the reference's layer over the
+    whole microbatch, and its loss the whole microbatch's (the module
+    docstring)."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    if data:
+        from repro_torch.launch.collectives import (block_index, data_mean,
+                                                    gather_rows, scale_grad,
+                                                    take_block)
+
+        n = block_index(data)[1]
+        g = _groups(groups, b * s * n)
+        if g % n == 0:  # whole groups on every rank
+            y, f_e, p_e = _routed(params, xt, spec, capacity_factor, g // n)
+            aux = _aux(data_mean(f_e, data), data_mean(p_e, data), spec)
+        else:  # one rule over every rank's rows
+            y_all, f_e, p_e = _routed(params, gather_rows(xt, data), spec,
+                                      capacity_factor, g)
+            y = take_block(y_all, 0, data)
+            # each data rank adds the whole loss to its own: its gradient
+            # is shared among them
+            aux = scale_grad(_aux(f_e, p_e, spec), n)
+    else:
+        y, f_e, p_e = _routed(params, xt, spec, capacity_factor,
+                              _groups(groups, b * s))
+        aux = _aux(f_e, p_e, spec)
+    if "shared" in params:
+        y = y + mlp_layer(params["shared"], xt, "silu")
     return y.reshape(b, s, d), aux
 
 
-def moe_layer_ep(*args, **kwargs):
-    """The reference's expert-parallel dispatch under ``shard_map``."""
-    raise NotImplementedError(
-        "expert-parallel MoE (moe_layer_ep) is not ported (ROADMAP queue 1, "
-        "item 8, the sharded deployment)")
+def moe_layer_ep(params, x: torch.Tensor, spec, data_axes: tuple,
+                 capacity_factor: float = 1.25, fsdp: bool = True,
+                 mesh=None):
+    """The reference's expert-parallel layer (``moe_layer_ep``, its
+    dispatch inside each data shard under ``shard_map``), one data rank
+    a call: x (B / data size, S, D) is this rank's rows of the batch (its
+    block over ``data_axes``, dims of ``mesh``). The rank routes its own
+    tokens, with its own capacity ``capacity(B / data size · S)``, so
+    drops are the rank's own. Returns (this rank's output rows, the mean
+    over the data ranks of each rank's own loss): not the grouped
+    :func:`moe_layer`'s loss, which averages ``f_e`` and ``p_e`` first.
+
+    Under ``fsdp`` the expert and shared weights are this rank's block
+    over ``data_axes`` along D (``w_gate``/``w_up`` dim 1, ``w_down`` dim
+    2, the shared expert's dim 0), gathered at use; their gradient, and
+    the router's, is summed over the data ranks. ``mesh`` defaults to a
+    ``(world, 1)`` training mesh over the default process group, which
+    must be initialized (``RuntimeError`` otherwise)."""
+    from repro_torch.launch.collectives import data_mean, gather_at_use
+    from repro_torch.launch.mesh import make_training_mesh
+    from repro_torch.launch.sharding import mesh_axes
+
+    if mesh is None:
+        import torch.distributed as dist
+
+        world = dist.get_world_size() if dist.is_available() \
+            and dist.is_initialized() else 0
+        mesh = make_training_mesh((world, 1))
+    axes = mesh_axes(mesh)
+    unknown = set(data_axes) - set(axes)
+    if unknown:
+        raise ValueError(f"data_axes {sorted(unknown)} are not dims of the "
+                         f"mesh {tuple(axes)}")
+    data = tuple(axes[n] for n in data_axes if axes[n].size > 1)
+
+    def at_use(t, dim=None):
+        cuts = ((dim, data, True),) if fsdp and dim is not None and data \
+            else ()
+        return gather_at_use(t, cuts, data) if data else t
+
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    w = {"w_router": at_use(params["w_router"]),
+         "w_gate": at_use(params["w_gate"], 1),
+         "w_up": at_use(params["w_up"], 1),
+         "w_down": at_use(params["w_down"], 2)}
+    y, f_e, p_e = _routed(w, xt, spec, capacity_factor, 1)
+    if params.get("shared") is not None:
+        shared = {k: at_use(v, 0) for k, v in params["shared"].items()}
+        y = y + mlp_layer(shared, xt, "silu")
+    aux = _aux(f_e, p_e, spec)
+    if data:
+        aux = data_mean(aux, data)
+    return y.reshape(b, s, d), aux

@@ -103,17 +103,26 @@ def layer_params(cfg: ArchConfig, params: dict, blocks=None) -> list:
     scales' slice."""
     out = []
     for i in range(*(blocks or (0, cfg.num_blocks))):
-        for pi, ls in enumerate(cfg.pattern):
-            p: dict = {}
-            prefix = f"blocks/p{pi}/"
-            for key, t in params.items():
-                if key.startswith(prefix):
-                    node = p
-                    *parents, leaf = key[len(prefix):].split("/")
-                    for name in parents:
-                        node = node.setdefault(name, {})
-                    node[leaf] = t[i]
-            out.append((ls, p))
+        out += block_layers(cfg, params, lambda key, t: t[i])
+    return out
+
+
+def block_layers(cfg: ArchConfig, params: dict, pick) -> list:
+    """One block's ``(LayerSpec, nested param dict)`` per pattern
+    position: each ``blocks/`` leaf through ``pick(key, leaf)``, which
+    gives that block's tensor."""
+    out = []
+    for pi, ls in enumerate(cfg.pattern):
+        p: dict = {}
+        prefix = f"blocks/p{pi}/"
+        for key, t in params.items():
+            if key.startswith(prefix):
+                node = p
+                *parents, leaf = key[len(prefix):].split("/")
+                for name in parents:
+                    node = node.setdefault(name, {})
+                node[leaf] = pick(key, t)
+        out.append((ls, p))
     return out
 
 
@@ -250,11 +259,11 @@ def apply_head(cfg: ArchConfig, params: dict, x: torch.Tensor):
 
 def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
                  opts: RuntimeOpts, decode: bool, attend_cache: bool = False,
-                 packed: L.PackedLayout | None = None):
+                 packed: L.PackedLayout | None = None, data=None):
     """One layer over x: (x, cache, the MoE layer's auxiliary loss, a 0-d
     f32 tensor, or None without one). ``cache`` may be None (training): an
     attention layer then attends the fresh k/v, a Mamba-2 layer starts
-    from zero states and keeps none."""
+    from zero states and keeps none. ``data``: :func:`forward_train`'s."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     aux = None
     if isinstance(ls.mixer, AttnSpec):
@@ -277,7 +286,7 @@ def _apply_layer(cfg, ls, p, x, *, rope_cs, q_positions, cache, pos,
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         if isinstance(ls.ffn, MoESpec):
             out, aux = moe_layer(p["ffn"], h, ls.ffn, opts.moe_capacity_factor,
-                                 opts.moe_groups)
+                                 opts.moe_groups, data=data)
         else:
             out = L.mlp_layer(p["ffn"], h, ls.ffn.activation)
         x = x + out
@@ -308,14 +317,15 @@ def _apply_layers(cfg, params, x, caches, *, q_positions, pos,
     return x
 
 
-def _train_block(cfg, layers, x, aux, rope_cs, positions, opts):
-    """One block's layers with no cache: (x, aux plus their MoE aux
-    losses, summed in layer order as the reference's scan body sums
-    them)."""
-    for ls, p in layers:
+def _train_block(cfg, params, gather, i, x, aux, rope_cs, positions, opts,
+                 data):
+    """Block i's layers with no cache, its leaves through ``gather``:
+    (x, aux plus their MoE aux losses, summed in layer order as the
+    reference's scan body sums them)."""
+    for ls, p in block_layers(cfg, params, lambda key, t: gather(key, t, i)):
         x, _, a = _apply_layer(cfg, ls, p, x, rope_cs=rope_cs,
                                q_positions=positions, cache=None, pos=None,
-                               opts=opts, decode=False)
+                               opts=opts, decode=False, data=data)
         if a is not None:  # the reference adds an exact 0 here
             aux = aux + a
     return x, aux
@@ -336,9 +346,14 @@ def _counted_once(fn):
     return run
 
 
+def _whole(key: str, t: torch.Tensor, block: int | None = None):
+    """:func:`forward_train`'s default gather: the leaf, or its block."""
+    return t if block is None else t[block]
+
+
 def forward_train(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                   patches: torch.Tensor | None = None,
-                  opts: RuntimeOpts = RuntimeOpts()):
+                  opts: RuntimeOpts = RuntimeOpts(), gather=None, data=None):
     """The training forward (the reference's ``forward_train``): every
     position of ``tokens`` (B, S), or (B, S, K) on a codebook config,
     through every block with no cache; returns (logits (B, S, V) f32, or
@@ -346,23 +361,36 @@ def forward_train(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     ``patches`` feed the vision stub as in :func:`prefill`. With
     ``opts.remat`` each block runs under ``torch.utils.checkpoint``: its
     activations are recomputed in the backward pass, where ``moe.STATS``
-    do not count its MoE layers again. Differentiable in ``params``."""
+    do not count its MoE layers again. Differentiable in ``params``.
+
+    ``gather(key, leaf, block=None)`` turns a leaf of ``params`` into the
+    whole tensor, or into block ``block``'s slice of a stacked leaf, at
+    its use (default: the leaf itself, or its slice). On a training mesh
+    it gathers a rank's block of the leaf (``launch.sharding``): block
+    i's leaves inside block i's ``checkpoint`` region, so that under
+    remat they are gathered again in the backward pass instead of being
+    kept, and ``embed``, ``w_proj``, ``final_norm`` and ``lm_head`` where
+    they are read. ``data`` (a tuple of ``launch.collectives.Axis``) says
+    that ``tokens`` are this rank's rows of a microbatch split over those
+    dims, for the MoE layers (``moe.moe_layer``)."""
+    gather = gather or _whole
     b, s = tokens.shape[:2]
     positions = make_positions(cfg, b, s, device=tokens.device)
-    x = embed_inputs(cfg, params, tokens, patches, positions)
+    used = ("embed", "w_proj") if patches is not None else ("embed",)
+    x = embed_inputs(cfg, {k: gather(k, params[k]) for k in used
+                           if k in params}, tokens, patches, positions)
     rope_cs = rope_tables(cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    layers = layer_params(cfg, params)
-    n = len(cfg.pattern)
     for i in range(cfg.num_blocks):
-        args = (cfg, layers[i * n:(i + 1) * n], x, aux, rope_cs, positions,
-                opts)
+        args = (cfg, params, gather, i, x, aux, rope_cs, positions, opts,
+                data)
         if opts.remat:
             x, aux = checkpoint(_counted_once(_train_block), *args,
                                 use_reentrant=False)
         else:
             x, aux = _train_block(*args)
-    return apply_head(cfg, params, x), aux
+    head = ("final_norm", "lm_head" if "lm_head" in params else "embed")
+    return apply_head(cfg, {k: gather(k, params[k]) for k in head}, x), aux
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,

@@ -10,6 +10,11 @@ The card's machine has no ``msgpack`` package, so this module writes and
 reads the subset the meta uses (maps, arrays, strings and integers)
 itself, byte for byte as ``msgpack.packb`` writes it.
 
+On a training mesh (``placement``, a ``launch.sharding.TrainPlacement``)
+the tree holds this rank's blocks: saving gathers every leaf whole and only
+rank 0 writes; restoring reads the whole file on every rank and keeps
+the rank's blocks.
+
 A bf16 leaf is stored as the reference stores one: numpy has no bf16, so
 its two-byte values go into the ``.npz`` as raw ``V2`` items and the meta
 names the dtype ``bfloat16``. The reference's own restore fails on such an
@@ -215,9 +220,30 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def save_checkpoint(path: str, tree, step: int = 0) -> None:
+def _map_trees(fn, tree):
+    """``fn`` over each parameter dict or ``AdamWState`` of ``tree`` (one
+    of them, or a tuple or list of them)."""
+    if isinstance(tree, (tuple, list)) and not hasattr(tree, "_fields"):
+        return type(tree)(fn(t) for t in tree)
+    return fn(tree)
+
+
+def save_checkpoint(path: str, tree, step: int = 0, placement=None) -> None:
     """Write ``tree`` (a parameter dict, an ``AdamWState``, or dicts and
-    tuples of them) to the directory ``path``."""
+    tuples of them) to the directory ``path``. With ``placement`` (a
+    training mesh's ``launch.sharding.TrainPlacement``) the leaves are
+    this rank's blocks: every rank must call, every leaf is gathered
+    whole, rank 0 writes, and every rank returns once the files are
+    written."""
+    if placement is not None:
+        import torch.distributed as dist
+
+        whole = _map_trees(placement.whole, tree)
+        if dist.get_rank() == 0:
+            save_checkpoint(path, whole, step)
+        del whole
+        dist.barrier()
+        return
     os.makedirs(path, exist_ok=True)
     flat = _flatten_with_paths(tree)
     np.savez(os.path.join(path, "arrays.npz"),
@@ -229,10 +255,16 @@ def save_checkpoint(path: str, tree, step: int = 0) -> None:
         f.write(packb(meta))
 
 
-def restore_checkpoint(path: str, template):
+def restore_checkpoint(path: str, template, placement=None):
     """(``template``'s structure filled from the checkpoint at ``path``, the
     step). Each leaf takes its template's dtype and device; a missing key
-    or a shape that differs from the template's raises ``ValueError``."""
+    or a shape that differs from the template's raises ``ValueError``.
+    A template leaf on the ``meta`` device restores to the host. With
+    ``placement`` the template holds whole leaves and each rank gets its
+    blocks of them (``TrainPlacement.shard``)."""
+    if placement is not None:
+        whole, step = restore_checkpoint(path, template)
+        return _map_trees(placement.shard, whole), step
     with open(os.path.join(path, "meta.msgpack"), "rb") as f:
         meta = unpackb(f.read())
     flat_t = _flatten_with_paths(template)
@@ -247,6 +279,7 @@ def restore_checkpoint(path: str, template):
             if tuple(arr.shape) != tuple(tmpl.shape):
                 raise ValueError(f"{key}: shape {arr.shape} != template "
                                  f"{tuple(tmpl.shape)}")
-            restored[key] = _to_tensor(arr).to(tmpl.device, tmpl.dtype)
+            device = "cpu" if tmpl.device.type == "meta" else tmpl.device
+            restored[key] = _to_tensor(arr).to(device, tmpl.dtype)
     return _unflatten(template, restored), meta["step"]
 

@@ -69,20 +69,34 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def global_norm(tree: dict, placement=None) -> torch.Tensor:
     """√(Σ ‖leaf‖²) in f32, the leaves summed in sorted key order (the
-    reference's pytree leaf order)."""
+    reference's pytree leaf order).
+
+    With ``placement`` (``launch.sharding.TrainPlacement``) the leaves are
+    this rank's blocks: each rank sums the squares of the blocks it
+    counts (one replica of each, ``placement.counts``), and the sums are
+    added over every rank, so every rank gets the norm of the whole
+    tree."""
     total = None
     for k in sorted(tree):
+        if placement is not None and not placement.counts(k):
+            continue
         sq = torch.sum(torch.square(tree[k].float()))
         total = sq if total is None else total + sq
+    if placement is not None:
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32,
+                                device=next(iter(tree.values())).device)
+        total = placement.sum_all(total)
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float, placement=None):
     """(grads scaled by ``min(1, max_norm / norm)``, in f32, as the
-    reference's f32 scale promotes them; the norm before clipping)."""
-    norm = global_norm(grads)
+    reference's f32 scale promotes them; the norm before clipping).
+    ``placement``: as :func:`global_norm`."""
+    norm = global_norm(grads, placement)
     # a tensor divides: ``float / tensor`` is a reciprocal times the float
     num = torch.tensor(max_norm, dtype=torch.float32, device=norm.device)
     scale = torch.clamp(num / torch.clamp(norm, min=1e-9), max=1.0)
@@ -91,10 +105,12 @@ def clip_by_global_norm(grads: dict, max_norm: float):
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: dict, state: AdamWState,
-                 params: dict):
+                 params: dict, placement=None):
     """One AdamW step: (new params, new state, {"grad_norm", "lr"}), each
-    a new tensor; the inputs are not written."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    a new tensor; the inputs are not written. With ``placement`` the
+    tensors are a rank's blocks: only the norm crosses ranks
+    (:func:`global_norm`), the rest is elementwise on the blocks."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, placement)
     count = state.count + 1
     lr = lr_schedule(cfg, count)
     b1, b2 = cfg.beta1, cfg.beta2

@@ -258,7 +258,10 @@ def test_expert_slices_of_the_edge_codes_match_the_dequantized_weights():
 
 
 def test_moe_layer_ep_names_the_sharded_deployment():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """``moe_layer_ep`` runs on the ranks of a training mesh
+    (``tests/test_torch_sharded_train.py``); without a process group it
+    raises, naming the call that starts one."""
+    with pytest.raises(RuntimeError, match="init_process_group"):
         TM.moe_layer_ep({}, torch.zeros(1, 1, 4), None, ("data",))
 
 

@@ -296,7 +296,7 @@ def test_port_imports_nothing_of_jax():
         "'repro_torch.training.train_loop', "
         "'repro_torch.training.checkpoint', 'repro_torch.launch.train', "
         "'repro_torch.launch.mesh', 'repro_torch.launch.collectives', "
-        "'repro_torch.launch.ranks'} "
+        "'repro_torch.launch.ranks', 'repro_torch.launch.sharding'} "
         "<= set(mods)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

@@ -437,11 +437,12 @@ def test_train_launcher_writes_a_checkpoint_the_reference_restores():
 
 
 def test_train_launcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError,
-                       match=r"\(ROADMAP queue 1, item 8, the sharded "
-                             r"deployment\)"):
+    """``--mesh`` trains (``tests/test_torch_sharded_train.py``); what it
+    refuses is an NCCL group without a CUDA card a rank, naming the gloo
+    backend that shares a device."""
+    with pytest.raises(ValueError, match="--backend gloo"):
         train_launcher.main(["--arch", "llama2-7b", "--tiny", "--mesh",
-                             "2x4", "--device", "cpu"])
+                             "2x4", "--device", "cpu", "--backend", "nccl"])
 
 
 def test_split_example_trains_its_vehicle():
